@@ -1,0 +1,76 @@
+"""distributed_llm_scheduler_tpu_torch — the PyTorch and CUDA port of
+``distributed_llm_scheduler_tpu``.
+
+Memory-constrained task-DAG scheduling and real execution for LLMs on
+NVIDIA GPUs: the GPT-2 forward is built as a task DAG, placed by a policy
+onto memory-limited nodes bound to torch devices, and executed for real,
+with attention in a hand-written CUDA flash kernel (``csrc/``).  Module
+paths and public names follow the JAX package, which stays the reference
+this package is held against; this package imports neither JAX nor it.
+"""
+
+from .core.graph import (
+    DEFAULT_PARAM_GB,
+    GraphValidationError,
+    Task,
+    TaskGraph,
+    TaskStatus,
+)
+from .core.cluster import Cluster, DeviceState, estimate_cluster_memory_needed
+from .core.fusion import fuse_linear_chains
+from .core.schedule import Schedule, TaskTiming
+from .backends.sim import LinkModel, SimulatedBackend, TieredLinkModel
+from .backends.device import DeviceBackend, DeviceReport
+from .sched.base import BaseScheduler
+from .sched.heft import HEFTScheduler
+from .sched.policies import (
+    ALL_SCHEDULERS,
+    CriticalPathScheduler,
+    DFSScheduler,
+    GreedyScheduler,
+    MRUScheduler,
+    RoundRobinScheduler,
+    get_scheduler,
+)
+from .models.gpt2 import GPT2Config, params_from_numpy
+from .frontend.gpt2_dag import ModelDAG, build_gpt2_dag
+from .ops.attention import mha, reference_mha
+from .utils.costmodel import CostModel, calibrate
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "DEFAULT_PARAM_GB",
+    "GraphValidationError",
+    "Task",
+    "TaskGraph",
+    "TaskStatus",
+    "Cluster",
+    "DeviceState",
+    "estimate_cluster_memory_needed",
+    "fuse_linear_chains",
+    "Schedule",
+    "TaskTiming",
+    "LinkModel",
+    "SimulatedBackend",
+    "TieredLinkModel",
+    "DeviceBackend",
+    "DeviceReport",
+    "BaseScheduler",
+    "HEFTScheduler",
+    "ALL_SCHEDULERS",
+    "CriticalPathScheduler",
+    "DFSScheduler",
+    "GreedyScheduler",
+    "MRUScheduler",
+    "RoundRobinScheduler",
+    "get_scheduler",
+    "GPT2Config",
+    "params_from_numpy",
+    "ModelDAG",
+    "build_gpt2_dag",
+    "mha",
+    "reference_mha",
+    "CostModel",
+    "calibrate",
+]

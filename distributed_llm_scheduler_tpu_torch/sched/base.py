@@ -1,0 +1,284 @@
+"""Scheduler base: the memory-constrained list-scheduling state machine.
+
+Behavior parity with the reference ``BaseScheduler`` (reference
+``schedulers.py:31-135``), with its de-facto contract preserved:
+
+* memory requirement of a task on a node = activation footprint + size of
+  every needed param **not already cached** there
+  (reference ``schedulers.py:63-76``);
+* assignment loads params into the node cache (debiting memory permanently
+  until evicted) and **immediately completes** the task, crediting back only
+  the activation memory (reference ``schedulers.py:78-126``) — list
+  scheduling decides placement and order, a backend decides time;
+* a ready task that fits on no node is failed permanently
+  (reference ``schedulers.py:198-200``);
+* a full round with no progress fails all remaining pending tasks
+  (reference ``schedulers.py:202-206``);
+* round loop is bounded by ``2 * len(tasks)`` iterations
+  (reference ``schedulers.py:160`` et al.).
+
+Differences (deliberate):
+
+* state lives in a per-run :class:`SchedulerRun`, so graphs/clusters need no
+  deep-copying between trials (the reference deep-copies,
+  ``simulation.py:309-317``);
+* param sizes are real bytes via the graph-wide size table
+  (``TaskGraph.param_size_gb``, fixed at freeze; 0.5 GB default);
+* the returned :class:`Schedule` also records global assignment order.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Set, Tuple
+
+from ..core.cluster import Cluster, DeviceState
+from ..core.graph import Task, TaskGraph, TaskStatus
+from ..core.schedule import Schedule
+
+
+class SchedulerRun:
+    """Mutable state for one scheduling pass over (graph, cluster)."""
+
+    def __init__(self, graph: TaskGraph, cluster: Cluster):
+        graph.freeze()
+        graph.reset()
+        cluster.reset()
+        self.graph = graph
+        self.cluster = cluster
+        self.pending: Set[str] = set(graph.task_ids())
+        self.completed: Set[str] = set()
+        self.failed: Set[str] = set()
+        # param -> set of node_ids currently holding it
+        # (reference ``param_locations``, schedulers.py:40)
+        self.param_locations: Dict[str, Set[str]] = {}
+        self.per_node: Dict[str, List[str]] = {d.node_id: [] for d in cluster}
+        self.assignment_order: List[str] = []
+        # accumulated compute backlog (speed-adjusted seconds) per node;
+        # feeds the load-band eligibility filter (BaseScheduler.load_band)
+        self.busy: Dict[str, float] = {d.node_id: 0.0 for d in cluster}
+        # (node_id, sorted param names) -> tasks of that exact param set
+        # assigned there; bounds the full-hit band's co-location
+        self.colocated: Dict[Tuple[str, Tuple[str, ...]], int] = {}
+        # per-task params in name order, computed once: deterministic float
+        # accumulation (native parity) without re-sorting in the hot loops
+        self._sorted_params: Dict[str, Tuple[str, ...]] = {}
+
+    def sorted_params(self, task) -> Tuple[str, ...]:
+        sp = self._sorted_params.get(task.task_id)
+        if sp is None:
+            sp = tuple(sorted(task.params_needed))
+            self._sorted_params[task.task_id] = sp
+        return sp
+
+
+class BaseScheduler:
+    """Subclasses override :meth:`run_policy` (the reference's ``schedule``)."""
+
+    name = "base"
+
+    # -- queries -----------------------------------------------------------
+    def is_task_ready(self, run: SchedulerRun, tid: str) -> bool:
+        return all(d in run.completed for d in run.graph[tid].dependencies)
+
+    def get_ready_tasks(self, run: SchedulerRun) -> List[Task]:
+        """Pending tasks whose deps are all complete, in graph insertion order.
+
+        Full scan per round, as the reference does (schedulers.py:55-61);
+        insertion order kept for determinism parity.
+        """
+        return [
+            run.graph[tid]
+            for tid in run.graph.task_ids()
+            if tid in run.pending and self.is_task_ready(run, tid)
+        ]
+
+    def memory_requirement(self, run: SchedulerRun, task: Task,
+                           node: DeviceState) -> float:
+        """Activation GB + GB of params that would need loading on `node`.
+
+        All sizes come from the graph's table fixed at freeze() so debits
+        and (eviction) credits can never disagree.
+        """
+        need = task.memory_required
+        # name order: deterministic float accumulation (native-engine parity)
+        for p in run.sorted_params(task):
+            if p not in node.cached_params:
+                need += run.graph.param_size_gb(p)
+        return need
+
+    def can_fit(self, run: SchedulerRun, task: Task, node: DeviceState) -> bool:
+        return self.memory_requirement(run, task, node) <= node.available_memory + 1e-9
+
+    # Load-band eligibility: how many task-times of compute backlog a
+    # candidate may trail the least-backlogged candidate by and still be
+    # preferred for locality.  The reference's policies have no load term
+    # at all, which concentrates work catastrophically at scale — greedy
+    # placed a 5,169-task Llama graph 11x worse than round-robin because
+    # the node holding a layer's weights wins every microbatch of that
+    # layer forever (ICI_r04.json; VERDICT r4 next #3).  2.0 keeps all
+    # four banded policies within 1.7x of round-robin on that probe while
+    # preserving 1.6-3x the cache hits; float('inf') recovers the
+    # reference's unbanded behavior.  A node already holding EVERY param
+    # the task needs adds zero load bytes, so locality is worth more
+    # there: it earns the wider FULL_HIT band — without it, microbatch
+    # siblings of an already-placed expert spill to fresh devices and the
+    # expert's weights get duplicated (tests/test_mixtral.py expert
+    # locality); concentration stays bounded, just at 4 task-times.
+    LOAD_BAND_FACTOR = 2.0
+    LOAD_BAND_FULL_HIT_FACTOR = 4.0
+    # the full-hit exception's guard: a node may take at most this many
+    # tasks of the SAME param set through the wider band.  Two microbatch
+    # siblings of a placed expert co-locate (bounded serialization,
+    # weights loaded once); the sixteen-microbatch stream of a cached
+    # layer is cut off after this many and spills back to the base band —
+    # the unguarded version re-created greedy's 6x probe blowup, and a
+    # ready-set-pressure guard failed because the stream arrives one
+    # microbatch per round, not all at once.  (All constants tuned on the
+    # 5k-task Llama probe x the MoE expert-locality test jointly; the
+    # sweep lives in the r5 build log.)
+    LOAD_BAND_FULL_HIT_SIBLINGS = 2
+
+    def load_band(self, run: SchedulerRun, task: Task,
+                  nodes: List[DeviceState]) -> List[DeviceState]:
+        """Filter ``nodes`` (fitting candidates) to those whose compute
+        backlog is within ``LOAD_BAND_FACTOR`` task-times of the least
+        backlogged.  A node that already caches EVERY param the task
+        needs adds zero load bytes, so it earns the wider FULL_HIT band —
+        capped at ``LOAD_BAND_FULL_HIT_SIBLINGS`` same-param-set tasks
+        per node.  Never empties a non-empty list (the min-busy node is
+        always eligible), so completion semantics are unchanged — only
+        concentration is bounded."""
+        if len(nodes) <= 1 or task.compute_time <= 0.0:
+            return nodes
+        min_busy = min(run.busy[n.node_id] for n in nodes)
+        base = min_busy + self.LOAD_BAND_FACTOR * task.compute_time + 1e-12
+        hit = (
+            min_busy
+            + self.LOAD_BAND_FULL_HIT_FACTOR * task.compute_time
+            + 1e-12
+        )
+        sp = run.sorted_params(task)
+
+        def full_hit_ok(n: DeviceState) -> bool:
+            if not sp or not all(p in n.cached_params for p in sp):
+                return False
+            return (
+                run.colocated.get((n.node_id, sp), 0)
+                < self.LOAD_BAND_FULL_HIT_SIBLINGS
+            )
+
+        return [
+            n for n in nodes
+            if run.busy[n.node_id] <= base
+            or (run.busy[n.node_id] <= hit and full_hit_ok(n))
+        ]
+
+    # -- transitions -------------------------------------------------------
+    def assign(self, run: SchedulerRun, task: Task, node: DeviceState) -> None:
+        """Load params, debit memory, place task — then instantly complete.
+
+        Mirrors reference ``assign_task_to_node`` + ``complete_task``
+        (schedulers.py:78-126): params stay cached after completion; only
+        the activation footprint is returned.
+        """
+        for p in run.sorted_params(task):
+            if p not in node.cached_params:
+                node.cached_params.add(p)
+                node.available_memory -= run.graph.param_size_gb(p)
+                run.param_locations.setdefault(p, set()).add(node.node_id)
+        node.available_memory -= task.memory_required
+        # recency window, name order (reference schedulers.py:99 extends
+        # with an unordered set; sorted here for determinism)
+        node.last_used_params.extend(run.sorted_params(task))
+        task.assigned_node = node.node_id
+        task.status = TaskStatus.ASSIGNED
+        node.running_tasks.append(task.task_id)
+        run.per_node[node.node_id].append(task.task_id)
+        run.assignment_order.append(task.task_id)
+        run.pending.discard(task.task_id)
+        run.busy[node.node_id] += task.compute_time / node.compute_speed
+        key = (node.node_id, run.sorted_params(task))
+        run.colocated[key] = run.colocated.get(key, 0) + 1
+        self.complete(run, task, node)
+
+    def complete(self, run: SchedulerRun, task: Task, node: DeviceState) -> None:
+        node.available_memory += task.memory_required
+        node.running_tasks.remove(task.task_id)
+        node.completed_tasks.append(task.task_id)
+        task.status = TaskStatus.COMPLETED
+        run.completed.add(task.task_id)
+
+    def fail(self, run: SchedulerRun, task: Task) -> None:
+        task.status = TaskStatus.FAILED
+        run.pending.discard(task.task_id)
+        run.failed.add(task.task_id)
+
+    def evict_param(self, run: SchedulerRun, node: DeviceState, param: str,
+                    size_gb: float) -> None:
+        """Drop a cached param from a node, crediting its memory back."""
+        node.cached_params.discard(param)
+        node.available_memory += size_gb
+        locs = run.param_locations.get(param)
+        if locs:
+            locs.discard(node.node_id)
+
+    # -- driver ------------------------------------------------------------
+    def schedule(self, graph: TaskGraph, cluster: Cluster) -> Schedule:
+        run = SchedulerRun(graph, cluster)
+        # dls-lint: allow(DET001) scheduling_wall_s is reported metadata,
+        t0 = time.perf_counter()
+        self.run_policy(run)
+        # dls-lint: allow(DET001) never an input to any decision
+        wall = time.perf_counter() - t0
+        return Schedule(
+            policy=self.name,
+            per_node=run.per_node,
+            assignment_order=run.assignment_order,
+            completed=run.completed,
+            failed=run.failed,
+            scheduling_wall_s=wall,
+        )
+
+    def run_policy(self, run: SchedulerRun) -> None:
+        raise NotImplementedError
+
+    # Shared round-loop skeleton used by every policy (reference quirks:
+    # iteration bound, fail-on-no-fit, no-progress bailout).
+    def _round_loop(self, run: SchedulerRun, order_fn, pick_node_fn) -> None:
+        """Generic list-scheduling loop.
+
+        ``order_fn(run, ready) -> List[Task]`` sorts the ready set;
+        ``pick_node_fn(run, task, ready_ids) -> Optional[DeviceState]`` picks
+        a target (may mutate state, e.g. MRU eviction on the chosen node).
+        ``ready_ids`` is this round's still-pending ready set, so policies
+        that score against it (MRU) need no per-pick graph rescans.
+        """
+        max_rounds = 2 * len(run.graph)
+        rounds = 0
+        while run.pending and rounds < max_rounds:
+            rounds += 1
+            ready = self.get_ready_tasks(run)
+            if not ready:
+                if run.pending:
+                    # deps failed upstream (or graph bug): nothing will ever
+                    # become ready — fail the remainder
+                    for tid in sorted(run.pending):
+                        self.fail(run, run.graph[tid])
+                break
+            progressed = False
+            ordered = order_fn(run, ready)
+            for task in ordered:
+                ready_ids = [
+                    t.task_id for t in ordered if t.task_id in run.pending
+                ]
+                node = pick_node_fn(run, task, ready_ids)
+                if node is None:
+                    self.fail(run, task)
+                else:
+                    self.assign(run, task, node)
+                    progressed = True
+            if not progressed and run.pending:
+                for tid in sorted(run.pending):
+                    self.fail(run, run.graph[tid])
+                break
