@@ -20,7 +20,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "_build"
@@ -62,35 +62,24 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
-def build(names: Sequence[str]) -> float:
-    """Compile every library in ``names`` that is not built yet, one
-    ``nvcc`` per source, all started together.  Returns the wall seconds
-    spent; raises with the compiler's output when a build fails."""
-    t0 = time.perf_counter()
-    todo = [n for n in names if not library_path(n).exists()]
-    if not todo:
+def build(name: str) -> float:
+    """Compile ``csrc/<name>.cu`` unless it is built already.  Returns the
+    wall seconds spent; raises with the compiler's output when it fails."""
+    out = library_path(name)
+    if out.exists():
         return 0.0
-    nvcc = nvcc_path()
+    t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = []
-    for name in todo:
-        out = library_path(name)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        proc = subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    if r.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"kernel build failed: {name}: nvcc exit {r.returncode}\n"
+            f"{r.stdout}{r.stderr}"
         )
-        procs.append((name, proc, tmp, out))
-    failures = []
-    for name, proc, tmp, out in procs:
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failures.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
-            tmp.unlink(missing_ok=True)
-        else:
-            os.replace(tmp, out)  # atomic: concurrent builders never race
-    if failures:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
+    os.replace(tmp, out)  # atomic: concurrent builders never race
     return time.perf_counter() - t0
 
 
@@ -98,7 +87,7 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built on first use."""
     lib = _loaded.get(name)
     if lib is None:
-        build([name])
+        build(name)
         lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
     return lib
