@@ -7,29 +7,46 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
 
 1. device: a CUDA device must be present; TF32 is turned off for matmuls
    and cuDNN, so float32 means float32;
-2. build: the CUDA kernel ``distributed_llm_scheduler_tpu_torch/csrc/
-   flash_attention.cu`` is compiled with nvcc for sm_90a;
-3. kernel check: the kernel against its plain PyTorch version on the
-   card, at the main path's shape (also as strided head views of a fused
-   qkv product, the layout the model hands it) and at edge shapes, with
-   its time, the plain version's, one PyTorch library call's as a
+2. build: both CUDA sources under ``distributed_llm_scheduler_tpu_torch/
+   csrc/`` (flash attention; single-token and ragged paged attention) are
+   compiled with nvcc for sm_90a, one process each, started together;
+3. flash kernel check: the kernel against its plain PyTorch version on
+   the card, at the main path's shape (also as strided head views of a
+   fused qkv product, the layout the model hands it) and at edge shapes,
+   with its time, the plain version's, one PyTorch library call's as a
    yardstick, and the least time the card could take (its bound);
-4. main path: the flagship GPT-2 small DAG (bf16, batch 8, seq 512,
+4. paged kernel check: both paged kernels against their plain versions
+   on the card, on the JAX decode bench's 7 single-token and 5 ragged
+   fixtures (f32, trash page poisoned, 1e-5) and at the GPT-2 small
+   serving shape in bf16, with times and bounds; then the ragged op path
+   (``paged_decode_attention(..., q_lens=...)``, as the decode bench's
+   kernel leg drives it) with its launches counted;
+5. flagship forward path: the GPT-2 small DAG (bf16, batch 8, seq 512,
    8 microbatches, 8 vocab shards, linear chains fused: 537 tasks) is
    calibrated on the card, placed by ``greedy`` on the card and by
    ``heft`` on 8 virtual nodes sharing it, and executed through
    ``DeviceBackend``; each of these three runs has its launch count set
-   to 0 just before it and read just after, and must launch the kernel
-   once per attention task per forward; the output must meet the fused
-   forward;
-5. f32 leg: a 2-layer GPT-2 small-width DAG placed on the card must be
+   to 0 just before it and read just after, and must launch the flash
+   kernel once per attention task per forward; the output must meet the
+   fused forward;
+6. serve path: GPT-2 small bf16 at full width through the paged decode
+   DAG (8 slots, page size 16, 257 pages, capacity 512), placed by
+   ``greedy`` and served by ``DeviceBackend.paged_decode_engine`` in
+   8-step segments: 16 requests, one warm-up run, then 3 timed runs, each
+   with the paged kernel's launches counted (12 layers x 8 steps per
+   segment), no leaked pages, every request's token count, and a
+   teacher-forced oracle against the fused forward;
+7. f32 leg: a 2-layer GPT-2 small-width DAG placed on the card must be
    allclose to the port's fused forward run on the CPU with the plain
-   versions.
+   versions;
+8. f32 serve leg: a 2-layer GPT-2 small-width f32 engine serves 4
+   requests on the card (kernel) and on the CPU (plain versions) from the
+   same weights, and every request's tokens must be equal.
 
 The last lines are one JSON object of per-kernel numbers (``launches`` is
-the greedy run's count, ``launches_by_path`` each run's own), the card's
-name and power limit as nvidia-smi reports them, and
-``{"ok": true, "device": {...}}``.
+the count of the kernel's main path, ``launches_by_path`` each counted
+run's own), the card's name and power limit as nvidia-smi reports them,
+and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -53,6 +70,17 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 FLAGSHIP = dict(batch=8, seq_len=512, microbatches=8, vocab_shards=8)
 FLAGSHIP_TASKS = 537
 REPS = 3
+# serve phase: GPT-2 small at full width, paged (capacity 512)
+SERVE_GEOM = dict(slots=8, page_size=16, n_pages=257, pages_per_seq=32)
+SERVE_SEG_STEPS = 8
+SERVE_REPS = 3
+# teacher-forced oracle: the emitted token's fused logit must lie within
+# this of the row's fused maximum (a wrong token lies ~2 below it: the
+# logits of N(0, 0.02) weights spread ~0.02 * sqrt(768) ~ 0.55)
+ORACLE_GAP = 0.1
+# paged kernels vs plain on the JAX bench's fixtures: the bench's own
+# tolerance (eval/decode_bench.py allclose at atol = rtol = 1e-5)
+PAGED_TOL = 1e-5
 # bf16 output oracle, the JAX package's eval/benchlib.oracle_close rule:
 # elements outside the 5e-2 band (abs + rel) may number at most
 # max(1, 1e-6 * N), and the relative Frobenius error must stay <= 2e-2
@@ -236,25 +264,155 @@ def device_time_breakdown(torch, label: str, makespan_s: float, run) -> None:
         log(f"    {us / 1e3:8.3f} ms  {n:5d}x  {key[:90]}")
 
 
-def counted(label: str, n_attn: int, forwards: int, run):
-    """Run ``run()`` with the kernel's launch count set to 0 just before
-    and read just after; it must equal one launch per attention task per
-    forward.  Returns (run's result, the count)."""
+def counted(label: str, kernel: str, expected: int, run):
+    """Run ``run()`` with every launch count set to 0 just before and
+    ``kernel``'s read just after; it must equal ``expected``.  Returns
+    (run's result, the count)."""
     from distributed_llm_scheduler_tpu_torch.ops import kernels
 
     kernels.reset_launches()
     out = run()
-    got = kernels.launches["flash_attention"]
-    log(f"  {label}: flash_attention launched {got} times over {forwards} "
-        f"forwards ({got / forwards:g} per forward; expected {n_attn})")
-    if got != n_attn * forwards:
-        raise AssertionError(
-            f"{label}: launch count {got} != {n_attn * forwards}")
+    got = kernels.launches[kernel]
+    log(f"  {label}: {kernel} launched {got} times (expected {expected})")
+    if got != expected:
+        raise AssertionError(f"{label}: {kernel} launch count {got} != {expected}")
     return out, got
 
 
+def paged_work(torch, case) -> tuple:
+    """(bytes, flops) the paged call on ``case`` needs: each slot's live
+    K and V rows read once (up to the last position a real row sees; the
+    pool's row at the insert position is not read), q, the inserted
+    rows, the page table and lengths read once, the output written once;
+    4 * hd flops per (query row, visible key)."""
+    q = case["q"]
+    S, Hq, Tn, hd = q.shape
+    _, _, Hkv, _ = case["k_pool"].shape
+    cap = case["page_table"].shape[1] * case["k_pool"].shape[1]
+    esz = q.element_size()
+    lengths = case["lengths"].tolist()
+    q_lens = case["q_lens"].tolist() if "q_lens" in case else [1] * S
+    inserted = case.get("k_new") is not None
+    rows = pairs = 0
+    for L, QL in zip(lengths, q_lens):
+        if QL > 0:
+            # the inserted row replaces the pool's row at min(L, cap-1)
+            rows += min(L + QL - 1, cap - 1) + (0 if inserted else 1)
+            pairs += sum(min(L + t, cap - 1) + 1 for t in range(QL))
+    nbytes = 2 * rows * Hkv * hd * esz + 2 * q.numel() * esz
+    nbytes += sum(case[k].numel() * case[k].element_size()
+                  for k in ("page_table", "lengths", "q_lens", "k_new", "v_new")
+                  if case.get(k) is not None)
+    return nbytes, 4 * hd * Hq * pairs
+
+
+def bound_of(nbytes: int, flops: int, dtype_name: str) -> tuple:
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_paged_kernels(torch, A, DB, dev) -> dict:
+    """Phase 4: both paged kernels against their plain versions; returns
+    each kernel's numbers at the serving shape."""
+    import torch.nn.functional as F
+
+    from distributed_llm_scheduler_tpu_torch.models.kv_pages import gather_kv
+
+    for label, cases in (("single-token", DB.paged_parity_cases(device=dev)),
+                         ("ragged", DB.ragged_parity_cases(device=dev))):
+        res = DB.op_parity(cases, kernel_impl="kernel")
+        torch.cuda.synchronize()
+        for name, r in res["fixtures"].items():
+            log(f"  {label} fixture {name}: max_abs_err {r['max_abs_err']:.3e} "
+                f"(f32, tol {PAGED_TOL:g}), finite={r['finite']} -> "
+                f"{'ok' if r['allclose'] and r['finite'] else 'FAIL'}")
+        if not res["allclose"]:
+            raise AssertionError(f"paged {label} kernel fails the bench fixtures")
+
+    out = {}
+    for kname, q_tokens in ((A.PAGED_KERNEL, 1), (A.PAGED_RAGGED_KERNEL, 32)):
+        case = DB.serving_case(torch.bfloat16, dev, seed=0, q_tokens=q_tokens)
+        args = {k: v for k, v in case.items() if k not in ("name", "real")}
+        got = A.paged_decode_attention(**args, impl="kernel")
+        torch.cuda.synchronize()
+        want = A.paged_decode_attention(**args, impl="plain")
+        args32 = {k: (v.float() if torch.is_tensor(v) and v.is_floating_point()
+                      else v) for k, v in args.items()}
+        want32 = A.paged_decode_attention(**args32, impl="plain")
+        m = (case["real"].expand_as(got) if "real" in case
+             else torch.ones_like(got, dtype=torch.float32))
+        err = ((got.float() - want.float()).abs() * m).max().item()
+        diff32 = (got.float() - want32).abs()
+        out32 = int(((diff32 > BF16_ROUNDOFF * want32.abs() + F32_SLACK)
+                     * m.bool()).sum())
+        finite = bool(torch.isfinite(got).all())
+        ok = finite and err < KERNEL_TOL["bfloat16"] and out32 == 0
+        log(f"  {kname} serving shape {tuple(case['q'].shape)} bf16, lengths "
+            f"{case['lengths'].tolist()}"
+            + (f", q_lens {case['q_lens'].tolist()}" if "q_lens" in case else "")
+            + f": max_abs_err {err:.3e} vs plain (tol {KERNEL_TOL['bfloat16']:g}), "
+            f"{(diff32 * m).max().item():.3e} vs plain in f32 ({out32} elements "
+            f"beyond 2^-8*|x|+{F32_SLACK:g}), finite={finite} -> "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{kname} disagrees at the serving shape")
+        ms = cuda_ms(lambda: A.paged_decode_attention(**args, impl="kernel"), 200)
+        plain_ms = cuda_ms(lambda: A.paged_decode_attention(**args, impl="plain"), 50)
+        S, H, Tn, hd = case["q"].shape
+        cap = case["page_table"].shape[1] * case["k_pool"].shape[1]
+        top = case["lengths"].long() + (case["q_lens"].long().clamp(min=1) - 1
+                                        if "q_lens" in case else 0)
+        mask = (torch.arange(cap, device=dev)[None, :] <= top[:, None])
+        mask = mask[:, None, None, :]
+        if Tn > 1:
+            t = torch.arange(Tn, device=dev)[None, :, None]
+            mask = (torch.arange(cap, device=dev)[None, None, :]
+                    <= (case["lengths"].long()[:, None, None] + t))[:, None]
+
+        def yardstick():
+            k = gather_kv(case["k_pool"], case["page_table"])
+            v = gather_kv(case["v_pool"], case["page_table"])
+            return F.scaled_dot_product_attention(case["q"], k, v, attn_mask=mask)
+
+        yard_ms = cuda_ms(yardstick, 100)
+        nbytes, flops = paged_work(torch, case)
+        bound_ms, bound_by = bound_of(nbytes, flops, "bfloat16")
+        log(f"  {kname} at the serving shape: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {bound_ms * 1e3:.3f} us ({bound_by}: "
+            f"{nbytes / 1e6:.3f} MB, {flops / 1e9:.4f} GFLOP); library_ms null "
+            f"(no single PyTorch call computes paged attention); yardstick of "
+            f"two calls, gather_kv of K and V + scaled_dot_product_attention: "
+            f"{yard_ms:.4f} ms")
+        out[kname] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                          yardstick_two_calls_ms=yard_ms)
+    return out
+
+
+def run_ragged_op_path(torch, A, DB, dev) -> int:
+    """The ragged kernel's path: ``paged_decode_attention(..., q_lens=...)``
+    with the device's own dispatch, over the decode bench's ragged sweep
+    and the serving-shape chunk, counted."""
+    cases = DB.ragged_parity_cases(device=dev) + [
+        DB.serving_case(torch.bfloat16, dev, seed=s, q_tokens=32) for s in (4, 5)]
+
+    def run():
+        outs = []
+        for c in cases:
+            args = {k: v for k, v in c.items() if k not in ("name", "real")}
+            outs.append(A.paged_decode_attention(**args))
+        torch.cuda.synchronize()
+        return outs
+
+    outs, n = counted("ragged op path", A.PAGED_RAGGED_KERNEL, len(cases), run)
+    if not all(bool(torch.isfinite(o).all()) for o in outs):
+        raise AssertionError("ragged op path: non-finite output")
+    return n
+
+
 def run_main_path(torch, P, dev) -> dict:
-    """Phase 4: the flagship DAG, calibrated, placed twice, executed.
+    """Phase 5: the flagship DAG, calibrated, placed twice, executed.
     Returns each run's own launch count."""
     cfg = P.GPT2Config.small(dtype=torch.bfloat16)
     t0 = time.perf_counter()
@@ -272,7 +430,7 @@ def run_main_path(torch, P, dev) -> dict:
     launches = {}
     t0 = time.perf_counter()
     cm, launches["calibrate"] = counted(
-        "calibrate", n_attn, 1 + 3,
+        "calibrate", "flash_attention", n_attn * (1 + 3),
         lambda: P.calibrate(graph, params, ids, device=dev, repeats=3),
     )
     applied = cm.apply(graph)
@@ -296,7 +454,7 @@ def run_main_path(torch, P, dev) -> dict:
                 raise AssertionError(f"{label}: dispatch ignores {nid}'s order")
         backend = P.DeviceBackend(cluster)
         rep, launches[label] = counted(
-            label, n_attn, 1 + REPS, lambda: backend.execute(
+            label, "flash_attention", n_attn * (1 + REPS), lambda: backend.execute(
                 graph, sched, params, ids, warmup=True, reps=REPS
             ),
         )
@@ -327,7 +485,7 @@ def run_main_path(torch, P, dev) -> dict:
 
 
 def run_f32_leg(torch, P, dev) -> None:
-    """Phase 5: placed on the card vs fused on the CPU, in float32."""
+    """Phase 7: placed on the card vs fused on the CPU, in float32."""
     cfg = P.GPT2Config.small(n_layer=2)
     dag = P.build_gpt2_dag(cfg, batch=2, seq_len=128, microbatches=2,
                            vocab_shards=8)
@@ -352,6 +510,200 @@ def run_f32_leg(torch, P, dev) -> None:
         raise AssertionError("f32 placed output diverges from CPU forward")
 
 
+def serve_workload(vocab: int) -> list:
+    """16 requests from numpy seed 7: prompts of 64 tokens (r0-r7) and 128
+    (r8-r15); max_new follows ``[384, 32, 32, 32][i % 4]``, the skew of
+    the JAX decode bench's ``measure_paged_decode`` (1,920 useful
+    tokens)."""
+    import numpy as np
+
+    rng = np.random.default_rng(7)
+    reqs = []
+    for i in range(16):
+        plen = 64 if i < 8 else 128
+        ids = rng.integers(0, vocab, size=(1, plen), dtype=np.int32)
+        reqs.append((f"r{i}", ids, [384, 32, 32, 32][i % 4]))
+    return reqs
+
+
+def build_engine(P, cfg, dev, geom, seg_steps, seed):
+    """A paged decode engine for ``cfg`` on ``dev``: the paged decode DAG,
+    placed by ``greedy`` on one node, weights from numpy ``seed``."""
+    dag = P.build_paged_decode_dag(cfg, **geom)
+    cluster = P.Cluster.from_torch_devices([dev])
+    sched = P.get_scheduler("greedy").schedule(dag.graph, cluster)
+    if sched.failed:
+        raise AssertionError(f"{dag.graph.name}: {len(sched.failed)} tasks failed")
+    from distributed_llm_scheduler_tpu_torch.models import gpt2
+
+    weights = P.params_from_numpy(gpt2.init_params_numpy(cfg, seed), dev, cfg.dtype)
+    pool = P.PagePool(n_pages=geom["n_pages"], page_size=geom["page_size"])
+    eng = P.DeviceBackend(cluster).paged_decode_engine(
+        dag.graph, sched, cfg, weights, pool, slots=geom["slots"],
+        pages_per_seq=geom["pages_per_seq"], seg_steps=seg_steps)
+    return dag, eng, weights
+
+
+def serve(eng, reqs) -> dict:
+    for rid, ids, gen in reqs:
+        eng.submit(rid, ids, gen)
+    return eng.run()
+
+
+def serve_trace(torch, eng, reqs, seg_wall_s: float) -> None:
+    """Trace one steady-state segment (the third, before any slot frees
+    up) with torch.profiler: device busy time, idle share of the mean
+    untraced segment wall, and the kernels that take most of it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    eng.reset()
+    for rid, ids, gen in reqs:
+        eng.submit(rid, ids, gen)
+    eng.step_segment()
+    eng.step_segment()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.step_segment()
+        traced_s = time.perf_counter() - t0
+    eng.run()
+    rows = [
+        (getattr(e, "self_device_time_total", 0.0), e.count, e.key)
+        for e in prof.key_averages()
+        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+    ]
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    if busy_ms <= 0:
+        log("  serve trace: no device time in the trace (not measured)")
+        return
+    log(f"  serve trace, one segment of {SERVE_SEG_STEPS} steps: device busy "
+        f"{busy_ms:.3f} ms, idle share {1.0 - busy_ms / (seg_wall_s * 1e3):.3f} "
+        f"of the {seg_wall_s * 1e3:.3f} ms mean untraced segment wall (traced "
+        f"wall {traced_s * 1e3:.3f} ms); {sum(r[1] for r in rows)} device ops")
+    for us, n, key in sorted(rows, reverse=True)[:8]:
+        log(f"    {us / 1e3:8.3f} ms  {n:5d}x  {key[:90]}")
+
+
+def serve_oracle(torch, P, cfg, weights, reqs, results) -> None:
+    """Teacher-forced check against the fused dense forward on the card:
+    prompt + generated tokens but the last go through ``forward``; at
+    every generated position the emitted token's fused logit must lie
+    within ORACLE_GAP of that row's fused maximum."""
+    import numpy as np
+
+    from distributed_llm_scheduler_tpu_torch.models.gpt2 import forward as fwd
+
+    n = exact = 0
+    worst = 0.0
+    for rid, ids, gen in reqs:
+        toks = np.asarray(results[rid])
+        seq = np.concatenate([ids[0], toks[:-1]])[None]
+        logits = fwd(weights, torch.from_numpy(seq).to(weights["wte"].device),
+                     cfg)[0].float()
+        rows = logits[ids.shape[1] - 1:]
+        picked = rows.gather(1, torch.from_numpy(toks.astype(np.int64))
+                             .to(rows.device)[:, None])[:, 0]
+        gap = (rows.max(dim=1).values - picked)
+        worst = max(worst, gap.max().item())
+        exact += int((rows.argmax(dim=1).cpu().numpy() == toks).sum())
+        n += len(toks)
+    ok = worst <= ORACLE_GAP
+    log(f"  teacher-forced oracle over {n} generated positions: exact argmax "
+        f"matches {exact}/{n} ({exact / n:.4f}), largest gap to the fused row "
+        f"max {worst:.4f} (limit {ORACLE_GAP:g}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("serve path fails the teacher-forced oracle")
+
+
+def run_serve_path(torch, P, A, dev) -> tuple:
+    """Phase 6: GPT-2 small bf16 served through the paged engine; returns
+    each timed run's launch counts of the single-token and the ragged
+    paged kernel."""
+    import numpy as np
+
+    cfg = P.GPT2Config.small(dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    dag, eng, weights = build_engine(P, cfg, dev, SERVE_GEOM, SERVE_SEG_STEPS, 0)
+    reqs = serve_workload(cfg.vocab_size)
+    useful = sum(g for _, _, g in reqs)
+    pool_mb = sum(t.numel() * t.element_size() for t in eng.pools.values()) / 1e6
+    log(f"  built {dag.graph.name}: {len(dag.graph)} tasks, KV pools "
+        f"{pool_mb:.1f} MB on the card, capacity {eng.capacity}; {len(reqs)} "
+        f"requests, {useful} useful tokens ({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    serve(eng, reqs)  # warm-up
+    torch.cuda.synchronize()
+    log(f"  warm-up run: {time.perf_counter() - t0:.2f} s, "
+        f"{eng.segments_run} segments")
+
+    from distributed_llm_scheduler_tpu_torch.ops import kernels
+
+    walls, paged_n, ragged_n, prefill_s, segs, snaps = [], {}, {}, [], [], []
+    for rep in range(SERVE_REPS):
+        eng.reset(fresh_metrics=True)  # this run's own histograms
+        label = f"serve run {rep + 1}"
+        kernels.reset_launches()
+        t = time.perf_counter()
+        results = serve(eng, reqs)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        n_paged = kernels.launches[A.PAGED_KERNEL]
+        n_ragged = kernels.launches[A.PAGED_RAGGED_KERNEL]
+        expected = cfg.n_layer * SERVE_SEG_STEPS * eng.segments_run
+        log(f"  {label}: {A.PAGED_KERNEL} launched {n_paged} times (expected "
+            f"{cfg.n_layer} x {SERVE_SEG_STEPS} x {eng.segments_run} segments = "
+            f"{expected}), {A.PAGED_RAGGED_KERNEL} {n_ragged} times (expected 0)")
+        if n_paged != expected or n_ragged != 0:
+            raise AssertionError(f"{label}: paged kernel launches off")
+        paged_n[label], ragged_n[label] = n_paged, n_ragged
+        snap = eng.metrics.snapshot()
+        bad = [rid for rid, _, g in reqs if len(results[rid]) != g]
+        leaked = snap["gauges"]["decode.pages_leaked"]["value"]
+        if bad or leaked != 0:
+            raise AssertionError(f"{label}: wrong token counts {bad} or "
+                                 f"{leaked} leaked pages")
+        # admission waves: prefill + its first-token readback
+        prefill_s.append(snap["histograms"]["decode.prefill_s"]["sum"])
+        segs.append(eng.segments_run)
+        snaps.append(snap)
+    med = sorted(range(SERVE_REPS), key=walls.__getitem__)[SERVE_REPS // 2]
+    h = snaps[med]["histograms"]
+    log(f"  timed runs: walls {', '.join(f'{w:.4f}' for w in walls)} s; median "
+        f"{walls[med]:.4f} s -> {useful / walls[med]:.1f} useful tok/s; "
+        f"{segs[med]} segments; prefill share of the wall "
+        f"{prefill_s[med] / walls[med]:.3f}; 0 leaked pages")
+    log(f"  median run (wall clock; TTFT from submit, all 16 submitted at "
+        f"once): TTFT p50 {h['decode.ttft_s']['p50'] * 1e3:.2f} "
+        f"ms, p99 {h['decode.ttft_s']['p99'] * 1e3:.2f} ms; TPOT p50 "
+        f"{h['decode.tpot_s']['p50'] * 1e3:.3f} ms, p99 "
+        f"{h['decode.tpot_s']['p99'] * 1e3:.3f} ms")
+    serve_oracle(torch, P, cfg, weights, reqs, results)
+    seg_wall = (walls[med] - prefill_s[med]) / segs[med]
+    serve_trace(torch, eng, reqs, seg_wall)
+    return paged_n, ragged_n
+
+
+def run_f32_serve_leg(torch, P, dev) -> None:
+    """Phase 8: a 2-layer GPT-2 small-width f32 engine on the card (paged
+    kernel) and on the CPU (plain versions), same weights, equal tokens."""
+    import numpy as np
+
+    cfg = P.GPT2Config.small(n_layer=2)
+    geom = dict(slots=4, page_size=16, n_pages=33, pages_per_seq=8)
+    rng = np.random.default_rng(9)
+    reqs = [(f"f{i}", rng.integers(0, cfg.vocab_size, size=(1, plen),
+                                   dtype=np.int32), 24)
+            for i, plen in enumerate((16, 16, 24, 24))]
+    card, host = (serve(build_engine(P, cfg, where, geom, 8, 3)[1], reqs)
+                  for where in (dev, torch.device("cpu")))
+    equal = all(np.array_equal(card[r], host[r]) for r, _, _ in reqs)
+    log(f"  f32 serve: {len(reqs)} requests x 24 tokens, card (kernel) vs CPU "
+        f"(plain): tokens equal={equal} -> {'ok' if equal else 'FAIL'}")
+    if not equal:
+        raise AssertionError("f32 serve tokens differ between card and CPU")
+
+
 def main() -> int:
     import torch
 
@@ -360,41 +712,61 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     import distributed_llm_scheduler_tpu_torch as P
+    from distributed_llm_scheduler_tpu_torch.eval import decode_bench as DB
     from distributed_llm_scheduler_tpu_torch.ops import attention as A
     from distributed_llm_scheduler_tpu_torch.ops import kernels
 
     t_all = time.perf_counter()
     dev = torch.device("cuda", 0)
     smi = nvidia_smi_line()
-    log(f"[1/5] device: {torch.cuda.get_device_name(0)} ({smi}); torch "
+    log(f"[1/8] device: {torch.cuda.get_device_name(0)} ({smi}); torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("  TF32 off for matmul and cuDNN")
 
-    secs = kernels.build(A.KERNEL)
-    log(f"[2/5] built {A.KERNEL}.cu with {kernels.nvcc_path()} for sm_90a "
-        f"in {secs:.1f} s")
+    sources = (A.KERNEL, A.PAGED_SOURCE)
+    secs = kernels.build(*sources)
+    log(f"[2/8] built {', '.join(f'{n}.cu' for n in sources)} with "
+        f"{kernels.nvcc_path()} for sm_90a in {secs:.1f} s (in parallel)")
 
-    log("[3/5] kernel check against the plain versions")
+    log("[3/8] flash kernel check against its plain version")
     attn = check_attention_kernel(torch, A, dev)
 
-    log("[4/5] main path: flagship GPT-2 small bf16 DAG on the card")
+    log("[4/8] paged kernel check against the plain versions")
+    paged = check_paged_kernels(torch, A, DB, dev)
+    ragged_n = run_ragged_op_path(torch, A, DB, dev)
+
+    log("[5/8] flagship forward path: GPT-2 small bf16 DAG on the card")
     launches = run_main_path(torch, P, dev)
 
-    log("[5/5] f32 leg: placed on the card vs fused on the CPU")
+    log("[6/8] serve path: GPT-2 small bf16 through the paged decode engine")
+    serve_launches, serve_ragged = run_serve_path(torch, P, A, dev)
+
+    log("[7/8] f32 leg: placed on the card vs fused on the CPU")
     run_f32_leg(torch, P, dev)
 
+    log("[8/8] f32 serve leg: the engine on the card vs on the CPU")
+    run_f32_serve_leg(torch, P, dev)
+
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
-    line = {"kernels": [{
-        "name": "flash_attention",
-        "route": "cuda",
-        "source": "distributed_llm_scheduler_tpu_torch/csrc/flash_attention.cu",
-        "replaces": "distributed_llm_scheduler_tpu/ops/attention.py:152",
-        "launches": launches["greedy x1"],
-        "launches_by_path": launches,
-        **attn,
-    }]}
+    csrc = "distributed_llm_scheduler_tpu_torch/csrc/"
+    tpu = "distributed_llm_scheduler_tpu/ops/attention.py:"
+    line = {"kernels": [
+        {"name": A.KERNEL, "route": "cuda", "source": csrc + "flash_attention.cu",
+         "replaces": tpu + "152", "launches": launches["greedy x1"],
+         "launches_by_path": launches, **attn},
+        {"name": A.PAGED_KERNEL, "route": "cuda",
+         "source": csrc + "paged_attention.cu", "replaces": tpu + "411",
+         "launches": serve_launches["serve run 1"],
+         "launches_by_path": serve_launches, **paged[A.PAGED_KERNEL]},
+        {"name": A.PAGED_RAGGED_KERNEL, "route": "cuda",
+         "source": csrc + "paged_attention.cu", "replaces": tpu + "547",
+         "launches": ragged_n,
+         "launches_by_path": {"ragged op path": ragged_n,
+                              **serve_ragged},
+         **paged[A.PAGED_RAGGED_KERNEL]},
+    ]}
     print(json.dumps(line), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,10 @@
 Memory-constrained task-DAG scheduling and real execution for LLMs on
 NVIDIA GPUs: the GPT-2 forward is built as a task DAG, placed by a policy
 onto memory-limited nodes bound to torch devices, and executed for real,
-with attention in a hand-written CUDA flash kernel (``csrc/``).  Module
+with attention in a hand-written CUDA flash kernel (``csrc/``); and the
+paged decode step is built as a task DAG, placed, and served by a
+continuous-batching engine whose attention runs in hand-written CUDA
+paged-attention kernels.  Module
 paths and public names follow the JAX package, which stays the reference
 this package is held against; this package imports neither JAX nor it.
 """
@@ -21,6 +24,11 @@ from .core.fusion import fuse_linear_chains
 from .core.schedule import Schedule, TaskTiming
 from .backends.sim import LinkModel, SimulatedBackend, TieredLinkModel
 from .backends.device import DeviceBackend, DeviceReport
+from .backends.decode_loop import (
+    PagedDecodeEngine,
+    build_paged_decode_loop,
+    compose_paged_step_fn,
+)
 from .sched.base import BaseScheduler
 from .sched.heft import HEFTScheduler
 from .sched.policies import (
@@ -34,7 +42,16 @@ from .sched.policies import (
 )
 from .models.gpt2 import GPT2Config, params_from_numpy
 from .frontend.gpt2_dag import ModelDAG, build_gpt2_dag
-from .ops.attention import mha, reference_mha
+from .frontend.decode_dag import PagedDecodeDAG, build_paged_decode_dag
+from .models.kv_pages import TRASH_PAGE, PagePool, pages_needed
+from .obs.metrics import MetricsRegistry
+from .ops.attention import (
+    mha,
+    paged_decode_attention,
+    reference_mha,
+    reference_paged_attention,
+    reference_paged_attention_ragged,
+)
 from .utils.costmodel import CostModel, calibrate
 
 __version__ = "0.1.0"
@@ -56,6 +73,9 @@ __all__ = [
     "TieredLinkModel",
     "DeviceBackend",
     "DeviceReport",
+    "PagedDecodeEngine",
+    "build_paged_decode_loop",
+    "compose_paged_step_fn",
     "BaseScheduler",
     "HEFTScheduler",
     "ALL_SCHEDULERS",
@@ -69,8 +89,17 @@ __all__ = [
     "params_from_numpy",
     "ModelDAG",
     "build_gpt2_dag",
+    "PagedDecodeDAG",
+    "build_paged_decode_dag",
+    "TRASH_PAGE",
+    "PagePool",
+    "pages_needed",
+    "MetricsRegistry",
     "mha",
+    "paged_decode_attention",
     "reference_mha",
+    "reference_paged_attention",
+    "reference_paged_attention_ragged",
     "CostModel",
     "calibrate",
 ]

@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -284,6 +284,44 @@ class DeviceBackend:
                 )
         final = outputs.get(graph.topo_order[-1]) if graph.topo_order else None
         return final, timings, transfer_edges, transfer_bytes, len(outputs), loop_s
+
+    def paged_decode_engine(
+        self,
+        graph: TaskGraph,
+        schedule: Schedule,
+        config: Any,
+        weights: Dict[str, Any],
+        pool: Any,
+        slots: int,
+        pages_per_seq: int,
+        seg_steps: int = 8,
+        trace: Any = None,
+        metrics: Any = None,
+        clock: Any = None,
+        memprof: Any = None,
+        flight: Any = None,
+        chunk_tokens: Optional[int] = None,
+    ):
+        """Continuous-batching paged decode engine over a SCHEDULED paged
+        decode-step DAG (``frontend.build_paged_decode_dag``), running on
+        the device the schedule placed the step on.  ``pool`` is the
+        host-side ``models.kv_pages.PagePool`` whose geometry must match
+        the graph's pool params.  (The JAX package first runs its static
+        pre-execution analysis gate here; that gate is not ported.)"""
+        from .decode_loop import PagedDecodeEngine
+
+        nodes = set(schedule.placement.values())
+        if len(nodes) != 1:
+            raise ValueError(
+                f"paged decode needs a single-node placement, got {len(nodes)}"
+            )
+        device = self.cluster[nodes.pop()].torch_device
+        return PagedDecodeEngine(
+            graph, schedule, config, weights, pool,
+            slots=slots, pages_per_seq=pages_per_seq, seg_steps=seg_steps,
+            tracer=trace, metrics=metrics, clock=clock, memprof=memprof,
+            flight=flight, chunk_tokens=chunk_tokens, device=device,
+        )
 
     def execute(
         self,

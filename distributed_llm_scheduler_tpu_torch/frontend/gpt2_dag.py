@@ -48,8 +48,8 @@ class ModelDAG:
 
     graph: TaskGraph
     config: Any
-    # meta tensor with the graph input's shape and dtype
-    input_spec: torch.Tensor
+    # meta tensor(s) with the graph input's shape and dtype
+    input_spec: Any
     # param name -> meta tensor; materialize with init_params()
     param_specs: Dict[str, torch.Tensor]
     # the fused single-program oracle: forward(params, input_ids)
@@ -74,7 +74,12 @@ class ModelDAG:
         return torch.from_numpy(ids).to(device)
 
 
-def _bytes_of(t: torch.Tensor) -> int:
+def _bytes_of(t: Any) -> int:
+    """Total bytes of a tensor or of any dict/list/tuple nest of them."""
+    if isinstance(t, dict):
+        return sum(_bytes_of(v) for v in t.values())
+    if isinstance(t, (list, tuple)):
+        return sum(_bytes_of(v) for v in t)
     return t.numel() * t.element_size()
 
 

@@ -11,7 +11,9 @@ is a plain tensor function the DAG frontend wraps as a task fn, and
 :func:`forward` composes them into the whole-model forward: the fused
 baseline and the correctness oracle for placed DAG execution.  Attention
 goes through :func:`..ops.attention.mha` (the CUDA flash kernel on a GPU);
-the other products stay ``torch.matmul``.
+the other products stay ``torch.matmul``.  :func:`forward_cached` runs
+the same layers over a dense KV cache (:mod:`.decode`), the prefill of
+the paged decode engine and its per-slot oracle.
 """
 
 from __future__ import annotations
@@ -115,12 +117,18 @@ def params_from_numpy(
     dtype: torch.dtype = torch.float32,
 ) -> Dict[str, torch.Tensor]:
     """The weight bridge: flat numpy params (e.g. ``np.asarray`` of the JAX
-    package's params) -> torch tensors on ``device`` in ``dtype``, name
-    for name.  Goes through float32 because ``torch.from_numpy`` rejects
-    the ``ml_dtypes`` bfloat16 arrays JAX hands out; bf16 -> f32 -> bf16
-    is exact."""
+    package's params) -> torch tensors on ``device``, name for name.
+    Float arrays (weights and the decode DAG's ``cache_k_{i}`` /
+    ``cache_v_{i}`` page pools) land in ``dtype``, going through float32
+    because ``torch.from_numpy`` rejects the ``ml_dtypes`` bfloat16 arrays
+    JAX hands out (bf16 -> f32 -> bf16 is exact); integer arrays (the
+    paged DAG's ``page_table``) stay int32."""
     out: Dict[str, torch.Tensor] = {}
     for name, arr in np_params.items():
+        arr = np.asarray(arr)
+        if arr.dtype.kind in "iu":
+            out[name] = torch.from_numpy(arr.astype(np.int32)).to(device)
+            continue
         host = torch.from_numpy(np.array(arr, dtype=np.float32))  # a writable copy
         out[name] = host.to(device=device, dtype=dtype)
     return out
@@ -222,3 +230,71 @@ def forward(params: Dict[str, Any], input_ids, config: GPT2Config):
         x = transformer_block({k: params[p + k] for k in _BLOCK_KEYS}, x, config)
     x = layer_norm(x, params["ln_f_g"], params["ln_f_b"], config.ln_eps)
     return output_projection(x, params["wte"])
+
+
+# -- KV-cache decoding (models/decode.py drives this) --------------------------
+
+def init_cache(config: GPT2Config, batch: int, max_len: int, device: Any = "cuda"):
+    from . import decode
+
+    return decode.init_cache(
+        config.n_layer, batch, config.n_head, max_len,
+        config.head_dim, config.dtype, device,
+    )
+
+
+@torch.no_grad()
+def forward_cached(params: Dict[str, Any], input_ids, cache, pos_start,
+                   config: GPT2Config):
+    """Forward over ``input_ids`` occupying absolute positions
+    [pos_start, pos_start + T), reading and writing the KV cache in place.
+
+    One code path serves prefill (T = prompt length, pos_start = 0) and
+    decode (T = 1).  Matches :func:`forward` when the cache holds the full
+    history.  Returns ``(logits, cache)``."""
+    from . import decode
+
+    B, T = input_ids.shape
+    pos = int(pos_start)
+    nh, hd = config.n_head, config.head_dim
+    scale = 1.0 / math.sqrt(hd)
+
+    x = params["wte"][input_ids] + params["wpe"][pos:pos + T]
+    for i in range(config.n_layer):
+        p = f"h{i}_"
+        ln1 = layer_norm(x, params[p + "ln1_g"], params[p + "ln1_b"], config.ln_eps)
+        qkv = ln1 @ params[p + "attn_qkv_w"] + params[p + "attn_qkv_b"]
+        q, k, v = qkv.split(config.n_embd, dim=-1)
+
+        def heads(t):
+            return t.reshape(B, T, nh, hd).transpose(1, 2)
+
+        q, k, v = heads(q), heads(k), heads(v)
+        cache = decode.update_layer_cache(cache, i, k, v, pos)
+        kc, vc, ks, vs = decode.layer_view(cache, i)
+        att = decode.cached_attention(q, kc, vc, pos, scale, k_scale=ks, v_scale=vs)
+        att = att.transpose(1, 2).reshape(B, T, config.n_embd)
+        x = x + (att @ params[p + "attn_proj_w"] + params[p + "attn_proj_b"])
+        ln2 = layer_norm(x, params[p + "ln2_g"], params[p + "ln2_b"], config.ln_eps)
+        h = ffn_contract(
+            ffn_activation(
+                ffn_expand(ln2, params[p + "mlp_fc_w"], params[p + "mlp_fc_b"])
+            ),
+            params[p + "mlp_proj_w"],
+            params[p + "mlp_proj_b"],
+        )
+        x = x + h
+    x = layer_norm(x, params["ln_f_g"], params["ln_f_b"], config.ln_eps)
+    return output_projection(x, params["wte"]), cache
+
+
+def generate(params: Dict[str, Any], prompt_ids, config: GPT2Config,
+             max_new_tokens: int, **kw):
+    """Autoregressive generation (greedy by default; see
+    :func:`.decode.generate` for temperature/top-k)."""
+    from . import decode
+
+    return decode.generate(
+        forward_cached, init_cache, params, prompt_ids, config,
+        max_new_tokens, **kw,
+    )

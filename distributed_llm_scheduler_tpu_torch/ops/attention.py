@@ -1,22 +1,32 @@
-"""Multi-head attention: a hand-written CUDA flash kernel and its plain version.
+"""Attention: hand-written CUDA kernels beside their plain versions.
 
-PyTorch port of the dense half of ``distributed_llm_scheduler_tpu.ops.
-attention``.  The Pallas TPU kernel (``_flash_kernel``) becomes
+PyTorch port of ``distributed_llm_scheduler_tpu.ops.attention``.
+
+Dense half: the Pallas TPU kernel ``_flash_kernel`` becomes
 ``csrc/flash_attention.cu``, a CUDA kernel for Hopper that keeps the
 (T, T) score matrix out of device memory with the same online softmax.
-
 ``mha`` is the public entry, with the JAX package's signature and (B, H,
-T, hd) layout.  A CUDA tensor goes to the kernel, which either launches or
-raises; a CPU or meta tensor goes to :func:`reference_mha`, the plain
-version, which is how the CPU tests and shape inference (``device="meta"``
-in the DAG builder) run.  No other device is accepted.
+T, hd) layout.
+
+Paged half: ``_paged_kernel`` (single-token decode with the in-kernel
+insert of this step's K/V row) and ``_paged_ragged_kernel`` (multi-token
+q with per-slot ``q_lens``) become the two entry points of
+``csrc/paged_attention.cu``.  ``paged_decode_attention`` is the public
+entry, with the JAX package's signature.
+
+Dispatch is by device: a CUDA tensor goes to a kernel, which either
+launches or raises; a CPU or meta tensor goes to the plain version
+(:func:`reference_mha`, :func:`reference_paged_attention`,
+:func:`reference_paged_attention_ragged`), which is how the CPU tests and
+shape inference (``device="meta"`` in the DAG builders) run.  No other
+device is accepted.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
@@ -119,3 +129,352 @@ def mha(q, k, v, causal: bool = True, sm_scale: Optional[float] = None):
     if kind in ("cpu", "meta"):
         return reference_mha(q, k, v, causal=causal, sm_scale=sm_scale)
     raise ValueError(f"mha: unsupported device {q.device}")
+
+
+# -- paged attention ------------------------------------------------------------
+
+PAGED_KERNEL = "paged_attention"
+PAGED_RAGGED_KERNEL = "paged_attention_ragged"
+PAGED_SOURCE = "paged_attention"  # csrc/paged_attention.cu holds both
+PAGED_HEAD_DIMS = (8, 16, 32, 64, 128)
+PAGED_IMPLS = (None, "auto", "kernel", "plain")
+kernels.launches.setdefault(PAGED_KERNEL, 0)
+kernels.launches.setdefault(PAGED_RAGGED_KERNEL, 0)
+
+
+def reference_paged_attention(
+    q, k_pool, v_pool, page_table, lengths, sm_scale: float,
+    k_new=None, v_new=None,
+):
+    """Plain single-token paged attention: the JAX package's gather path.
+
+    ``q`` (S, Hq, 1, hd); pools (P, ps, Hkv, hd); ``page_table`` (S,
+    ppseq) int; ``lengths`` (S,) int.  Each slot's pages are gathered into
+    a (S, M, Hkv, hd) view, M = ppseq * ps; ``k_new``/``v_new`` (S, Hkv,
+    1, hd), when given, are written into that view at ``min(lengths[s],
+    M - 1)`` before the scores (write-then-attend); slot ``s`` attends
+    positions ``<= lengths[s]``.  Scores (S, Hkv, M, G) accumulate in f32
+    from operands in q's dtype; masks use ``finfo.min``; p is cast to the
+    output dtype before P·V, which accumulates in f32."""
+    from ..models.kv_pages import gather_kv_flat  # lazy: models imports ops
+
+    S, Hq, _, hd = q.shape
+    k_view = gather_kv_flat(k_pool, page_table)  # (S, M, Hkv, hd)
+    v_view = gather_kv_flat(v_pool, page_table)
+    M, Hkv = k_view.shape[1], k_view.shape[2]
+    G = Hq // Hkv
+    lengths = lengths.long()
+    if k_new is not None:
+        s_idx = torch.arange(S, device=q.device)
+        at = lengths.clamp(max=M - 1)
+        k_view[s_idx, at] = k_new[:, :, 0, :].to(k_view.dtype)
+        v_view[s_idx, at] = v_new[:, :, 0, :].to(v_view.dtype)
+    qg = (q * sm_scale).reshape(S, Hkv, G, hd)
+    s = torch.einsum("smhd,shgd->shmg", k_view.to(qg.dtype).float(), qg.float())
+    rows = torch.arange(M, device=q.device)[None, None, :, None]
+    s = torch.where(rows <= lengths.reshape(S, 1, 1, 1), s,
+                    torch.finfo(s.dtype).min)
+    m = s.amax(dim=2, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=2, keepdim=True)
+    out_dtype = q.dtype
+    o = torch.einsum(
+        "shmg,smhd->shgd", p.to(out_dtype).float(), v_view.to(out_dtype).float()
+    )
+    return (o / l.reshape(S, Hkv, G, 1)).to(out_dtype).reshape(S, Hq, 1, hd)
+
+
+def reference_paged_attention_ragged(
+    q, k_pool, v_pool, page_table, lengths, q_lens, sm_scale: float,
+):
+    """Plain multi-token-q paged attention: the JAX package's
+    ``_gather_chunk_attention``.
+
+    ``q`` (S, Hq, Tn, hd); row ``t`` of slot ``s`` attends positions
+    ``<= lengths[s] + clip(t, 0, max(q_lens[s] - 1, 0))``; rows at or past
+    ``q_lens[s]`` are padding (finite, never meaningful).  The chunk's own
+    K/V rows must already be in the pools.  Same arithmetic as
+    :func:`reference_paged_attention`, with the query group axis widened
+    from G to G * Tn (column ``c = g * Tn + t``)."""
+    from ..models.kv_pages import gather_kv_flat  # lazy: models imports ops
+
+    S, Hq, Tn, hd = q.shape
+    k_view = gather_kv_flat(k_pool, page_table)  # (S, M, Hkv, hd)
+    v_view = gather_kv_flat(v_pool, page_table)
+    M, Hkv = k_view.shape[1], k_view.shape[2]
+    G = Hq // Hkv
+    qg = (q * sm_scale).reshape(S, Hkv, G * Tn, hd)
+    s = torch.einsum("smhd,shcd->shmc", k_view.to(qg.dtype).float(), qg.float())
+    rows = torch.arange(M, device=q.device)[None, None, :, None]
+    t = (torch.arange(G * Tn, device=q.device) % Tn)[None, None, None, :]
+    ql = q_lens.long().reshape(S, 1, 1, 1)
+    t_eff = torch.minimum(t, (ql - 1).clamp(min=0))
+    valid = rows <= lengths.long().reshape(S, 1, 1, 1) + t_eff
+    s = torch.where(valid, s, torch.finfo(s.dtype).min)
+    m = s.amax(dim=2, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=2, keepdim=True)
+    out_dtype = q.dtype
+    o = torch.einsum(
+        "shmc,smhd->shcd", p.to(out_dtype).float(), v_view.to(out_dtype).float()
+    )
+    return (o / l.reshape(S, Hkv, G * Tn, 1)).to(out_dtype).reshape(S, Hq, Tn, hd)
+
+
+def paged_kernel_constraints(
+    page_size: int,
+    head_dim: int,
+    n_kv_heads: int,
+    n_q_heads: Optional[int] = None,
+    dtype: torch.dtype = torch.float32,
+    q_tokens: Optional[int] = None,
+    contiguous: bool = True,
+) -> List[str]:
+    """Violated rules of the Hopper paged kernels; an empty list means the
+    geometry qualifies.  Each string names the rule it breaks.
+
+    The kernels read one K/V row of ``head_dim`` elements per key as
+    16-byte vectors (so the head dim is a multiple of 8, and its register
+    tiles are compiled for a fixed set of widths), walk a slot's keys
+    through the page table one position at a time (any page size), fold
+    ``n_q_heads // n_kv_heads`` query heads onto each KV head, and address
+    the pools as contiguous (P, ps, Hkv, hd) arrays."""
+    out = []
+    if head_dim not in PAGED_HEAD_DIMS:
+        out.append(f"head_dim {head_dim} is not one of {PAGED_HEAD_DIMS}")
+    if page_size < 1:
+        out.append(f"page_size {page_size} must be >= 1")
+    if n_kv_heads < 1:
+        out.append(f"n_kv_heads {n_kv_heads} must be >= 1")
+    elif n_q_heads is not None and n_q_heads % n_kv_heads:
+        out.append(
+            f"n_q_heads {n_q_heads} is not a multiple of n_kv_heads "
+            f"{n_kv_heads} (GQA group mapping)"
+        )
+    if dtype not in _DTYPE_CODE:
+        out.append(f"dtype {dtype} is not float32 or bfloat16")
+    if q_tokens is not None and q_tokens < 1:
+        out.append(f"q_tokens {q_tokens} must be >= 1")
+    if not contiguous:
+        out.append("K/V pools must be contiguous (P, ps, Hkv, hd) arrays")
+    return out
+
+
+def _paged_library():
+    lib = kernels.load(PAGED_SOURCE)
+    vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn = lib.dls_paged_attention_fwd
+    if fn.argtypes is None:  # first load: declare the C signatures
+        # q, k_pool, v_pool, page_table, lengths, k_new, v_new, out,
+        # q strides, new strides, S, Hq, Hkv, hd, page_size, ppseq,
+        # has_new, dtype, sm_scale, stream
+        fn.argtypes = [vp] * 10 + [i] * 8 + [f, vp]
+        fn.restype = ctypes.c_int
+        rg = lib.dls_paged_attention_ragged_fwd
+        # q, k_pool, v_pool, page_table, lengths, q_lens, out, q strides,
+        # S, Hq, Hkv, Tn, hd, page_size, ppseq, dtype, sm_scale, stream
+        rg.argtypes = [vp] * 8 + [i] * 8 + [f, vp]
+        rg.restype = ctypes.c_int
+    return lib
+
+
+def _aligned_rows(t):
+    """``t`` with unit head-dim stride and 16-byte aligned rows (the
+    kernels load K/V rows as 16-byte vectors): as given, or a copy."""
+    esz = t.element_size()
+    if (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all((st * esz) % 16 == 0 for st in t.stride()[:-1])):
+        return t
+    return t.contiguous()
+
+
+def _check_paged(q, k_pool, v_pool, page_table, lengths, q_tokens):
+    if q.device.type != "cuda":
+        raise ValueError(f"the paged kernels take CUDA tensors, got {q.device}")
+    if q.dim() != 4 or k_pool.dim() != 4:
+        raise ValueError(
+            f"expected q (S, Hq, Tn, hd) and pools (P, ps, Hkv, hd), got "
+            f"{tuple(q.shape)} and {tuple(k_pool.shape)}"
+        )
+    S, Hq, Tn, hd = q.shape
+    P, ps, Hkv, pool_hd = k_pool.shape
+    if v_pool.shape != k_pool.shape:
+        raise ValueError(f"v_pool {tuple(v_pool.shape)} != k_pool {tuple(k_pool.shape)}")
+    if pool_hd != hd:
+        raise ValueError(f"pool head dim {pool_hd} != q head dim {hd}")
+    for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
+        if t.dtype != q.dtype:
+            raise ValueError(f"{name} dtype {t.dtype} != q dtype {q.dtype}")
+    for name, t in (("k_pool", k_pool), ("v_pool", v_pool),
+                    ("page_table", page_table), ("lengths", lengths)):
+        if t.device != q.device:
+            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+    if page_table.dim() != 2 or page_table.shape[0] != S:
+        raise ValueError(f"page_table {tuple(page_table.shape)} is not ({S}, ppseq)")
+    if tuple(lengths.shape) != (S,):
+        raise ValueError(f"lengths {tuple(lengths.shape)} is not ({S},)")
+    bad = paged_kernel_constraints(
+        ps, hd, Hkv, n_q_heads=Hq, dtype=q.dtype, q_tokens=q_tokens,
+        contiguous=k_pool.is_contiguous() and v_pool.is_contiguous(),
+    )
+    if bad:
+        raise ValueError("paged kernel does not take this call: " + "; ".join(bad))
+
+
+def _int32(t):
+    return t.to(torch.int32).contiguous()
+
+
+def paged_attention(
+    q, k_pool, v_pool, page_table, lengths, sm_scale: Optional[float] = None,
+    k_new=None, v_new=None,
+):
+    """Launch the CUDA single-token paged kernel (the port of
+    ``_paged_kernel``) on CUDA tensors; see
+    :func:`reference_paged_attention` for the function it computes.
+    Raises when the call does not qualify or the launch fails."""
+    _check_paged(q, k_pool, v_pool, page_table, lengths, None)
+    S, Hq, Tn, hd = q.shape
+    if Tn != 1:
+        raise ValueError(f"single-token kernel takes Tn == 1, got {Tn}")
+    _, ps, Hkv, _ = k_pool.shape
+    has_new = k_new is not None
+    if has_new:
+        for name, t in (("k_new", k_new), ("v_new", v_new)):
+            if t is None or tuple(t.shape) != (S, Hkv, 1, hd):
+                raise ValueError(f"{name} must be ({S}, {Hkv}, 1, {hd})")
+            if t.dtype != q.dtype or t.device != q.device:
+                raise ValueError(f"{name} must match q's dtype and device")
+        kn, vn = _aligned_rows(k_new), _aligned_rows(v_new)
+        if kn.stride()[:2] != vn.stride()[:2]:
+            kn, vn = kn.contiguous(), vn.contiguous()
+        new_strides = (kn.stride(0), kn.stride(1))
+    else:
+        kn = vn = k_pool  # never read
+        new_strides = (0, 0)
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(hd)
+    pt, ln = _int32(page_table), _int32(lengths)
+    if q.stride(-1) != 1:
+        q = q.contiguous()
+    out = torch.empty((S, Hq, 1, hd), dtype=q.dtype, device=q.device)
+    q_strides = (ctypes.c_int64 * 3)(*q.stride()[:3])
+    n_strides = (ctypes.c_int64 * 2)(*new_strides)
+    lib = _paged_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.dls_paged_attention_fwd(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), pt.data_ptr(),
+            ln.data_ptr(), kn.data_ptr(), vn.data_ptr(), out.data_ptr(),
+            ctypes.addressof(q_strides), ctypes.addressof(n_strides),
+            S, Hq, Hkv, hd, ps, pt.shape[1], int(has_new),
+            _DTYPE_CODE[q.dtype], float(scale), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"paged attention launch failed: cudaError {err}")
+    kernels.launches[PAGED_KERNEL] += 1
+    return out
+
+
+def paged_attention_ragged(
+    q, k_pool, v_pool, page_table, lengths, q_lens,
+    sm_scale: Optional[float] = None,
+):
+    """Launch the CUDA multi-token-q paged kernel (the port of
+    ``_paged_ragged_kernel``) on CUDA tensors; see
+    :func:`reference_paged_attention_ragged` for the function it
+    computes.  Raises when the call does not qualify or the launch
+    fails."""
+    S, Hq, Tn, hd = q.shape
+    _check_paged(q, k_pool, v_pool, page_table, lengths, Tn)
+    if tuple(q_lens.shape) != (S,) or q_lens.device != q.device:
+        raise ValueError(f"q_lens must be ({S},) on {q.device}")
+    _, ps, Hkv, _ = k_pool.shape
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(hd)
+    pt, ln, ql = _int32(page_table), _int32(lengths), _int32(q_lens)
+    if q.stride(-1) != 1:
+        q = q.contiguous()
+    out = torch.empty((S, Hq, Tn, hd), dtype=q.dtype, device=q.device)
+    q_strides = (ctypes.c_int64 * 3)(*q.stride()[:3])
+    lib = _paged_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.dls_paged_attention_ragged_fwd(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), pt.data_ptr(),
+            ln.data_ptr(), ql.data_ptr(), out.data_ptr(),
+            ctypes.addressof(q_strides),
+            S, Hq, Hkv, Tn, hd, ps, pt.shape[1],
+            _DTYPE_CODE[q.dtype], float(scale), stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"ragged paged attention launch failed: cudaError {err}")
+    kernels.launches[PAGED_RAGGED_KERNEL] += 1
+    return out
+
+
+def check_paged_impl(impl: Optional[str]) -> None:
+    """Raise on a paged-attention impl name the port does not know."""
+    if impl not in PAGED_IMPLS:
+        raise ValueError(
+            f"unknown paged attention impl {impl!r}; expected one of "
+            f"{PAGED_IMPLS}"
+        )
+
+
+def paged_decode_attention(
+    q,
+    k_pool,
+    v_pool,
+    page_table,
+    lengths,
+    sm_scale: Optional[float] = None,
+    k_new=None,
+    v_new=None,
+    impl: Optional[str] = None,
+    q_lens=None,
+):
+    """Ragged paged attention with the JAX package's signature.
+
+    ``q`` (S, Hq, 1, hd) — one new token per slot, attending positions
+    ``<= lengths[s]`` of its pages, with ``k_new``/``v_new`` (S, Hkv, 1,
+    hd) inserted at ``lengths[s]`` first; or ``q`` (S, Hq, Tn, hd) with
+    per-slot ``q_lens`` — a ragged multi-token chunk whose K/V rows are
+    already in the pools (``k_new`` is not accepted then).
+
+    ``impl``: ``None``/``"auto"`` runs the CUDA kernel for CUDA tensors
+    and the plain version for CPU and meta tensors; ``"kernel"`` demands
+    the kernel (raises off the card); ``"plain"`` runs the plain version
+    on any device.  A CUDA call whose geometry the kernel does not take
+    raises (:func:`paged_kernel_constraints`); it never drops to the
+    plain version."""
+    check_paged_impl(impl)
+    S, Hq, Tn, hd = q.shape
+    if Tn != 1:
+        if q_lens is None:
+            raise ValueError(f"multi-token q (Tn={Tn}) requires per-slot q_lens")
+        if k_new is not None:
+            raise ValueError(
+                "multi-token q takes no k_new/v_new: scatter the chunk "
+                "into the pools first (write-then-attend at chunk "
+                "granularity)"
+            )
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(hd)
+    kind = q.device.type
+    if impl in (None, "auto"):
+        if kind not in ("cuda", "cpu", "meta"):
+            raise ValueError(f"paged_decode_attention: unsupported device {q.device}")
+        impl = "kernel" if kind == "cuda" else "plain"
+    if impl == "kernel":
+        if kind != "cuda":
+            raise ValueError(
+                f"impl='kernel' needs CUDA tensors, got {q.device}")
+        if Tn != 1:
+            return paged_attention_ragged(
+                q, k_pool, v_pool, page_table, lengths, q_lens, scale)
+        return paged_attention(
+            q, k_pool, v_pool, page_table, lengths, scale, k_new, v_new)
+    if Tn != 1:
+        return reference_paged_attention_ragged(
+            q, k_pool, v_pool, page_table, lengths, q_lens, scale)
+    return reference_paged_attention(
+        q, k_pool, v_pool, page_table, lengths, scale, k_new, v_new)

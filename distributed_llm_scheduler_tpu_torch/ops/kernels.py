@@ -62,24 +62,35 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
-def build(name: str) -> float:
-    """Compile ``csrc/<name>.cu`` unless it is built already.  Returns the
-    wall seconds spent; raises with the compiler's output when it fails."""
-    out = library_path(name)
-    if out.exists():
+def build(*names: str) -> float:
+    """Compile ``csrc/<name>.cu`` for each name not built already, one
+    ``nvcc`` per source, all started together.  Returns the wall seconds
+    spent; raises with the compiler's output when any build fails."""
+    todo = [n for n in dict.fromkeys(names) if not library_path(n).exists()]
+    if not todo:
         return 0.0
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"kernel build failed: {name}: nvcc exit {r.returncode}\n"
-            f"{r.stdout}{r.stderr}"
+    nvcc = nvcc_path()
+    jobs = []
+    for name in todo:
+        out = library_path(name)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )
-    os.replace(tmp, out)  # atomic: concurrent builders never race
+        jobs.append((name, proc, tmp, out))
+    failed = []
+    for name, proc, tmp, out in jobs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
+        else:
+            os.replace(tmp, out)  # atomic: concurrent builders never race
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
     return time.perf_counter() - t0
 
 

@@ -62,3 +62,77 @@ def test_kernel_reads_strided_head_views(cuda):
     want = A.mha(q.contiguous(), k.contiguous(), v.contiguous())
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+# -- paged attention ----------------------------------------------------------
+
+from distributed_llm_scheduler_tpu_torch.eval import decode_bench as DB  # noqa: E402
+
+_SINGLE = [f[0] for f in DB._paged_op_parity_fixtures()]
+_RAGGED = [f[0] for f in DB._ragged_op_parity_fixtures()]
+
+
+def _args(case):
+    return {k: v for k, v in case.items() if k not in ("name", "real")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,name", [("single", n) for n in _SINGLE]
+                         + [("ragged", n) for n in _RAGGED])
+def test_paged_kernels_meet_bench_fixtures(cuda, kind, name):
+    """The decode bench's op-parity fixtures (trash page poisoned with
+    1e9), kernel vs plain version on the card at the bench's 1e-5."""
+    build = DB.paged_parity_cases if kind == "single" else DB.ragged_parity_cases
+    case = next(c for c in build(device=cuda) if c["name"] == name)
+    kname = A.PAGED_KERNEL if kind == "single" else A.PAGED_RAGGED_KERNEL
+    before = kernels.launches[kname]
+    res = DB.op_parity([case])
+    torch.cuda.synchronize()
+    assert kernels.launches[kname] == before + 1
+    assert res["allclose"], res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_tokens", [1, 32])
+def test_paged_kernels_at_the_serving_shape_bf16(cuda, q_tokens):
+    """GPT-2 small serving shape in bf16: within 5e-2 of the plain version
+    and every element within bf16 rounding (2^-8 |x| + 1e-4) of the
+    plain version computed in f32 (real rows only for the ragged case)."""
+    case = DB.serving_case(torch.bfloat16, cuda, seed=1, q_tokens=q_tokens)
+    args = _args(case)
+    got = A.paged_decode_attention(**args, impl="kernel").float()
+    want = A.paged_decode_attention(**args, impl="plain").float()
+    args32 = {k: (v.float() if torch.is_tensor(v) and v.is_floating_point() else v)
+              for k, v in args.items()}
+    want32 = A.paged_decode_attention(**args32, impl="plain")
+    m = case["real"].expand_as(got) if "real" in case else torch.ones_like(got)
+    assert torch.isfinite(got).all()
+    assert ((got - want).abs() * m).max().item() < 5e-2
+    assert (((got - want32).abs() - (2.0 ** -8 * want32.abs() + 1e-4)) * m
+            ).max().item() <= 0
+
+
+@pytest.mark.cuda
+def test_paged_kernel_reads_strided_qkv_views(cuda):
+    """q, k_new and v_new as head views of one fused qkv product, the
+    layout the paged decode DAG hands the kernel."""
+    case = DB.serving_case(torch.float32, cuda, seed=2)
+    S, H, _, hd = case["q"].shape
+    qkv = torch.randn(S, 1, 3 * H * hd, device=cuda)
+    q, k, v = (t.reshape(S, 1, H, hd).transpose(1, 2)
+               for t in qkv.split(H * hd, -1))
+    args = dict(_args(case), q=q, k_new=k, v_new=v)
+    got = A.paged_attention(**args)
+    want = A.paged_attention(**dict(args, q=q.contiguous(), k_new=k.contiguous(),
+                                     v_new=v.contiguous()))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    ref = A.paged_decode_attention(**args, impl="plain")
+    assert (got - ref).abs().max().item() < 1e-4
+
+
+@pytest.mark.cuda
+def test_paged_kernel_refuses_unqualified_geometry(cuda):
+    case = DB.serving_case(torch.float32, cuda, seed=3, head_dim=48)
+    with pytest.raises(ValueError, match="head_dim 48"):
+        A.paged_decode_attention(**_args(case))
