@@ -7,41 +7,59 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
 
 1. device: a CUDA device must be present; TF32 is turned off for matmuls
    and cuDNN, so float32 means float32;
-2. build: both CUDA sources under ``distributed_llm_scheduler_tpu_torch/
-   csrc/`` (flash attention; single-token and ragged paged attention) are
-   compiled with nvcc for sm_90a, one process each, started together;
+2. build: the three CUDA sources under ``distributed_llm_scheduler_tpu_
+   torch/csrc/`` (flash attention; single-token and ragged paged
+   attention; LayerNorm and RMSNorm) are compiled with nvcc for sm_90a,
+   one process each, started together;
 3. flash kernel check: the kernel against its plain PyTorch version on
-   the card, at the main path's shape (also as strided head views of a
-   fused qkv product, the layout the model hands it) and at edge shapes,
-   with its time, the plain version's, one PyTorch library call's as a
-   yardstick, and the least time the card could take (its bound);
+   the card, at the GPT-2 main path's shape (also as strided head views
+   of a fused qkv product, the layout the model hands it), at the Llama
+   path's shape through ``gqa_mha`` (32 query heads, 8 KV heads, hd 128)
+   and at edge shapes, with its time, the plain version's, one PyTorch
+   library call's as a yardstick, and the least time the card could take
+   (its bound);
 4. paged kernel check: both paged kernels against their plain versions
    on the card, on the JAX decode bench's 7 single-token and 5 ragged
    fixtures (f32, trash page poisoned, 1e-5) and at the GPT-2 small
    serving shape in bf16, with times and bounds; then the ragged op path
    (``paged_decode_attention(..., q_lens=...)``, as the decode bench's
    kernel leg drives it) with its launches counted;
-5. flagship forward path: the GPT-2 small DAG (bf16, batch 8, seq 512,
+5. norm kernel check: both norm kernels against their plain versions at
+   the main paths' shapes and at edge cases (f32, 77 rows, D = 100 and
+   128, strided rows, a long-row tail, rows offset by 1e4), with times
+   over distinct inputs that overflow the L2, bounds and library calls;
+6. flagship forward path: the GPT-2 small DAG (bf16, batch 8, seq 512,
    8 microbatches, 8 vocab shards, linear chains fused: 537 tasks) is
    calibrated on the card, placed by ``greedy`` on the card and by
    ``heft`` on 8 virtual nodes sharing it, and executed through
-   ``DeviceBackend``; each of these three runs has its launch count set
+   ``DeviceBackend``; each of these three runs has its launch counts set
    to 0 just before it and read just after, and must launch the flash
-   kernel once per attention task per forward; the output must meet the
-   fused forward;
-6. serve path: GPT-2 small bf16 at full width through the paged decode
+   kernel once per attention task and the LayerNorm kernel once per
+   layer norm per forward (96 and 200); the output must meet the fused
+   forward;
+7. serve path: GPT-2 small bf16 at full width through the paged decode
    DAG (8 slots, page size 16, 257 pages, capacity 512), placed by
    ``greedy`` and served by ``DeviceBackend.paged_decode_engine`` in
    8-step segments: 16 requests, one warm-up run, then 3 timed runs, each
    with the paged kernel's launches counted (12 layers x 8 steps per
-   segment), no leaked pages, every request's token count, and a
+   segment) and the LayerNorm kernel's (25 per decode step and per
+   prefill forward), no leaked pages, every request's token count, and a
    teacher-forced oracle against the fused forward;
-7. f32 leg: a 2-layer GPT-2 small-width DAG placed on the card must be
+8. Llama path: Llama-3 8B bf16 at full width and depth (batch 8, seq
+   512, 8 microbatches, 8 vocab shards, linear chains fused: 1,945
+   tasks), weights drawn on the card from a seeded generator, calibrated,
+   placed by ``pipeline`` on 8 virtual nodes sharing the card and by
+   ``greedy`` on one, executed with 256 flash and 520 RMSNorm launches
+   per forward in every counted run, and held against the fused forward;
+9. f32 leg: a 2-layer GPT-2 small-width DAG placed on the card must be
    allclose to the port's fused forward run on the CPU with the plain
    versions;
-8. f32 serve leg: a 2-layer GPT-2 small-width f32 engine serves 4
-   requests on the card (kernel) and on the CPU (plain versions) from the
-   same weights, and every request's tokens must be equal.
+10. f32 serve leg: a 2-layer GPT-2 small-width f32 engine serves 4
+    requests on the card (kernels) and on the CPU (plain versions) from
+    the same weights, and every request's tokens must be equal;
+11. f32 Llama leg: Llama-3 8B widths at 2 layers, placed by ``pipeline``
+    on 8 virtual nodes on the card, allclose to the fused forward on the
+    CPU.
 
 The last lines are one JSON object of per-kernel numbers (``launches`` is
 the count of the kernel's main path, ``launches_by_path`` each counted
@@ -81,6 +99,13 @@ ORACLE_GAP = 0.1
 # paged kernels vs plain on the JAX bench's fixtures: the bench's own
 # tolerance (eval/decode_bench.py allclose at atol = rtol = 1e-5)
 PAGED_TOL = 1e-5
+# Llama path: Llama-3 8B at full width and depth, the JAX package's
+# flagship build (eval/ici_probe.py:192-196), linear chains fused
+LLAMA_FLAGSHIP = dict(batch=8, seq_len=512, microbatches=8, vocab_shards=8)
+LLAMA_TASKS = 1945
+# the card's L2 cache: kernels that move a few MB are timed over distinct
+# inputs totalling twice this, so no launch finds its input in L2
+L2_BYTES = 50e6
 # bf16 output oracle, the JAX package's eval/benchlib.oracle_close rule:
 # elements outside the 5e-2 band (abs + rel) may number at most
 # max(1, 1e-6 * N), and the relative Frobenius error must stay <= 2e-2
@@ -144,14 +169,15 @@ def oracle_close(expected, got):
     return viol <= allowed and rel <= MAX_REL_FRO, viol, allowed, rel
 
 
-def attention_bound_ms(shape, dtype_name: str, causal: bool) -> tuple:
+def attention_bound_ms(shape, dtype_name: str, causal: bool,
+                       kv_heads=None) -> tuple:
     """Least time for one attention call: q, k, v read once and o written
-    once over the memory rate, against the QK^T and PV products over the
-    type's peak (causal: only the (T+1)/2 keys each query sees on
-    average)."""
+    once over the memory rate (k and v at ``kv_heads`` heads under GQA),
+    against the QK^T and PV products over the type's peak (causal: only
+    the (T+1)/2 keys each query sees on average)."""
     B, H, T, hd = shape
     itemsize = 2 if dtype_name == "bfloat16" else 4
-    nbytes = 4 * B * H * T * hd * itemsize
+    nbytes = 2 * B * (H + (kv_heads or H)) * T * hd * itemsize
     pairs = B * H * (T * (T + 1) // 2 if causal else T * T)
     flops = 2 * 2 * hd * pairs
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -159,14 +185,22 @@ def attention_bound_ms(shape, dtype_name: str, causal: bool) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def attention_inputs(torch, rng, dev, shape, dname, layout):
-    """q, k and v for one kernel case: contiguous (B, H, T, hd) tensors,
-    or with ``layout="qkv"`` the strided head views of one (B, T, 3*H*hd)
-    product that ``models/gpt2.causal_attention`` hands the kernel."""
+def attention_inputs(torch, rng, dev, shape, dname, layout, kv_heads):
+    """q, k and v for one kernel case: contiguous (B, H, T, hd) tensors;
+    with ``layout="qkv"`` the strided head views of one (B, T, 3*H*hd)
+    product that ``models/gpt2.causal_attention`` hands the kernel; with
+    ``layout="gqa"`` k and v at ``kv_heads`` heads, as
+    ``models/llama.gqa_attention`` hands them to ``gqa_mha``."""
     import numpy as np
 
     dt = getattr(torch, dname)
     B, H, T, hd = shape
+    if layout == "gqa":
+        kv = (B, kv_heads, T, hd)
+        return tuple(
+            torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+            .to(dev, dt) for sh in (shape, kv, kv)
+        )
     if layout == "qkv":
         qkv = torch.from_numpy(
             rng.standard_normal((B, T, 3 * H * hd)).astype(np.float32)
@@ -179,15 +213,22 @@ def attention_inputs(torch, rng, dev, shape, dname, layout):
     )
 
 
-def check_attention_kernel(torch, A, dev) -> dict:
-    """Phase 3: the flash kernel against its plain version; returns the
-    numbers of the kernel line at the main path's shape."""
+def check_attention_kernel(torch, A, dev, llama) -> dict:
+    """The flash kernel against its plain version; returns the numbers of
+    the kernel line at the GPT-2 main path's shape, with the Llama path's
+    (through ``gqa_mha``, at the shape config ``llama`` gives each
+    attention task of the Llama flagship) under ``at_llama_shape``."""
     import numpy as np
     import torch.nn.functional as F
 
+    llama_shape = (
+        LLAMA_FLAGSHIP["batch"] // LLAMA_FLAGSHIP["microbatches"],
+        llama.n_heads, LLAMA_FLAGSHIP["seq_len"], llama.head_dim,
+    )
     cases = [
         ((1, 12, 512, 64), "bfloat16", True, "heads"),  # main path, per task
         ((1, 12, 512, 64), "bfloat16", True, "qkv"),    # ... as the model's views
+        (llama_shape, "bfloat16", True, "gqa"),         # Llama-3 8B, per task
         ((1, 12, 512, 64), "float32", True, "heads"),
         ((2, 3, 100, 64), "float32", False, "heads"),   # ragged T, full attention
         ((1, 4, 256, 32), "bfloat16", True, "heads"),
@@ -197,14 +238,18 @@ def check_attention_kernel(torch, A, dev) -> dict:
     rng = np.random.default_rng(0)
     main = None
     for shape, dname, causal, layout in cases:
-        q, k, v = attention_inputs(torch, rng, dev, shape, dname, layout)
-        got = A.flash_attention(q, k, v, causal=causal)
+        q, k, v = attention_inputs(torch, rng, dev, shape, dname, layout,
+                                   llama.n_kv_heads)
+        group = q.shape[1] // k.shape[1]
+        kr, vr = k.repeat_interleave(group, 1), v.repeat_interleave(group, 1)
+        got = (A.gqa_mha(q, k, v, causal=causal) if layout == "gqa"
+               else A.flash_attention(q, k, v, causal=causal))
         torch.cuda.synchronize()
-        want = A.reference_mha(q, k, v, causal=causal)
+        want = A.reference_mha(q, kr, vr, causal=causal)
         err = (got.float() - want.float()).abs().max().item()
         # the same function in f32 from the same inputs: isolates the
         # kernel's own output rounding from the plain version's bf16 steps
-        want32 = A.reference_mha(q.float(), k.float(), v.float(), causal=causal)
+        want32 = A.reference_mha(q.float(), kr.float(), vr.float(), causal=causal)
         diff32 = (got.float() - want32).abs()
         err32 = diff32.max().item()
         if dname == "bfloat16":
@@ -236,7 +281,178 @@ def check_attention_kernel(torch, A, dev) -> dict:
             log(f"  at the main path's shape {shape} {dname}: kernel "
                 f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, "
                 f"bound {bound_ms * 1e3:.3f} us ({bound_by})")
+        if layout == "gqa":
+            # the Llama path's call: gqa_mha repeats K/V, then the kernel
+            ms = cuda_ms(lambda: A.gqa_mha(q, k, v), 100)
+            plain_ms = cuda_ms(lambda: A.reference_mha(
+                q, k.repeat_interleave(group, 1), v.repeat_interleave(group, 1)), 20)
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), 100)
+            bound_ms, bound_by = attention_bound_ms(shape, dname, True, k.shape[1])
+            main["at_llama_shape"] = dict(
+                shape=list(shape), kv_heads=k.shape[1], max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=lib_ms)
+            log(f"  at the Llama path's shape {shape} {dname}, {k.shape[1]} KV "
+                f"heads (gqa_mha: K/V repeat + kernel): {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, SDPA (enable_gqa) {lib_ms:.4f} ms, bound "
+                f"{bound_ms * 1e3:.3f} us ({bound_by})")
     return main
+
+
+def norm_inputs(torch, rng, dev, shape, dname, offset=False, pad=0):
+    """x, g and b for one norm case from numpy ``rng``.  ``offset`` rows
+    sit at 1e4 + k/8 with each row's integer k summing to a multiple of D,
+    so the mean and every partial sum are exact in f32; ``pad`` makes x a
+    view of a wider buffer (strided rows, unaligned base)."""
+    import numpy as np
+
+    dt = getattr(torch, dname)
+    D = shape[-1]
+    if offset:
+        k = np.round(8.0 * rng.standard_normal(shape)).reshape(-1, D)
+        for row in k:
+            row[: int(row.sum()) % D] -= 1
+        x = 1e4 + k.reshape(shape) / 8.0
+    else:
+        x = rng.standard_normal(shape)
+    x = torch.from_numpy(x.astype(np.float32)).to(dev, dt)
+    if pad:
+        wide = torch.zeros(shape[:-1] + (D + 2 * pad,), dtype=dt, device=dev)
+        wide[..., pad:pad + D] = x
+        x = wide[..., pad:pad + D]
+    g, b = (torch.from_numpy(rng.standard_normal(D).astype(np.float32)).to(dev, dt)
+            for _ in range(2))
+    return x, g, b
+
+
+def norm_work(x, kind: str) -> tuple:
+    """(bytes, flops) one norm call needs: x read once, g (and b) read
+    once, the output written once; per element 8 f32 operations for
+    LayerNorm (sum; centre, square, sum; centre, scale, gain, bias), 4 for
+    RMSNorm (square, sum; scale, gain)."""
+    n, D, esz = x.numel(), x.shape[-1], x.element_size()
+    weights = 2 if kind == "ln" else 1
+    return 2 * n * esz + weights * D * esz, (8 if kind == "ln" else 4) * n
+
+
+def graph_ms(torch, fn, inputs, reps: int = 5) -> float:
+    """Mean ms per call of ``fn(*args)`` over ``inputs``: the calls are
+    captured once into a CUDA graph (so the host's launch cost is not
+    timed) and the graph is replayed ``reps`` times between CUDA events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture
+        for args in inputs[:3]:
+            fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for args in inputs:
+            fn(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        graph.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / (reps * len(inputs))
+
+
+def check_norm_kernels(torch, N, dev) -> dict:
+    """Both norm kernels against their plain versions: the main paths'
+    shapes, then f32, 77 rows, D = 100 and 128, strided rows, the
+    block-per-row path with a tail, and rows offset by 1e4.  Returns each
+    kernel's numbers at its main path's shape."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    cases = [  # (kernel, shape, dtype, offset rows, pad)
+        ("ln", (1, 512, 768), "bfloat16", False, 0),   # GPT-2 flagship task
+        ("ln", (8, 1, 768), "bfloat16", False, 0),     # GPT-2 decode step
+        ("rms", (1, 512, 4096), "bfloat16", False, 0),  # Llama-3 8B task
+        ("ln", (1, 512, 768), "float32", False, 0),
+        ("rms", (1, 512, 4096), "float32", False, 0),
+        ("ln", (77, 100), "float32", False, 0),
+        ("rms", (77, 100), "float32", False, 0),
+        ("ln", (77, 128), "bfloat16", False, 0),
+        ("rms", (77, 128), "bfloat16", False, 0),
+        ("ln", (3, 40, 100), "bfloat16", False, 3),
+        ("rms", (3, 40, 128), "float32", False, 1),
+        ("ln", (5, 1500), "float32", False, 0),
+        ("rms", (5, 1500), "bfloat16", False, 5),
+        ("ln", (4, 128), "float32", True, 0),
+        ("ln", (4, 100), "float32", True, 0),
+        ("rms", (4, 100), "float32", True, 0),
+    ]
+    kernel = {"ln": N.layer_norm_kernel, "rms": N.rms_norm_kernel}
+    plain = {"ln": N.reference_layer_norm, "rms": N.reference_rms_norm}
+    library = {
+        "ln": lambda x, g, b: F.layer_norm(x, (x.shape[-1],), g, b, 1e-5),
+        "rms": lambda x, g: F.rms_norm(x, (x.shape[-1],), g, 1e-5),
+    }
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(3)
+    out = {}
+    for kind, shape, dname, offset, pad in cases:
+        x, g, b = norm_inputs(torch, rng, dev, shape, dname, offset, pad)
+        args = (x, g, b) if kind == "ln" else (x, g)
+        got = kernel[kind](*args)
+        torch.cuda.synchronize()
+        # offset rows: the plain version on the card takes the mean as
+        # sum * (1/D), one rounding off these rows' exact mean (an ulp of
+        # 1e4 is ~1e-3); on the CPU it divides, exactly, as the kernel does
+        where = cpu if offset else dev
+        want = plain[kind](*(t.to(where) for t in args)).to(dev)
+        want32 = plain[kind](*(t.to(where).float() for t in args)).to(dev)
+        err = (got.float() - want.float()).abs().max().item()
+        diff32 = (got.float() - want32).abs()
+        if dname == "bfloat16":
+            out32 = int((diff32 > BF16_ROUNDOFF * want32.abs() + F32_SLACK).sum())
+            rule32 = f"{out32} elements beyond 2^-8*|x|+{F32_SLACK:g}"
+        else:
+            out32 = 0 if diff32.max().item() < KERNEL_TOL[dname] else 1
+            rule32 = f"tol {KERNEL_TOL[dname]:g}"
+        finite = bool(torch.isfinite(got).all())
+        ok = (finite and err < KERNEL_TOL[dname] and out32 == 0
+              and got.shape == x.shape and got.dtype == x.dtype)
+        name = N.LN_KERNEL if kind == "ln" else N.RMS_KERNEL
+        log(f"  {name} {shape} {dname}{' offset 1e4' if offset else ''}"
+            f"{f' strided (pad {pad})' if pad else ''}: max_abs_err {err:.3e} "
+            f"vs plain{' (CPU)' if offset else ''} (tol {KERNEL_TOL[dname]:g}), "
+            f"{diff32.max().item():.3e} vs plain in f32 ({rule32}) -> "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} disagrees at {shape} {dname}")
+        if name in out or dname != "bfloat16" or shape[0] != 1:
+            continue
+        # the main path's shape: distinct inputs totalling 2x the L2
+        n = max(8, math.ceil(2 * L2_BYTES / (x.numel() * x.element_size())))
+        inputs = [args] + [
+            norm_inputs(torch, rng, dev, shape, dname)[:len(args)]
+            for _ in range(n - 1)]
+        ms = graph_ms(torch, kernel[kind], inputs)
+        ms_l2 = graph_ms(torch, kernel[kind], [args] * n)
+        plain_ms = graph_ms(torch, plain[kind], inputs)
+        lib_ms = graph_ms(torch, library[kind], inputs)
+        nbytes, flops = norm_work(x, kind)
+        bound_ms, bound_by = bound_of(nbytes, flops, "float32")
+        log(f"  {name} at the main path's shape {shape} {dname}, over {n} "
+            f"distinct inputs ({n * x.numel() * x.element_size() / 1e6:.1f} MB, "
+            f"2x the L2): kernel {ms:.5f} ms (one input repeated, L2-resident: "
+            f"{ms_l2:.5f} ms), plain {plain_ms:.5f} ms, library "
+            f"{'F.layer_norm' if kind == 'ln' else 'F.rms_norm'} {lib_ms:.5f} "
+            f"ms, bound {bound_ms * 1e3:.3f} us ({bound_by}: "
+            f"{nbytes / 1e6:.3f} MB, {flops / 1e6:.2f} MFLOP)")
+        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=lib_ms, ms_l2_resident=ms_l2,
+                         shape=list(shape), distinct_inputs=n)
+    return out
+
 
 
 def device_time_breakdown(torch, label: str, makespan_s: float, run) -> None:
@@ -264,18 +480,20 @@ def device_time_breakdown(torch, label: str, makespan_s: float, run) -> None:
         log(f"    {us / 1e3:8.3f} ms  {n:5d}x  {key[:90]}")
 
 
-def counted(label: str, kernel: str, expected: int, run):
-    """Run ``run()`` with every launch count set to 0 just before and
-    ``kernel``'s read just after; it must equal ``expected``.  Returns
-    (run's result, the count)."""
+def counted(label: str, expected: dict, run):
+    """Run ``run()`` with every launch count set to 0 just before and the
+    counts of the kernels in ``expected`` read just after; each must equal
+    its expected number.  Returns (run's result, {kernel: count})."""
     from distributed_llm_scheduler_tpu_torch.ops import kernels
 
     kernels.reset_launches()
     out = run()
-    got = kernels.launches[kernel]
-    log(f"  {label}: {kernel} launched {got} times (expected {expected})")
-    if got != expected:
-        raise AssertionError(f"{label}: {kernel} launch count {got} != {expected}")
+    got = {k: kernels.launches[k] for k in expected}
+    log(f"  {label}: " + ", ".join(
+        f"{k} launched {got[k]} times (expected {n})" for k, n in expected.items()))
+    bad = {k: got[k] for k, n in expected.items() if got[k] != n}
+    if bad:
+        raise AssertionError(f"{label}: launch counts {bad} != {expected}")
     return out, got
 
 
@@ -313,8 +531,8 @@ def bound_of(nbytes: int, flops: int, dtype_name: str) -> tuple:
 
 
 def check_paged_kernels(torch, A, DB, dev) -> dict:
-    """Phase 4: both paged kernels against their plain versions; returns
-    each kernel's numbers at the serving shape."""
+    """Both paged kernels against their plain versions; returns each
+    kernel's numbers at the serving shape."""
     import torch.nn.functional as F
 
     from distributed_llm_scheduler_tpu_torch.models.kv_pages import gather_kv
@@ -405,15 +623,19 @@ def run_ragged_op_path(torch, A, DB, dev) -> int:
         torch.cuda.synchronize()
         return outs
 
-    outs, n = counted("ragged op path", A.PAGED_RAGGED_KERNEL, len(cases), run)
+    outs, n = counted("ragged op path", {A.PAGED_RAGGED_KERNEL: len(cases)}, run)
     if not all(bool(torch.isfinite(o).all()) for o in outs):
         raise AssertionError("ragged op path: non-finite output")
-    return n
+    return n[A.PAGED_RAGGED_KERNEL]
+
+
+def times(per_forward: dict, n: int) -> dict:
+    return {k: v * n for k, v in per_forward.items()}
 
 
 def run_main_path(torch, P, dev) -> dict:
-    """Phase 5: the flagship DAG, calibrated, placed twice, executed.
-    Returns each run's own launch count."""
+    """The GPT-2 flagship DAG, calibrated, placed twice, executed.
+    Returns each run's own launch counts."""
     cfg = P.GPT2Config.small(dtype=torch.bfloat16)
     t0 = time.perf_counter()
     dag = P.build_gpt2_dag(cfg, **FLAGSHIP)
@@ -427,10 +649,16 @@ def run_main_path(torch, P, dev) -> dict:
         f"{graph.total_param_gb():.3f} GB params, weights from numpy seed 0 "
         f"({time.perf_counter() - t0:.1f} s)")
 
+    # layer norms per forward: ln1 and ln2 per layer, final_ln, per microbatch
+    n_ln = sum(1 for t in dag.graph
+               if t.task_id.endswith(("_ln1", "_ln2", "final_ln")))
+    per_forward = {"flash_attention": n_attn, "layer_norm": n_ln}
+    log(f"  per forward: {n_attn} flash and {n_ln} layer_norm launches")
+
     launches = {}
     t0 = time.perf_counter()
     cm, launches["calibrate"] = counted(
-        "calibrate", "flash_attention", n_attn * (1 + 3),
+        "calibrate", times(per_forward, 1 + 3),
         lambda: P.calibrate(graph, params, ids, device=dev, repeats=3),
     )
     applied = cm.apply(graph)
@@ -454,7 +682,7 @@ def run_main_path(torch, P, dev) -> dict:
                 raise AssertionError(f"{label}: dispatch ignores {nid}'s order")
         backend = P.DeviceBackend(cluster)
         rep, launches[label] = counted(
-            label, "flash_attention", n_attn * (1 + REPS), lambda: backend.execute(
+            label, times(per_forward, 1 + REPS), lambda: backend.execute(
                 graph, sched, params, ids, warmup=True, reps=REPS
             ),
         )
@@ -485,7 +713,7 @@ def run_main_path(torch, P, dev) -> dict:
 
 
 def run_f32_leg(torch, P, dev) -> None:
-    """Phase 7: placed on the card vs fused on the CPU, in float32."""
+    """GPT-2: placed on the card vs fused on the CPU, in float32."""
     cfg = P.GPT2Config.small(n_layer=2)
     dag = P.build_gpt2_dag(cfg, batch=2, seq_len=128, microbatches=2,
                            vocab_shards=8)
@@ -508,6 +736,149 @@ def run_f32_leg(torch, P, dev) -> None:
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("f32 placed output diverges from CPU forward")
+
+
+def run_llama_path(torch, P, dev) -> dict:
+    """The Llama-3 8B flagship DAG at full width and depth: weights drawn
+    on the card, calibrated, placed by ``pipeline`` on 8 virtual nodes and
+    by ``greedy`` on one, executed, and held against the fused forward.
+    Returns each run's own launch counts."""
+    from distributed_llm_scheduler_tpu_torch.models import llama
+
+    cfg = P.LlamaConfig.llama3_8b(dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    dag = P.build_llama_dag(cfg, **LLAMA_FLAGSHIP)
+    graph = P.fuse_linear_chains(dag.graph)
+    if len(graph) != LLAMA_TASKS:
+        raise AssertionError(f"Llama flagship has {len(graph)} tasks")
+    # per microbatch: one attention per layer; attn_norm and ffn_norm per
+    # layer, and final_norm
+    per_forward = {
+        "flash_attention": sum(1 for t in dag.graph
+                               if t.task_id.endswith("_attention")),
+        "rms_norm": sum(1 for t in dag.graph if t.task_id.endswith("_norm")),
+    }
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    params = dag.derive_params(llama.init_params_torch(cfg, seed=0, device=dev))
+    ids = dag.make_inputs(seed=1, device=dev)
+    torch.cuda.synchronize()
+    log(f"  built {graph.name}: {len(dag.graph)} tasks, {len(graph)} after "
+        f"fusing chains, {graph.total_param_gb():.3f} GiB params "
+        f"({llama.num_params(cfg) / 1e9:.3f} B), largest task output "
+        f"{graph.max_task_memory():.3f} GiB ({t_build:.1f} s); weights drawn "
+        f"on the card from torch seed 0 ({time.perf_counter() - t0:.1f} s), "
+        f"{torch.cuda.memory_allocated(dev) / 1024**3:.3f} GiB allocated; per "
+        f"forward {per_forward}")
+
+    launches = {}
+    t0 = time.perf_counter()
+    cm, launches["calibrate"] = counted(
+        "calibrate", times(per_forward, 1 + 3),
+        lambda: P.calibrate(graph, params, ids, device=dev, repeats=3),
+    )
+    cm.apply(graph)
+    log(f"  calibrated {len(cm.task_seconds)} tasks: per-task sum "
+        f"{sum(cm.task_seconds.values()) * 1e3:.3f} ms, critical path "
+        f"{graph.critical_path_time() * 1e3:.3f} ms "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    reports = {}
+    for label, devices, policy in (
+        ("pipeline x8", [dev] * 8, "pipeline"),
+        ("greedy x1", [dev], "greedy"),
+    ):
+        cluster = P.Cluster.from_torch_devices(devices)
+        t0 = time.perf_counter()
+        sched = P.get_scheduler(policy).schedule(graph, cluster)
+        t_sched = time.perf_counter() - t0
+        if sched.failed or len(sched.completed) != len(graph):
+            raise AssertionError(f"{label}: {len(sched.failed)} tasks failed")
+        order = P.DeviceBackend.dispatch_order(graph, sched)
+        for nid, lst in sched.per_node.items():
+            members = set(lst)
+            if [t for t in order if t in members] != lst:
+                raise AssertionError(f"{label}: dispatch ignores {nid}'s order")
+        backend = P.DeviceBackend(cluster)
+        rep, launches[label] = counted(
+            label, times(per_forward, 1 + REPS), lambda: backend.execute(
+                graph, sched, params, ids, warmup=True, reps=REPS
+            ),
+        )
+        per_node = [len(lst) for lst in sched.per_node.values()]
+        peak = sum(rep.peak_hbm_bytes.values()) / 1024**3
+        log(f"  {label}: {len(sched.completed)}/{len(graph)} tasks on "
+            f"{sum(1 for n in per_node if n)} node(s) of "
+            f"{cluster.devices[0].total_memory:.2f} GB ({per_node} tasks), "
+            f"placed in {t_sched:.2f} s; makespan {rep.makespan_s * 1e3:.3f} "
+            f"ms (mean of {REPS}), {rep.n_dispatches} dispatches, "
+            f"{rep.transfer_edges} transfer edges "
+            f"({rep.transfer_bytes / 1024**2:.1f} MiB), dispatch loop "
+            f"{rep.dispatch_overhead_s * 1e3:.3f} ms, peak {peak:.3f} GiB, "
+            f"warmup {rep.compile_s:.2f} s")
+        device_time_breakdown(torch, label, rep.makespan_s, lambda: backend.execute(
+            graph, sched, params, ids, warmup=False, reps=1
+        ))
+        reports[label] = rep
+
+    t0 = time.perf_counter()
+    fused = dag.reference_forward(params, ids)
+    rms = fused.float().pow(2).mean().sqrt().item()
+    log(f"  fused forward {tuple(fused.shape)} {fused.dtype} "
+        f"({fused.numel() * fused.element_size() / 1e9:.3f} GB of logits, "
+        f"rms {rms:.4f}, {time.perf_counter() - t0:.2f} s)")
+    if not (math.isfinite(rms) and rms > 0.1):  # N(0, 0.02) head: ~1.28
+        raise AssertionError(f"Llama fused logits degenerate (rms {rms})")
+    for label, rep in reports.items():
+        ok, viol, allowed, rel = oracle_close(fused, rep.output)
+        finite = bool(torch.isfinite(rep.output).all())
+        log(f"  {label} vs fused forward: {viol} elements outside the "
+            f"{BAND:g} band (allowed {allowed}), rel Frobenius {rel:.3e} "
+            f"(max {MAX_REL_FRO:g}), finite={finite} -> "
+            f"{'ok' if ok and finite else 'FAIL'}")
+        if not (ok and finite):
+            raise AssertionError(f"Llama {label}: output fails the oracle")
+    return launches
+
+
+def run_llama_f32_leg(torch, P, dev) -> None:
+    """Llama-3 8B widths at 2 layers in float32: placed by ``pipeline`` on
+    8 virtual nodes on the card vs the fused forward on the CPU with the
+    plain versions, from the same numpy-seeded weights (the vocab shards
+    exist only on the card)."""
+    from distributed_llm_scheduler_tpu_torch.models import llama
+
+    cfg = P.LlamaConfig.llama3_8b(n_layers=2)
+    dag = P.build_llama_dag(cfg, batch=2, seq_len=128, microbatches=2,
+                            vocab_shards=8)
+    graph = P.fuse_linear_chains(dag.graph)
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    np_params = llama.init_params_numpy(cfg, seed=2)
+    card = dag.derive_params(llama.params_from_numpy(np_params, dev, torch.float32))
+    host = llama.params_from_numpy(np_params, cpu, torch.float32)
+    del np_params
+    ids = dag.make_inputs(seed=3, device=cpu)
+    t_init = time.perf_counter() - t0
+    cluster = P.Cluster.from_torch_devices([dev] * 8)
+    sched = P.get_scheduler("pipeline").schedule(graph, cluster)
+    if sched.failed:
+        raise AssertionError(f"{graph.name}: {len(sched.failed)} tasks failed")
+    rep = P.DeviceBackend(cluster).execute(graph, sched, card, ids.to(dev), reps=1)
+    t0 = time.perf_counter()
+    want = dag.reference_forward(host, ids)
+    t_cpu = time.perf_counter() - t0
+    got = rep.output.cpu()
+    err = (got - want).abs().max().item()
+    ok = bool(torch.allclose(got, want, rtol=F32_RTOL, atol=F32_ATOL))
+    log(f"  {graph.name}: {len(graph)} tasks on "
+        f"{sum(1 for lst in sched.per_node.values() if lst)} nodes, pipeline; "
+        f"max_abs_err {err:.3e} vs CPU fused forward (rtol=atol={F32_RTOL:g}) "
+        f"-> {'ok' if ok else 'FAIL'} (weights {t_init:.1f} s, CPU forward "
+        f"{t_cpu:.1f} s)")
+    if not ok:
+        raise AssertionError("f32 Llama placed output diverges from CPU forward")
+
 
 
 def serve_workload(vocab: int) -> list:
@@ -616,9 +987,9 @@ def serve_oracle(torch, P, cfg, weights, reqs, results) -> None:
 
 
 def run_serve_path(torch, P, A, dev) -> tuple:
-    """Phase 6: GPT-2 small bf16 served through the paged engine; returns
-    each timed run's launch counts of the single-token and the ragged
-    paged kernel."""
+    """GPT-2 small bf16 served through the paged engine; returns each
+    timed run's launch counts of the single-token and the ragged paged
+    kernel and of the LayerNorm kernel."""
     import numpy as np
 
     cfg = P.GPT2Config.small(dtype=torch.bfloat16)
@@ -639,7 +1010,8 @@ def run_serve_path(torch, P, A, dev) -> tuple:
 
     from distributed_llm_scheduler_tpu_torch.ops import kernels
 
-    walls, paged_n, ragged_n, prefill_s, segs, snaps = [], {}, {}, [], [], []
+    walls, prefill_s, segs, snaps = [], [], [], []
+    paged_n, ragged_n, ln_n = {}, {}, {}
     for rep in range(SERVE_REPS):
         eng.reset(fresh_metrics=True)  # this run's own histograms
         label = f"serve run {rep + 1}"
@@ -650,14 +1022,20 @@ def run_serve_path(torch, P, A, dev) -> tuple:
         walls.append(time.perf_counter() - t)
         n_paged = kernels.launches[A.PAGED_KERNEL]
         n_ragged = kernels.launches[A.PAGED_RAGGED_KERNEL]
-        expected = cfg.n_layer * SERVE_SEG_STEPS * eng.segments_run
+        n_ln = kernels.launches["layer_norm"]
+        snap = eng.metrics.snapshot()
+        steps = SERVE_SEG_STEPS * eng.segments_run
+        waves = snap["counters"]["decode.admission_waves"]["value"]
+        expected = cfg.n_layer * steps
+        ln_expected = (2 * cfg.n_layer + 1) * (steps + waves)
         log(f"  {label}: {A.PAGED_KERNEL} launched {n_paged} times (expected "
             f"{cfg.n_layer} x {SERVE_SEG_STEPS} x {eng.segments_run} segments = "
-            f"{expected}), {A.PAGED_RAGGED_KERNEL} {n_ragged} times (expected 0)")
-        if n_paged != expected or n_ragged != 0:
-            raise AssertionError(f"{label}: paged kernel launches off")
-        paged_n[label], ragged_n[label] = n_paged, n_ragged
-        snap = eng.metrics.snapshot()
+            f"{expected}), {A.PAGED_RAGGED_KERNEL} {n_ragged} times (expected "
+            f"0), layer_norm {n_ln} times (expected {2 * cfg.n_layer + 1} x "
+            f"({steps} decode steps + {waves} prefill forwards) = {ln_expected})")
+        if n_paged != expected or n_ragged != 0 or n_ln != ln_expected:
+            raise AssertionError(f"{label}: kernel launches off")
+        paged_n[label], ragged_n[label], ln_n[label] = n_paged, n_ragged, n_ln
         bad = [rid for rid, _, g in reqs if len(results[rid]) != g]
         leaked = snap["gauges"]["decode.pages_leaked"]["value"]
         if bad or leaked != 0:
@@ -681,12 +1059,12 @@ def run_serve_path(torch, P, A, dev) -> tuple:
     serve_oracle(torch, P, cfg, weights, reqs, results)
     seg_wall = (walls[med] - prefill_s[med]) / segs[med]
     serve_trace(torch, eng, reqs, seg_wall)
-    return paged_n, ragged_n
+    return paged_n, ragged_n, ln_n
 
 
 def run_f32_serve_leg(torch, P, dev) -> None:
-    """Phase 8: a 2-layer GPT-2 small-width f32 engine on the card (paged
-    kernel) and on the CPU (plain versions), same weights, equal tokens."""
+    """A 2-layer GPT-2 small-width f32 engine on the card (kernels) and on
+    the CPU (plain versions), same weights, equal tokens."""
     import numpy as np
 
     cfg = P.GPT2Config.small(n_layer=2)
@@ -705,6 +1083,8 @@ def run_f32_serve_leg(torch, P, dev) -> None:
 
 
 def main() -> int:
+    import gc
+
     import torch
 
     if not torch.cuda.is_available():
@@ -715,47 +1095,75 @@ def main() -> int:
     from distributed_llm_scheduler_tpu_torch.eval import decode_bench as DB
     from distributed_llm_scheduler_tpu_torch.ops import attention as A
     from distributed_llm_scheduler_tpu_torch.ops import kernels
+    from distributed_llm_scheduler_tpu_torch.ops import norms as N
 
     t_all = time.perf_counter()
     dev = torch.device("cuda", 0)
     smi = nvidia_smi_line()
-    log(f"[1/8] device: {torch.cuda.get_device_name(0)} ({smi}); torch "
+    log(f"[1/11] device: {torch.cuda.get_device_name(0)} ({smi}); torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("  TF32 off for matmul and cuDNN")
 
-    sources = (A.KERNEL, A.PAGED_SOURCE)
+    sources = (A.KERNEL, A.PAGED_SOURCE, N.SOURCE)
     secs = kernels.build(*sources)
-    log(f"[2/8] built {', '.join(f'{n}.cu' for n in sources)} with "
+    log(f"[2/11] built {', '.join(f'{n}.cu' for n in sources)} with "
         f"{kernels.nvcc_path()} for sm_90a in {secs:.1f} s (in parallel)")
 
-    log("[3/8] flash kernel check against its plain version")
-    attn = check_attention_kernel(torch, A, dev)
+    log("[3/11] flash kernel check against its plain version")
+    attn = check_attention_kernel(
+        torch, A, dev, P.LlamaConfig.llama3_8b(dtype=torch.bfloat16))
 
-    log("[4/8] paged kernel check against the plain versions")
+    log("[4/11] paged kernel check against the plain versions")
     paged = check_paged_kernels(torch, A, DB, dev)
     ragged_n = run_ragged_op_path(torch, A, DB, dev)
 
-    log("[5/8] flagship forward path: GPT-2 small bf16 DAG on the card")
-    launches = run_main_path(torch, P, dev)
+    log("[5/11] LayerNorm and RMSNorm kernel check against the plain versions")
+    norms = check_norm_kernels(torch, N, dev)
 
-    log("[6/8] serve path: GPT-2 small bf16 through the paged decode engine")
-    serve_launches, serve_ragged = run_serve_path(torch, P, A, dev)
+    def phase_done():  # free the phase's tensors before the next one
+        gc.collect()
+        torch.cuda.empty_cache()
 
-    log("[7/8] f32 leg: placed on the card vs fused on the CPU")
+    log("[6/11] flagship forward path: GPT-2 small bf16 DAG on the card")
+    gpt2_n = run_main_path(torch, P, dev)
+    phase_done()
+
+    log("[7/11] serve path: GPT-2 small bf16 through the paged decode engine")
+    serve_launches, serve_ragged, serve_ln = run_serve_path(torch, P, A, dev)
+    phase_done()
+
+    log("[8/11] Llama path: Llama-3 8B bf16 DAG, pipeline stages, on the card")
+    llama_n = run_llama_path(torch, P, dev)
+    phase_done()
+
+    log("[9/11] f32 leg: GPT-2 placed on the card vs fused on the CPU")
     run_f32_leg(torch, P, dev)
 
-    log("[8/8] f32 serve leg: the engine on the card vs on the CPU")
+    log("[10/11] f32 serve leg: the engine on the card vs on the CPU")
     run_f32_serve_leg(torch, P, dev)
+    phase_done()
+
+    log("[11/11] f32 Llama leg: placed on the card vs fused on the CPU")
+    run_llama_f32_leg(torch, P, dev)
 
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
+
+    def by_path(kernel, runs):
+        return {f"{path} {label}": n[kernel]
+                for path, counts in runs for label, n in counts.items()
+                if kernel in n}
+
     csrc = "distributed_llm_scheduler_tpu_torch/csrc/"
     tpu = "distributed_llm_scheduler_tpu/ops/attention.py:"
+    tpu_norms = "distributed_llm_scheduler_tpu/ops/norms.py:"
+    runs = (("gpt2", gpt2_n), ("llama", llama_n))
     line = {"kernels": [
         {"name": A.KERNEL, "route": "cuda", "source": csrc + "flash_attention.cu",
-         "replaces": tpu + "152", "launches": launches["greedy x1"],
-         "launches_by_path": launches, **attn},
+         "replaces": tpu + "152",
+         "launches": gpt2_n["greedy x1"][A.KERNEL],
+         "launches_by_path": by_path(A.KERNEL, runs), **attn},
         {"name": A.PAGED_KERNEL, "route": "cuda",
          "source": csrc + "paged_attention.cu", "replaces": tpu + "411",
          "launches": serve_launches["serve run 1"],
@@ -766,6 +1174,17 @@ def main() -> int:
          "launches_by_path": {"ragged op path": ragged_n,
                               **serve_ragged},
          **paged[A.PAGED_RAGGED_KERNEL]},
+        {"name": N.LN_KERNEL, "route": "cuda", "source": csrc + "norms.cu",
+         "replaces": tpu_norms + "58",
+         "launches": gpt2_n["greedy x1"][N.LN_KERNEL],
+         "launches_by_path": {**by_path(N.LN_KERNEL, runs),
+                              **{f"gpt2 {k}": v for k, v in serve_ln.items()}},
+         **norms[N.LN_KERNEL]},
+        {"name": N.RMS_KERNEL, "route": "cuda", "source": csrc + "norms.cu",
+         "replaces": tpu_norms + "76",
+         "launches": llama_n["pipeline x8"][N.RMS_KERNEL],
+         "launches_by_path": by_path(N.RMS_KERNEL, runs),
+         **norms[N.RMS_KERNEL]},
     ]}
     print(json.dumps(line), flush=True)
     print(smi, flush=True)

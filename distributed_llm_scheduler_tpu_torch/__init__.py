@@ -4,7 +4,9 @@
 Memory-constrained task-DAG scheduling and real execution for LLMs on
 NVIDIA GPUs: the GPT-2 forward is built as a task DAG, placed by a policy
 onto memory-limited nodes bound to torch devices, and executed for real,
-with attention in a hand-written CUDA flash kernel (``csrc/``); and the
+with attention in a hand-written CUDA flash kernel and LayerNorm in a
+hand-written CUDA kernel (``csrc/``); the Llama-3 forward likewise, with
+RMSNorm in a hand-written CUDA kernel, placed in pipeline stages; and the
 paged decode step is built as a task DAG, placed, and served by a
 continuous-batching engine whose attention runs in hand-written CUDA
 paged-attention kernels.  Module
@@ -31,6 +33,13 @@ from .backends.decode_loop import (
 )
 from .sched.base import BaseScheduler
 from .sched.heft import HEFTScheduler
+from .sched.pipeline import PipelineStageScheduler
+from .sched.eventsim import (
+    PlacementTimeline,
+    dependency_aware_order,
+    simulate_placement,
+    simulate_placement_timeline,
+)
 from .sched.policies import (
     ALL_SCHEDULERS,
     CriticalPathScheduler,
@@ -41,16 +50,25 @@ from .sched.policies import (
     get_scheduler,
 )
 from .models.gpt2 import GPT2Config, params_from_numpy
+from .models.llama import LlamaConfig
 from .frontend.gpt2_dag import ModelDAG, build_gpt2_dag
+from .frontend.llama_dag import build_llama_dag
 from .frontend.decode_dag import PagedDecodeDAG, build_paged_decode_dag
 from .models.kv_pages import TRASH_PAGE, PagePool, pages_needed
 from .obs.metrics import MetricsRegistry
 from .ops.attention import (
+    gqa_mha,
     mha,
     paged_decode_attention,
     reference_mha,
     reference_paged_attention,
     reference_paged_attention_ragged,
+)
+from .ops.norms import (
+    layer_norm,
+    reference_layer_norm,
+    reference_rms_norm,
+    rms_norm,
 )
 from .utils.costmodel import CostModel, calibrate
 
@@ -78,6 +96,11 @@ __all__ = [
     "compose_paged_step_fn",
     "BaseScheduler",
     "HEFTScheduler",
+    "PipelineStageScheduler",
+    "PlacementTimeline",
+    "dependency_aware_order",
+    "simulate_placement",
+    "simulate_placement_timeline",
     "ALL_SCHEDULERS",
     "CriticalPathScheduler",
     "DFSScheduler",
@@ -87,8 +110,10 @@ __all__ = [
     "get_scheduler",
     "GPT2Config",
     "params_from_numpy",
+    "LlamaConfig",
     "ModelDAG",
     "build_gpt2_dag",
+    "build_llama_dag",
     "PagedDecodeDAG",
     "build_paged_decode_dag",
     "TRASH_PAGE",
@@ -96,10 +121,15 @@ __all__ = [
     "pages_needed",
     "MetricsRegistry",
     "mha",
+    "gqa_mha",
     "paged_decode_attention",
     "reference_mha",
     "reference_paged_attention",
     "reference_paged_attention_ragged",
+    "layer_norm",
+    "rms_norm",
+    "reference_layer_norm",
+    "reference_rms_norm",
     "CostModel",
     "calibrate",
 ]

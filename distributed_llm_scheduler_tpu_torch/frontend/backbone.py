@@ -1,0 +1,230 @@
+"""Shared decoder-DAG backbone for the Llama-architecture families.
+
+PyTorch port of ``distributed_llm_scheduler_tpu.frontend.backbone``.  A
+Llama-architecture forward is embedding, per layer RMSNorm + GQA attention
++ residual + RMSNorm + an FFN section + residual, then a final norm and
+the LM head, over microbatch chains.  This module owns that assembly, with
+the JAX package's task ids, dependencies, param sets and byte sizes, FLOP
+formulas and groups; a family supplies only an ``ffn_section`` callback
+(the SwiGLU of :mod:`.llama_dag`).  Output shapes are inferred by running
+each task fn on ``device="meta"`` tensors, as :mod:`.gpt2_dag` does.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, List
+
+import torch
+
+from ..core.graph import (
+    Task,
+    TaskGraph,
+    mark_batch0,
+    mark_concat0,
+    mark_rootslice,
+)
+from .gpt2_dag import ModelDAG, make_task_adder
+from .vocab_sharding import logit_concat_fn, make_embed_partial_fn, shard_bounds
+
+# ffn_section(add, mb, layer, ffn_norm_tid, group) -> FFN output task id
+FfnSection = Callable[[Callable[..., None], str, int, str, str], str]
+
+
+def build_decoder_dag(
+    config: Any,
+    module: Any,
+    *,
+    batch: int,
+    seq_len: int,
+    microbatches: int,
+    effective_flops: float,
+    ffn_section: FfnSection,
+    name: str,
+    vocab_shards: int = 1,
+) -> ModelDAG:
+    """Assemble a Llama-architecture forward DAG.
+
+    ``config`` exposes vocab_size/max_seq_len/d_model/n_layers/n_heads/
+    n_kv_heads/head_dim/rope_theta/rms_eps/dtype; ``module`` the per-op
+    functions (embedding, rms_norm, gqa_attention, residual_add, lm_head)
+    plus param_shapes/init_params_numpy/forward.
+
+    ``vocab_shards > 1`` splits ``tok_emb`` row-wise and ``lm_head``
+    column-wise into balanced shards: partial-lookup tasks summed by a
+    combine, and logit-slice tasks concatenated along the vocab axis
+    (exact against the fused forward).  Shard *k*'s partial and slice
+    share group ``vocab_shard_k``.  A column shard of ``lm_head`` is made
+    contiguous once, when the params are made, so no logit task reads a
+    strided view.
+    """
+    if seq_len > config.max_seq_len:
+        raise ValueError(f"seq_len {seq_len} exceeds max_seq_len {config.max_seq_len}")
+    if batch % microbatches != 0:
+        raise ValueError(f"batch {batch} not divisible by microbatches {microbatches}")
+    B, T, D, V = batch, seq_len, config.d_model, config.vocab_size
+    H, Hkv, hd = config.n_heads, config.n_kv_heads, config.head_dim
+    Bm = B // microbatches
+    S = vocab_shards
+    eps = config.rms_eps
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    specs = {
+        pname: meta(shape, dtype)
+        for pname, (shape, dtype) in module.param_shapes(config).items()
+    }
+    shard_lo = shard_bounds(V, S)
+    if S > 1:
+        for k in range(S):
+            rows = shard_lo[k + 1] - shard_lo[k]
+            specs[f"tok_emb_shard_{k}"] = meta((rows, D), specs["tok_emb"].dtype)
+            specs[f"lm_head_shard_{k}"] = meta((D, rows), specs["lm_head"].dtype)
+    input_spec = meta((B, T), torch.int32)
+
+    tasks: List[Task] = []
+    out_specs: Dict[str, torch.Tensor] = {}
+    add = make_task_adder(tasks, out_specs, specs, input_spec, effective_flops)
+
+    # ---- shared task fns: fn(params_dict, *dep_outputs) ------------------
+    def make_f_embedding(lo, hi):
+        def f_embedding(p, input_ids):
+            return module.embedding(input_ids[lo:hi], p["tok_emb"])
+
+        return mark_rootslice(
+            f_embedding, "backbone_embedding", lo, hi, make_f_embedding
+        )
+
+    @mark_concat0
+    def f_concat(p, *chunks):
+        return torch.cat(chunks, dim=0)
+
+    @mark_batch0
+    def f_norm(p, x):
+        return module.rms_norm(x, p["g"], eps)
+
+    @mark_batch0
+    def f_attn(p, x):
+        return module.gqa_attention(
+            x, p["wq"], p["wk"], p["wv"], p["wo"],
+            config.n_heads, config.n_kv_heads, config.rope_theta,
+        )
+
+    @mark_batch0
+    def f_residual(p, a, b):
+        return module.residual_add(a, b)
+
+    @mark_batch0
+    def f_lm_head(p, x):
+        return module.lm_head(x, p["w"])
+
+    @mark_batch0
+    def f_embed_combine(p, *partials):
+        out = partials[0]
+        for part in partials[1:]:
+            out = out + part
+        return out
+
+    @mark_batch0
+    def f_logit_shard(p, x):
+        # lm_head is (D, V): column shards, unlike gpt2's tied row shards
+        return x @ p["shard"]
+
+    attn_flops = (
+        2.0 * Bm * T * D * (H * hd)            # q projection
+        + 2.0 * 2.0 * Bm * T * D * (Hkv * hd)  # k and v projections
+        + 2.0 * 2.0 * Bm * H * T * T * hd      # scores + probs@v
+        + 2.0 * Bm * T * (H * hd) * D          # output projection
+    )
+
+    # ---- graph assembly --------------------------------------------------
+    mb_outputs: List[str] = []
+    for m in range(microbatches):
+        mb = f"mb{m}_" if microbatches > 1 else ""
+        emb = f"{mb}embedding"
+        if S > 1:
+            part_ids = []
+            for k in range(S):
+                rows = specs[f"tok_emb_shard_{k}"].shape[0]
+                pid = f"{mb}embedding_shard_{k}"
+                add(pid,
+                    make_embed_partial_fn(m * Bm, (m + 1) * Bm, shard_lo[k], rows),
+                    [], {"shard": f"tok_emb_shard_{k}"},
+                    3.0 * Bm * T * D, f"vocab_shard_{k}")
+                part_ids.append(pid)
+            add(emb, f_embed_combine, part_ids, {}, S * 1.0 * Bm * T * D,
+                "embed")
+        else:
+            add(emb, make_f_embedding(m * Bm, (m + 1) * Bm), [],
+                {"tok_emb": "tok_emb"}, 2.0 * Bm * T * D, "embed")
+
+        prev = emb
+        for i in range(config.n_layers):
+            pre, grp = f"l{i}_", f"layer_{i}"
+            an = f"{mb}layer_{i}_attn_norm"
+            add(an, f_norm, [prev], {"g": pre + "attn_norm_g"},
+                4.0 * Bm * T * D, grp)
+
+            attn = f"{mb}layer_{i}_attention"
+            add(attn, f_attn, [an],
+                {"wq": pre + "wq", "wk": pre + "wk",
+                 "wv": pre + "wv", "wo": pre + "wo"}, attn_flops, grp)
+
+            ares = f"{mb}layer_{i}_attn_residual"
+            add(ares, f_residual, [prev, attn], {}, 1.0 * Bm * T * D, grp)
+
+            fnorm = f"{mb}layer_{i}_ffn_norm"
+            add(fnorm, f_norm, [ares], {"g": pre + "ffn_norm_g"},
+                4.0 * Bm * T * D, grp)
+
+            ffn_out = ffn_section(add, mb, i, fnorm, grp)
+
+            lout = f"{mb}layer_{i}_output"
+            add(lout, f_residual, [ares, ffn_out], {}, 1.0 * Bm * T * D, grp)
+            prev = lout
+
+        fnorm_id = f"{mb}final_norm"
+        add(fnorm_id, f_norm, [prev], {"g": "final_norm_g"},
+            4.0 * Bm * T * D, "head")
+        head = f"{mb}lm_head"
+        if S > 1:
+            slice_ids = []
+            for k in range(S):
+                rows = specs[f"lm_head_shard_{k}"].shape[1]
+                sid = f"{mb}lm_head_shard_{k}"
+                add(sid, f_logit_shard, [fnorm_id],
+                    {"shard": f"lm_head_shard_{k}"},
+                    2.0 * Bm * T * D * rows, f"vocab_shard_{k}")
+                slice_ids.append(sid)
+            add(head, logit_concat_fn, slice_ids, {}, 1.0 * Bm * T * V, "head")
+        else:
+            add(head, f_lm_head, [fnorm_id], {"w": "lm_head"},
+                2.0 * Bm * T * D * V, "head")
+        mb_outputs.append(head)
+
+    if microbatches > 1:
+        add("output_concat", f_concat, mb_outputs, {}, 1.0 * B * T * V, "head")
+
+    graph = TaskGraph(tasks, name=name).freeze()
+
+    def reference_forward(p, ids):
+        return module.forward(p, ids, config)
+
+    def derive_params(params: Dict[str, Any]) -> Dict[str, Any]:
+        out = dict(params)
+        for k in range(S if S > 1 else 0):
+            lo, hi = shard_lo[k], shard_lo[k + 1]
+            out[f"tok_emb_shard_{k}"] = params["tok_emb"][lo:hi]
+            # a column slice is a strided view: copy it once, here
+            out[f"lm_head_shard_{k}"] = params["lm_head"][:, lo:hi].contiguous()
+        return out
+
+    return ModelDAG(
+        graph=graph,
+        config=config,
+        input_spec=input_spec,
+        param_specs=specs,
+        reference_forward=reference_forward,
+        model=module,
+        derive_params=derive_params,
+    )

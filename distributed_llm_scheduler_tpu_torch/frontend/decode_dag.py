@@ -195,10 +195,11 @@ def build_paged_decode_dag(
         + ("" if attention_impl is None else f"_att{attention_impl}")
     )
 
-    def init_fn(seed: int, device: Any) -> Dict[str, torch.Tensor]:
-        params = gpt2.params_from_numpy(
-            gpt2.init_params_numpy(config, seed), device, config.dtype
-        )
+    def derive_params(params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The model's params plus empty page pools and a page table of
+        trash pages, on the params' device."""
+        device = params["wte"].device
+        params = dict(params)
         params.update(init_paged_kv(
             config.n_layer, n_pages, ps, H, hd, config.dtype, device
         ))
@@ -244,7 +245,8 @@ def build_paged_decode_dag(
         input_spec=input_spec,
         param_specs=specs,
         reference_forward=reference_forward,
-        init_fn=init_fn,
+        model=gpt2,
+        derive_params=derive_params,
     )
     dag.slots = S
     dag.page_size = ps

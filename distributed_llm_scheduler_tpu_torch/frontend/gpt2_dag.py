@@ -54,15 +54,23 @@ class ModelDAG:
     param_specs: Dict[str, torch.Tensor]
     # the fused single-program oracle: forward(params, input_ids)
     reference_forward: Callable[..., Any]
-    # (seed, device) -> flat params dict for this family's config
-    init_fn: Callable[..., Dict[str, torch.Tensor]]
+    # the model family's module (init_params_numpy, params_from_numpy)
+    model: Any
+    # the model's params -> the same plus the params the graph derives
+    # from them (vocab shards) or holds beside them (KV pools), on the
+    # model params' device
+    derive_params: Callable[[Dict[str, torch.Tensor]], Dict[str, torch.Tensor]]
 
     def init_params(
         self, seed: int = 0, device: Any = "cuda"
     ) -> Dict[str, torch.Tensor]:
         """Weights from a numpy seed (the same seed gives the same numbers
-        on every device), in the config's dtype."""
-        return self.init_fn(seed, device)
+        on every device), in the config's dtype, with the graph's derived
+        params."""
+        np_params = self.model.init_params_numpy(self.config, seed)
+        return self.derive_params(
+            self.model.params_from_numpy(np_params, device, self.config.dtype)
+        )
 
     def make_inputs(self, seed: int = 1, device: Any = "cuda") -> torch.Tensor:
         """Token ids in ``[0, vocab)`` from a numpy seed, as int32."""
@@ -348,11 +356,11 @@ def build_gpt2_dag(
         microbatches, S, config.dtype
     )
 
-    def init_fn(seed: int, device: Any) -> Dict[str, torch.Tensor]:
-        np_params = gpt2.init_params_numpy(config, seed)
+    def derive_params(params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        out = dict(params)
         for k in range(S if S > 1 else 0):
-            np_params[f"wte_shard_{k}"] = np_params["wte"][shard_lo[k]:shard_lo[k + 1]]
-        return gpt2.params_from_numpy(np_params, device, config.dtype)
+            out[f"wte_shard_{k}"] = params["wte"][shard_lo[k]:shard_lo[k + 1]]
+        return out
 
     graph = TaskGraph(tasks, name=name).freeze()
     return ModelDAG(
@@ -361,5 +369,6 @@ def build_gpt2_dag(
         input_spec=input_spec,
         param_specs=specs,
         reference_forward=partial(gpt2.forward, config=config),
-        init_fn=init_fn,
+        model=gpt2,
+        derive_params=derive_params,
     )

@@ -1,0 +1,82 @@
+"""Llama-3 layer-wise forward DAG builder.
+
+PyTorch port of ``distributed_llm_scheduler_tpu.frontend.llama_dag``.  Per
+layer the tasks are {attn_norm, attention (GQA+RoPE), attn_residual,
+ffn_norm, ffn_gate, ffn_up, ffn_glu, ffn_down, layer_output} — 9 per
+layer — plus embedding, final_norm and lm_head: ``9 * n_layers + 3`` tasks
+(291 for Llama-3 8B), with the JAX builder's ids, dependencies, params,
+byte sizes, FLOPs, groups and graph name.  The backbone assembly lives in
+:mod:`.backbone`; only the SwiGLU FFN section is defined here.
+``microbatches > 1`` gives the pipeline-shaped workload the
+pipeline-stage policy (``sched/pipeline.py``) places.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+from ..core.graph import mark_batch0
+from ..models import llama
+from ..models.llama import LlamaConfig
+from .backbone import build_decoder_dag
+from .gpt2_dag import DEFAULT_EFFECTIVE_FLOPS, ModelDAG, graph_name_tags
+
+
+def build_llama_dag(
+    config: Optional[LlamaConfig] = None,
+    batch: int = 1,
+    seq_len: int = 512,
+    microbatches: int = 1,
+    vocab_shards: int = 1,
+    effective_flops: float = DEFAULT_EFFECTIVE_FLOPS,
+) -> ModelDAG:
+    """Build the per-op forward DAG for a Llama config."""
+    config = config or LlamaConfig.llama3_8b()
+    if microbatches < 1:
+        raise ValueError(f"microbatches must be >= 1, got {microbatches}")
+    D, F = config.d_model, config.ffn_hidden
+    Bm = batch // microbatches
+    T = seq_len
+
+    @mark_batch0
+    def f_gate(p, x):
+        return llama.ffn_gate(x, p["w"])
+
+    @mark_batch0
+    def f_up(p, x):
+        return llama.ffn_up(x, p["w"])
+
+    @mark_batch0
+    def f_glu(p, g, u):
+        return llama.ffn_glu(g, u)
+
+    @mark_batch0
+    def f_down(p, x):
+        return llama.ffn_down(x, p["w"])
+
+    def ffn_section(add, mb, i, fnorm, grp):
+        """SwiGLU as four tasks: gate and up matmuls in parallel, the GLU
+        join, then the down projection."""
+        pre = f"l{i}_"
+        gate = f"{mb}layer_{i}_ffn_gate"
+        add(gate, f_gate, [fnorm], {"w": pre + "w_gate"},
+            2.0 * Bm * T * D * F, grp)
+        up = f"{mb}layer_{i}_ffn_up"
+        add(up, f_up, [fnorm], {"w": pre + "w_up"},
+            2.0 * Bm * T * D * F, grp)
+        glu = f"{mb}layer_{i}_ffn_glu"
+        add(glu, f_glu, [gate, up], {}, 6.0 * Bm * T * F, grp)
+        down = f"{mb}layer_{i}_ffn_down"
+        add(down, f_down, [glu], {"w": pre + "w_down"},
+            2.0 * Bm * T * F * D, grp)
+        return down
+
+    name = f"llama_{config.n_layers}l_d{D}_b{batch}_t{T}" + graph_name_tags(
+        microbatches, vocab_shards, config.dtype
+    )
+    return build_decoder_dag(
+        config, llama,
+        batch=batch, seq_len=seq_len, microbatches=microbatches,
+        effective_flops=effective_flops, ffn_section=ffn_section, name=name,
+        vocab_shards=vocab_shards,
+    )

@@ -10,10 +10,12 @@ Every per-op function (``layer_norm``, ``causal_attention``, ``ffn_*``, ...)
 is a plain tensor function the DAG frontend wraps as a task fn, and
 :func:`forward` composes them into the whole-model forward: the fused
 baseline and the correctness oracle for placed DAG execution.  Attention
-goes through :func:`..ops.attention.mha` (the CUDA flash kernel on a GPU);
-the other products stay ``torch.matmul``.  :func:`forward_cached` runs
-the same layers over a dense KV cache (:mod:`.decode`), the prefill of
-the paged decode engine and its per-slot oracle.
+goes through :func:`..ops.attention.mha` (the CUDA flash kernel on a GPU)
+and LayerNorm through :func:`..ops.norms.layer_norm` (the CUDA LayerNorm
+kernel on a GPU); the other products stay ``torch.matmul``.
+:func:`forward_cached` runs the same layers over a dense KV cache
+(:mod:`.decode`), the prefill of the paged decode engine and its per-slot
+oracle.
 """
 
 from __future__ import annotations
@@ -27,6 +29,9 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.attention import mha as _fused_mha
+# LayerNorm with f32 statistics, output in x's dtype: the CUDA kernel on a
+# GPU, the plain version on the CPU and on meta
+from ..ops.norms import layer_norm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,16 +140,6 @@ def params_from_numpy(
 
 
 # -- per-op functions (task granularity of the reference DAG) -----------------
-
-def layer_norm(x, g, b, eps: float = 1e-5):
-    """LayerNorm with f32 statistics (population variance), output in
-    ``x``'s dtype."""
-    xf = x.float()
-    mean = xf.mean(-1, keepdim=True)
-    var = xf.var(-1, unbiased=False, keepdim=True)
-    out = (xf - mean) * torch.rsqrt(var + eps)
-    return (out * g.float() + b.float()).to(x.dtype)
-
 
 def embedding(input_ids, wte, wpe):
     T = input_ids.shape[-1]

@@ -131,6 +131,20 @@ def mha(q, k, v, causal: bool = True, sm_scale: Optional[float] = None):
     raise ValueError(f"mha: unsupported device {q.device}")
 
 
+def gqa_mha(q, k, v, causal: bool = True, sm_scale: Optional[float] = None):
+    """Grouped-query attention: q (B, Hq, T, hd), k/v (B, Hkv, T, hd) with
+    Hq a multiple of Hkv.  Each KV head is repeated across its query group
+    (as the JAX package does), then :func:`mha` runs: the flash kernel for
+    CUDA tensors, the plain version for CPU and meta tensors."""
+    Hq, Hkv = q.shape[1], k.shape[1]
+    if Hq != Hkv:
+        if Hkv < 1 or Hq % Hkv:
+            raise ValueError(f"{Hq} query heads are not a multiple of {Hkv} KV heads")
+        k = k.repeat_interleave(Hq // Hkv, dim=1)
+        v = v.repeat_interleave(Hq // Hkv, dim=1)
+    return mha(q, k, v, causal=causal, sm_scale=sm_scale)
+
+
 # -- paged attention ------------------------------------------------------------
 
 PAGED_KERNEL = "paged_attention"

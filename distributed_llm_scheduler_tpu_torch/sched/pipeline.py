@@ -1,0 +1,467 @@
+"""Pipeline-stage scheduler: contiguous layer groups -> devices.
+
+PyTorch port of ``distributed_llm_scheduler_tpu.sched.pipeline``; it is
+framework-free, so this is a copy that must give equal placements.  The
+policy for the Llama-3 8B layer-wise DAG (BASELINE.json config #3):
+
+1. tasks are bucketed by their ``group`` label (``embed``, ``layer_i``,
+   ``head``) in topological order of first appearance — microbatch chains
+   share groups, so one stage serves every microbatch (1F1B-style overlap
+   then emerges from task-level dependencies);
+2. groups are partitioned into ``min(n_devices, n_groups)`` **contiguous**
+   stages by a linear-partition DP minimizing the lexicographic
+   (bottleneck stage cost, number of stages at that bottleneck), where a
+   stage costs ``max(compute, param-load time)``, subject to per-stage
+   memory feasibility (stage param union + max task activation must fit
+   the stage's device); root groups (the embedding and vocab shards) are
+   parked one per device first and re-packed onto the lightest stages
+   after;
+3. stage *i* is pinned to device *i*; tasks are assigned in topo order,
+   and each node's list is re-ordered by the event simulation
+   (:mod:`.eventsim`) so microbatches interleave.
+
+Contiguity is what makes this a pipeline: every cross-stage edge flows
+"forward" to the next device.  If no memory-feasible contiguous partition
+exists, a greedy sequential fill places as many groups as fit per device
+and fails the overflow (the reference's graceful-degradation contract).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Set, Tuple
+
+from ..backends.sim import LinkModel
+from ..core.cluster import DeviceState
+from ..core.graph import TaskGraph
+from .base import BaseScheduler, SchedulerRun
+from .eventsim import dependency_aware_order, simulate_placement
+
+_INF = float("inf")
+
+
+def _group_stats(
+    graph: TaskGraph,
+) -> Tuple[List[str], List[float], List[float], List[Set[str]]]:
+    """Group labels in topo order of first appearance (ungrouped tasks are
+    their own singleton group), with per-group total compute, max single-task
+    activation, and param-name union."""
+    order: List[str] = []
+    gidx: Dict[str, int] = {}
+    for tid in graph.topo_order:
+        g = graph[tid].group or tid
+        if g not in gidx:
+            gidx[g] = len(order)
+            order.append(g)
+    compute = [0.0] * len(order)
+    activ = [0.0] * len(order)
+    gparams: List[Set[str]] = [set() for _ in order]
+    for t in graph.tasks():
+        i = gidx[t.group or t.task_id]
+        compute[i] += t.compute_time
+        activ[i] = max(activ[i], t.memory_required)
+        gparams[i] |= t.params_needed
+    return order, compute, activ, gparams
+
+
+class PipelineStageScheduler(BaseScheduler):
+    """Contiguous stage partitioning over ordered layer groups."""
+
+    name = "pipeline"
+
+    def __init__(self, link: Optional[LinkModel] = None):
+        self.link = link or LinkModel()
+
+    # -- stage planning ----------------------------------------------------
+    def plan_stages(
+        self,
+        graph: TaskGraph,
+        devices: List[DeviceState],
+        stats: Optional[
+            Tuple[List[str], List[float], List[float], List[Set[str]]]
+        ] = None,
+        reserved: Optional[List[float]] = None,
+    ) -> Optional[List[int]]:
+        """Return stage boundaries (k+1 indices into the group order; stage s
+        covers groups [bounds[s], bounds[s+1])) — or None if no feasible
+        partition.
+
+        DP over (groups consumed, stages used) minimizing the lexicographic
+        (bottleneck stage cost, count of stages at that bottleneck), stage
+        cost = ``max(compute, param-load time)``; memory feasibility is
+        checked against the actual device each stage lands on (minus any
+        per-device ``reserved`` GB held by parked groups), so heterogeneous
+        HBM budgets work.
+        """
+        groups, compute, activ, gparams = stats or _group_stats(graph)
+        gsorted = [sorted(ps) for ps in gparams]  # name order, sorted ONCE
+        n = len(groups)
+        k = min(len(devices), n)
+        # host-link rate converts a stage's param bytes into load time; the
+        # stage's steady-state cost is max(compute, load) because parameter
+        # DMA overlaps compute under the prefetch model (backends/sim.py)
+        host = self.link.param_load_gbps or _INF
+
+        prefix = [0.0]
+        for c in compute:
+            prefix.append(prefix[-1] + c)
+
+        # best[j][s] = lexicographic (bottleneck stage cost, number of
+        # stages at that bottleneck) covering first j groups with s stages;
+        # choice[j][s] = start index of stage s.  The count tie-break is
+        # what creates room for the parked-group repack: among equal-
+        # bottleneck partitions it prefers the one with the FEWEST heavy
+        # stages, leaving light stages for parked weights (the max() form
+        # with the tie-break is the overlap-faithful stage cost)
+        best = [[(_INF, 0)] * (k + 1) for _ in range(n + 1)]
+        choice = [[-1] * (k + 1) for _ in range(n + 1)]
+        best[0][0] = (0.0, 0)
+        for s in range(1, k + 1):
+            cap = devices[s - 1].total_memory
+            if reserved is not None:
+                cap -= reserved[s - 1]  # parked groups' params
+            for j in range(s, n + 1):
+                # widen stage [i, j) by stepping i down, growing the param
+                # union / activation max / size sum incrementally; stage
+                # memory is monotone in the range, so break once over cap
+                params: Set[str] = set()
+                pg = 0.0
+                act = 0.0
+                for i in range(j - 1, s - 2, -1):
+                    # name order: deterministic float accumulation (parity)
+                    for p in gsorted[i]:
+                        if p not in params:
+                            params.add(p)
+                            pg += graph.param_size_gb(p)
+                    act = max(act, activ[i])
+                    if pg + act > cap + 1e-9:
+                        break
+                    prev_b, prev_c = best[i][s - 1]
+                    if prev_b == _INF:
+                        continue
+                    cost = max(prefix[j] - prefix[i], pg / host)
+                    if cost > prev_b:
+                        cand = (cost, 1)
+                    elif cost == prev_b:
+                        cand = (prev_b, prev_c + 1)
+                    else:
+                        cand = (prev_b, prev_c)
+                    if cand < best[j][s]:
+                        best[j][s] = cand
+                        choice[j][s] = i
+        # allow fewer stages than devices (tiny graphs / huge devices)
+        feas = [s for s in range(1, k + 1) if best[n][s][0] < _INF]
+        if not feas:
+            return None
+        s = min(feas, key=lambda s: best[n][s])
+        bounds = [0] * (s + 1)
+        bounds[s] = n
+        j = n
+        for t in range(s, 0, -1):
+            j = choice[j][t]
+            bounds[t - 1] = j
+        return bounds
+
+    def _fits_per_device(
+        self,
+        graph: TaskGraph,
+        devices: List[DeviceState],
+        all_groups: List[str],
+        all_gparams: List[Set[str]],
+        all_activ: List[float],
+        stage_map: Dict[str, int],
+    ) -> bool:
+        """Per-device feasibility for interleaved plans: the DP checks each
+        stage against its device's budget in isolation, but with v stages
+        per device the param-union across stages is what must fit."""
+        n_dev = len(devices)
+        params: List[Set[str]] = [set() for _ in range(n_dev)]
+        act = [0.0] * n_dev
+        for gi, g in enumerate(all_groups):
+            d = stage_map.get(g)
+            if d is None:
+                continue
+            params[d] |= all_gparams[gi]
+            act[d] = max(act[d], all_activ[gi])
+        for d in range(n_dev):
+            pg = sum(graph.param_size_gb(p) for p in sorted(params[d]))
+            if pg + act[d] > devices[d].total_memory + 1e-9:
+                return False
+        return True
+
+    # -- parked-group rebalancing -----------------------------------------
+    def _rebalance_parked(
+        self,
+        graph: TaskGraph,
+        devices: List[DeviceState],
+        all_groups: List[str],
+        all_gparams: List[Set[str]],
+        all_activ: List[float],
+        parked: List[int],
+        stage_of: Dict[str, int],
+    ) -> None:
+        """Re-pack parked root groups onto the lightest stages.
+
+        Parking runs *before* the stage partition exists, one group per
+        least-reserved device — so a parked group can land on a device
+        that then also draws a heavy stage.  In host-link-bound regimes
+        the makespan floor is the heaviest device's param bytes, so once
+        the DP has fixed stages, parked groups are greedily re-packed
+        (largest first) onto the device minimizing the resulting
+        param-union load.  The repack is adopted only if it strictly
+        lowers the bottleneck load; all arithmetic runs in sorted-name
+        order, so the JAX package's policy gives the same floats.
+        """
+        n_dev = len(devices)
+        parked_set = set(parked)
+        base_params: List[Set[str]] = [set() for _ in range(n_dev)]
+        base_act = [0.0] * n_dev
+        for gi, gname in enumerate(all_groups):
+            if gi in parked_set or gname not in stage_of:
+                continue
+            d = stage_of[gname]
+            base_params[d] |= all_gparams[gi]
+            base_act[d] = max(base_act[d], all_activ[gi])
+
+        def union_gb(names: Set[str]) -> float:
+            return sum(graph.param_size_gb(p) for p in sorted(names))
+
+        def max_load(assign: Dict[int, int]) -> float:
+            params = [set(s) for s in base_params]
+            for gi, d in assign.items():
+                params[d] |= all_gparams[gi]
+            return max(union_gb(s) for s in params)
+
+        orig = {gi: stage_of[all_groups[gi]] for gi in parked}
+        order = sorted(parked, key=lambda gi: (-union_gb(all_gparams[gi]), gi))
+        params = [set(s) for s in base_params]
+        act = list(base_act)
+        repack: Dict[int, int] = {}
+        for gi in order:
+            best_d, best_load = None, None
+            for d in range(n_dev):
+                names = params[d] | all_gparams[gi]
+                lg = union_gb(names)
+                if lg + max(act[d], all_activ[gi]) > devices[d].total_memory + 1e-9:
+                    continue
+                # ties prefer the LATER device: stage s is pinned to device
+                # s, and a parked load on an early stage queues ahead of
+                # that stage's weights (first-use order), delaying the
+                # pipeline fill; late stages have until the wave reaches
+                # them (>= keeps the highest tied index)
+                if best_load is None or lg <= best_load:
+                    best_d, best_load = d, lg
+            if best_d is None:
+                return  # can't fit somewhere: keep the original parking
+            repack[gi] = best_d
+            params[best_d] |= all_gparams[gi]
+            act[best_d] = max(act[best_d], all_activ[gi])
+        if max_load(repack) < max_load(orig) - 1e-12:
+            for gi, d in repack.items():
+                stage_of[all_groups[gi]] = d
+
+    # -- policy ------------------------------------------------------------
+    def run_policy(self, run: SchedulerRun) -> None:
+        graph, devices = run.graph, run.cluster.devices
+        all_groups, all_compute, all_activ, all_gparams = _group_stats(graph)
+        n_dev = len(devices)
+
+        # Which groups contain root tasks?  Root-bearing groups (embedding,
+        # or vocab-sharded embedding/logit partials — whose tied weight spans
+        # both ends of the graph, so stage contiguity is impossible for them
+        # anyway) have no upstream locality pull, but their parameters gate
+        # the pipeline start: PARK them — one group per device,
+        # largest-params first onto the least-reserved device — so their
+        # host-link loads run in parallel across the cluster instead of
+        # queueing behind one stage's weights.
+        group_tasks: Dict[str, List[str]] = {}
+        for tid in graph.topo_order:
+            group_tasks.setdefault(graph[tid].group or tid, []).append(tid)
+        is_root_group = {
+            g: any(not graph[t].dependencies for t in tids)
+            for g, tids in group_tasks.items()
+        }
+
+        reserved = [0.0] * n_dev
+        stage_of: Dict[str, int] = {}
+
+        def park(gi: int) -> bool:
+            """Park group index `gi` (into all_groups) on the least-reserved
+            device it fits; True on success."""
+            pg = sum(graph.param_size_gb(p) for p in sorted(all_gparams[gi]))
+            need = pg + all_activ[gi]
+            order = sorted(range(n_dev), key=lambda d: (reserved[d], d))
+            for d in order:
+                if reserved[d] + need <= devices[d].total_memory + 1e-9:
+                    stage_of[all_groups[gi]] = d
+                    reserved[d] += pg
+                    return True
+            return False
+
+        remaining = list(range(len(all_groups)))
+        parked_placed: List[int] = []
+        tail_parked = False
+        if len(all_groups) > n_dev:  # tiny graphs: plain contiguous stages
+            parked = [i for i in remaining if is_root_group[all_groups[i]]]
+            for gi in sorted(
+                parked,
+                key=lambda i: -sum(
+                    graph.param_size_gb(p) for p in sorted(all_gparams[i])
+                ),
+            ):
+                if park(gi):
+                    remaining.remove(gi)
+                    parked_placed.append(gi)
+
+            # Weight-tied tail (tied embedding/LM-head, reference
+            # test_gpt2.py:160-166): co-locate the last group with the parked
+            # group it shares params with, so the shared table is loaded over
+            # the host link ONCE, early — otherwise the tail stage re-loads
+            # it *behind* its own layer weights, putting the whole table's
+            # load on the pipeline drain.  Standard pipeline-parallel
+            # practice (Megatron/GPipe co-locate embedding + head).
+            if remaining:
+                ti = remaining[-1]
+                parked_params_on: Dict[int, Set[str]] = {}
+                for gi, g in enumerate(all_groups):
+                    if g in stage_of:
+                        parked_params_on.setdefault(
+                            stage_of[g], set()
+                        ).update(all_gparams[gi])
+                tied_dev = next(
+                    (
+                        d for d, ps in sorted(parked_params_on.items())
+                        if all_gparams[ti] & ps
+                    ),
+                    None,
+                )
+                if tied_dev is not None:
+                    extra = sum(
+                        graph.param_size_gb(p)
+                        for p in sorted(all_gparams[ti] - parked_params_on[tied_dev])
+                    )
+                    if (
+                        reserved[tied_dev] + extra + all_activ[ti]
+                        <= devices[tied_dev].total_memory + 1e-9
+                    ):
+                        stage_of[all_groups[ti]] = tied_dev
+                        reserved[tied_dev] += extra
+                        remaining.remove(ti)
+                        tail_parked = True
+
+        stats = (
+            [all_groups[i] for i in remaining],
+            [all_compute[i] for i in remaining],
+            [all_activ[i] for i in remaining],
+            [all_gparams[i] for i in remaining],
+        )
+        groups, _, activ, gparams = stats
+
+        # Virtual-stage interleaving (Megatron-LM style): stage s pins to
+        # device s % n_dev, so v stages per device shrink the fill/drain
+        # bubble from (S-1)/M of the makespan to ~(S-1)/(vM) while every
+        # cross-stage edge still flows ring-forward.  Each candidate depth
+        # is costed with the event simulation — the same model the replay
+        # charges — and the best kept (ties prefer contiguous v=1, which
+        # also minimizes cross-slice crossings).
+        vmax = max(1, min(4, -(-len(groups) // max(n_dev, 1))))
+        speeds = {d.node_id: d.compute_speed for d in devices}
+        slices = {d.node_id: d.slice_id for d in devices}
+        candidates: List[Dict[str, int]] = []
+        for v in range(1, vmax + 1):
+            # a devices list repeated v times makes plan_stages' per-stage
+            # cap lookup (devices[s-1]) index cyclically — stage s sees
+            # device (s-1) % n_dev's budget
+            cand_bounds = self.plan_stages(
+                graph, devices * v, stats, reserved * v
+            )
+            if cand_bounds is None:
+                continue
+            cand_map = dict(stage_of)
+            for s in range(len(cand_bounds) - 1):
+                for i in range(cand_bounds[s], cand_bounds[s + 1]):
+                    cand_map[groups[i]] = s % n_dev
+            if v > 1 and not self._fits_per_device(
+                graph, devices, all_groups, all_gparams, all_activ,
+                cand_map,
+            ):
+                continue  # multi-stage union exceeds a device's budget
+            candidates.append(cand_map)
+
+        best_map: Optional[Dict[str, int]] = None
+        if len(candidates) == 1:
+            best_map = candidates[0]  # nothing to compare; skip the sim
+        else:
+            best_cost = None
+            for cand_map in candidates:
+                placement = {
+                    tid: devices[cand_map[graph[tid].group or tid]].node_id
+                    for tid in graph.topo_order
+                    if (graph[tid].group or tid) in cand_map
+                }
+                _, cost, _ = simulate_placement(
+                    graph, placement, speeds, self.link, slices
+                )
+                if best_cost is None or cost < best_cost:
+                    best_cost, best_map = cost, cand_map
+
+        if best_map is not None:
+            stage_of.update(best_map)
+            # load-aware repack of the parked groups now that stage loads
+            # are known (skipped when the weight-tied tail was co-located:
+            # moving its shard would break the tie locality it bought)
+            if parked_placed and not tail_parked:
+                self._rebalance_parked(
+                    graph, devices, all_groups, all_gparams, all_activ,
+                    parked_placed, stage_of,
+                )
+        else:
+            # greedy sequential fill: walk groups in order, advancing to the
+            # next device when the current one can't also hold this group
+            # (budgets net of parked-group reservations)
+            dev = 0
+            held: Set[str] = set()
+            for i, g in enumerate(groups):
+                while dev < len(devices):
+                    need_params = held | gparams[i]
+                    need = sum(
+                        graph.param_size_gb(p) for p in sorted(need_params)
+                    ) + activ[i]
+                    cap = devices[dev].total_memory - reserved[dev]
+                    if need <= cap + 1e-9:
+                        held = need_params
+                        break
+                    dev, held = dev + 1, set()
+                stage_of[g] = min(dev, len(devices) - 1)
+
+        for tid in graph.topo_order:
+            task = graph[tid]
+            if tid not in run.pending:
+                continue
+            if any(d in run.failed for d in task.dependencies):
+                self.fail(run, task)
+                continue
+            node = devices[stage_of[task.group or tid]]
+            if self.can_fit(run, task, node):
+                self.assign(run, task, node)
+            else:
+                self.fail(run, task)
+
+        # Re-order for execution: topo (Kahn-wave) order serializes the
+        # pipeline under in-order per-node replay — every stage would touch
+        # all microbatches' op k before any op k+1, making the fill cost
+        # stages x stage_total.  The event simulation orders each node by
+        # input-arrival time instead, so 1F1B microbatch interleaving
+        # emerges from the DAG structure (see sched/eventsim.py).
+        placement = {
+            tid: run.graph[tid].assigned_node
+            for tid in run.assignment_order
+        }
+        speeds = {d.node_id: d.compute_speed for d in run.cluster}
+        order = dependency_aware_order(
+            run.graph, placement, speeds, self.link,
+            slices=run.cluster.slice_ids(),
+        )
+        run.assignment_order[:] = order
+        pos = {tid: i for i, tid in enumerate(order)}
+        for nid, tids in run.per_node.items():
+            tids.sort(key=lambda t: pos[t])

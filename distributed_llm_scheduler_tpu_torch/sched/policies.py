@@ -1,4 +1,4 @@
-"""The policy registry: the reference's four policies plus two new ones.
+"""The policy registry: the reference's four policies plus three new ones.
 
 PyTorch port of ``distributed_llm_scheduler_tpu.sched.policies``; the
 policies are framework-free copies and must give equal schedules.
@@ -281,9 +281,10 @@ class MRUScheduler(BaseScheduler):
 
 
 from .heft import HEFTScheduler  # noqa: E402  (avoids a circular import)
+from .pipeline import PipelineStageScheduler  # noqa: E402
 
-# The port's registry holds the ported policies only; pipeline, pack,
-# refine, search, eventsim and the native engine are still to be ported.
+# The port's registry holds the ported policies only; pack, refine, search
+# and the native engine are still to be ported.
 ALL_SCHEDULERS = {
     cls.name: cls
     for cls in (
@@ -293,6 +294,7 @@ ALL_SCHEDULERS = {
         CriticalPathScheduler,
         MRUScheduler,
         HEFTScheduler,
+        PipelineStageScheduler,
     )
 }
 

@@ -1,4 +1,4 @@
-"""The port's CUDA flash-attention kernel against its plain version, on a GPU.
+"""The port's CUDA kernels against their plain versions, on a GPU.
 
 Marked ``cuda``: skips without a CUDA device.  This file imports neither
 JAX nor the JAX package, so it also runs on a GPU host that has only
@@ -136,3 +136,128 @@ def test_paged_kernel_refuses_unqualified_geometry(cuda):
     case = DB.serving_case(torch.float32, cuda, seed=3, head_dim=48)
     with pytest.raises(ValueError, match="head_dim 48"):
         A.paged_decode_attention(**_args(case))
+
+
+# -- LayerNorm / RMSNorm -------------------------------------------------------
+
+from distributed_llm_scheduler_tpu_torch.ops import norms as N  # noqa: E402
+
+
+def _norm_inputs(shape, dtype, device, seed, offset=False, pad=0, g_dtype=None):
+    """x (a view into a wider, offset buffer when ``pad``), g and b from
+    numpy ``seed``; ``offset`` rows sit at 1e4 + k/8 with each row's
+    integer k summing to a multiple of D (exact f32 sums)."""
+    rng = np.random.default_rng(seed)
+    D = shape[-1]
+    if offset:
+        k = np.round(8.0 * rng.standard_normal(shape)).reshape(-1, D)
+        for row in k:
+            row[: int(row.sum()) % D] -= 1
+        x = 1e4 + k.reshape(shape) / 8.0
+    else:
+        x = rng.standard_normal(shape)
+    x = torch.from_numpy(x.astype(np.float32)).to(device=device, dtype=dtype)
+    if pad:
+        wide = torch.zeros(shape[:-1] + (D + 2 * pad,), dtype=dtype, device=device)
+        wide[..., pad:pad + D] = x
+        x = wide[..., pad:pad + D]  # strided rows, unaligned base
+    g, b = (torch.from_numpy(rng.standard_normal(D).astype(np.float32))
+            .to(device=device, dtype=g_dtype or dtype) for _ in range(2))
+    return x, g, b
+
+
+def _kernel_close(got, want, want32, dtype):
+    """f32: within 1e-4 of the plain version (summation order).  bf16:
+    within 5e-2 of the plain version and every element within bf16 unit
+    roundoff (2^-8 |y| + 1e-4) of the plain version computed in f32."""
+    assert torch.isfinite(got).all()
+    if dtype == torch.float32:
+        assert (got - want).abs().max().item() < 1e-4
+        return
+    assert (got.float() - want.float()).abs().max().item() < 5e-2
+    assert ((got.float() - want32).abs() - (2.0 ** -8 * want32.abs() + 1e-4)
+            ).max().item() <= 0
+
+
+NORM_CASES = [
+    # (kernel, shape, dtype, offset, pad, g dtype): the main paths' shapes,
+    # then f32, ragged widths over 77 rows, strided rows, the long-row
+    # (block per row) path with a tail, offset rows, mixed weight dtype
+    ("ln", (1, 512, 768), torch.bfloat16, False, 0, None),
+    ("ln", (8, 1, 768), torch.bfloat16, False, 0, None),
+    ("rms", (1, 512, 4096), torch.bfloat16, False, 0, None),
+    ("ln", (1, 512, 768), torch.float32, False, 0, None),
+    ("rms", (1, 512, 4096), torch.float32, False, 0, None),
+    ("ln", (77, 100), torch.float32, False, 0, None),
+    ("rms", (77, 100), torch.float32, False, 0, None),
+    ("ln", (77, 128), torch.bfloat16, False, 0, None),
+    ("rms", (77, 128), torch.bfloat16, False, 0, None),
+    ("ln", (3, 40, 100), torch.bfloat16, False, 3, None),
+    ("rms", (3, 40, 128), torch.float32, False, 1, None),
+    ("ln", (5, 1500), torch.float32, False, 0, None),
+    ("rms", (5, 1500), torch.bfloat16, False, 5, None),
+    ("ln", (4, 128), torch.float32, True, 0, None),
+    ("ln", (4, 100), torch.float32, True, 0, None),
+    ("rms", (2, 64, 4096), torch.bfloat16, False, 0, torch.float32),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", NORM_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_norm_kernels_match_plain(cuda, case):
+    kind, shape, dtype, offset, pad, g_dtype = case
+    x, g, b = _norm_inputs(shape, dtype, cuda, seed=len(shape) * 1000 + shape[-1],
+                           offset=offset, pad=pad, g_dtype=g_dtype)
+    name = N.LN_KERNEL if kind == "ln" else N.RMS_KERNEL
+    before = kernels.launches[name]
+    # offset rows: the plain version on the card takes the mean as
+    # sum * (1/D), one rounding off these rows' exact mean (an ulp of 1e4
+    # is ~1e-3); on the CPU it divides, exactly, as the kernel does
+    where = torch.device("cpu") if offset else cuda
+    xw, gw, bw = (t.to(where) for t in (x, g, b))
+    if kind == "ln":
+        got = N.layer_norm(x, g, b)
+        want = N.reference_layer_norm(xw, gw, bw)
+        want32 = N.reference_layer_norm(xw.float(), gw.float(), bw.float())
+    else:
+        got = N.rms_norm(x, g)
+        want = N.reference_rms_norm(xw, gw)
+        want32 = N.reference_rms_norm(xw.float(), gw.float())
+    want, want32 = want.to(cuda), want32.to(cuda)
+    torch.cuda.synchronize()
+    assert kernels.launches[name] == before + 1
+    assert got.shape == x.shape and got.dtype == dtype
+    _kernel_close(got, want, want32, dtype)
+
+
+@pytest.mark.cuda
+def test_norm_kernels_refuse_what_they_do_not_take(cuda):
+    x = torch.zeros((4, 64), device=cuda, dtype=torch.float16)
+    with pytest.raises(ValueError, match="dtype"):
+        N.rms_norm(x, torch.ones(64, device=cuda, dtype=torch.float16))
+    y = torch.zeros((64, 4), device=cuda).t()
+    with pytest.raises(ValueError, match="stride 1"):
+        N.rms_norm(y, torch.ones(64, device=cuda))
+
+
+@pytest.mark.cuda
+def test_gqa_mha_at_the_llama_shape(cuda):
+    """Llama-3 8B's attention per microbatch: q (1, 32, 512, 128) bf16 with
+    8 KV heads, through the flash kernel, against the plain version."""
+    from distributed_llm_scheduler_tpu_torch.models.llama import LlamaConfig
+
+    cfg = LlamaConfig.llama3_8b()
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    rng = np.random.default_rng(8)
+    q = torch.from_numpy(rng.standard_normal((1, H, 512, hd)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((1, Hkv, 512, hd)).astype(np.float32))
+            for _ in range(2))
+    q, k, v = (t.to(cuda, torch.bfloat16) for t in (q, k, v))
+    before = kernels.launches[A.KERNEL]
+    got = A.gqa_mha(q, k, v)
+    torch.cuda.synchronize()
+    assert kernels.launches[A.KERNEL] == before + 1
+    kr, vr = (t.repeat_interleave(H // Hkv, dim=1) for t in (k, v))
+    want = A.reference_mha(q, kr, vr)
+    want32 = A.reference_mha(q.float(), kr.float(), vr.float())
+    _kernel_close(got, want, want32, torch.bfloat16)

@@ -57,6 +57,19 @@ def test_bridge_is_name_for_name(tiny):
         np.testing.assert_array_equal(tparams[name].numpy(), np.asarray(arr))
 
 
+def test_derived_params_equal_jax(tiny):
+    """``derive_params`` turns the model's weights into the graph's: the
+    vocab shards equal the JAX DAG's, name for name; ``init_params`` gives
+    every param the graph declares."""
+    jdag, tdag, jparams, tparams, _ = tiny
+    model = {k: v for k, v in tparams.items() if "_shard_" not in k}
+    full = tdag.derive_params(model)
+    assert sorted(full) == sorted(jparams)
+    for name, arr in jparams.items():
+        np.testing.assert_array_equal(full[name].numpy(), np.asarray(arr))
+    assert set(tdag.init_params(seed=4, device=CPU)) == set(tdag.param_specs)
+
+
 def test_bridge_bf16_round_trip_is_exact():
     cfg = jgpt2.GPT2Config.tiny(dtype=jnp.bfloat16)
     jparams = jgpt2.init_params(cfg, jax.random.PRNGKey(3))
