@@ -10,14 +10,18 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
 2. build: the three CUDA sources under ``distributed_llm_scheduler_tpu_
    torch/csrc/`` (flash attention; single-token and ragged paged
    attention; LayerNorm and RMSNorm) are compiled with nvcc for sm_90a,
-   one process each, started together;
+   one process each, started together; ptxas's registers and spills of
+   the flash kernels are printed;
 3. flash kernel check: the kernel against its plain PyTorch version on
    the card, at the GPT-2 main path's shape (also as strided head views
-   of a fused qkv product, the layout the model hands it), at the Llama
-   path's shape through ``gqa_mha`` (32 query heads, 8 KV heads, hd 128)
-   and at edge shapes, with its time, the plain version's, one PyTorch
-   library call's as a yardstick, and the least time the card could take
-   (its bound);
+   of a fused qkv product, the layout the model hands it, bit for bit
+   equal to contiguous copies), at the Llama path's shape through
+   ``gqa_mha`` (32 query heads reading 8 KV heads in place, hd 128) and
+   at edge shapes (each head dim, T of 1, 77 and 300, full attention,
+   fewer KV heads given to ``flash_attention`` itself), with its time as
+   CUDA-graph replays and issued back to back, the plain version's, one
+   PyTorch library call's as a yardstick, and the least time the card
+   could take (its bound);
 4. paged kernel check: both paged kernels against their plain versions
    on the card, on the JAX decode bench's 7 single-token and 5 ragged
    fixtures (f32, trash page poisoned, 1e-5) and at the GPT-2 small
@@ -136,6 +140,19 @@ def nvidia_smi_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
+def log_ptxas(build_log: str) -> None:
+    """The flash kernels' registers, shared memory and spills, as ptxas
+    reported them while building (``-Xptxas=-v``)."""
+    import re
+
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            log(f"  ptxas {m.group(1)}:")
+        elif "spill" in line or "Used" in line:
+            log(f"    {line.strip()}")
+
+
 def cuda_ms(fn, n: int, warm: int = 5) -> float:
     """Mean milliseconds per call of ``fn`` over ``n`` back-to-back calls,
     between CUDA events on the current stream, after ``warm`` calls."""
@@ -189,13 +206,13 @@ def attention_inputs(torch, rng, dev, shape, dname, layout, kv_heads):
     """q, k and v for one kernel case: contiguous (B, H, T, hd) tensors;
     with ``layout="qkv"`` the strided head views of one (B, T, 3*H*hd)
     product that ``models/gpt2.causal_attention`` hands the kernel; with
-    ``layout="gqa"`` k and v at ``kv_heads`` heads, as
+    ``layout="gqa"`` or ``"kv"`` k and v at ``kv_heads`` heads, as
     ``models/llama.gqa_attention`` hands them to ``gqa_mha``."""
     import numpy as np
 
     dt = getattr(torch, dname)
     B, H, T, hd = shape
-    if layout == "gqa":
+    if layout in ("gqa", "kv"):
         kv = (B, kv_heads, T, hd)
         return tuple(
             torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
@@ -213,6 +230,17 @@ def attention_inputs(torch, rng, dev, shape, dname, layout, kv_heads):
     )
 
 
+def time_attention(torch, fn, args, n: int) -> tuple:
+    """(device ms, back-to-back ms) per call of ``fn(*args)``: ``n`` calls
+    captured into a CUDA graph and replayed, so the host's cost per call
+    is not timed; and ``n`` calls issued from the host between CUDA
+    events, which is what a caller that launches one call at a time sees
+    once the kernel is shorter than the host's work per call.  The inputs
+    are the same each call, so they sit in the L2, as the output of the
+    op just before would."""
+    return graph_ms(torch, fn, [args] * n), cuda_ms(lambda: fn(*args), n)
+
+
 def check_attention_kernel(torch, A, dev, llama) -> dict:
     """The flash kernel against its plain version; returns the numbers of
     the kernel line at the GPT-2 main path's shape, with the Llama path's
@@ -225,21 +253,33 @@ def check_attention_kernel(torch, A, dev, llama) -> dict:
         LLAMA_FLAGSHIP["batch"] // LLAMA_FLAGSHIP["microbatches"],
         llama.n_heads, LLAMA_FLAGSHIP["seq_len"], llama.head_dim,
     )
-    cases = [
-        ((1, 12, 512, 64), "bfloat16", True, "heads"),  # main path, per task
-        ((1, 12, 512, 64), "bfloat16", True, "qkv"),    # ... as the model's views
-        (llama_shape, "bfloat16", True, "gqa"),         # Llama-3 8B, per task
-        ((1, 12, 512, 64), "float32", True, "heads"),
-        ((2, 3, 100, 64), "float32", False, "heads"),   # ragged T, full attention
-        ((1, 4, 256, 32), "bfloat16", True, "heads"),
-        ((1, 4, 300, 128), "float32", True, "heads"),
-        ((1, 4, 300, 128), "bfloat16", False, "heads"),
+    cases = [  # (shape, dtype, causal, layout, KV heads)
+        ((1, 12, 512, 64), "bfloat16", True, "heads", None),  # main path, per task
+        ((1, 12, 512, 64), "bfloat16", True, "qkv", None),    # ... as the model's views
+        (llama_shape, "bfloat16", True, "gqa", llama.n_kv_heads),  # Llama-3 8B, per task
+        ((1, 12, 512, 64), "float32", True, "heads", None),
+        ((2, 3, 100, 64), "float32", False, "heads", None),   # ragged T, full attention
+        ((1, 4, 256, 32), "bfloat16", True, "heads", None),
+        ((1, 4, 300, 128), "float32", True, "heads", None),
+        ((1, 4, 300, 128), "bfloat16", False, "heads", None),
+        # the tensor-core kernel's edges: each head dim, T of one row and
+        # ending inside a tile, full attention, KV heads read in place by
+        # flash_attention itself, strided views against contiguous copies
+        ((2, 3, 1, 64), "bfloat16", True, "heads", None),
+        ((2, 3, 77, 32), "bfloat16", True, "heads", None),
+        ((2, 3, 77, 128), "bfloat16", False, "heads", None),
+        ((1, 4, 300, 32), "bfloat16", False, "heads", None),
+        ((1, 4, 300, 128), "bfloat16", True, "heads", None),
+        ((1, 8, 300, 128), "bfloat16", True, "kv", 2),
+        ((2, 8, 77, 64), "bfloat16", False, "kv", 4),
+        ((1, 4, 300, 128), "bfloat16", True, "qkv", None),
+        ((2, 2, 77, 32), "bfloat16", False, "qkv", None),
+        ((1, 8, 200, 128), "float32", True, "kv", 2),
     ]
     rng = np.random.default_rng(0)
     main = None
-    for shape, dname, causal, layout in cases:
-        q, k, v = attention_inputs(torch, rng, dev, shape, dname, layout,
-                                   llama.n_kv_heads)
+    for shape, dname, causal, layout, kv_heads in cases:
+        q, k, v = attention_inputs(torch, rng, dev, shape, dname, layout, kv_heads)
         group = q.shape[1] // k.shape[1]
         kr, vr = k.repeat_interleave(group, 1), v.repeat_interleave(group, 1)
         got = (A.gqa_mha(q, k, v, causal=causal) if layout == "gqa"
@@ -260,42 +300,56 @@ def check_attention_kernel(torch, A, dev, llama) -> dict:
             rule32 = f"tol {KERNEL_TOL[dname]:g}"
         ok = (math.isfinite(err) and err < KERNEL_TOL[dname]
               and math.isfinite(err32) and out32 == 0)
-        log(f"  flash_attention {shape} {dname} causal={causal} {layout}: "
-            f"max_abs_err {err:.3e} vs plain (tol {KERNEL_TOL[dname]:g}), "
-            f"{err32:.3e} vs plain in f32 ({rule32}) -> "
-            f"{'ok' if ok else 'FAIL'}")
+        same = ""
+        if layout == "qkv":  # strided views read in place, bit for bit
+            dense = A.flash_attention(q.contiguous(), k.contiguous(),
+                                      v.contiguous(), causal=causal)
+            equal = bool(torch.equal(got, dense))
+            same = f", equal to contiguous copies: {equal}"
+            ok = ok and equal
+        log(f"  flash_attention {shape} {dname} causal={causal} {layout}"
+            f"{f' {kv_heads} KV heads' if kv_heads else ''}: max_abs_err "
+            f"{err:.3e} vs plain (tol {KERNEL_TOL[dname]:g}), {err32:.3e} vs "
+            f"plain in f32 ({rule32}){same} -> {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(
                 f"flash kernel disagrees at {shape} {dname} {layout}")
         if main is None:
-            ms = cuda_ms(lambda: A.flash_attention(q, k, v, causal=True), 200)
-            plain_ms = cuda_ms(
-                lambda: A.reference_mha(q, k, v, causal=True), 50
-            )
-            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True), 200)
+            ms, ms_b2b = time_attention(
+                torch, lambda *a: A.flash_attention(*a, causal=True), (q, k, v), 200)
+            plain_ms = graph_ms(torch, lambda *a: A.reference_mha(*a, causal=True),
+                                [(q, k, v)] * 20)
+            lib_ms, lib_b2b = time_attention(
+                torch, lambda *a: F.scaled_dot_product_attention(*a, is_causal=True),
+                (q, k, v), 200)
             bound_ms, bound_by = attention_bound_ms(shape, dname, True)
             main = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                         bound_ms=bound_ms, bound_by=bound_by,
-                        library_ms=lib_ms)
-            log(f"  at the main path's shape {shape} {dname}: kernel "
-                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, "
-                f"bound {bound_ms * 1e3:.3f} us ({bound_by})")
+                        library_ms=lib_ms, ms_back_to_back=ms_b2b,
+                        library_ms_back_to_back=lib_b2b)
+            log(f"  at the main path's shape {shape} {dname} (CUDA-graph "
+                f"replays; issued back to back from the host in brackets): "
+                f"kernel {ms:.5f} ms ({ms_b2b:.5f}), plain {plain_ms:.5f} ms, "
+                f"SDPA {lib_ms:.5f} ms ({lib_b2b:.5f}), bound "
+                f"{bound_ms * 1e3:.3f} us ({bound_by})")
         if layout == "gqa":
-            # the Llama path's call: gqa_mha repeats K/V, then the kernel
-            ms = cuda_ms(lambda: A.gqa_mha(q, k, v), 100)
-            plain_ms = cuda_ms(lambda: A.reference_mha(
-                q, k.repeat_interleave(group, 1), v.repeat_interleave(group, 1)), 20)
-            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True), 100)
+            # the Llama path's call: gqa_mha, one launch on the un-repeated K/V
+            ms, ms_b2b = time_attention(torch, A.gqa_mha, (q, k, v), 100)
+            plain_ms = graph_ms(torch, A.reference_mha, [(q, kr, vr)] * 10)
+            lib_ms, lib_b2b = time_attention(
+                torch, lambda *a: F.scaled_dot_product_attention(
+                    *a, is_causal=True, enable_gqa=True), (q, k, v), 100)
             bound_ms, bound_by = attention_bound_ms(shape, dname, True, k.shape[1])
             main["at_llama_shape"] = dict(
                 shape=list(shape), kv_heads=k.shape[1], max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=lib_ms)
+                library_ms=lib_ms, ms_back_to_back=ms_b2b,
+                library_ms_back_to_back=lib_b2b)
             log(f"  at the Llama path's shape {shape} {dname}, {k.shape[1]} KV "
-                f"heads (gqa_mha: K/V repeat + kernel): {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, SDPA (enable_gqa) {lib_ms:.4f} ms, bound "
+                f"heads (gqa_mha: one launch, K/V read in place; CUDA-graph "
+                f"replays, back to back in brackets): {ms:.5f} ms "
+                f"({ms_b2b:.5f}), plain (K/V repeated) {plain_ms:.5f} ms, SDPA "
+                f"(enable_gqa) {lib_ms:.5f} ms ({lib_b2b:.5f}), bound "
                 f"{bound_ms * 1e3:.3f} us ({bound_by})")
     return main
 
@@ -1110,6 +1164,7 @@ def main() -> int:
     secs = kernels.build(*sources)
     log(f"[2/11] built {', '.join(f'{n}.cu' for n in sources)} with "
         f"{kernels.nvcc_path()} for sm_90a in {secs:.1f} s (in parallel)")
+    log_ptxas(kernels.build_logs.get(A.KERNEL, ""))
 
     log("[3/11] flash kernel check against its plain version")
     attn = check_attention_kernel(

@@ -3,10 +3,14 @@
 PyTorch port of ``distributed_llm_scheduler_tpu.ops.attention``.
 
 Dense half: the Pallas TPU kernel ``_flash_kernel`` becomes
-``csrc/flash_attention.cu``, a CUDA kernel for Hopper that keeps the
-(T, T) score matrix out of device memory with the same online softmax.
-``mha`` is the public entry, with the JAX package's signature and (B, H,
-T, hd) layout.
+``csrc/flash_attention.cu``, CUDA kernels for Hopper that keep the (T, T)
+score matrix out of device memory with the same online softmax: bf16 on
+the tensor cores (``mma.sync``, P split into two bf16 terms so the output
+stays within one bf16 rounding of the f32 function), f32 on the CUDA
+cores.  K and V may carry fewer heads than q (grouped-query attention);
+the kernels read each KV head in place for its group of query heads.
+``mha`` and ``gqa_mha`` are the public entries, with the JAX package's
+signatures and (B, H, T, hd) layout.
 
 Paged half: ``_paged_kernel`` (single-token decode with the in-kernel
 insert of this step's K/V row) and ``_paged_ragged_kernel`` (multi-token
@@ -60,44 +64,67 @@ def _library() -> ctypes.CDLL:
     fn = lib.dls_flash_attention_fwd
     if fn.argtypes is None:  # first load: declare the C signature
         vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, i, i, i, i, vp, i, i, ctypes.c_float, vp]
+        # q, k, v, o, B, H, Hkv, T, hd, strides, dtype, causal, scale, stream
+        fn.argtypes = [vp, vp, vp, vp, i, i, i, i, i, vp, i, i,
+                       ctypes.c_float, vp]
         fn.restype = ctypes.c_int
     return lib
 
 
 def _check(q, k, v) -> None:
+    """Raise unless the kernel takes (q, k, v): q (B, Hq, T, hd), k and v
+    (B, Hkv, T, hd) with Hq a multiple of Hkv, one dtype, one CUDA device,
+    a unit head-dim stride, and for bf16 a 16-byte aligned base and (b, h,
+    t) strides (the tensor-core kernel copies 16-byte chunks)."""
     if q.dim() != 4:
         raise ValueError(f"expected (B, H, T, hd) tensors, got {tuple(q.shape)}")
+    B, H, T, hd = q.shape
+    if k.dim() != 4 or (k.shape[0], k.shape[2], k.shape[3]) != (B, T, hd):
+        raise ValueError(
+            f"k shape {tuple(k.shape)} is not (B, Hkv, T, hd) for q shape "
+            f"{tuple(q.shape)}"
+        )
+    if v.shape != k.shape:
+        raise ValueError(f"v shape {tuple(v.shape)} != k shape {tuple(k.shape)}")
+    Hkv = k.shape[1]
+    if Hkv < 1 or H % Hkv:
+        raise ValueError(
+            f"{H} query heads are not a multiple of {Hkv} KV heads")
     for name, t in (("k", k), ("v", v)):
-        if t.shape != q.shape:
-            raise ValueError(
-                f"{name} shape {tuple(t.shape)} != q shape {tuple(q.shape)}"
-            )
         if t.dtype != q.dtype:
             raise ValueError(f"{name} dtype {t.dtype} != q dtype {q.dtype}")
         if t.device != q.device:
             raise ValueError(f"{name} on {t.device}, q on {q.device}")
-    if q.device.type != "cuda":
-        raise ValueError(f"the kernel takes CUDA tensors, got {q.device}")
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"dtype {q.dtype} not supported (float32, bfloat16)")
-    if q.shape[-1] not in _HEAD_DIMS:
-        raise ValueError(f"head dim {q.shape[-1]} not in {_HEAD_DIMS}")
-    if q.shape[-2] < 1:
+    if hd not in _HEAD_DIMS:
+        raise ValueError(f"head dim {hd} not in {_HEAD_DIMS}")
+    if T < 1:
         raise ValueError("sequence length must be >= 1")
+    bf16 = q.dtype == torch.bfloat16
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(-1) != 1:
+        sb, sh, st, sd = t.stride()
+        if sd != 1:
             raise ValueError(f"{name} head dim must be contiguous (stride 1)")
+        # 16 bytes = 8 bf16 elements: every stride a multiple of 8
+        if bf16 and (t.data_ptr() % 16 or (sb | sh | st) % 8):
+            raise ValueError(
+                f"{name}: base and (b, h, t) strides must be 16-byte aligned "
+                f"for the bf16 kernel, got strides {t.stride()}")
+    if q.device.type != "cuda":
+        raise ValueError(f"the kernel takes CUDA tensors, got {q.device}")
 
 
 def flash_attention(q, k, v, causal: bool = True, sm_scale: Optional[float] = None):
     """Launch the CUDA flash kernel on (B, H, T, hd) CUDA tensors.
 
-    q, k and v may be strided views (e.g. heads split out of a fused qkv
-    projection) as long as the head dim is contiguous.  The output is
-    allocated as (B, T, H, hd) and returned as its (B, H, T, hd) view, so
-    the caller's merge of heads back to (B, T, H*hd) needs no copy.
-    Raises when the inputs do not qualify or the launch fails."""
+    k and v may have fewer heads than q (H a multiple of Hkv): query head
+    h reads KV head h // (H // Hkv) in place.  q, k and v may be strided
+    views (e.g. heads split out of a fused qkv projection) as long as the
+    head dim is contiguous.  The output is allocated as (B, T, H, hd) and
+    returned as its (B, H, T, hd) view, so the caller's merge of heads back
+    to (B, T, H*hd) needs no copy.  Raises when the inputs do not qualify
+    or the launch fails."""
     _check(q, k, v)
     B, H, T, hd = q.shape
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(hd)
@@ -111,8 +138,8 @@ def flash_attention(q, k, v, causal: bool = True, sm_scale: Optional[float] = No
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.dls_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, H, T, hd, ctypes.addressof(strides), _DTYPE_CODE[q.dtype],
-            int(bool(causal)), float(scale), stream,
+            B, H, k.shape[1], T, hd, ctypes.addressof(strides),
+            _DTYPE_CODE[q.dtype], int(bool(causal)), float(scale), stream,
         )
     if err != 0:
         raise RuntimeError(f"flash attention launch failed: cudaError {err}")
@@ -133,11 +160,12 @@ def mha(q, k, v, causal: bool = True, sm_scale: Optional[float] = None):
 
 def gqa_mha(q, k, v, causal: bool = True, sm_scale: Optional[float] = None):
     """Grouped-query attention: q (B, Hq, T, hd), k/v (B, Hkv, T, hd) with
-    Hq a multiple of Hkv.  Each KV head is repeated across its query group
-    (as the JAX package does), then :func:`mha` runs: the flash kernel for
-    CUDA tensors, the plain version for CPU and meta tensors."""
+    Hq a multiple of Hkv.  CUDA tensors go to the flash kernel, which reads
+    each KV head in place for its query group (one launch, no copy); CPU
+    and meta tensors repeat each KV head across its group, as the JAX
+    package does, and take the plain version."""
     Hq, Hkv = q.shape[1], k.shape[1]
-    if Hq != Hkv:
+    if Hq != Hkv and q.device.type != "cuda":
         if Hkv < 1 or Hq % Hkv:
             raise ValueError(f"{Hq} query heads are not a multiple of {Hkv} KV heads")
         k = k.repeat_interleave(Hq // Hkv, dim=1)

@@ -6,6 +6,10 @@ under ``csrc/_build/`` (named by a hash of the source, so an edited source
 rebuilds) and loaded with :mod:`ctypes`.  Nothing is built at import: the
 CPU tests import every module on a host without ``nvcc``.
 
+``build_logs`` keeps each source's compiler output from this process's
+builds, with ptxas's report of every kernel's registers, shared memory
+and spills (``-Xptxas=-v``).
+
 ``launches`` counts kernel launches by name.  A wrapper adds one exactly
 where it launches its kernel, so a run can show that its main path went
 through the kernel; :func:`reset_launches` zeroes the counts.
@@ -26,11 +30,13 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 # kernel name -> launches since the last reset_launches()
 launches: Dict[str, int] = {}
+# source name -> nvcc's output of the build this process ran
+build_logs: Dict[str, str] = {}
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
@@ -84,6 +90,7 @@ def build(*names: str) -> float:
     failed = []
     for name, proc, tmp, out in jobs:
         log, _ = proc.communicate()
+        build_logs[name] = log
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
             failed.append(f"{name}: nvcc exit {proc.returncode}\n{log}")

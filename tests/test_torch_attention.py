@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from distributed_llm_scheduler_tpu.ops.attention import gqa_mha as jax_gqa_mha
 from distributed_llm_scheduler_tpu.ops.attention import mha as jax_mha
 from distributed_llm_scheduler_tpu.ops.attention import (
     reference_mha as jax_reference,
@@ -79,8 +80,41 @@ def test_kernel_wrapper_refuses_non_cuda_tensors():
 
 
 def test_kernel_wrapper_checks_inputs_before_building():
-    q = torch.zeros(1, 2, 8, 32)
+    q = torch.zeros(1, 4, 8, 32)
+    with pytest.raises(ValueError, match="multiple"):
+        A.flash_attention(q, q[:, :3], q[:, :3])
     with pytest.raises(ValueError, match="shape"):
-        A.flash_attention(q, q[:, :1], q)
+        A.flash_attention(q, q[:, :, :4], q[:, :, :4])
     with pytest.raises(ValueError, match="dtype"):
         A.flash_attention(q, q.double(), q)
+    # the bf16 kernel copies 16-byte chunks: a row stride of 66 bytes and
+    # a base 2 bytes off are refused
+    qb = q.bfloat16()
+    wide = torch.zeros(1, 4, 8, 33, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        A.flash_attention(qb, wide[..., :32], qb)
+    with pytest.raises(ValueError, match="16-byte"):
+        A.flash_attention(qb, qb, wide[..., 1:33])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_gqa_mha_matches_jax(causal, dtype):
+    """8 query heads on 2 KV heads: the port's ``gqa_mha`` on the CPU
+    against the JAX package's, both repeating each KV head across its
+    group."""
+    rng = np.random.default_rng(4)
+    arrs = [rng.standard_normal(s).astype(np.float32)
+            for s in ((2, 8, 64, 32), (2, 2, 64, 32), (2, 2, 64, 32))]
+    tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    jdt = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[dtype]
+    q, k, v = (torch.from_numpy(a).to(tdt) for a in arrs)
+    before = kernels.launches[A.KERNEL]
+    got = _np(A.gqa_mha(q, k, v, causal=causal))
+    assert kernels.launches[A.KERNEL] == before
+    want = _np(jax_gqa_mha(*(jnp.asarray(a, dtype=jdt) for a in arrs),
+                           causal=causal, impl="xla"))
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() < TOL[dtype]
+    with pytest.raises(ValueError, match="multiple"):
+        A.gqa_mha(q, k[:, :1].expand(2, 3, 64, 32), v)

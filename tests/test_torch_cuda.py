@@ -64,6 +64,78 @@ def test_kernel_reads_strided_head_views(cuda):
     assert torch.equal(got, want)
 
 
+def _bf16_close(got, q, k, v, causal):
+    """The bf16 kernel's rule against the plain version, K/V repeated."""
+    group = q.shape[1] // k.shape[1]
+    kr, vr = (t.repeat_interleave(group, dim=1) for t in (k, v))
+    want = A.reference_mha(q, kr, vr, causal=causal)
+    want32 = A.reference_mha(q.float(), kr.float(), vr.float(), causal=causal)
+    _kernel_close(got, want, want32, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("T", [1, 77, 300])
+def test_bf16_kernel_head_dims_and_ragged_lengths(cuda, hd, T):
+    """Every head dim the tensor-core kernel is built for, at lengths that
+    end inside a tile, under the causal and the full mask."""
+    q, k, v = _qkv((2, 3, T, hd), torch.bfloat16, cuda, seed=hd + T)
+    for causal in (True, False):
+        before = kernels.launches[A.KERNEL]
+        got = A.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert kernels.launches[A.KERNEL] == before + 1
+        _bf16_close(got, q, k, v, causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kernel_reads_fewer_kv_heads_in_place(cuda, dtype):
+    """``flash_attention`` with 8 query heads on 2 KV heads: one launch,
+    the same output as the kernel on K/V repeated across each group."""
+    rng = np.random.default_rng(5)
+    q = torch.from_numpy(rng.standard_normal((2, 8, 200, 128)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((2, 2, 200, 128)).astype(np.float32))
+            for _ in range(2))
+    q, k, v = (t.to(cuda, dtype) for t in (q, k, v))
+    before = kernels.launches[A.KERNEL]
+    got = A.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert kernels.launches[A.KERNEL] == before + 1
+    kr, vr = (t.repeat_interleave(4, dim=1) for t in (k, v))
+    assert torch.equal(got, A.flash_attention(q, kr, vr))
+    if dtype == torch.bfloat16:
+        _bf16_close(got, q, k, v, True)
+    else:
+        assert (got - A.reference_mha(q, kr, vr)).abs().max().item() < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128])
+def test_bf16_kernel_reads_strided_qkv_views(cuda, hd):
+    """Heads of one fused (B, T, 3*H*hd) bf16 product, as GPT-2 hands them
+    to the kernel: bit for bit the output of contiguous copies."""
+    (x,) = _qkv((2, 300, 3 * 4 * hd), torch.bfloat16, cuda, seed=hd)[:1]
+    q, k, v = (t.reshape(2, 300, 4, hd).transpose(1, 2)
+               for t in x.split(4 * hd, -1))
+    before = kernels.launches[A.KERNEL]
+    got = A.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert kernels.launches[A.KERNEL] == before + 1
+    want = A.flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    _bf16_close(got, q, k, v, True)
+
+
+@pytest.mark.cuda
+def test_bf16_kernel_refuses_unaligned_rows(cuda):
+    wide = torch.zeros((1, 2, 64, 72), device=cuda, dtype=torch.bfloat16)
+    q = torch.zeros((1, 2, 64, 64), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        A.flash_attention(q, wide[..., 4:68], q)
+
+
 # -- paged attention ----------------------------------------------------------
 
 from distributed_llm_scheduler_tpu_torch.eval import decode_bench as DB  # noqa: E402
@@ -243,7 +315,8 @@ def test_norm_kernels_refuse_what_they_do_not_take(cuda):
 @pytest.mark.cuda
 def test_gqa_mha_at_the_llama_shape(cuda):
     """Llama-3 8B's attention per microbatch: q (1, 32, 512, 128) bf16 with
-    8 KV heads, through the flash kernel, against the plain version."""
+    8 KV heads, through the flash kernel (one launch on the un-repeated K
+    and V), against the plain version."""
     from distributed_llm_scheduler_tpu_torch.models.llama import LlamaConfig
 
     cfg = LlamaConfig.llama3_8b()
