@@ -11,7 +11,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    torch/csrc/`` (flash attention; single-token and ragged paged
    attention; LayerNorm and RMSNorm) are compiled with nvcc for sm_90a,
    one process each, started together; ptxas's registers and spills of
-   the flash kernels are printed;
+   the flash kernels and of the single-token paged split kernels are
+   printed;
 3. flash kernel check: the kernel against its plain PyTorch version on
    the card, at the GPT-2 main path's shape (also as strided head views
    of a fused qkv product, the layout the model hands it, bit for bit
@@ -25,7 +26,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
 4. paged kernel check: both paged kernels against their plain versions
    on the card, on the JAX decode bench's 7 single-token and 5 ragged
    fixtures (f32, trash page poisoned, 1e-5) and at the GPT-2 small
-   serving shape in bf16, with times and bounds; then the ragged op path
+   serving shape in bf16, with times and bounds (the single-token kernel
+   as CUDA-graph replays over distinct serving cases that total 2x the
+   L2, with one case repeated and issued back to back beside it; the
+   ragged kernel issued back to back); then the ragged op path
    (``paged_decode_attention(..., q_lens=...)``, as the decode bench's
    kernel leg drives it) with its launches counted;
 5. norm kernel check: both norm kernels against their plain versions at
@@ -48,7 +52,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    with the paged kernel's launches counted (12 layers x 8 steps per
    segment) and the LayerNorm kernel's (25 per decode step and per
    prefill forward), no leaked pages, every request's token count, and a
-   teacher-forced oracle against the fused forward;
+   teacher-forced oracle against the fused forward; a traced segment
+   gives device busy time and the paged kernels' own device time;
 8. Llama path: Llama-3 8B bf16 at full width and depth (batch 8, seq
    512, 8 microbatches, 8 vocab shards, linear chains fused: 1,945
    tasks), weights drawn on the card from a seeded generator, calibrated,
@@ -69,6 +74,12 @@ The last lines are one JSON object of per-kernel numbers (``launches`` is
 the count of the kernel's main path, ``launches_by_path`` each counted
 run's own), the card's name and power limit as nvidia-smi reports them,
 and ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --paged-timing [ROOT]
+
+times only the single-token paged kernel of the package under ROOT
+(another checkout, e.g. a parent commit unpacked with ``git archive``)
+the way phase 4 does, and prints one JSON line; see :func:`paged_timing`.
 """
 
 from __future__ import annotations
@@ -140,16 +151,20 @@ def nvidia_smi_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def log_ptxas(build_log: str) -> None:
-    """The flash kernels' registers, shared memory and spills, as ptxas
-    reported them while building (``-Xptxas=-v``)."""
+def log_ptxas(build_log: str, only=("",)) -> None:
+    """Registers, shared memory and spills of each kernel whose mangled
+    name contains one of ``only``, as ptxas reported them while building
+    (``-Xptxas=-v``)."""
     import re
 
+    shown = False
     for line in build_log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            log(f"  ptxas {m.group(1)}:")
-        elif "spill" in line or "Used" in line:
+            shown = any(o in m.group(1) for o in only)
+            if shown:
+                log(f"  ptxas {m.group(1)}:")
+        elif shown and ("spill" in line or "Used" in line):
             log(f"    {line.strip()}")
 
 
@@ -584,6 +599,39 @@ def bound_of(nbytes: int, flops: int, dtype_name: str) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def paged_serving_cases(torch, DB, dev) -> list:
+    """Single-token serving cases of ``DB.serving_case`` at seeds 0, 1,
+    ... (distinct pools), until the bytes their calls must move total
+    twice the L2, as ``paged_decode_attention`` keyword arguments."""
+    cases, total = [], 0
+    while total < 2 * L2_BYTES:
+        case = DB.serving_case(torch.bfloat16, dev, seed=len(cases))
+        total += paged_work(torch, case)[0]
+        cases.append({k: v for k, v in case.items() if k not in ("name", "real")})
+    return cases
+
+
+def time_paged_kernel(torch, A, cases) -> dict:
+    """The single-token paged kernel at the serving shape: device ms per
+    call as CUDA-graph replays over the distinct ``cases`` (no call finds
+    its K/V in the L2), over case 0 repeated (L2-resident), and issued
+    back to back from the host; with the bound of the cases' mean work."""
+    def run(args):
+        return A.paged_decode_attention(**args, impl="kernel")
+
+    args = [(c,) for c in cases]
+    ms = graph_ms(torch, run, args, reps=20)
+    ms_l2 = graph_ms(torch, run, [args[0]] * len(args), reps=20)
+    ms_b2b = cuda_ms(lambda: run(cases[0]), 200)
+    work = [paged_work(torch, c) for c in cases]
+    nbytes = sum(w[0] for w in work) / len(work)
+    flops = sum(w[1] for w in work) / len(work)
+    bound_ms, bound_by = bound_of(nbytes, flops, "bfloat16")
+    return dict(ms=ms, ms_l2_resident=ms_l2, ms_back_to_back=ms_b2b,
+                bound_ms=bound_ms, bound_by=bound_by, distinct_inputs=len(cases),
+                distinct_bytes=nbytes * len(cases))
+
+
 def check_paged_kernels(torch, A, DB, dev) -> dict:
     """Both paged kernels against their plain versions; returns each
     kernel's numbers at the serving shape."""
@@ -629,7 +677,12 @@ def check_paged_kernels(torch, A, DB, dev) -> dict:
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{kname} disagrees at the serving shape")
-        ms = cuda_ms(lambda: A.paged_decode_attention(**args, impl="kernel"), 200)
+        timed = {}
+        if q_tokens == 1:
+            timed = time_paged_kernel(torch, A, paged_serving_cases(torch, DB, dev))
+            ms = timed.pop("ms")
+        else:
+            ms = cuda_ms(lambda: A.paged_decode_attention(**args, impl="kernel"), 200)
         plain_ms = cuda_ms(lambda: A.paged_decode_attention(**args, impl="plain"), 50)
         S, H, Tn, hd = case["q"].shape
         cap = case["page_table"].shape[1] * case["k_pool"].shape[1]
@@ -650,15 +703,24 @@ def check_paged_kernels(torch, A, DB, dev) -> dict:
         yard_ms = cuda_ms(yardstick, 100)
         nbytes, flops = paged_work(torch, case)
         bound_ms, bound_by = bound_of(nbytes, flops, "bfloat16")
+        if timed:
+            log(f"  {kname} at the serving shape, CUDA-graph replays over "
+                f"{timed['distinct_inputs']} distinct cases "
+                f"({timed['distinct_bytes'] / 1e6:.1f} MB to move, 2x the L2): "
+                f"kernel {ms:.5f} ms (case 0 repeated, L2-resident: "
+                f"{timed['ms_l2_resident']:.5f} ms; issued back to back: "
+                f"{timed['ms_back_to_back']:.5f} ms), bound of the cases' mean "
+                f"work {timed['bound_ms'] * 1e3:.3f} us ({timed['bound_by']})")
+            bound_ms, bound_by = timed.pop("bound_ms"), timed.pop("bound_by")
         log(f"  {kname} at the serving shape: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, bound {bound_ms * 1e3:.3f} us ({bound_by}: "
-            f"{nbytes / 1e6:.3f} MB, {flops / 1e9:.4f} GFLOP); library_ms null "
-            f"(no single PyTorch call computes paged attention); yardstick of "
-            f"two calls, gather_kv of K and V + scaled_dot_product_attention: "
-            f"{yard_ms:.4f} ms")
+            f"{nbytes / 1e6:.3f} MB, {flops / 1e9:.4f} GFLOP for case 0); "
+            f"library_ms null (no single PyTorch call computes paged "
+            f"attention); yardstick of two calls, gather_kv of K and V + "
+            f"scaled_dot_product_attention: {yard_ms:.4f} ms")
         out[kname] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                          yardstick_two_calls_ms=yard_ms)
+                          yardstick_two_calls_ms=yard_ms, **timed)
     return out
 
 
@@ -1000,13 +1062,24 @@ def serve_trace(torch, eng, reqs, seg_wall_s: float) -> None:
     busy_ms = sum(r[0] for r in rows) / 1e3
     if busy_ms <= 0:
         log("  serve trace: no device time in the trace (not measured)")
-        return
+        return {}
+    n_ops = sum(r[1] for r in rows)
     log(f"  serve trace, one segment of {SERVE_SEG_STEPS} steps: device busy "
         f"{busy_ms:.3f} ms, idle share {1.0 - busy_ms / (seg_wall_s * 1e3):.3f} "
         f"of the {seg_wall_s * 1e3:.3f} ms mean untraced segment wall (traced "
-        f"wall {traced_s * 1e3:.3f} ms); {sum(r[1] for r in rows)} device ops")
+        f"wall {traced_s * 1e3:.3f} ms); {n_ops} device ops")
     for us, n, key in sorted(rows, reverse=True)[:8]:
         log(f"    {us / 1e3:8.3f} ms  {n:5d}x  {key[:90]}")
+    # the single-token paged kernel's device ops (every kernel of
+    # csrc/paged_attention.cu is in the anonymous namespace with "paged"
+    # in its name)
+    paged = [(us, n, key) for us, n, key in rows if "paged" in key]
+    for us, n, key in paged:
+        log(f"  serve trace, paged: {us / 1e3:.3f} ms over {n} launches "
+            f"({us / n:.2f} us each): {key[:80]}")
+    return dict(segment_device_busy_ms=busy_ms, segment_device_ops=n_ops,
+                segment_paged_ms=sum(r[0] for r in paged) / 1e3,
+                segment_paged_ops=sum(r[1] for r in paged))
 
 
 def serve_oracle(torch, P, cfg, weights, reqs, results) -> None:
@@ -1112,8 +1185,8 @@ def run_serve_path(torch, P, A, dev) -> tuple:
         f"{h['decode.tpot_s']['p99'] * 1e3:.3f} ms")
     serve_oracle(torch, P, cfg, weights, reqs, results)
     seg_wall = (walls[med] - prefill_s[med]) / segs[med]
-    serve_trace(torch, eng, reqs, seg_wall)
-    return paged_n, ragged_n, ln_n
+    trace = serve_trace(torch, eng, reqs, seg_wall)
+    return paged_n, ragged_n, ln_n, trace
 
 
 def run_f32_serve_leg(torch, P, dev) -> None:
@@ -1136,11 +1209,51 @@ def run_f32_serve_leg(torch, P, dev) -> None:
         raise AssertionError("f32 serve tokens differ between card and CPU")
 
 
+def paged_timing(root: Path) -> int:
+    """``python3 chip_smoke.py --paged-timing [ROOT]``: the single-token
+    paged kernel of the package under ROOT (default: this checkout) alone,
+    built from ROOT's source, held once against its plain version in f32
+    at the serving shape and timed as the full run times it; prints one
+    JSON line.  Two trees run in turns (A, B, B, A) in one call on one
+    card give a before and after."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    root = root.resolve()
+    sys.path.insert(0, str(root))
+    from distributed_llm_scheduler_tpu_torch.eval import decode_bench as DB
+    from distributed_llm_scheduler_tpu_torch.ops import attention as A
+    from distributed_llm_scheduler_tpu_torch.ops import kernels
+
+    if not Path(A.__file__).resolve().is_relative_to(root):
+        raise AssertionError(f"imported {A.__file__}, not the package under {root}")
+    dev = torch.device("cuda", 0)
+    secs = kernels.build(A.PAGED_SOURCE)
+    cases = paged_serving_cases(torch, DB, dev)
+    got = A.paged_decode_attention(**cases[0], impl="kernel").float()
+    want32 = A.paged_decode_attention(**{
+        k: (v.float() if torch.is_tensor(v) and v.is_floating_point() else v)
+        for k, v in cases[0].items()}, impl="plain")
+    beyond = int(((got - want32).abs()
+                  > BF16_ROUNDOFF * want32.abs() + F32_SLACK).sum())
+    if beyond or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{root}: paged kernel off its plain version")
+    timed = time_paged_kernel(torch, A, cases)
+    print(json.dumps({"tree": str(root), "build_s": secs,
+                      "beyond_bf16_rule": beyond, **timed,
+                      "device": nvidia_smi_line()}), flush=True)
+    return 0
+
+
 def main() -> int:
     import gc
 
     import torch
 
+    if sys.argv[1:2] == ["--paged-timing"]:
+        return paged_timing(Path(sys.argv[2]) if len(sys.argv) > 2 else ROOT)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
@@ -1165,6 +1278,8 @@ def main() -> int:
     log(f"[2/11] built {', '.join(f'{n}.cu' for n in sources)} with "
         f"{kernels.nvcc_path()} for sm_90a in {secs:.1f} s (in parallel)")
     log_ptxas(kernels.build_logs.get(A.KERNEL, ""))
+    log_ptxas(kernels.build_logs.get(A.PAGED_SOURCE, ""),
+              only=("paged_split",))
 
     log("[3/11] flash kernel check against its plain version")
     attn = check_attention_kernel(
@@ -1186,7 +1301,8 @@ def main() -> int:
     phase_done()
 
     log("[7/11] serve path: GPT-2 small bf16 through the paged decode engine")
-    serve_launches, serve_ragged, serve_ln = run_serve_path(torch, P, A, dev)
+    serve_launches, serve_ragged, serve_ln, serve_tr = run_serve_path(
+        torch, P, A, dev)
     phase_done()
 
     log("[8/11] Llama path: Llama-3 8B bf16 DAG, pipeline stages, on the card")
@@ -1222,7 +1338,8 @@ def main() -> int:
         {"name": A.PAGED_KERNEL, "route": "cuda",
          "source": csrc + "paged_attention.cu", "replaces": tpu + "411",
          "launches": serve_launches["serve run 1"],
-         "launches_by_path": serve_launches, **paged[A.PAGED_KERNEL]},
+         "launches_by_path": serve_launches, **paged[A.PAGED_KERNEL],
+         "serve_trace": serve_tr},
         {"name": A.PAGED_RAGGED_KERNEL, "route": "cuda",
          "source": csrc + "paged_attention.cu", "replaces": tpu + "547",
          "launches": ragged_n,

@@ -9,47 +9,80 @@
 //     :547): Tn query rows per slot, row t attending positions
 //     <= L + clip(t, 0, max(q_lens[s]-1, 0)); no insert.
 // Both compute softmax(q k^T * scale) v over a slot's pages, reached
-// through the page table, with the online softmax's running max,
-// denominator and accumulator in f32 and the output in q's dtype.  GQA
-// folds the Hq query heads onto Hkv KV heads: query row c of KV head h is
-// head h*G + c/Tn at token c%Tn, the JAX package's (Hkv, G*Tn) order.
+// through the page table, with the softmax's running max, denominator and
+// accumulator in f32 and the output in q's dtype.  GQA folds the Hq query
+// heads onto Hkv KV heads: query row c of KV head h is head h*G + c/Tn at
+// token c%Tn, the JAX package's (Hkv, G*Tn) order.
 //
-// Layout for the GPU rather than the TPU's (slot, page) grid:
-//   * one thread block per (slot, KV head, tile of up to RB query rows),
-//     128 threads; the block walks the slot's positions in chunks of 128,
-//     one position per thread, reading the page id of each position from
-//     the page table in device memory (so any page size works);
-//   * phase 1: each thread loads its key's K row (16-byte vectors) and
-//     scores it against the block's query rows, which sit pre-scaled in
-//     shared memory; positions a row may not see get -inf, so nothing of
-//     a masked row (a poisoned trash page included) enters a sum;
-//   * phase 2: one warp per query row folds the chunk into the running
-//     max and denominator (exp2 on log2-scaled scores);
-//   * phase 3: each thread owns output elements (row, dim) and adds
-//     p * V over the chunk, V rows read straight from device memory,
-//     neighbouring threads on neighbouring dims;
-//   * the walk stops after the last position any row of the slot can
-//     see, so pages wholly past the length are never read.
-//
-// What bounds it on this card: decode at the GPT-2 serving shape (8
+// What bounds them on this card: decode at the GPT-2 serving shape (8
 // slots, 12 heads, hd 64, bf16, ~256 live positions per slot) moves the
-// live K/V rows once, ~6 MB per call, ~2 us at 3.35 TB/s; the products
-// are far below the tensor cores' rate.  This first version does them
-// with f32 FMA on the CUDA cores and keeps one block per (slot, head):
-// 96 blocks on 132 SMs at that shape, each walking its whole sequence.
-// Splitting a slot's positions across blocks (flash-decoding) and
-// staging K/V through shared memory with cp.async are the later steps.
+// live K/V rows once, ~7 MB per call, ~2.1 us at 3.35 TB/s; at one query
+// row a key costs 4*hd flops for its K and V rows, 1 flop per byte in
+// bf16, far below the ridge.  Only moving the bytes sooner and more of
+// them at once helps; tensor cores cannot, at one query row they would
+// waste 15/16 of each product.
+//
+// Single token (`paged_split_kernel`), flash-decoding for a GPU rather
+// than the TPU's (slot, page) walk, in one launch:
+//   * grid (S*Hkv, n_split, row tiles): each split owns a fixed span of
+//     pages_per_split whole pages of every slot (the host sizes it from
+//     S*Hkv, the capacity and the SM count, never from `lengths`, so the
+//     launch needs no host read of device memory).  A split whose span
+//     starts past the slot's last visible position reads nothing, so
+//     pages past the length are never read;
+//   * staging: the block loads its span's page ids once, then copies the
+//     span's K and V rows for its KV head into shared memory in tiles of
+//     ~4 KB, two stages deep, with 16-byte `cp.async` (neighbouring
+//     threads copy neighbouring 16 bytes of one row), so tile t+1 is in
+//     flight while tile t computes.  Rows past the span's last visible
+//     position are zero-filled (source size 0), never read, so nothing of
+//     a masked row (a poisoned trash page included) enters a sum; the
+//     insert row is copied from k_new/v_new in place of the pool's row;
+//   * compute on the CUDA cores in f32: each warp owns a quarter of every
+//     tile's keys and a group of LPK lanes reads one key's row (EPL
+//     elements per lane: bf16x2 pairs or wider), so a warp reads whole
+//     rows without bank conflicts; scores are reduced across the group by
+//     shuffles, masked to -inf past the span, and folded into the warp's
+//     own online softmax (exp2 on log2-scaled scores), then P*V into the
+//     lanes' accumulators.  All four warps work at one query row;
+//   * the four warps' (m, l, acc) merge through shared memory into the
+//     split's partial, in f32;
+//   * combine: the n_split blocks of a (slot, KV head) form one
+//     thread-block cluster (at most 8, the portable size).  Each live
+//     split stores its partial into split 0's shared memory (distributed
+//     shared memory); after one cluster barrier split 0 (always live:
+//     position 0 is visible) merges them in split order, all read at
+//     once: out = sum_i 2^(m_i-M) acc_i / sum_i 2^(m_i-M) l_i,
+//     deterministic, no atomics, no workspace and no second launch.
+//
+// Multi-token q (`paged_ragged_kernel`, slice 2's design): one thread
+// block per (slot, KV head, tile of up to RB query rows), 128 threads;
+// the block walks the slot's positions in chunks of 128, one position per
+// thread, reading each position's page id from the page table (any page
+// size): phase 1 scores the thread's key (K row read as 16-byte vectors)
+// against the block's pre-scaled query rows, masked to -inf; phase 2
+// folds the chunk into each row's running max and denominator, one warp
+// per row; phase 3 adds p * V, each thread owning output elements, V rows
+// read from device memory.  The walk stops after the last position any
+// row of the slot can see.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cooperative_groups.h>
 #include <math.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int NT = 128;  // threads per block = positions per chunk
+constexpr int NT = 128;  // threads per block (the ragged kernel's chunk)
 constexpr int NW = NT / 32;
 constexpr float LOG2E = 1.4426950408889634f;
+// the splits of one (slot, KV head) form a thread-block cluster, at most
+// the portable cluster size; a split keeps its page ids in shared memory
+constexpr int MAX_SPLITS = 8;
+constexpr int MAX_SPAN_PAGES = 1024;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -78,6 +111,53 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&o)[8]) {
   }
 }
 
+// 2 or 4 consecutive elements of a shared-memory row, as f32
+__device__ __forceinline__ void load_lane(const float* p, float (&o)[2]) {
+  const float2 a = *reinterpret_cast<const float2*>(p);
+  o[0] = a.x; o[1] = a.y;
+}
+__device__ __forceinline__ void load_lane(const float* p, float (&o)[4]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
+}
+__device__ __forceinline__ void load_lane(const __nv_bfloat16* p,
+                                          float (&o)[2]) {
+  const float2 f =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  o[0] = f.x; o[1] = f.y;
+}
+__device__ __forceinline__ void load_lane(const __nv_bfloat16* p,
+                                          float (&o)[4]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
+  o[0] = a.x; o[1] = a.y; o[2] = b.x; o[3] = b.y;
+}
+
+// 16-byte global -> shared copy; with pred false the 16 bytes are zeroed
+// (src must still be a valid address)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool pred) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  const int n = pred ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(n));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_1() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+// the two halves of a cluster barrier: arrive without ordering memory,
+// then wait for every thread of the cluster to have arrived
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+
 template <typename T>
 struct Args {
   const T* q;           // (S, Hq, Tn, hd), strides qs_* with unit hd stride
@@ -91,13 +171,318 @@ struct Args {
   T* out;               // (S, Hq, Tn, hd) contiguous
   int64_t qs_s, qs_h, qs_t, ns_s, ns_h;
   int Hq, Hkv, Tn, G, R, ps, ppseq, has_new;
+  int pps, n_split;     // single only: pages per split, splits per slot
   float scale_log2;
 };
 
-// HD: head dim; RB: query rows per block; RAGGED: multi-token q
-template <typename T, int HD, int RB, bool RAGGED>
+// -- single token: split, staged, combined -------------------------------------
+
+// How a warp reads rows of HD elements of T: EPL consecutive elements per
+// lane, LPK lanes per row (a group), NG groups per warp reading NG rows at
+// once; TK keys per tile (~4 KB of K, every warp a multiple of NG keys).
+template <typename T, int HD>
+struct Lanes {
+  static constexpr int EPL = HD >= 64 ? HD / 32 : 2;
+  static constexpr int LPK = HD / EPL;
+  static constexpr int NG = 32 / LPK;
+  static constexpr int TK_BYTES = 4096 / (HD * (int)sizeof(T));
+  static constexpr int TK = TK_BYTES > 64 ? 64
+                            : (TK_BYTES < NW * NG ? NW * NG : TK_BYTES);
+  static constexpr int KG = TK / (NW * NG);  // keys per group per tile
+  static constexpr int CH = 16 / (int)sizeof(T);  // elements per 16 bytes
+  static constexpr int CPR = HD / CH;             // 16-byte chunks per row
+  static_assert(EPL * LPK == HD && NG * LPK == 32, "lanes do not tile a row");
+  static_assert(TK % (NW * NG) == 0, "tile does not split across warps");
+};
+
+// HD: head dim; RB: query heads of the KV head's group per block.  The
+// n_split blocks of one (slot, KV head, row tile) form a thread-block
+// cluster, split j its rank j.
+template <typename T, int HD, int RB>
 __global__ void __launch_bounds__(NT)
-paged_attention_kernel(const Args<T> a) {
+paged_split_kernel(const Args<T> a) {
+  using Ln = Lanes<T, HD>;
+  constexpr int EPL = Ln::EPL, LPK = Ln::LPK, NG = Ln::NG, TK = Ln::TK;
+  constexpr int KG = Ln::KG, CH = Ln::CH, CPR = Ln::CPR;
+  __shared__ __align__(16) T k_s[2][TK][HD];
+  __shared__ __align__(16) T v_s[2][TK][HD];
+  __shared__ float m_w[NW][RB], l_w[NW][RB];
+  __shared__ __align__(16) float acc_w[NW][RB][HD];
+  // split 0's: every live split's (m, l, acc) per row, pushed here
+  __shared__ float part_s[MAX_SPLITS][RB][2 + HD];
+  extern __shared__ int page_s[];  // this split's page ids
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster_arrive_relaxed();  // this block has started
+
+  const int s = blockIdx.x / a.Hkv, h = blockIdx.x % a.Hkv;
+  const int split = blockIdx.y;
+  const int g0 = blockIdx.z * RB;  // first query head of the group here
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int grp = lane / LPK, sub = lane % LPK;
+  const int span = a.pps * a.ps;
+  const int p0 = split * span;
+
+  // independent loads, all in flight together: this split's page ids,
+  // the slot's length, this lane's elements of the block's query rows
+  const int first_page = split * a.pps;
+  const int npg = min(a.pps, a.ppseq - first_page);
+  for (int i = tid; i < npg; i += NT)
+    page_s[i] = a.pt[(int64_t)s * a.ppseq + first_page + i];
+  const int L = a.lengths[s];
+  float q[RB][EPL];  // rows past the group are zeros, finite, never stored
+#pragma unroll
+  for (int r = 0; r < RB; ++r) {
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) q[r][e] = 0.f;
+    if (g0 + r < a.G) {
+      const T* qrow = a.q + s * a.qs_s + (h * a.G + g0 + r) * a.qs_h;
+#pragma unroll
+      for (int e = 0; e < EPL; ++e)
+        q[r][e] = to_f32(qrow[sub * EPL + e]) * a.scale_log2;
+    }
+  }
+  const int last = min(L, a.ppseq * a.ps - 1);  // last visible position
+
+  // a split starting past `last` sees nothing: it only keeps the
+  // cluster's barriers
+  if (p0 <= last) {
+    const int p1 = min(p0 + span, last + 1);  // past this split's keys
+    const int ins = a.has_new ? last : -1;
+    __syncthreads();
+
+    // copy tile t of the span into stage st: K and V rows of this KV head
+    auto issue = [&](int t, int st) {
+      const int k0 = p0 + t * TK;
+      for (int c = tid; c < TK * CPR; c += NT) {
+        const int row = c / CPR, ch = c % CPR;
+        const int pos = k0 + row;
+        const bool live = pos < p1;
+        const T* ksrc = a.k_pool;
+        const T* vsrc = a.v_pool;
+        if (live) {
+          int64_t off;
+          if (pos == ins) {
+            off = s * a.ns_s + h * a.ns_h + ch * CH;
+            ksrc = a.k_new + off;
+            vsrc = a.v_new + off;
+          } else {
+            const int64_t page = page_s[(pos - p0) / a.ps];
+            off = ((page * a.ps + (pos - p0) % a.ps) * a.Hkv + h) *
+                      (int64_t)HD + ch * CH;
+            ksrc = a.k_pool + off;
+            vsrc = a.v_pool + off;
+          }
+        }
+        cp_async16(&k_s[st][row][ch * CH], ksrc, live);
+        cp_async16(&v_s[st][row][ch * CH], vsrc, live);
+      }
+    };
+
+    // this warp's online softmax, per query row: m is the same in every
+    // lane; l and acc are partial over the lane group's keys
+    float m[RB], l[RB], acc[RB][EPL];
+#pragma unroll
+    for (int r = 0; r < RB; ++r) {
+      m[r] = -INFINITY;
+      l[r] = 0.f;
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) acc[r][e] = 0.f;
+    }
+
+    const int n_tiles = (p1 - p0 + TK - 1) / TK;
+    issue(0, 0);
+    cp_async_commit();
+    for (int t = 0; t < n_tiles; ++t) {
+      if (t + 1 < n_tiles) issue(t + 1, (t + 1) & 1);
+      cp_async_commit();
+      cp_async_wait_1();  // tile t has landed (this thread's copies)
+      __syncthreads();    // ... and every thread's
+      const int st = t & 1;
+      const int k0 = p0 + t * TK;
+      float sc[RB][KG];
+#pragma unroll
+      for (int i = 0; i < KG; ++i) {
+        const int row = warp * (TK / NW) + grp + NG * i;
+        float kv[EPL];
+        load_lane(&k_s[st][row][sub * EPL], kv);
+#pragma unroll
+        for (int r = 0; r < RB; ++r) {
+          float x = 0.f;
+#pragma unroll
+          for (int e = 0; e < EPL; ++e) x = fmaf(q[r][e], kv[e], x);
+#pragma unroll
+          for (int o = LPK / 2; o > 0; o >>= 1)
+            x += __shfl_xor_sync(0xffffffffu, x, o);
+          sc[r][i] = k0 + row < p1 ? x : -INFINITY;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < RB; ++r) {
+        float mt = sc[r][0];
+#pragma unroll
+        for (int i = 1; i < KG; ++i) mt = fmaxf(mt, sc[r][i]);
+#pragma unroll
+        for (int o = LPK; o < 32; o <<= 1)
+          mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, o));
+        const float m_new = fmaxf(m[r], mt);
+        // a warp that has seen only masked keys keeps m = -inf: scale by
+        // 2^(x - 0) then, so no exponent is ever -inf - -inf
+        const float ms = m_new == -INFINITY ? 0.f : m_new;
+        const float alpha = exp2f(m[r] - ms);
+        l[r] *= alpha;
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) acc[r][e] *= alpha;
+        m[r] = m_new;
+#pragma unroll
+        for (int i = 0; i < KG; ++i) {
+          sc[r][i] = exp2f(sc[r][i] - ms);
+          l[r] += sc[r][i];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < KG; ++i) {
+        const int row = warp * (TK / NW) + grp + NG * i;
+        float vv[EPL];
+        load_lane(&v_s[st][row][sub * EPL], vv);
+#pragma unroll
+        for (int r = 0; r < RB; ++r) {
+#pragma unroll
+          for (int e = 0; e < EPL; ++e)
+            acc[r][e] = fmaf(sc[r][i], vv[e], acc[r][e]);
+        }
+      }
+      __syncthreads();  // stage st is free for tile t + 2
+    }
+
+    // sum the lane groups, then the warps, into this split's partial
+#pragma unroll
+    for (int r = 0; r < RB; ++r) {
+#pragma unroll
+      for (int o = LPK; o < 32; o <<= 1) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], o);
+#pragma unroll
+        for (int e = 0; e < EPL; ++e)
+          acc[r][e] += __shfl_xor_sync(0xffffffffu, acc[r][e], o);
+      }
+      if (lane < LPK) {
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) acc_w[warp][r][sub * EPL + e] = acc[r][e];
+      }
+      if (lane == 0) {
+        m_w[warp][r] = m[r];
+        l_w[warp][r] = l[r];
+      }
+    }
+    __syncthreads();
+  }
+  // every block of the cluster has started (each arrived on entry), so
+  // split 0's shared memory may be written
+  cluster_wait();
+  if (p0 <= last) {
+    // this split's slot in split 0's shared memory
+    float* dst = cluster.map_shared_rank(&part_s[split][0][0], 0);
+    for (int i = tid; i < RB * HD; i += NT) {
+      const int r = i / HD, d = i % HD;
+      // position p0 is visible to the row and lies in this split: M finite
+      float M = m_w[0][r];
+#pragma unroll
+      for (int w = 1; w < NW; ++w) M = fmaxf(M, m_w[w][r]);
+      float num = 0.f, den = 0.f;
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+        const float c = exp2f(m_w[w][r] - M);  // 0 for a warp with m = -inf
+        num = fmaf(c, acc_w[w][r][d], num);
+        den = fmaf(c, l_w[w][r], den);
+      }
+      dst[r * (2 + HD) + 2 + d] = num;
+      if (d == 0) {
+        dst[r * (2 + HD)] = M;
+        dst[r * (2 + HD) + 1] = den;
+      }
+    }
+  }
+  cluster.sync();  // every live split's partial is in split 0's memory
+  if (split != 0) return;
+
+  // split 0 (always live: position 0 is visible) merges the live splits'
+  // partials in split order, all read at once
+  const int n_live = last / span + 1;
+  for (int i = tid; i < RB * HD; i += NT) {
+    const int r = i / HD, d = i % HD;
+    if (g0 + r >= a.G) continue;
+    float mj[MAX_SPLITS], lj[MAX_SPLITS], aj[MAX_SPLITS];
+#pragma unroll
+    for (int j = 0; j < MAX_SPLITS; ++j) {
+      const bool live = j < n_live;
+      mj[j] = live ? part_s[j][r][0] : -INFINITY;
+      lj[j] = live ? part_s[j][r][1] : 0.f;
+      aj[j] = live ? part_s[j][r][2 + d] : 0.f;
+    }
+    float M = mj[0];
+#pragma unroll
+    for (int j = 1; j < MAX_SPLITS; ++j) M = fmaxf(M, mj[j]);
+    float num = 0.f, den = 0.f;
+#pragma unroll
+    for (int j = 0; j < MAX_SPLITS; ++j) {
+      const float c = exp2f(mj[j] - M);  // 0 past the live splits
+      num = fmaf(c, aj[j], num);
+      den = fmaf(c, lj[j], den);
+    }
+    const int64_t row = (int64_t)s * a.Hq + h * a.G + g0 + r;
+    store(a.out + row * HD + d, num / den);
+  }
+}
+
+template <typename T, int HD, int RB>
+cudaError_t launch_split(const Args<T>& a, dim3 grid, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = a.pps * sizeof(int);
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = 1;
+  cluster.val.clusterDim.y = a.n_split;
+  cluster.val.clusterDim.z = 1;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, paged_split_kernel<T, HD, RB>, a);
+}
+
+template <typename T>
+cudaError_t launch_single(const Args<T>& a, int S, int hd,
+                          cudaStream_t stream) {
+  // one query head per block without GQA; else up to 4 of a group
+  const int rb = a.G == 1 ? 1 : 4;
+  const long long bx = (long long)S * a.Hkv;
+  const long long bz = (a.G + rb - 1) / rb;
+  if (bx <= 0 || bx > 0x7fffffffLL || bz > 65535 || a.n_split < 1 ||
+      a.n_split > MAX_SPLITS || a.pps < 1 || a.pps > MAX_SPAN_PAGES)
+    return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)bx, (unsigned)a.n_split, (unsigned)bz);
+  switch (hd) {
+#define DLS_SPLIT_CASE(HD_)                                             \
+  case HD_:                                                             \
+    return rb == 1 ? launch_split<T, HD_, 1>(a, grid, stream)           \
+                   : launch_split<T, HD_, 4>(a, grid, stream);
+    DLS_SPLIT_CASE(8)
+    DLS_SPLIT_CASE(16)
+    DLS_SPLIT_CASE(32)
+    DLS_SPLIT_CASE(64)
+    DLS_SPLIT_CASE(128)
+#undef DLS_SPLIT_CASE
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// -- multi-token q --------------------------------------------------------------
+
+// HD: head dim; RB: query rows per block
+template <typename T, int HD, int RB>
+__global__ void __launch_bounds__(NT)
+paged_ragged_kernel(const Args<T> a) {
   constexpr int E = (RB * HD + NT - 1) / NT;  // output elements per thread
   __shared__ __align__(16) float q_s[RB][HD];
   __shared__ float p_s[RB][NT];
@@ -111,11 +496,10 @@ paged_attention_kernel(const Args<T> a) {
   const int tid = threadIdx.x;
   const int L = a.lengths[s];
   const int cap = a.ppseq * a.ps;
-  const int tmax = RAGGED ? max(a.q_lens[s] - 1, 0) : 0;
-  // the last position any row of the slot sees (the mask is pos <= L for
-  // a single token, pos <= L + min(t, tmax) for ragged row t)
+  const int tmax = max(a.q_lens[s] - 1, 0);
+  // the last position any row of the slot sees (the mask is
+  // pos <= L + min(t, tmax) for row t)
   const int n_keys = min(L + tmax, cap - 1) + 1;
-  const int ins = (!RAGGED && a.has_new) ? min(L, cap - 1) : -1;
 
   // the block's query rows, pre-scaled to the log2 domain; rows past
   // nrows are zeros, finite and never stored
@@ -132,7 +516,7 @@ paged_attention_kernel(const Args<T> a) {
   }
   if (tid < RB) {
     const int t = (c0 + tid) % a.Tn;
-    lim_s[tid] = L + (RAGGED ? min(t, tmax) : 0);
+    lim_s[tid] = L + min(t, tmax);
     m_s[tid] = -INFINITY;
     l_s[tid] = 0.f;
   }
@@ -147,19 +531,11 @@ paged_attention_kernel(const Args<T> a) {
     // phase 1: this thread's position, scored against every row
     const int pos = k0 + tid;
     if (pos < n_keys) {
-      const T* krow;
-      const T* vrow;
-      if (pos == ins) {
-        krow = a.k_new + s * a.ns_s + h * a.ns_h;
-        vrow = a.v_new + s * a.ns_s + h * a.ns_h;
-      } else {
-        const int64_t page = pt_row[pos / a.ps];
-        const int64_t off =
-            ((page * a.ps + pos % a.ps) * a.Hkv + h) * (int64_t)HD;
-        krow = a.k_pool + off;
-        vrow = a.v_pool + off;
-      }
-      v_row[tid] = vrow;
+      const int64_t page = pt_row[pos / a.ps];
+      const int64_t off =
+          ((page * a.ps + pos % a.ps) * a.Hkv + h) * (int64_t)HD;
+      const T* krow = a.k_pool + off;
+      v_row[tid] = a.v_pool + off;
       float sc[RB];
 #pragma unroll
       for (int r = 0; r < RB; ++r) sc[r] = 0.f;
@@ -254,8 +630,9 @@ paged_attention_kernel(const Args<T> a) {
   }
 }
 
-template <typename T, bool RAGGED>
-cudaError_t launch(const Args<T>& a, int S, int hd, cudaStream_t stream) {
+template <typename T>
+cudaError_t launch_ragged(const Args<T>& a, int S, int hd,
+                          cudaStream_t stream) {
   const int rb = a.R == 1 ? 1 : 16;
   const long long bx = (long long)S * a.Hkv;
   const long long by = (a.R + rb - 1) / rb;
@@ -265,9 +642,9 @@ cudaError_t launch(const Args<T>& a, int S, int hd, cudaStream_t stream) {
 #define DLS_PAGED_CASE(HD_)                                                \
   case HD_:                                                                \
     if (rb == 1)                                                           \
-      paged_attention_kernel<T, HD_, 1, RAGGED><<<grid, block, 0, stream>>>(a); \
+      paged_ragged_kernel<T, HD_, 1><<<grid, block, 0, stream>>>(a);       \
     else                                                                   \
-      paged_attention_kernel<T, HD_, 16, RAGGED><<<grid, block, 0, stream>>>(a); \
+      paged_ragged_kernel<T, HD_, 16><<<grid, block, 0, stream>>>(a);      \
     break;
   switch (hd) {
     DLS_PAGED_CASE(8)
@@ -313,44 +690,53 @@ bool bad_geometry(int S, int Hq, int Hkv, int Tn, int page_size, int ppseq) {
          page_size < 1 || ppseq < 1;
 }
 
+template <typename T>
+cudaError_t single(const void* q, const void* k_pool, const void* v_pool,
+                   const void* page_table, const void* lengths,
+                   const void* k_new, const void* v_new, void* out,
+                   const int64_t* q_strides, const int64_t* new_strides, int S,
+                   int Hq, int Hkv, int hd, int page_size, int ppseq, int pps,
+                   int has_new, float sm_scale, cudaStream_t stream) {
+  Args<T> a = make_args<T>(q, k_pool, v_pool, page_table, lengths, out,
+                           q_strides, Hq, Hkv, 1, page_size, ppseq, sm_scale);
+  a.k_new = (const T*)k_new;
+  a.v_new = (const T*)v_new;
+  a.ns_s = new_strides[0];
+  a.ns_h = new_strides[1];
+  a.has_new = has_new;
+  a.pps = pps;
+  a.n_split = pps < 1 ? 0 : (ppseq + pps - 1) / pps;
+  return launch_single<T>(a, S, hd, stream);
+}
+
 }  // namespace
 
 // Single-token paged attention (the port of `_paged_kernel`).
 // dtype: 0 = float32, 1 = bfloat16.  q_strides: (s, h, t) element strides
 // of q; new_strides: (s, h) of k_new and v_new (read only when has_new).
-// Returns the launch's cudaError_t (0 on success); does not synchronise.
+// pages_per_split: the span of each split, at most 1024 pages, in at
+// most 8 splits (ceil(ppseq / pages_per_split)).  One launch; returns its
+// cudaError_t (0 on success); does not synchronise.
 extern "C" int dls_paged_attention_fwd(
     const void* q, const void* k_pool, const void* v_pool,
     const void* page_table, const void* lengths, const void* k_new,
     const void* v_new, void* out, const int64_t* q_strides,
     const int64_t* new_strides, int S, int Hq, int Hkv, int hd,
-    int page_size, int ppseq, int has_new, int dtype, float sm_scale,
-    void* stream) {
+    int page_size, int ppseq, int pages_per_split, int has_new, int dtype,
+    float sm_scale, void* stream) {
   if (bad_geometry(S, Hq, Hkv, 1, page_size, ppseq))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    Args<float> a = make_args<float>(q, k_pool, v_pool, page_table, lengths,
-                                     out, q_strides, Hq, Hkv, 1, page_size,
-                                     ppseq, sm_scale);
-    a.k_new = (const float*)k_new;
-    a.v_new = (const float*)v_new;
-    a.ns_s = new_strides[0];
-    a.ns_h = new_strides[1];
-    a.has_new = has_new;
-    return (int)launch<float, false>(a, S, hd, st);
-  }
-  if (dtype == 1) {
-    Args<__nv_bfloat16> a = make_args<__nv_bfloat16>(
-        q, k_pool, v_pool, page_table, lengths, out, q_strides, Hq, Hkv, 1,
-        page_size, ppseq, sm_scale);
-    a.k_new = (const __nv_bfloat16*)k_new;
-    a.v_new = (const __nv_bfloat16*)v_new;
-    a.ns_s = new_strides[0];
-    a.ns_h = new_strides[1];
-    a.has_new = has_new;
-    return (int)launch<__nv_bfloat16, false>(a, S, hd, st);
-  }
+  if (dtype == 0)
+    return (int)single<float>(q, k_pool, v_pool, page_table, lengths, k_new,
+                              v_new, out, q_strides, new_strides, S, Hq,
+                              Hkv, hd, page_size, ppseq, pages_per_split,
+                              has_new, sm_scale, st);
+  if (dtype == 1)
+    return (int)single<__nv_bfloat16>(
+        q, k_pool, v_pool, page_table, lengths, k_new, v_new, out,
+        q_strides, new_strides, S, Hq, Hkv, hd, page_size, ppseq,
+        pages_per_split, has_new, sm_scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -370,14 +756,14 @@ extern "C" int dls_paged_attention_ragged_fwd(
                                      out, q_strides, Hq, Hkv, Tn, page_size,
                                      ppseq, sm_scale);
     a.q_lens = (const int*)q_lens;
-    return (int)launch<float, true>(a, S, hd, st);
+    return (int)launch_ragged<float>(a, S, hd, st);
   }
   if (dtype == 1) {
     Args<__nv_bfloat16> a = make_args<__nv_bfloat16>(
         q, k_pool, v_pool, page_table, lengths, out, q_strides, Hq, Hkv, Tn,
         page_size, ppseq, sm_scale);
     a.q_lens = (const int*)q_lens;
-    return (int)launch<__nv_bfloat16, true>(a, S, hd, st);
+    return (int)launch_ragged<__nv_bfloat16>(a, S, hd, st);
   }
   return (int)cudaErrorInvalidValue;
 }

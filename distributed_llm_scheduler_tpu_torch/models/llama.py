@@ -163,8 +163,8 @@ def embedding(input_ids, tok_emb):
     return tok_emb[input_ids]
 
 
-def rope_tables(T: int, head_dim: int, theta: float, device: Any = "cpu"):
-    """(cos, sin) of shape (T, head_dim // 2), float32."""
+def rope_tables(T: int, head_dim: int, theta: float, device: Any):
+    """(cos, sin) of shape (T, head_dim // 2), float32, on ``device``."""
     exponents = torch.arange(0, head_dim, 2, dtype=torch.float32,
                              device=device) / head_dim
     inv_freq = 1.0 / (theta ** exponents)

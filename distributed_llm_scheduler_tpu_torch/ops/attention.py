@@ -15,8 +15,12 @@ signatures and (B, H, T, hd) layout.
 Paged half: ``_paged_kernel`` (single-token decode with the in-kernel
 insert of this step's K/V row) and ``_paged_ragged_kernel`` (multi-token
 q with per-slot ``q_lens``) become the two entry points of
-``csrc/paged_attention.cu``.  ``paged_decode_attention`` is the public
-entry, with the JAX package's signature.
+``csrc/paged_attention.cu``.  The single-token one splits each slot's
+positions across blocks (:func:`paged_split` sizes the split from the
+geometry, never from the lengths on the device) and merges the splits'
+partials in the same launch, through distributed shared memory.
+``paged_decode_attention`` is the public entry, with the JAX package's
+signature.
 
 Dispatch is by device: a CUDA tensor goes to a kernel, which either
 launches or raises; a CPU or meta tensor goes to the plain version
@@ -275,10 +279,10 @@ def paged_kernel_constraints(
     """Violated rules of the Hopper paged kernels; an empty list means the
     geometry qualifies.  Each string names the rule it breaks.
 
-    The kernels read one K/V row of ``head_dim`` elements per key as
-    16-byte vectors (so the head dim is a multiple of 8, and its register
-    tiles are compiled for a fixed set of widths), walk a slot's keys
-    through the page table one position at a time (any page size), fold
+    The kernels read one K/V row of ``head_dim`` elements per key in
+    16-byte pieces (so the head dim is a multiple of 8, and their register
+    tiles are compiled for a fixed set of widths), find each position's
+    row through the page table (any page size), fold
     ``n_q_heads // n_kv_heads`` query heads onto each KV head, and address
     the pools as contiguous (P, ps, Hkv, hd) arrays."""
     out = []
@@ -302,6 +306,35 @@ def paged_kernel_constraints(
     return out
 
 
+def paged_split(
+    blocks_per_split: int, page_size: int, pages_per_seq: int, sm_count: int,
+):
+    """(pages per split, number of splits) for the single-token kernel.
+
+    Each split spans whole pages, at least 64 positions (a page, when
+    pages are longer).  The splits of a (slot, KV head) form one
+    thread-block cluster, so there are at most 8 (the portable cluster
+    size).  Splits are added until the grid holds 8 blocks per SM (about
+    half of them over live positions when lengths spread over the
+    capacity), never more than the capacity fills, never fewer than one.
+    Sized from the geometry alone: the lengths live on the device and
+    are never read here."""
+    min_pages = -(-64 // page_size)
+    most = min(8, -(-pages_per_seq // min_pages))
+    want = -(-8 * sm_count // blocks_per_split)
+    n = max(1, min(want, most))
+    pps = min(max(min_pages, -(-pages_per_seq // n)), pages_per_seq)
+    return pps, -(-pages_per_seq // pps)
+
+
+def _split_blocks(S: int, Hq: int, Hkv: int) -> int:
+    """Blocks of one split of the single-token kernel: one per (slot, KV
+    head, tile of the group's query heads), a tile being one head without
+    GQA and up to four with it (as ``csrc/paged_attention.cu`` tiles)."""
+    G = Hq // Hkv
+    return S * Hkv * (1 if G == 1 else -(-G // 4))
+
+
 def _paged_library():
     lib = kernels.load(PAGED_SOURCE)
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -309,8 +342,8 @@ def _paged_library():
     if fn.argtypes is None:  # first load: declare the C signatures
         # q, k_pool, v_pool, page_table, lengths, k_new, v_new, out,
         # q strides, new strides, S, Hq, Hkv, hd, page_size, ppseq,
-        # has_new, dtype, sm_scale, stream
-        fn.argtypes = [vp] * 10 + [i] * 8 + [f, vp]
+        # pages_per_split, has_new, dtype, sm_scale, stream
+        fn.argtypes = [vp] * 10 + [i] * 9 + [f, vp]
         fn.restype = ctypes.c_int
         rg = lib.dls_paged_attention_ragged_fwd
         # q, k_pool, v_pool, page_table, lengths, q_lens, out, q strides,
@@ -361,6 +394,10 @@ def _check_paged(q, k_pool, v_pool, page_table, lengths, q_tokens):
     )
     if bad:
         raise ValueError("paged kernel does not take this call: " + "; ".join(bad))
+    for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: the kernels copy 16-byte chunks of its "
+                             f"rows, so its base must be 16-byte aligned")
 
 
 def _int32(t):
@@ -374,7 +411,10 @@ def paged_attention(
     """Launch the CUDA single-token paged kernel (the port of
     ``_paged_kernel``) on CUDA tensors; see
     :func:`reference_paged_attention` for the function it computes.
-    Raises when the call does not qualify or the launch fails."""
+    One call is one launch and one count in ``kernels.launches``: the
+    splits of a slot merge inside it, through their thread-block
+    cluster's shared memory.  Nothing is read back to the host.  Raises
+    when the call does not qualify or the launch fails."""
     _check_paged(q, k_pool, v_pool, page_table, lengths, None)
     S, Hq, Tn, hd = q.shape
     if Tn != 1:
@@ -399,6 +439,13 @@ def paged_attention(
     if q.stride(-1) != 1:
         q = q.contiguous()
     out = torch.empty((S, Hq, 1, hd), dtype=q.dtype, device=q.device)
+    ppseq = pt.shape[1]
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    pps, _ = paged_split(_split_blocks(S, Hq, Hkv), ps, ppseq, sms)
+    if pps > 1024:
+        raise ValueError(
+            f"{ppseq} pages per slot need splits of {pps} pages; the kernel "
+            f"keeps at most 1024 page ids per split (8 splits)")
     q_strides = (ctypes.c_int64 * 3)(*q.stride()[:3])
     n_strides = (ctypes.c_int64 * 2)(*new_strides)
     lib = _paged_library()
@@ -408,7 +455,7 @@ def paged_attention(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), pt.data_ptr(),
             ln.data_ptr(), kn.data_ptr(), vn.data_ptr(), out.data_ptr(),
             ctypes.addressof(q_strides), ctypes.addressof(n_strides),
-            S, Hq, Hkv, hd, ps, pt.shape[1], int(has_new),
+            S, Hq, Hkv, hd, ps, ppseq, pps, int(has_new),
             _DTYPE_CODE[q.dtype], float(scale), stream,
         )
     if err != 0:

@@ -203,6 +203,93 @@ def test_paged_kernel_reads_strided_qkv_views(cuda):
     assert (got - ref).abs().max().item() < 1e-4
 
 
+# the single-token kernel's split edges (tests/test_torch_paged_split.py
+# holds the same cases' arithmetic to the JAX package on the CPU): (S, Hq,
+# Hkv, hd, page_size, pages_per_seq, lengths, insert, NaN poison); with
+# page 16 a split spans 64 positions
+_SPLIT_CASES = {
+    "len0_insert_only": (2, 2, 2, 8, 16, 16, [0, 0], True, False),
+    "len0_no_insert": (2, 2, 2, 8, 16, 16, [0, 9], False, False),
+    "past_capacity": (2, 4, 2, 16, 16, 16, [256 + 7, 255], True, False),
+    "insert_on_split_boundary": (3, 4, 2, 32, 16, 16, [64, 128, 192], True, False),
+    "ends_at_span_end": (3, 4, 2, 32, 16, 16, [63, 127, 191], True, False),
+    "empty_trailing_splits": (2, 4, 2, 16, 16, 16, [3, 70], True, False),
+    "nan_trash_and_masked_tail": (2, 4, 2, 16, 16, 16, [20, 100], True, True),
+    "gqa_4to1": (2, 8, 2, 16, 16, 16, [33, 200], True, False),
+    "gqa_2to1_hd64": (3, 4, 2, 64, 16, 16, [5, 130, 255], True, False),
+    "hd128": (2, 2, 2, 128, 16, 16, [77, 250], True, False),
+    "hd8_page5": (3, 4, 2, 8, 5, 40, [4, 64, 199], True, False),
+    # S * Hkv >= 132: fewer, longer splits (6 of 96 positions)
+    "slots16_heads12": (16, 12, 12, 64, 16, 32, None, True, False),
+    # 1,056 blocks per split already: one split, no combine launch
+    "one_split": (88, 12, 12, 64, 16, 8, None, True, False),
+}
+
+
+def _split_case(name, dtype, device, seed=11):
+    """One case's tensors (pages in order, trash page 0 behind unused
+    entries) and, when poisoned, the same call with the trash page and
+    each slot's masked tail rows set to NaN."""
+    S, Hq, Hkv, hd, ps, ppseq, lengths, insert, poison = _SPLIT_CASES[name]
+    rng = np.random.default_rng(seed)
+    cap = ps * ppseq
+    if lengths is None:
+        lengths = rng.integers(0, cap, size=S).tolist()
+
+    def draw(shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+            device=device, dtype=dtype)
+
+    pt = np.zeros((S, ppseq), np.int32)
+    page = 1
+    for s, L in enumerate(lengths):
+        for j in range(-(-min(L + 1, cap) // ps)):
+            pt[s, j] = page
+            page += 1
+    case = dict(q=draw((S, Hq, 1, hd)), k_pool=draw((S * ppseq + 1, ps, Hkv, hd)),
+                v_pool=draw((S * ppseq + 1, ps, Hkv, hd)),
+                page_table=torch.from_numpy(pt).to(device),
+                lengths=torch.tensor(lengths, dtype=torch.int32, device=device),
+                sm_scale=hd ** -0.5)
+    if insert:
+        case["k_new"], case["v_new"] = draw((S, Hkv, 1, hd)), draw((S, Hkv, 1, hd))
+    poisoned = None
+    if poison:
+        poisoned = dict(case, k_pool=case["k_pool"].clone(),
+                        v_pool=case["v_pool"].clone())
+        for pool in (poisoned["k_pool"], poisoned["v_pool"]):
+            pool[0] = float("nan")
+            for s, L in enumerate(lengths):
+                last = min(L, cap - 1)
+                pool[int(pt[s, last // ps]), last % ps + 1:] = float("nan")
+    return case, poisoned
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(_SPLIT_CASES))
+def test_paged_kernel_split_edges(cuda, name, dtype):
+    """The split kernel and its combine at each split edge, against the
+    plain version (on the un-poisoned pools for the NaN case: the poison
+    must change nothing): f32 within 1e-4; bf16 within 5e-2 of the plain
+    version and every element within 2^-8 |x| + 1e-4 of it in f32."""
+    case, poisoned = _split_case(name, dtype, cuda)
+    before = kernels.launches[A.PAGED_KERNEL]
+    got = A.paged_decode_attention(**(poisoned or case), impl="kernel").float()
+    torch.cuda.synchronize()
+    assert kernels.launches[A.PAGED_KERNEL] == before + 1
+    assert torch.isfinite(got).all()
+    want = A.paged_decode_attention(**case, impl="plain").float()
+    if dtype == torch.float32:
+        assert (got - want).abs().max().item() < 1e-4
+        return
+    want32 = A.paged_decode_attention(**{
+        k: (v.float() if torch.is_tensor(v) and v.is_floating_point() else v)
+        for k, v in case.items()}, impl="plain")
+    assert (got - want).abs().max().item() < 5e-2
+    assert ((got - want32).abs() > 2.0 ** -8 * want32.abs() + 1e-4).sum().item() == 0
+
+
 @pytest.mark.cuda
 def test_paged_kernel_refuses_unqualified_geometry(cuda):
     case = DB.serving_case(torch.float32, cuda, seed=3, head_dim=48)
