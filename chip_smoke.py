@@ -12,7 +12,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    attention; LayerNorm and RMSNorm) are compiled with nvcc for sm_90a,
    one process each, started together; ptxas's registers and spills of
    the flash kernels and of the single-token paged split kernels are
-   printed;
+   printed, and for norms.cu one line over all its kernels (registers,
+   spill bytes) with its largest register-path instance and any that
+   spills;
 3. flash kernel check: the kernel against its plain PyTorch version on
    the card, at the GPT-2 main path's shape (also as strided head views
    of a fused qkv product, the layout the model hands it, bit for bit
@@ -34,8 +36,16 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    kernel leg drives it) with its launches counted;
 5. norm kernel check: both norm kernels against their plain versions at
    the main paths' shapes and at edge cases (f32, 77 rows, D = 100 and
-   128, strided rows, a long-row tail, rows offset by 1e4), with times
-   over distinct inputs that overflow the L2, bounds and library calls;
+   128, strided rows, a long-row tail, rows offset by 1e4, the register
+   instances' width edges, aligned and unaligned strided rows, more rows
+   than the grid holds), each asserting which kernel variant
+   (``norm_plan``: register or streaming) ran; then LayerNorm at the
+   GPT-2 task's (1, 512, 768) and decode step's (8, 1, 768) shapes and
+   RMSNorm at the Llama task's (1, 512, 4096), bf16, timed as CUDA-graph
+   replays over distinct inputs that total 2x the L2 (and one input
+   repeated), beside their bounds, an empty kernel's time on the same
+   grid in the same kind of graph (the per-launch floor), the plain
+   versions and the library calls;
 6. flagship forward path: the GPT-2 small DAG (bf16, batch 8, seq 512,
    8 microbatches, 8 vocab shards, linear chains fused: 537 tasks) is
    calibrated on the card, placed by ``greedy`` on the card and by
@@ -43,23 +53,26 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    ``DeviceBackend``; each of these three runs has its launch counts set
    to 0 just before it and read just after, and must launch the flash
    kernel once per attention task and the LayerNorm kernel once per
-   layer norm per forward (96 and 200); the output must meet the fused
-   forward;
+   layer norm per forward (96 and 200, every LayerNorm on the register
+   kernel); the output must meet the fused forward; traces give device
+   time per forward, the norm kernels' included;
 7. serve path: GPT-2 small bf16 at full width through the paged decode
    DAG (8 slots, page size 16, 257 pages, capacity 512), placed by
    ``greedy`` and served by ``DeviceBackend.paged_decode_engine`` in
    8-step segments: 16 requests, one warm-up run, then 3 timed runs, each
    with the paged kernel's launches counted (12 layers x 8 steps per
    segment) and the LayerNorm kernel's (25 per decode step and per
-   prefill forward), no leaked pages, every request's token count, and a
-   teacher-forced oracle against the fused forward; a traced segment
-   gives device busy time and the paged kernels' own device time;
+   prefill forward, all on the register kernel), no leaked pages, every
+   request's token count, and a teacher-forced oracle against the fused
+   forward; a traced segment gives device busy time and the paged and
+   norm kernels' own device time;
 8. Llama path: Llama-3 8B bf16 at full width and depth (batch 8, seq
    512, 8 microbatches, 8 vocab shards, linear chains fused: 1,945
    tasks), weights drawn on the card from a seeded generator, calibrated,
    placed by ``pipeline`` on 8 virtual nodes sharing the card and by
    ``greedy`` on one, executed with 256 flash and 520 RMSNorm launches
-   per forward in every counted run, and held against the fused forward;
+   (all on the register kernel) per forward in every counted run, and
+   held against the fused forward;
 9. f32 leg: a 2-layer GPT-2 small-width DAG placed on the card must be
    allclose to the port's fused forward run on the CPU with the plain
    versions;
@@ -80,6 +93,11 @@ and ``{"ok": true, "device": {...}}``.
 times only the single-token paged kernel of the package under ROOT
 (another checkout, e.g. a parent commit unpacked with ``git archive``)
 the way phase 4 does, and prints one JSON line; see :func:`paged_timing`.
+
+    python3 chip_smoke.py --norm-timing [ROOT]
+
+does the same for the norm kernels of the package under ROOT at phase
+5's three timed shapes; see :func:`norm_timing`.
 """
 
 from __future__ import annotations
@@ -166,6 +184,48 @@ def log_ptxas(build_log: str, only=("",)) -> None:
                 log(f"  ptxas {m.group(1)}:")
         elif shown and ("spill" in line or "Used" in line):
             log(f"    {line.strip()}")
+
+
+def ptxas_table(build_log: str) -> list:
+    """(kernel, registers, spill store bytes, spill load bytes) of every
+    kernel in a build's ptxas report (``-Xptxas=-v``)."""
+    import re
+
+    rows, name, spills = [], None, (0, 0)
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append((name, int(m.group(1)), *spills))
+            name, spills = None, (0, 0)
+    return rows
+
+
+def log_norm_ptxas(build_log: str) -> dict:
+    """One line for all of norms.cu's kernels (registers, spills), one for
+    the register path's largest instance and one for each that spills."""
+    rows = ptxas_table(build_log)
+    if not rows:
+        log("  ptxas norms.cu: no report (the library was built before)")
+        return {}
+    reg = [r for r in rows if "norm_reg_kernel" in r[0]]
+    spilled = [r for r in rows if r[2] or r[3]]
+    log(f"  ptxas norms.cu: {len(rows)} kernels ({len(reg)} register-path "
+        f"instances), registers {min(r[1] for r in rows)}-"
+        f"{max(r[1] for r in rows)}, spill stores "
+        f"{sum(r[2] for r in rows)} bytes, spill loads "
+        f"{sum(r[3] for r in rows)} bytes in {len(spilled)} kernels")
+    for name, regs, st, ld in [max(reg, key=lambda r: r[1])] + spilled:
+        log(f"    {regs} registers, spills {st}/{ld} bytes: {name}")
+    return dict(kernels=len(rows), register_instances=len(reg),
+                max_registers=max(r[1] for r in rows),
+                spill_store_bytes=sum(r[2] for r in rows),
+                spill_load_bytes=sum(r[3] for r in rows))
 
 
 def cuda_ms(fn, n: int, warm: int = 5) -> float:
@@ -431,46 +491,156 @@ def graph_ms(torch, fn, inputs, reps: int = 5) -> float:
     return a.elapsed_time(b) / (reps * len(inputs))
 
 
-def check_norm_kernels(torch, N, dev) -> dict:
-    """Both norm kernels against their plain versions: the main paths'
-    shapes, then f32, 77 rows, D = 100 and 128, strided rows, the
-    block-per-row path with a tail, and rows offset by 1e4.  Returns each
-    kernel's numbers at its main path's shape."""
-    import numpy as np
+# norm kernel cases: (kernel, shape, dtype, offset rows, pad), each with
+# the variant ``norm_plan`` must pick for it; the main paths' shapes first
+NORM_CASES = [
+    ("ln", (1, 512, 768), "bfloat16", False, 0, "register"),   # GPT-2 flagship task
+    ("ln", (8, 1, 768), "bfloat16", False, 0, "register"),     # GPT-2 decode step
+    ("rms", (1, 512, 4096), "bfloat16", False, 0, "register"),  # Llama-3 8B task
+    ("ln", (1, 512, 768), "float32", False, 0, "register"),
+    ("rms", (1, 512, 4096), "float32", False, 0, "register"),
+    ("ln", (77, 100), "float32", False, 0, "register"),
+    ("rms", (77, 100), "float32", False, 0, "register"),
+    ("ln", (77, 128), "bfloat16", False, 0, "register"),
+    ("rms", (77, 128), "bfloat16", False, 0, "register"),
+    ("ln", (3, 40, 100), "bfloat16", False, 3, "streaming"),
+    ("rms", (3, 40, 128), "float32", False, 1, "streaming"),
+    ("ln", (5, 1500), "float32", False, 0, "register"),
+    ("rms", (5, 1500), "bfloat16", False, 5, "streaming"),
+    ("ln", (4, 128), "float32", True, 0, "register"),
+    ("ln", (4, 100), "float32", True, 0, "register"),
+    ("rms", (4, 100), "float32", True, 0, "register"),
+    # the register instances' edges (bf16: 8 elements a vector; a warp
+    # holds up to 1,024 a row, a block up to 8,192) and what streams
+    ("ln", (33, 8), "bfloat16", False, 0, "register"),
+    ("rms", (33, 256), "bfloat16", False, 0, "register"),
+    ("ln", (33, 257), "bfloat16", False, 0, "streaming"),
+    ("rms", (33, 1024), "bfloat16", False, 0, "register"),
+    ("ln", (33, 1025), "bfloat16", False, 0, "streaming"),
+    ("ln", (33, 1032), "bfloat16", False, 0, "register"),
+    ("ln", (9, 4096), "bfloat16", False, 0, "register"),
+    ("ln", (9, 8192), "bfloat16", False, 0, "register"),
+    ("rms", (9, 8192), "bfloat16", False, 0, "register"),
+    ("ln", (9, 8200), "bfloat16", False, 0, "streaming"),
+    ("rms", (9, 4100), "float32", False, 0, "streaming"),
+    ("ln", (3, 40, 768), "bfloat16", False, 8, "register"),   # strided, aligned
+    ("ln", (3, 40, 768), "bfloat16", False, 4, "streaming"),  # 8 bytes off
+    # more rows than the card holds blocks: the grid-stride loop
+    ("ln", (20000, 768), "bfloat16", False, 0, "register"),
+    ("rms", (3000, 4096), "bfloat16", False, 0, "register"),
+]
+# (kernel, shape) timed, bf16: the GPT-2 flagship task's LayerNorm, a
+# GPT-2 decode step's (10,400 of a serve run's 10,475 LayerNorm launches),
+# the Llama-3 8B task's RMSNorm
+NORM_TIMED = (("ln", (1, 512, 768)), ("ln", (8, 1, 768)),
+              ("rms", (1, 512, 4096)))
+# the plain version, a chain of ~10 launches, is timed over at most this
+# many of the distinct inputs (a decode step's shape needs ~8,100)
+NORM_PLAIN_INPUTS = 1024
+
+
+def norm_fns(torch, N):
+    """Kernel, plain version and one-call library yardstick of each norm."""
     import torch.nn.functional as F
 
-    cases = [  # (kernel, shape, dtype, offset rows, pad)
-        ("ln", (1, 512, 768), "bfloat16", False, 0),   # GPT-2 flagship task
-        ("ln", (8, 1, 768), "bfloat16", False, 0),     # GPT-2 decode step
-        ("rms", (1, 512, 4096), "bfloat16", False, 0),  # Llama-3 8B task
-        ("ln", (1, 512, 768), "float32", False, 0),
-        ("rms", (1, 512, 4096), "float32", False, 0),
-        ("ln", (77, 100), "float32", False, 0),
-        ("rms", (77, 100), "float32", False, 0),
-        ("ln", (77, 128), "bfloat16", False, 0),
-        ("rms", (77, 128), "bfloat16", False, 0),
-        ("ln", (3, 40, 100), "bfloat16", False, 3),
-        ("rms", (3, 40, 128), "float32", False, 1),
-        ("ln", (5, 1500), "float32", False, 0),
-        ("rms", (5, 1500), "bfloat16", False, 5),
-        ("ln", (4, 128), "float32", True, 0),
-        ("ln", (4, 100), "float32", True, 0),
-        ("rms", (4, 100), "float32", True, 0),
-    ]
-    kernel = {"ln": N.layer_norm_kernel, "rms": N.rms_norm_kernel}
-    plain = {"ln": N.reference_layer_norm, "rms": N.reference_rms_norm}
-    library = {
-        "ln": lambda x, g, b: F.layer_norm(x, (x.shape[-1],), g, b, 1e-5),
-        "rms": lambda x, g: F.rms_norm(x, (x.shape[-1],), g, 1e-5),
-    }
+    return (
+        {"ln": N.layer_norm_kernel, "rms": N.rms_norm_kernel},
+        {"ln": N.reference_layer_norm, "rms": N.reference_rms_norm},
+        {"ln": lambda x, g, b: F.layer_norm(x, (x.shape[-1],), g, b, 1e-5),
+         "rms": lambda x, g: F.rms_norm(x, (x.shape[-1],), g, 1e-5)},
+    )
+
+
+def norm_plan_of(N, args):
+    """``N.norm_plan`` for a norm call on ``args`` (x, g[, b]), or None for
+    a package that predates it; the output, a fresh allocation, counts as
+    16-byte aligned, as the caching allocator's blocks are."""
+    if not hasattr(N, "norm_plan"):
+        return None
+    x2 = args[0].reshape(-1, args[0].shape[-1])
+    return N.norm_plan(x2.shape[0], x2.shape[1], x2.stride(0), x2.dtype,
+                       x2.data_ptr(), 0, [w.data_ptr() for w in args[1:]])
+
+
+def time_norm(torch, N, kind, args, rng, dev, yardsticks=True) -> dict:
+    """One norm kernel at ``args``' shape, as CUDA-graph replays over
+    distinct inputs totalling 2x the L2 (and one input repeated, L2-
+    resident), with its bytes bound, the per-launch floor of an empty
+    kernel on the same grid in the same kind of graph (when the package
+    has one), and, with ``yardsticks``, the plain version's and the
+    library call's times."""
+    kernel, plain, library = (f[kind] for f in norm_fns(torch, N))
+    x = args[0]
+    shape, dname = tuple(x.shape), str(x.dtype).split(".")[-1]
+    n = max(8, math.ceil(2 * L2_BYTES / (x.numel() * x.element_size())))
+    inputs = [args] + [
+        norm_inputs(torch, rng, dev, shape, dname)[:len(args)]
+        for _ in range(n - 1)]
+    nbytes, flops = norm_work(x, kind)
+    bound_ms, bound_by = bound_of(nbytes, flops, "float32")
+    out = dict(shape=list(shape), distinct_inputs=n,
+               ms=graph_ms(torch, kernel, inputs),
+               ms_l2_resident=graph_ms(torch, kernel, [args] * n),
+               bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+               flops=flops)
+    plan = norm_plan_of(N, args)
+    if plan is not None:
+        out["variant"] = plan.variant
+        out["instance"] = [plan.threads_per_row, plan.vecs_per_thread]
+    if plan is not None and hasattr(N, "empty_kernel"):
+        out["floor_ms"] = graph_ms(
+            torch, lambda: N.empty_kernel(plan.blocks, dev), [()] * n)
+        out["floor_blocks"] = plan.blocks
+    if yardsticks:
+        out["plain_ms"] = graph_ms(torch, plain, inputs[:NORM_PLAIN_INPUTS])
+        out["plain_inputs"] = min(n, NORM_PLAIN_INPUTS)
+        out["library_ms"] = graph_ms(torch, library, inputs)
+    return out
+
+
+def log_norm_time(name: str, t: dict) -> None:
+    lib = "F.layer_norm" if name == "layer_norm" else "F.rms_norm"
+    floor = (f", empty-kernel floor {t['floor_ms']:.5f} ms on "
+             f"{t['floor_blocks']} blocks" if "floor_ms" in t else "")
+    yard = (f", plain {t['plain_ms']:.5f} ms (over {t['plain_inputs']} of "
+            f"them), library {lib} {t['library_ms']:.5f} ms"
+            if "plain_ms" in t else "")
+    log(f"  {name} {tuple(t['shape'])} bf16 ({t.get('variant', 'one kernel')}"
+        f"{' ' + str(tuple(t['instance'])) if 'instance' in t else ''}), over "
+        f"{t['distinct_inputs']} distinct inputs (2x the L2): kernel "
+        f"{t['ms']:.5f} ms (one input repeated, L2-resident: "
+        f"{t['ms_l2_resident']:.5f} ms){floor}{yard}, bound "
+        f"{t['bound_ms'] * 1e3:.3f} us ({t['bound_by']}: "
+        f"{t['bytes'] / 1e6:.4f} MB, {t['flops'] / 1e6:.3f} MFLOP)")
+
+
+def check_norm_kernels(torch, N, dev) -> dict:
+    """Both norm kernels against their plain versions on NORM_CASES: the
+    main paths' shapes, then f32, 77 rows, D = 100 and 128, strided rows,
+    the block-per-row path with a tail, rows offset by 1e4, the register
+    instances' edges and rows past the grid; each case must also take the
+    variant it names.  Then NORM_TIMED are timed.  Returns each kernel's
+    numbers at its main path's shape (LayerNorm's decode-step shape under
+    ``at_serve_shape``)."""
+    import numpy as np
+
+    from distributed_llm_scheduler_tpu_torch.ops import kernels
+
+    kernel, plain, _ = norm_fns(torch, N)
     cpu = torch.device("cpu")
     rng = np.random.default_rng(3)
-    out = {}
-    for kind, shape, dname, offset, pad in cases:
+    timed_args = {}
+    for kind, shape, dname, offset, pad, variant in NORM_CASES:
         x, g, b = norm_inputs(torch, rng, dev, shape, dname, offset, pad)
         args = (x, g, b) if kind == "ln" else (x, g)
+        name = N.LN_KERNEL if kind == "ln" else N.RMS_KERNEL
+        before = {v: kernels.launches[f"{name}.{v}"]
+                  for v in (N.REGISTER, N.STREAMING)}
         got = kernel[kind](*args)
         torch.cuda.synchronize()
+        ran = [v for v, n in before.items()
+               if kernels.launches[f"{name}.{v}"] == n + 1]
+        plan = norm_plan_of(N, args)
         # offset rows: the plain version on the card takes the mean as
         # sum * (1/D), one rounding off these rows' exact mean (an ulp of
         # 1e4 is ~1e-3); on the CPU it divides, exactly, as the kernel does
@@ -487,41 +657,31 @@ def check_norm_kernels(torch, N, dev) -> dict:
             rule32 = f"tol {KERNEL_TOL[dname]:g}"
         finite = bool(torch.isfinite(got).all())
         ok = (finite and err < KERNEL_TOL[dname] and out32 == 0
-              and got.shape == x.shape and got.dtype == x.dtype)
-        name = N.LN_KERNEL if kind == "ln" else N.RMS_KERNEL
+              and got.shape == x.shape and got.dtype == x.dtype
+              and ran == [variant])
+        shape_ = (f" {plan.threads_per_row}x{plan.vecs_per_thread}"
+                  if plan.vecs_per_thread else "")
         log(f"  {name} {shape} {dname}{' offset 1e4' if offset else ''}"
-            f"{f' strided (pad {pad})' if pad else ''}: max_abs_err {err:.3e} "
+            f"{f' strided (pad {pad})' if pad else ''}: {'/'.join(ran)}"
+            f"{shape_} (expected {variant}), max_abs_err {err:.3e} "
             f"vs plain{' (CPU)' if offset else ''} (tol {KERNEL_TOL[dname]:g}), "
             f"{diff32.max().item():.3e} vs plain in f32 ({rule32}) -> "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{name} disagrees at {shape} {dname}")
-        if name in out or dname != "bfloat16" or shape[0] != 1:
-            continue
-        # the main path's shape: distinct inputs totalling 2x the L2
-        n = max(8, math.ceil(2 * L2_BYTES / (x.numel() * x.element_size())))
-        inputs = [args] + [
-            norm_inputs(torch, rng, dev, shape, dname)[:len(args)]
-            for _ in range(n - 1)]
-        ms = graph_ms(torch, kernel[kind], inputs)
-        ms_l2 = graph_ms(torch, kernel[kind], [args] * n)
-        plain_ms = graph_ms(torch, plain[kind], inputs)
-        lib_ms = graph_ms(torch, library[kind], inputs)
-        nbytes, flops = norm_work(x, kind)
-        bound_ms, bound_by = bound_of(nbytes, flops, "float32")
-        log(f"  {name} at the main path's shape {shape} {dname}, over {n} "
-            f"distinct inputs ({n * x.numel() * x.element_size() / 1e6:.1f} MB, "
-            f"2x the L2): kernel {ms:.5f} ms (one input repeated, L2-resident: "
-            f"{ms_l2:.5f} ms), plain {plain_ms:.5f} ms, library "
-            f"{'F.layer_norm' if kind == 'ln' else 'F.rms_norm'} {lib_ms:.5f} "
-            f"ms, bound {bound_ms * 1e3:.3f} us ({bound_by}: "
-            f"{nbytes / 1e6:.3f} MB, {flops / 1e6:.2f} MFLOP)")
-        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         bound_ms=bound_ms, bound_by=bound_by,
-                         library_ms=lib_ms, ms_l2_resident=ms_l2,
-                         shape=list(shape), distinct_inputs=n)
+        if (kind, shape) in NORM_TIMED and dname == "bfloat16":
+            timed_args[(kind, shape)] = args, err
+    out = {}
+    for kind, shape in NORM_TIMED:
+        name = N.LN_KERNEL if kind == "ln" else N.RMS_KERNEL
+        args, err = timed_args[(kind, shape)]
+        t = dict(max_abs_err=err, **time_norm(torch, N, kind, args, rng, dev))
+        log_norm_time(name, t)
+        if name in out:
+            out[name]["at_serve_shape"] = t
+        else:
+            out[name] = t
     return out
-
 
 
 def device_time_breakdown(torch, label: str, makespan_s: float, run) -> None:
@@ -547,6 +707,21 @@ def device_time_breakdown(torch, label: str, makespan_s: float, run) -> None:
         f"{sum(r[1] for r in rows)} device ops")
     for us, n, key in sorted(rows, reverse=True)[:6]:
         log(f"    {us / 1e3:8.3f} ms  {n:5d}x  {key[:90]}")
+    log_norm_device_time(f"{label} trace", "per forward", rows)
+
+
+def log_norm_device_time(label: str, per: str, rows) -> float:
+    """The norm kernels' device time in a trace's (us, count, name) rows,
+    by kernel (csrc/norms.cu: norm_reg_kernel, norm_fwd_kernel)."""
+    total = 0.0
+    for kernel in ("norm_reg_kernel", "norm_fwd_kernel"):
+        hit = [(us, n) for us, n, key in rows if kernel in key]
+        if hit:
+            us, n = sum(h[0] for h in hit), sum(h[1] for h in hit)
+            total += us / 1e3
+            log(f"  {label}, {kernel}: {us / 1e3:.3f} ms {per} over {n} "
+                f"launches ({us / n:.2f} us each)")
+    return total
 
 
 def counted(label: str, expected: dict, run):
@@ -768,7 +943,9 @@ def run_main_path(torch, P, dev) -> dict:
     # layer norms per forward: ln1 and ln2 per layer, final_ln, per microbatch
     n_ln = sum(1 for t in dag.graph
                if t.task_id.endswith(("_ln1", "_ln2", "final_ln")))
-    per_forward = {"flash_attention": n_attn, "layer_norm": n_ln}
+    # ... every one of them on the register kernel
+    per_forward = {"flash_attention": n_attn, "layer_norm": n_ln,
+                   "layer_norm.register": n_ln}
     log(f"  per forward: {n_attn} flash and {n_ln} layer_norm launches")
 
     launches = {}
@@ -868,11 +1045,12 @@ def run_llama_path(torch, P, dev) -> dict:
     if len(graph) != LLAMA_TASKS:
         raise AssertionError(f"Llama flagship has {len(graph)} tasks")
     # per microbatch: one attention per layer; attn_norm and ffn_norm per
-    # layer, and final_norm
+    # layer, and final_norm, every one of them on the register kernel
+    n_rms = sum(1 for t in dag.graph if t.task_id.endswith("_norm"))
     per_forward = {
         "flash_attention": sum(1 for t in dag.graph
                                if t.task_id.endswith("_attention")),
-        "rms_norm": sum(1 for t in dag.graph if t.task_id.endswith("_norm")),
+        "rms_norm": n_rms, "rms_norm.register": n_rms,
     }
     t_build = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -1077,9 +1255,11 @@ def serve_trace(torch, eng, reqs, seg_wall_s: float) -> None:
     for us, n, key in paged:
         log(f"  serve trace, paged: {us / 1e3:.3f} ms over {n} launches "
             f"({us / n:.2f} us each): {key[:80]}")
+    norm_ms = log_norm_device_time("serve trace", "per segment", rows)
     return dict(segment_device_busy_ms=busy_ms, segment_device_ops=n_ops,
                 segment_paged_ms=sum(r[0] for r in paged) / 1e3,
-                segment_paged_ops=sum(r[1] for r in paged))
+                segment_paged_ops=sum(r[1] for r in paged),
+                segment_norm_ms=norm_ms)
 
 
 def serve_oracle(torch, P, cfg, weights, reqs, results) -> None:
@@ -1150,6 +1330,7 @@ def run_serve_path(torch, P, A, dev) -> tuple:
         n_paged = kernels.launches[A.PAGED_KERNEL]
         n_ragged = kernels.launches[A.PAGED_RAGGED_KERNEL]
         n_ln = kernels.launches["layer_norm"]
+        n_ln_reg = kernels.launches["layer_norm.register"]
         snap = eng.metrics.snapshot()
         steps = SERVE_SEG_STEPS * eng.segments_run
         waves = snap["counters"]["decode.admission_waves"]["value"]
@@ -1159,8 +1340,10 @@ def run_serve_path(torch, P, A, dev) -> tuple:
             f"{cfg.n_layer} x {SERVE_SEG_STEPS} x {eng.segments_run} segments = "
             f"{expected}), {A.PAGED_RAGGED_KERNEL} {n_ragged} times (expected "
             f"0), layer_norm {n_ln} times (expected {2 * cfg.n_layer + 1} x "
-            f"({steps} decode steps + {waves} prefill forwards) = {ln_expected})")
-        if n_paged != expected or n_ragged != 0 or n_ln != ln_expected:
+            f"({steps} decode steps + {waves} prefill forwards) = {ln_expected}),"
+            f" {n_ln_reg} of them on the register kernel (expected all)")
+        if (n_paged != expected or n_ragged != 0 or n_ln != ln_expected
+                or n_ln_reg != n_ln):
             raise AssertionError(f"{label}: kernel launches off")
         paged_n[label], ragged_n[label], ln_n[label] = n_paged, n_ragged, n_ln
         bad = [rid for rid, _, g in reqs if len(results[rid]) != g]
@@ -1247,6 +1430,48 @@ def paged_timing(root: Path) -> int:
     return 0
 
 
+def norm_timing(root: Path) -> int:
+    """``python3 chip_smoke.py --norm-timing [ROOT]``: the norm kernels of
+    the package under ROOT (default: this checkout) alone, built from
+    ROOT's source, each held once against its plain version in f32 under
+    the bf16 rule and timed at NORM_TIMED as phase 5 times them (kernel,
+    L2-resident repeat and, where the package has one, the empty-kernel
+    floor); prints one JSON line.  Two trees run in turns (A, B, B, A) in
+    one call on one card give a before and after."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    root = root.resolve()
+    sys.path.insert(0, str(root))
+    from distributed_llm_scheduler_tpu_torch.ops import kernels
+    from distributed_llm_scheduler_tpu_torch.ops import norms as N
+
+    if not Path(N.__file__).resolve().is_relative_to(root):
+        raise AssertionError(f"imported {N.__file__}, not the package under {root}")
+    dev = torch.device("cuda", 0)
+    secs = kernels.build(N.SOURCE)
+    kernel, plain, _ = norm_fns(torch, N)
+    rng = np.random.default_rng(3)
+    timed = []
+    for kind, shape in NORM_TIMED:
+        x, g, b = norm_inputs(torch, rng, dev, shape, "bfloat16")
+        args = (x, g, b) if kind == "ln" else (x, g)
+        got = kernel[kind](*args).float()
+        want32 = plain[kind](*(t.float() for t in args))
+        beyond = int(((got - want32).abs()
+                      > BF16_ROUNDOFF * want32.abs() + F32_SLACK).sum())
+        if beyond or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{root}: {kind} kernel off its plain version")
+        t = time_norm(torch, N, kind, args, rng, dev, yardsticks=False)
+        timed.append(dict(kernel=kind, beyond_bf16_rule=beyond, **t))
+    print(json.dumps({"tree": str(root), "build_s": secs, "timed": timed,
+                      "device": nvidia_smi_line()}), flush=True)
+    return 0
+
+
 def main() -> int:
     import gc
 
@@ -1254,6 +1479,8 @@ def main() -> int:
 
     if sys.argv[1:2] == ["--paged-timing"]:
         return paged_timing(Path(sys.argv[2]) if len(sys.argv) > 2 else ROOT)
+    if sys.argv[1:2] == ["--norm-timing"]:
+        return norm_timing(Path(sys.argv[2]) if len(sys.argv) > 2 else ROOT)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
@@ -1280,6 +1507,7 @@ def main() -> int:
     log_ptxas(kernels.build_logs.get(A.KERNEL, ""))
     log_ptxas(kernels.build_logs.get(A.PAGED_SOURCE, ""),
               only=("paged_split",))
+    norm_ptxas = log_norm_ptxas(kernels.build_logs.get(N.SOURCE, ""))
 
     log("[3/11] flash kernel check against its plain version")
     attn = check_attention_kernel(
@@ -1356,7 +1584,7 @@ def main() -> int:
          "replaces": tpu_norms + "76",
          "launches": llama_n["pipeline x8"][N.RMS_KERNEL],
          "launches_by_path": by_path(N.RMS_KERNEL, runs),
-         **norms[N.RMS_KERNEL]},
+         **norms[N.RMS_KERNEL], "ptxas": norm_ptxas},
     ]}
     print(json.dumps(line), flush=True)
     print(smi, flush=True)

@@ -10,7 +10,10 @@ stays within one bf16 rounding of the f32 function), f32 on the CUDA
 cores.  K and V may carry fewer heads than q (grouped-query attention);
 the kernels read each KV head in place for its group of query heads.
 ``mha`` and ``gqa_mha`` are the public entries, with the JAX package's
-signatures and (B, H, T, hd) layout.
+signatures and (B, H, T, hd) layout.  The flash path is differentiable
+as the JAX package's ``_flash_with_vjp`` is: the kernel runs the forward,
+and the backward (:func:`flash_attention_backward`) recomputes attention
+through the plain version under autograd from q, k and v alone.
 
 Paged half: ``_paged_kernel`` (single-token decode with the in-kernel
 insert of this step's K/V row) and ``_paged_ragged_kernel`` (multi-token
@@ -128,7 +131,21 @@ def flash_attention(q, k, v, causal: bool = True, sm_scale: Optional[float] = No
     head dim is contiguous.  The output is allocated as (B, T, H, hd) and
     returned as its (B, H, T, hd) view, so the caller's merge of heads back
     to (B, T, H*hd) needs no copy.  Raises when the inputs do not qualify
-    or the launch fails."""
+    or the launch fails.
+
+    With grad enabled and q, k or v requiring grad, the call goes through
+    :class:`_FlashAttention`, whose backward is
+    :func:`flash_attention_backward`; otherwise (every executed path runs
+    under ``torch.no_grad()``) the kernel is launched directly.  Either
+    way the forward is one launch."""
+    if torch.is_grad_enabled() and (
+            q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, sm_scale)
+    return _flash_forward(q, k, v, causal, sm_scale)
+
+
+def _flash_forward(q, k, v, causal, sm_scale):
+    """The kernel launch behind :func:`flash_attention`."""
     _check(q, k, v)
     B, H, T, hd = q.shape
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(hd)
@@ -149,6 +166,44 @@ def flash_attention(q, k, v, causal: bool = True, sm_scale: Optional[float] = No
         raise RuntimeError(f"flash attention launch failed: cudaError {err}")
     kernels.launches[KERNEL] += 1
     return out
+
+
+def flash_attention_backward(q, k, v, grad_out, causal: bool = True,
+                             sm_scale: Optional[float] = None):
+    """(dq, dk, dv) of attention at (q, k, v) for the cotangent
+    ``grad_out``: the JAX package's ``_flash_with_vjp`` backward, which
+    recomputes attention through the plain version and differentiates
+    that (no O(T^2) tensor is kept between forward and backward; the
+    recompute builds one).  k and v may carry fewer heads than q: they
+    are repeated across each query group inside the differentiated graph,
+    so dk and dv come back at their own head count, summed over the
+    group."""
+    group = q.shape[1] // k.shape[1]
+    with torch.enable_grad():
+        q_, k_, v_ = (t.detach().requires_grad_() for t in (q, k, v))
+        kr, vr = ((k_, v_) if group == 1 else
+                  (k_.repeat_interleave(group, dim=1),
+                   v_.repeat_interleave(group, dim=1)))
+        out = reference_mha(q_, kr, vr, causal=causal, sm_scale=sm_scale)
+        return torch.autograd.grad(out, (q_, k_, v_), grad_out)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The flash kernel's forward with :func:`flash_attention_backward` as
+    its backward; saves q, k and v only."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return _flash_forward(q, k, v, causal, sm_scale)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, grad_out, ctx.causal, ctx.sm_scale)
+        return dq, dk, dv, None, None
 
 
 def mha(q, k, v, causal: bool = True, sm_scale: Optional[float] = None):

@@ -421,3 +421,179 @@ def test_gqa_mha_at_the_llama_shape(cuda):
     want = A.reference_mha(q, kr, vr)
     want32 = A.reference_mha(q.float(), kr.float(), vr.float())
     _kernel_close(got, want, want32, torch.bfloat16)
+
+
+# -- the register and streaming norm kernels --------------------------------------
+
+NORM_VARIANT_CASES = [
+    # (kernel, shape, dtype, offset, pad, g dtype, variant norm_plan picks):
+    # bf16 widths at the register instances' edges (8 elements a vector; a
+    # warp holds up to 1,024 a row, a 128-thread block up to 8,192), one
+    # above the largest, and widths that are not whole vectors
+    ("ln", (33, 8), torch.bfloat16, False, 0, None, "register"),
+    ("rms", (33, 256), torch.bfloat16, False, 0, None, "register"),
+    ("ln", (33, 257), torch.bfloat16, False, 0, None, "streaming"),
+    ("ln", (33, 768), torch.bfloat16, False, 0, None, "register"),
+    ("rms", (33, 1024), torch.bfloat16, False, 0, None, "register"),
+    ("ln", (33, 1025), torch.bfloat16, False, 0, None, "streaming"),
+    ("ln", (33, 1032), torch.bfloat16, False, 0, None, "register"),
+    ("rms", (9, 4096), torch.bfloat16, False, 0, None, "register"),
+    ("ln", (9, 8192), torch.bfloat16, False, 0, None, "register"),
+    ("rms", (9, 8192), torch.bfloat16, False, 0, None, "register"),
+    ("ln", (9, 8200), torch.bfloat16, False, 0, None, "streaming"),
+    # f32 rows: 4 elements a vector, up to 4,096 a row
+    ("ln", (9, 4096), torch.float32, False, 0, None, "register"),
+    ("rms", (9, 4100), torch.float32, False, 0, None, "streaming"),
+    ("ln", (33, 516), torch.float32, False, 0, None, "register"),
+    # mixed weight dtypes, the largest instance's register load among them
+    ("ln", (9, 8192), torch.bfloat16, False, 0, torch.float32, "register"),
+    ("rms", (9, 8192), torch.bfloat16, False, 0, torch.float32, "register"),
+    ("ln", (33, 768), torch.float32, False, 0, torch.bfloat16, "register"),
+    ("rms", (9, 4096), torch.float32, False, 0, torch.bfloat16, "register"),
+    # strided rows: 16 bytes in (aligned) and 8 bytes in (unaligned)
+    ("ln", (3, 40, 768), torch.bfloat16, False, 8, None, "register"),
+    ("rms", (3, 40, 768), torch.bfloat16, False, 4, None, "streaming"),
+    ("ln", (3, 40, 4096), torch.float32, False, 4, None, "register"),
+    # offset rows, held against the CPU: a masked slot on some lanes
+    ("ln", (4, 192), torch.float32, True, 0, None, "register"),
+    ("rms", (4, 192), torch.float32, True, 0, None, "register"),
+    # more rows than the card holds blocks: the grid-stride loop, g and b
+    # held across rows, the reduction buffers reused
+    ("ln", (20000, 768), torch.bfloat16, False, 0, None, "register"),
+    ("ln", (3000, 4096), torch.bfloat16, False, 0, None, "register"),
+    ("rms", (3000, 4096), torch.bfloat16, False, 0, None, "register"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", NORM_VARIANT_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_norm_kernel_variants(cuda, case):
+    kind, shape, dtype, offset, pad, g_dtype, variant = case
+    x, g, b = _norm_inputs(shape, dtype, cuda, seed=len(shape) * 7000 + shape[-1],
+                           offset=offset, pad=pad, g_dtype=g_dtype)
+    name = N.LN_KERNEL if kind == "ln" else N.RMS_KERNEL
+    before = {k: kernels.launches[k] for k in
+              (name, f"{name}.{N.REGISTER}", f"{name}.{N.STREAMING}")}
+    where = torch.device("cpu") if offset else cuda
+    xw, gw, bw = (t.to(where) for t in (x, g, b))
+    if kind == "ln":
+        got = N.layer_norm(x, g, b)
+        want = N.reference_layer_norm(xw, gw, bw)
+        want32 = N.reference_layer_norm(xw.float(), gw.float(), bw.float())
+    else:
+        got = N.rms_norm(x, g)
+        want = N.reference_rms_norm(xw, gw)
+        want32 = N.reference_rms_norm(xw.float(), gw.float())
+    want, want32 = want.to(cuda), want32.to(cuda)
+    torch.cuda.synchronize()
+    assert kernels.launches[name] == before[name] + 1
+    assert kernels.launches[f"{name}.{variant}"] == before[f"{name}.{variant}"] + 1
+    assert got.shape == x.shape and got.dtype == dtype
+    _kernel_close(got, want, want32, dtype)
+
+
+@pytest.mark.cuda
+def test_norm_kernels_refuse_grad(cuda):
+    x = torch.randn(4, 768, device=cuda, requires_grad=True)
+    g, b = torch.ones(768, device=cuda), torch.zeros(768, device=cuda)
+    before = kernels.launches[N.LN_KERNEL]
+    with pytest.raises(RuntimeError, match="no backward"):
+        N.layer_norm(x, g, b)
+    with pytest.raises(RuntimeError, match="no backward"):
+        N.rms_norm(x.detach(), g.clone().requires_grad_())
+    assert kernels.launches[N.LN_KERNEL] == before
+    with torch.no_grad():
+        out = N.layer_norm(x, g, b)
+    assert out.grad_fn is None and kernels.launches[N.LN_KERNEL] == before + 1
+
+
+# -- the flash path's backward ----------------------------------------------------
+
+FLASH_GRAD_CASES = [
+    # (entry, q shape, KV heads, dtype, causal): GPT-2 tiny's attention in
+    # f32, full attention, GQA 4:1 at a ragged T, and bf16 at the main
+    # paths' head dims
+    ("mha", (1, 4, 128, 32), 4, torch.float32, True),
+    ("mha", (1, 4, 128, 32), 4, torch.float32, False),
+    ("gqa_mha", (1, 8, 77, 64), 2, torch.float32, True),
+    ("mha", (1, 4, 128, 64), 4, torch.bfloat16, True),
+    ("gqa_mha", (1, 8, 128, 128), 2, torch.bfloat16, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_GRAD_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_flash_path_is_differentiable(cuda, case):
+    """dq, dk and dv through the kernel path against autograd of the plain
+    version: f32 at 2e-4 (the loss also feeds the output back, so the
+    kernel's forward enters the cotangent); bf16 under the bf16 rule
+    against the same plain autograd in bf16.  dk and dv keep the KV heads;
+    the forward is one launch and the backward launches nothing."""
+    entry, shape, kv_heads, dtype, causal = case
+    B, H, T, hd = shape
+    rng = np.random.default_rng(sum(shape) + kv_heads)
+    q, cot = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+              .to(cuda, dtype) for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((B, kv_heads, T, hd))
+                             .astype(np.float32)).to(cuda, dtype)
+            for _ in range(2))
+
+    def loss(out):
+        if dtype == torch.float32:
+            return (out * cot).sum() + 0.5 * (out * out).sum()
+        return (out.float() * cot.float()).sum()
+
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = kernels.launches[A.KERNEL]
+    out = getattr(A, entry)(*ins, causal=causal)
+    assert out.grad_fn is not None
+    loss(out).backward()
+    torch.cuda.synchronize()
+    assert kernels.launches[A.KERNEL] == before + 1
+
+    refs = [t.clone().requires_grad_() for t in (q, k, v)]
+    group = H // kv_heads
+    loss(A.reference_mha(refs[0], refs[1].repeat_interleave(group, 1),
+                         refs[2].repeat_interleave(group, 1),
+                         causal=causal)).backward()
+    for name, t, r in zip("qkv", ins, refs):
+        assert t.grad.shape == r.shape, name
+        if dtype == torch.float32:
+            assert (t.grad - r.grad).abs().max().item() < 2e-4, name
+        else:
+            want = r.grad.float()
+            assert torch.isfinite(t.grad).all(), name
+            assert ((t.grad.float() - want).abs()
+                    - (2.0 ** -8 * want.abs() + 1e-4)).max().item() <= 0, name
+
+
+@pytest.mark.cuda
+def test_flash_grads_land_in_the_fused_qkv(cuda):
+    """q, k and v as strided head views of one (B, T, 3*H*hd) product:
+    the gradient lands in the parent, as autograd of the plain version
+    puts it."""
+    (x,) = _qkv((2, 64, 3 * 128), torch.float32, cuda)[:1]
+    cot = torch.randn(2, 2, 64, 64, device=cuda)
+
+    def grad_of(attend):
+        xx = x.clone().requires_grad_()
+        q, k, v = (t.reshape(2, 64, 2, 64).transpose(1, 2)
+                   for t in xx.split(128, -1))
+        (attend(q, k, v) * cot).sum().backward()
+        return xx.grad
+
+    got = grad_of(A.mha)
+    want = grad_of(A.reference_mha)
+    assert (got - want).abs().max().item() < 2e-4
+
+
+@pytest.mark.cuda
+def test_flash_under_no_grad_takes_the_launcher(cuda):
+    q, k, v = (t.requires_grad_() for t in _qkv((1, 4, 128, 64), torch.bfloat16, cuda))
+    before = kernels.launches[A.KERNEL]
+    with torch.no_grad():
+        out = A.mha(q, k, v)
+    assert out.grad_fn is None
+    assert kernels.launches[A.KERNEL] == before + 1
