@@ -11,8 +11,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    torch/csrc/`` (flash attention; single-token and ragged paged
    attention; LayerNorm and RMSNorm) are compiled with nvcc for sm_90a,
    one process each, started together; ptxas's registers and spills of
-   the flash kernels and of the single-token paged split kernels are
-   printed, and for norms.cu one line over all its kernels (registers,
+   the flash kernels, of the single-token paged split kernels and of the
+   ragged tensor-core kernels are printed, and for norms.cu one line over all its kernels (registers,
    spill bytes) with its largest register-path instance and any that
    spills;
 3. flash kernel check: the kernel against its plain PyTorch version on
@@ -27,13 +27,15 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    could take (its bound);
 4. paged kernel check: both paged kernels against their plain versions
    on the card, on the JAX decode bench's 7 single-token and 5 ragged
-   fixtures (f32, trash page poisoned, 1e-5) and at the GPT-2 small
-   serving shape in bf16, with times and bounds (the single-token kernel
-   as CUDA-graph replays over distinct serving cases that total 2x the
-   L2, with one case repeated and issued back to back beside it; the
-   ragged kernel issued back to back); then the ragged op path
+   fixtures (f32, trash page poisoned, 1e-5; each ragged fixture on the
+   variant ``ragged_plan`` names) and at the GPT-2 small serving shape in
+   bf16 (the 32-token ragged chunk on the tensor-core variant), with
+   times and bounds (each kernel as CUDA-graph replays over distinct
+   serving cases that total 2x the L2, with one case repeated and issued
+   back to back beside it); then the ragged op path
    (``paged_decode_attention(..., q_lens=...)``, as the decode bench's
-   kernel leg drives it) with its launches counted;
+   kernel leg drives it) with its launches counted in all and by
+   variant;
 5. norm kernel check: both norm kernels against their plain versions at
    the main paths' shapes and at edge cases (f32, 77 rows, D = 100 and
    128, strided rows, a long-row tail, rows offset by 1e4, the register
@@ -93,6 +95,16 @@ and ``{"ok": true, "device": {...}}``.
 times only the single-token paged kernel of the package under ROOT
 (another checkout, e.g. a parent commit unpacked with ``git archive``)
 the way phase 4 does, and prints one JSON line; see :func:`paged_timing`.
+
+    python3 chip_smoke.py --ragged-timing [ROOT]
+
+does the same for the ragged paged kernel at the 32-token serving chunk;
+see :func:`ragged_timing`.
+
+    python3 chip_smoke.py --ragged-sweep ROOT GEOMETRIES [short]
+
+times the tensor-core ragged kernel of ROOT at launch geometries given by
+hand, with no check; see :func:`ragged_sweep`.
 
     python3 chip_smoke.py --norm-timing [ROOT]
 
@@ -807,6 +819,57 @@ def time_paged_kernel(torch, A, cases) -> dict:
                 distinct_bytes=nbytes * len(cases))
 
 
+def ragged_serving_cases(torch, DB, dev) -> list:
+    """Ragged serving chunks (32 query tokens) of ``DB.serving_case`` at
+    seeds 0, 1, ... (distinct pools), until the bytes their calls must
+    move total twice the L2, as ``paged_decode_attention`` keyword
+    arguments; ``real`` stays beside them for the checks."""
+    cases, total = [], 0
+    while total < 2 * L2_BYTES:
+        case = DB.serving_case(torch.bfloat16, dev, seed=len(cases), q_tokens=32)
+        total += paged_work(torch, case)[0]
+        cases.append({k: v for k, v in case.items() if k != "name"})
+    return cases
+
+
+def ragged_variant(A, case) -> str:
+    """The variant ``A.ragged_plan`` picks for a ragged case, or "walk"
+    for a package that predates the plan (one kernel)."""
+    if not hasattr(A, "ragged_plan"):
+        return "walk"
+    import torch
+
+    S, Hq, Tn, hd = case["q"].shape
+    _, ps, Hkv, _ = case["k_pool"].shape
+    sms = torch.cuda.get_device_properties(case["q"].device).multi_processor_count
+    return A.ragged_plan(case["q"].dtype, S, Hq, Hkv, Tn, hd, ps,
+                         case["page_table"].shape[1], sms).variant
+
+
+def time_ragged_kernel(torch, A, cases) -> dict:
+    """The ragged kernel at the serving chunk, timed as
+    :func:`time_paged_kernel` times the single-token one: CUDA-graph
+    replays over the distinct ``cases``, case 0 repeated (L2-resident),
+    back to back, and the bound of the cases' mean work; with the
+    variant that ran."""
+    args = [{k: v for k, v in c.items() if k != "real"} for c in cases]
+    return dict(time_paged_kernel(torch, A, args),
+                variant=ragged_variant(A, args[0]))
+
+
+def ragged_beyond_rule(torch, A, case) -> tuple:
+    """(elements beyond 2^-8 |x| + 1e-4 of the f32 plain version on the
+    case's real rows, finite) of the ragged kernel's output on ``case``."""
+    args = {k: v for k, v in case.items() if k not in ("name", "real")}
+    got = A.paged_decode_attention(**args, impl="kernel").float()
+    want32 = A.paged_decode_attention(**{
+        k: (v.float() if torch.is_tensor(v) and v.is_floating_point() else v)
+        for k, v in args.items()}, impl="plain")
+    beyond = ((got - want32).abs() > BF16_ROUNDOFF * want32.abs() + F32_SLACK)
+    return (int((beyond & case["real"].expand_as(got).bool()).sum()),
+            bool(torch.isfinite(got).all()))
+
+
 def check_paged_kernels(torch, A, DB, dev) -> dict:
     """Both paged kernels against their plain versions; returns each
     kernel's numbers at the serving shape."""
@@ -814,23 +877,44 @@ def check_paged_kernels(torch, A, DB, dev) -> dict:
 
     from distributed_llm_scheduler_tpu_torch.models.kv_pages import gather_kv
 
+    from distributed_llm_scheduler_tpu_torch.ops import kernels
+
     for label, cases in (("single-token", DB.paged_parity_cases(device=dev)),
                          ("ragged", DB.ragged_parity_cases(device=dev))):
-        res = DB.op_parity(cases, kernel_impl="kernel")
-        torch.cuda.synchronize()
-        for name, r in res["fixtures"].items():
-            log(f"  {label} fixture {name}: max_abs_err {r['max_abs_err']:.3e} "
-                f"(f32, tol {PAGED_TOL:g}), finite={r['finite']} -> "
-                f"{'ok' if r['allclose'] and r['finite'] else 'FAIL'}")
-        if not res["allclose"]:
-            raise AssertionError(f"paged {label} kernel fails the bench fixtures")
+        ran = {}
+        for c in cases:  # each ragged fixture on the variant its plan names
+            kernels.reset_launches()
+            res = DB.op_parity([c], kernel_impl="kernel")
+            torch.cuda.synchronize()
+            r = res["fixtures"][c["name"]]
+            ok = r["allclose"] and r["finite"]
+            variant = ""
+            if label == "ragged":
+                want = ragged_variant(A, c)
+                ran = [v for v in (A.RAGGED_TC, A.RAGGED_WALK) if kernels.launches[
+                    f"{A.PAGED_RAGGED_KERNEL}.{v}"] == 1]
+                ok = ok and ran == [want]
+                variant = f", variant {'/'.join(ran)} (plan: {want})"
+            log(f"  {label} fixture {c['name']}: max_abs_err {r['max_abs_err']:.3e} "
+                f"(f32, tol {PAGED_TOL:g}), finite={r['finite']}{variant} -> "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(
+                    f"paged {label} kernel fails the bench fixture {c['name']}")
 
     out = {}
     for kname, q_tokens in ((A.PAGED_KERNEL, 1), (A.PAGED_RAGGED_KERNEL, 32)):
         case = DB.serving_case(torch.bfloat16, dev, seed=0, q_tokens=q_tokens)
         args = {k: v for k, v in case.items() if k not in ("name", "real")}
+        kernels.reset_launches()
         got = A.paged_decode_attention(**args, impl="kernel")
         torch.cuda.synchronize()
+        variant = ""
+        if q_tokens > 1:  # the serving chunk runs on the tensor cores
+            variant = A.RAGGED_TC
+            if kernels.launches[f"{A.PAGED_RAGGED_KERNEL}.{A.RAGGED_TC}"] != 1:
+                raise AssertionError(f"{kname}: the serving chunk did not run "
+                                     f"on the {A.RAGGED_TC} variant")
         want = A.paged_decode_attention(**args, impl="plain")
         args32 = {k: (v.float() if torch.is_tensor(v) and v.is_floating_point()
                       else v) for k, v in args.items()}
@@ -848,16 +932,16 @@ def check_paged_kernels(torch, A, DB, dev) -> dict:
             + (f", q_lens {case['q_lens'].tolist()}" if "q_lens" in case else "")
             + f": max_abs_err {err:.3e} vs plain (tol {KERNEL_TOL['bfloat16']:g}), "
             f"{(diff32 * m).max().item():.3e} vs plain in f32 ({out32} elements "
-            f"beyond 2^-8*|x|+{F32_SLACK:g}), finite={finite} -> "
+            f"beyond 2^-8*|x|+{F32_SLACK:g}), finite={finite}"
+            + (f", variant {variant}" if variant else "") + " -> "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{kname} disagrees at the serving shape")
-        timed = {}
         if q_tokens == 1:
             timed = time_paged_kernel(torch, A, paged_serving_cases(torch, DB, dev))
-            ms = timed.pop("ms")
         else:
-            ms = cuda_ms(lambda: A.paged_decode_attention(**args, impl="kernel"), 200)
+            timed = time_ragged_kernel(torch, A, ragged_serving_cases(torch, DB, dev))
+        ms = timed.pop("ms")
         plain_ms = cuda_ms(lambda: A.paged_decode_attention(**args, impl="plain"), 50)
         S, H, Tn, hd = case["q"].shape
         cap = case["page_table"].shape[1] * case["k_pool"].shape[1]
@@ -878,15 +962,15 @@ def check_paged_kernels(torch, A, DB, dev) -> dict:
         yard_ms = cuda_ms(yardstick, 100)
         nbytes, flops = paged_work(torch, case)
         bound_ms, bound_by = bound_of(nbytes, flops, "bfloat16")
-        if timed:
-            log(f"  {kname} at the serving shape, CUDA-graph replays over "
-                f"{timed['distinct_inputs']} distinct cases "
-                f"({timed['distinct_bytes'] / 1e6:.1f} MB to move, 2x the L2): "
-                f"kernel {ms:.5f} ms (case 0 repeated, L2-resident: "
-                f"{timed['ms_l2_resident']:.5f} ms; issued back to back: "
-                f"{timed['ms_back_to_back']:.5f} ms), bound of the cases' mean "
-                f"work {timed['bound_ms'] * 1e3:.3f} us ({timed['bound_by']})")
-            bound_ms, bound_by = timed.pop("bound_ms"), timed.pop("bound_by")
+        log(f"  {kname} at the serving shape, CUDA-graph replays over "
+            f"{timed['distinct_inputs']} distinct cases "
+            f"({timed['distinct_bytes'] / 1e6:.1f} MB to move, 2x the L2): "
+            f"kernel {ms:.5f} ms (case 0 repeated, L2-resident: "
+            f"{timed['ms_l2_resident']:.5f} ms; issued back to back: "
+            f"{timed['ms_back_to_back']:.5f} ms), bound of the cases' mean "
+            f"work {timed['bound_ms'] * 1e3:.3f} us ({timed['bound_by']})"
+            + (f", variant {timed['variant']}" if "variant" in timed else ""))
+        bound_ms, bound_by = timed.pop("bound_ms"), timed.pop("bound_by")
         log(f"  {kname} at the serving shape: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, bound {bound_ms * 1e3:.3f} us ({bound_by}: "
             f"{nbytes / 1e6:.3f} MB, {flops / 1e9:.4f} GFLOP for case 0); "
@@ -899,12 +983,17 @@ def check_paged_kernels(torch, A, DB, dev) -> dict:
     return out
 
 
-def run_ragged_op_path(torch, A, DB, dev) -> int:
+def run_ragged_op_path(torch, A, DB, dev) -> dict:
     """The ragged kernel's path: ``paged_decode_attention(..., q_lens=...)``
     with the device's own dispatch, over the decode bench's ragged sweep
-    and the serving-shape chunk, counted."""
+    (f32) and two serving-shape chunks (bf16), counted in all and by the
+    variant each call's plan names.  Returns the counts."""
     cases = DB.ragged_parity_cases(device=dev) + [
         DB.serving_case(torch.bfloat16, dev, seed=s, q_tokens=32) for s in (4, 5)]
+    expected = {A.PAGED_RAGGED_KERNEL: len(cases)}
+    for v in (A.RAGGED_TC, A.RAGGED_WALK):
+        expected[f"{A.PAGED_RAGGED_KERNEL}.{v}"] = sum(
+            ragged_variant(A, c) == v for c in cases)
 
     def run():
         outs = []
@@ -914,10 +1003,10 @@ def run_ragged_op_path(torch, A, DB, dev) -> int:
         torch.cuda.synchronize()
         return outs
 
-    outs, n = counted("ragged op path", {A.PAGED_RAGGED_KERNEL: len(cases)}, run)
+    outs, n = counted("ragged op path", expected, run)
     if not all(bool(torch.isfinite(o).all()) for o in outs):
         raise AssertionError("ragged op path: non-finite output")
-    return n[A.PAGED_RAGGED_KERNEL]
+    return n
 
 
 def times(per_forward: dict, n: int) -> dict:
@@ -1430,6 +1519,109 @@ def paged_timing(root: Path) -> int:
     return 0
 
 
+def ragged_timing(root: Path) -> int:
+    """``python3 chip_smoke.py --ragged-timing [ROOT]``: the ragged paged
+    kernel of the package under ROOT (default: this checkout) alone,
+    built from ROOT's source, held once against its plain version in f32
+    under the bf16 rule on case 0's real rows, and timed as phase 4 times
+    it (CUDA-graph replays over distinct 32-token serving chunks totalling
+    2x the L2, case 0 repeated, back to back, the bound); prints one JSON
+    line.  Two trees run in turns (A, B, B, A) in one call on one card
+    give a before and after."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    root = root.resolve()
+    sys.path.insert(0, str(root))
+    from distributed_llm_scheduler_tpu_torch.eval import decode_bench as DB
+    from distributed_llm_scheduler_tpu_torch.ops import attention as A
+    from distributed_llm_scheduler_tpu_torch.ops import kernels
+
+    if not Path(A.__file__).resolve().is_relative_to(root):
+        raise AssertionError(f"imported {A.__file__}, not the package under {root}")
+    dev = torch.device("cuda", 0)
+    secs = kernels.build(A.PAGED_SOURCE)
+    cases = ragged_serving_cases(torch, DB, dev)
+    beyond, finite = ragged_beyond_rule(torch, A, cases[0])
+    if beyond or not finite:
+        raise AssertionError(f"{root}: ragged kernel off its plain version "
+                             f"({beyond} elements beyond the bf16 rule)")
+    timed = time_ragged_kernel(torch, A, cases)
+    print(json.dumps({"tree": str(root), "build_s": secs,
+                      "beyond_bf16_rule": beyond, **timed,
+                      "device": nvidia_smi_line()}), flush=True)
+    return 0
+
+
+def ragged_sweep(root: Path, geometries: list, short: bool) -> int:
+    """``python3 chip_smoke.py --ragged-sweep ROOT GEOMETRIES [short]``:
+    the tensor-core ragged kernel of the package under ROOT, launched
+    through its C entry at launch geometries given by hand (GEOMETRIES, a
+    JSON list of the integer arguments that follow ``pages_per_seq``, e.g.
+    ``[[4, 8, 4], [4, 16, 2]]`` for warps, pages_per_split, n_split), over
+    the distinct 32-token serving chunks and over each chunk's longest
+    slot alone, as CUDA-graph replays; with ``short`` every slot's length
+    is cut below 24 and its chunk to 8 tokens, so only split 0 sees a key.
+    No output is checked; prints one JSON line of ms per call."""
+    import ctypes
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    root = root.resolve()
+    sys.path.insert(0, str(root))
+    from distributed_llm_scheduler_tpu_torch.eval import decode_bench as DB
+    from distributed_llm_scheduler_tpu_torch.ops import attention as A
+    from distributed_llm_scheduler_tpu_torch.ops import kernels
+
+    if not Path(A.__file__).resolve().is_relative_to(root):
+        raise AssertionError(f"imported {A.__file__}, not the package under {root}")
+    dev = torch.device("cuda", 0)
+    kernels.build(A.PAGED_SOURCE)
+    entry = A._paged_library().dls_paged_attention_ragged_tc_fwd
+    cases = ragged_serving_cases(torch, DB, dev)
+    if short:
+        for c in cases:
+            c["lengths"] = c["lengths"] % 24
+            c["q_lens"] = c["q_lens"].clamp(max=8)
+
+    def prep(c, slots):
+        q = c["q"][slots].contiguous()
+        pt, ln, ql = (A._int32(c[k][slots]) for k in ("page_table", "lengths", "q_lens"))
+        qs = (ctypes.c_int64 * 3)(*q.stride()[:3])
+        return (q, c["k_pool"], c["v_pool"], pt, ln, ql, torch.empty_like(q), qs)
+
+    def launch(geo):
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        entry.argtypes = [vp] * 8 + [i] * (7 + len(geo)) + [ctypes.c_float, vp]
+
+        def run(q, kp, vp_, pt, ln, ql, out, qs):
+            S, Hq, Tn, hd = q.shape
+            _, ps, Hkv, _ = kp.shape
+            err = entry(q.data_ptr(), kp.data_ptr(), vp_.data_ptr(), pt.data_ptr(),
+                        ln.data_ptr(), ql.data_ptr(), out.data_ptr(),
+                        ctypes.addressof(qs), S, Hq, Hkv, Tn, hd, ps,
+                        pt.shape[1], *geo, float(hd ** -0.5),
+                        torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"geometry {geo}: cudaError {err}")
+        return run
+
+    full = [prep(c, slice(None)) for c in cases]
+    longest = [prep(c, [int(torch.argmax(c["lengths"]))]) for c in cases]
+    out = {"tree": str(root), "short": short}
+    for geo in geometries:
+        key = "_".join(map(str, geo))
+        out[key] = graph_ms(torch, launch(geo), full, reps=20)
+        out[key + "_longest_slot"] = graph_ms(torch, launch(geo), longest, reps=20)
+    print(json.dumps(dict(out, device=nvidia_smi_line())), flush=True)
+    return 0
+
+
 def norm_timing(root: Path) -> int:
     """``python3 chip_smoke.py --norm-timing [ROOT]``: the norm kernels of
     the package under ROOT (default: this checkout) alone, built from
@@ -1479,6 +1671,11 @@ def main() -> int:
 
     if sys.argv[1:2] == ["--paged-timing"]:
         return paged_timing(Path(sys.argv[2]) if len(sys.argv) > 2 else ROOT)
+    if sys.argv[1:2] == ["--ragged-timing"]:
+        return ragged_timing(Path(sys.argv[2]) if len(sys.argv) > 2 else ROOT)
+    if sys.argv[1:2] == ["--ragged-sweep"]:
+        return ragged_sweep(Path(sys.argv[2]), json.loads(sys.argv[3]),
+                            sys.argv[4:5] == ["short"])
     if sys.argv[1:2] == ["--norm-timing"]:
         return norm_timing(Path(sys.argv[2]) if len(sys.argv) > 2 else ROOT)
     if not torch.cuda.is_available():
@@ -1506,7 +1703,12 @@ def main() -> int:
         f"{kernels.nvcc_path()} for sm_90a in {secs:.1f} s (in parallel)")
     log_ptxas(kernels.build_logs.get(A.KERNEL, ""))
     log_ptxas(kernels.build_logs.get(A.PAGED_SOURCE, ""),
-              only=("paged_split",))
+              only=("paged_split", "paged_ragged_tc"))
+    ragged_ptxas = [dict(kernel=k, registers=r, spill_store_bytes=st,
+                         spill_load_bytes=ld)
+                    for k, r, st, ld in ptxas_table(
+                        kernels.build_logs.get(A.PAGED_SOURCE, ""))
+                    if "paged_ragged_tc" in k]
     norm_ptxas = log_norm_ptxas(kernels.build_logs.get(N.SOURCE, ""))
 
     log("[3/11] flash kernel check against its plain version")
@@ -1570,10 +1772,12 @@ def main() -> int:
          "serve_trace": serve_tr},
         {"name": A.PAGED_RAGGED_KERNEL, "route": "cuda",
          "source": csrc + "paged_attention.cu", "replaces": tpu + "547",
-         "launches": ragged_n,
-         "launches_by_path": {"ragged op path": ragged_n,
+         "launches": ragged_n[A.PAGED_RAGGED_KERNEL],
+         "launches_by_path": {"ragged op path": ragged_n[A.PAGED_RAGGED_KERNEL],
                               **serve_ragged},
-         **paged[A.PAGED_RAGGED_KERNEL]},
+         "launches_by_variant": {k.split(".")[1]: v for k, v in ragged_n.items()
+                                 if "." in k},
+         "ptxas": ragged_ptxas, **paged[A.PAGED_RAGGED_KERNEL]},
         {"name": N.LN_KERNEL, "route": "cuda", "source": csrc + "norms.cu",
          "replaces": tpu_norms + "58",
          "launches": gpt2_n["greedy x1"][N.LN_KERNEL],

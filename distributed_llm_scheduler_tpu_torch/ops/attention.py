@@ -21,7 +21,11 @@ q with per-slot ``q_lens``) become the two entry points of
 ``csrc/paged_attention.cu``.  The single-token one splits each slot's
 positions across blocks (:func:`paged_split` sizes the split from the
 geometry, never from the lengths on the device) and merges the splits'
-partials in the same launch, through distributed shared memory.
+partials in the same launch, through distributed shared memory.  The
+ragged one has two variants, picked on the host by :func:`ragged_plan`:
+bf16 runs the same split with the chunk's query rows on the tensor
+cores (:func:`ragged_split` sizes it, capped by the partials' shared
+memory); f32 walks the positions on the CUDA cores.
 ``paged_decode_attention`` is the public entry, with the JAX package's
 signature.
 
@@ -37,6 +41,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from dataclasses import dataclass
 from typing import List, Optional
 
 import torch
@@ -239,8 +244,23 @@ PAGED_RAGGED_KERNEL = "paged_attention_ragged"
 PAGED_SOURCE = "paged_attention"  # csrc/paged_attention.cu holds both
 PAGED_HEAD_DIMS = (8, 16, 32, 64, 128)
 PAGED_IMPLS = (None, "auto", "kernel", "plain")
+# the ragged kernel's variants: bf16 on the tensor cores, f32 walking the
+# positions on the CUDA cores (:func:`ragged_plan` picks one per call)
+RAGGED_TC, RAGGED_WALK = "tc", "walk"
 kernels.launches.setdefault(PAGED_KERNEL, 0)
 kernels.launches.setdefault(PAGED_RAGGED_KERNEL, 0)
+for _variant in (RAGGED_TC, RAGGED_WALK):
+    kernels.launches.setdefault(f"{PAGED_RAGGED_KERNEL}.{_variant}", 0)
+
+# Hopper's shared memory (sm_90): a block may ask for up to SMEM_BLOCK
+# bytes of dynamic shared memory; an SM holds SMEM_SM, less SMEM_RESERVED
+# for each resident block, and at most 2,048 threads and 32 blocks.
+SMEM_BLOCK, SMEM_SM, SMEM_RESERVED = 232448, 233472, 1024
+SM_THREADS, SM_BLOCKS = 2048, 32
+# the split kernels keep at most this many page ids per split, and the
+# splits of one (slot, KV head) form a cluster of at most 8 (portable)
+MAX_SPAN_PAGES, MAX_SPLITS = 1024, 8
+RAGGED_MAX_WARPS = 8  # warps per block of the tensor-core kernel
 
 
 def reference_paged_attention(
@@ -390,6 +410,114 @@ def _split_blocks(S: int, Hq: int, Hkv: int) -> int:
     return S * Hkv * (1 if G == 1 else -(-G // 4))
 
 
+def ragged_tile_keys(head_dim: int) -> int:
+    """Keys per K/V tile of the tensor-core ragged kernel (``Tc<HD>::TK``
+    in ``csrc/paged_attention.cu``): 64, or 32 at head dims above 64, so
+    a tile's bf16 K and V rows take at most 16 KB a stage."""
+    return 32 if head_dim > 64 else 64
+
+
+def ragged_key_groups(head_dim: int) -> int:
+    """Warps that share an M-tile of the tensor-core ragged kernel, each
+    taking 32 of a tile's keys (``Tc<HD>::KG``): 2, or 1 at head dims
+    above 64."""
+    return ragged_tile_keys(head_dim) // 32
+
+
+def ragged_smem_bytes(rows: int, head_dim: int, pages_per_split: int,
+                      n_split: int) -> int:
+    """Dynamic shared memory of one block of ``rows`` query rows of the
+    tensor-core ragged kernel (``ragged_tc_smem`` in
+    ``csrc/paged_attention.cu``): K and V tiles in two stages at the head
+    dim padded to 16 (bf16); the landing place of the f32 partials (acc,
+    m and l) of the block's slice of ceil(rows / n_split) rows, one from
+    each key group of each split; the split's page ids."""
+    hdp = max(head_dim, 16)
+    staging = 2 * 2 * ragged_tile_keys(head_dim) * hdp * 2
+    slice_rows = -(-rows // n_split)
+    partials = n_split * ragged_key_groups(head_dim) * slice_rows
+    return staging + partials * (head_dim + 2) * 4 + 4 * pages_per_split
+
+
+def ragged_split(blocks_per_split: int, rows: int, head_dim: int,
+                 page_size: int, pages_per_seq: int, sm_count: int):
+    """(pages per split, number of splits) for the tensor-core ragged
+    kernel, whose blocks of ``rows`` query rows (``rows * 2`` threads per
+    key group) number ``blocks_per_split`` in each split.
+
+    Each split spans whole pages, a multiple of the fewest that hold one
+    K/V tile of positions (:func:`ragged_tile_keys`), so at page sizes
+    that divide the tile a span is whole tiles.  At most 8 splits (one
+    cluster).  The most splits are taken whose footprint
+    (:func:`ragged_smem_bytes`) fits a block and whose grid fits the card
+    in one wave at the blocks per SM that footprint allows; when no count
+    fills only one wave, the fewest that fit a block.  Sized from the
+    geometry alone: the lengths live on the device and are never read
+    here.  Raises ValueError when no split count fits."""
+    min_pages = -(-ragged_tile_keys(head_dim) // page_size)
+    most = min(MAX_SPLITS, -(-pages_per_seq // min_pages))
+    fits = None
+    for n in range(most, 0, -1):
+        pps = min(-(-pages_per_seq // (n * min_pages)) * min_pages, pages_per_seq)
+        n_eff = -(-pages_per_seq // pps)
+        smem = ragged_smem_bytes(rows, head_dim, pps, n_eff)
+        if pps > MAX_SPAN_PAGES or smem > SMEM_BLOCK:
+            continue
+        threads = 2 * rows * ragged_key_groups(head_dim)
+        per_sm = min(SMEM_SM // (smem + SMEM_RESERVED),
+                     SM_THREADS // threads, SM_BLOCKS)
+        if blocks_per_split * n_eff <= per_sm * sm_count:
+            return pps, n_eff
+        fits = (pps, n_eff)  # the smallest count that fits, so far
+    if fits is None:
+        raise ValueError(
+            f"{pages_per_seq} pages of {page_size} per slot at head dim "
+            f"{head_dim}: no split count of at most {MAX_SPLITS} keeps a "
+            f"split within {MAX_SPAN_PAGES} pages and {SMEM_BLOCK} bytes of "
+            f"shared memory")
+    return fits
+
+
+@dataclass(frozen=True)
+class RaggedPlan:
+    """How one ragged call runs: ``variant`` (RAGGED_TC or RAGGED_WALK)
+    and, for the tensor-core kernel, the warps of a block (its 16-row
+    M-tiles times the key groups), the row tiles that cover a KV head's
+    query rows, the pages of each split and the splits (one cluster)."""
+
+    variant: str
+    warps: int = 0
+    row_tiles: int = 0
+    pages_per_split: int = 0
+    n_split: int = 0
+
+
+def ragged_plan(dtype, S: int, Hq: int, Hkv: int, Tn: int, head_dim: int,
+                page_size: int, pages_per_seq: int, sm_count: int) -> RaggedPlan:
+    """The ragged kernel variant for a call, from dtype, head dim and
+    geometry alone (never from the lengths on the device).
+
+    bfloat16 runs on the tensor cores (RAGGED_TC): the KV head's G * Tn
+    query rows in tiles of M-tiles of 16, each M-tile taken by
+    :func:`ragged_key_groups` warps (at most 8 warps a block), the
+    positions split across a cluster by :func:`ragged_split`.  float32
+    walks the positions on the CUDA cores (RAGGED_WALK): TF32 tensor
+    cores would not meet the f32 legs' 1e-5.  Raises ValueError on a call
+    that no variant takes."""
+    if dtype == torch.float32:
+        return RaggedPlan(RAGGED_WALK)
+    if dtype != torch.bfloat16:
+        raise ValueError(f"ragged paged attention: no variant takes {dtype}")
+    R = (Hq // Hkv) * Tn
+    kg = ragged_key_groups(head_dim)
+    m_tiles = min(RAGGED_MAX_WARPS // kg, -(-R // 16))
+    rows = 16 * m_tiles
+    row_tiles = -(-R // rows)
+    pps, n_split = ragged_split(S * Hkv * row_tiles, rows, head_dim,
+                                page_size, pages_per_seq, sm_count)
+    return RaggedPlan(RAGGED_TC, m_tiles * kg, row_tiles, pps, n_split)
+
+
 def _paged_library():
     lib = kernels.load(PAGED_SOURCE)
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -405,6 +533,10 @@ def _paged_library():
         # S, Hq, Hkv, Tn, hd, page_size, ppseq, dtype, sm_scale, stream
         rg.argtypes = [vp] * 8 + [i] * 8 + [f, vp]
         rg.restype = ctypes.c_int
+        tc = lib.dls_paged_attention_ragged_tc_fwd
+        # the same, with warps, pages_per_split and n_split for dtype
+        tc.argtypes = [vp] * 8 + [i] * 10 + [f, vp]
+        tc.restype = ctypes.c_int
     return lib
 
 
@@ -497,10 +629,10 @@ def paged_attention(
     ppseq = pt.shape[1]
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
     pps, _ = paged_split(_split_blocks(S, Hq, Hkv), ps, ppseq, sms)
-    if pps > 1024:
+    if pps > MAX_SPAN_PAGES:
         raise ValueError(
             f"{ppseq} pages per slot need splits of {pps} pages; the kernel "
-            f"keeps at most 1024 page ids per split (8 splits)")
+            f"keeps at most {MAX_SPAN_PAGES} page ids per split (8 splits)")
     q_strides = (ctypes.c_int64 * 3)(*q.stride()[:3])
     n_strides = (ctypes.c_int64 * 2)(*new_strides)
     lib = _paged_library()
@@ -526,33 +658,45 @@ def paged_attention_ragged(
     """Launch the CUDA multi-token-q paged kernel (the port of
     ``_paged_ragged_kernel``) on CUDA tensors; see
     :func:`reference_paged_attention_ragged` for the function it
-    computes.  Raises when the call does not qualify or the launch
-    fails."""
+    computes.  :func:`ragged_plan` picks the variant on the host; one
+    call is one launch, counted under ``paged_attention_ragged`` and
+    ``paged_attention_ragged.<variant>``.  Nothing is read back to the
+    host.  Raises when no variant takes the call or the launch fails."""
     S, Hq, Tn, hd = q.shape
     _check_paged(q, k_pool, v_pool, page_table, lengths, Tn)
     if tuple(q_lens.shape) != (S,) or q_lens.device != q.device:
         raise ValueError(f"q_lens must be ({S},) on {q.device}")
     _, ps, Hkv, _ = k_pool.shape
+    ppseq = page_table.shape[1]
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    plan = ragged_plan(q.dtype, S, Hq, Hkv, Tn, hd, ps, ppseq, sms)
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(hd)
     pt, ln, ql = _int32(page_table), _int32(lengths), _int32(q_lens)
-    if q.stride(-1) != 1:
+    # the tensor-core kernel reads q as bf16 pairs: 4-byte aligned rows
+    if q.stride(-1) != 1 or (plan.variant == RAGGED_TC and (
+            q.data_ptr() % 4 or any(st % 2 for st in q.stride()[:3]))):
         q = q.contiguous()
     out = torch.empty((S, Hq, Tn, hd), dtype=q.dtype, device=q.device)
     q_strides = (ctypes.c_int64 * 3)(*q.stride()[:3])
     lib = _paged_library()
+    args = (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), pt.data_ptr(),
+            ln.data_ptr(), ql.data_ptr(), out.data_ptr(),
+            ctypes.addressof(q_strides), S, Hq, Hkv, Tn, hd, ps, ppseq)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.dls_paged_attention_ragged_fwd(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), pt.data_ptr(),
-            ln.data_ptr(), ql.data_ptr(), out.data_ptr(),
-            ctypes.addressof(q_strides),
-            S, Hq, Hkv, Tn, hd, ps, pt.shape[1],
-            _DTYPE_CODE[q.dtype], float(scale), stream,
-        )
+        if plan.variant == RAGGED_TC:
+            err = lib.dls_paged_attention_ragged_tc_fwd(
+                *args, plan.warps, plan.pages_per_split, plan.n_split,
+                float(scale), stream)
+        else:
+            err = lib.dls_paged_attention_ragged_fwd(
+                *args, _DTYPE_CODE[q.dtype], float(scale), stream)
     if err != 0:
         raise RuntimeError(
-            f"ragged paged attention launch failed: cudaError {err}")
+            f"ragged paged attention ({plan.variant}) launch failed: "
+            f"cudaError {err}")
     kernels.launches[PAGED_RAGGED_KERNEL] += 1
+    kernels.launches[f"{PAGED_RAGGED_KERNEL}.{plan.variant}"] += 1
     return out
 
 

@@ -297,6 +297,141 @@ def test_paged_kernel_refuses_unqualified_geometry(cuda):
         A.paged_decode_attention(**_args(case))
 
 
+# the ragged kernel's tensor-core variant (tests/test_torch_paged_ragged_split.py
+# holds the same arithmetic to the JAX package on the CPU): (S, Hq, Hkv, hd,
+# page_size, pages_per_seq, Tn, [(L, q_len), ...] or None for drawn spans)
+_RAGGED_TC_CASES = {
+    "llama_width_gqa": (8, 32, 8, 128, 16, 32, 16, None),
+    "llama_width_128_rows": (8, 32, 8, 128, 16, 32, 32, None),
+    "two_row_tiles": (2, 64, 8, 128, 16, 16, 32, None),
+    "chunk_48": (8, 12, 12, 64, 16, 32, 48, None),
+    "one_token_q_lens": (8, 12, 12, 64, 16, 32, 1, None),
+    "gqa_rows_not_16": (2, 6, 2, 32, 16, 8, 7, [(40, 7), (3, 5)]),
+    "lengths_at_capacity": (2, 4, 2, 16, 16, 4, 8, [(61, 8), (63, 1)]),
+    "idle_and_short_slots": (3, 4, 4, 64, 16, 16, 8, [(16, 0), (3, 4), (240, 8)]),
+    "hd8_page5": (3, 4, 2, 8, 5, 40, 8, [(4, 8), (64, 3), (190, 8)]),
+    "page_size_1": (1, 2, 2, 64, 1, 600, 4, [(590, 4)]),
+}
+
+
+def _ragged_tc_case(name, device, seed=13):
+    """One bf16 ragged call (pages in order, each slot's pages covering
+    every position its rows see, the trash page 0 behind the rest) and
+    the same call with the trash page and each slot's rows past its last
+    visible position set to NaN, which must change nothing."""
+    S, Hq, Hkv, hd, ps, ppseq, Tn, spans = _RAGGED_TC_CASES[name]
+    rng = np.random.default_rng(seed)
+    cap = ps * ppseq
+    if spans is None:
+        spans = list(zip(rng.integers(0, cap - Tn + 1, size=S).tolist(),
+                         rng.integers(0, Tn + 1, size=S).tolist()))
+
+    def draw(shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+
+    pt = np.zeros((S, ppseq), np.int32)
+    page = 1
+    tops = [min(L + max(QL, 1), cap) for L, QL in spans]
+    for s, top in enumerate(tops):
+        for j in range(-(-top // ps)):
+            pt[s, j] = page
+            page += 1
+    case = dict(q=draw((S, Hq, Tn, hd)), k_pool=draw((S * ppseq + 1, ps, Hkv, hd)),
+                v_pool=draw((S * ppseq + 1, ps, Hkv, hd)),
+                page_table=torch.from_numpy(pt).to(device),
+                lengths=torch.tensor([L for L, _ in spans], dtype=torch.int32,
+                                     device=device),
+                q_lens=torch.tensor([QL for _, QL in spans], dtype=torch.int32,
+                                    device=device),
+                sm_scale=hd ** -0.5)
+    poisoned = dict(case, k_pool=case["k_pool"].clone(), v_pool=case["v_pool"].clone())
+    for pool in (poisoned["k_pool"], poisoned["v_pool"]):
+        pool[0] = float("nan")
+        for s, top in enumerate(tops):
+            pool[int(pt[s, (top - 1) // ps]), (top - 1) % ps + 1:] = float("nan")
+    return case, poisoned
+
+
+def _ragged_tc_close(got, case, real=None):
+    """bf16 kernel output against the plain version on the card: within
+    5e-2 of it in bf16 and every element (of ``real`` rows) within 2^-8 |x|
+    + 1e-4 of it in f32."""
+    want = A.reference_paged_attention_ragged(**case).float()
+    want32 = A.reference_paged_attention_ragged(**{
+        k: (v.float() if torch.is_tensor(v) and v.is_floating_point() else v)
+        for k, v in case.items()})
+    m = torch.ones_like(got) if real is None else real.expand_as(got).float()
+    assert torch.isfinite(got).all()
+    assert ((got - want).abs() * m).max().item() < 5e-2
+    beyond = (got - want32).abs() > 2.0 ** -8 * want32.abs() + 1e-4
+    assert (beyond & m.bool()).sum().item() == 0
+
+
+def _tc_launches():
+    return kernels.launches[f"{A.PAGED_RAGGED_KERNEL}.{A.RAGGED_TC}"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1, 2, 3, 6])
+def test_ragged_tc_kernel_at_the_serving_chunk(cuda, seed):
+    """The GPT-2 serving chunk (8, 12, 32, 64) bf16 runs on the
+    tensor-core variant, within the bf16 rule of the f32 plain version on
+    its real rows."""
+    case = DB.serving_case(torch.bfloat16, cuda, seed=seed, q_tokens=32)
+    before = _tc_launches()
+    got = A.paged_decode_attention(**_args(case)).float()
+    torch.cuda.synchronize()
+    assert _tc_launches() == before + 1
+    _ragged_tc_close(got, _args(case), case["real"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(_RAGGED_TC_CASES))
+def test_ragged_tc_kernel_edges(cuda, name):
+    """Llama-width GQA chunks (one and two row tiles), the 48-token chunk,
+    one token with q_lens, M-tiles straddling heads, lengths at the
+    capacity, idle and short slots (splits past every visible position),
+    hd 8 padded to 16, a page size of 1: every row (padding rows
+    included) within the bf16 rule, the NaN poison changing nothing."""
+    case, poisoned = _ragged_tc_case(name, cuda)
+    before = _tc_launches()
+    got = A.paged_attention_ragged(**poisoned).float()
+    torch.cuda.synchronize()
+    assert _tc_launches() == before + 1
+    _ragged_tc_close(got, case)
+
+
+@pytest.mark.cuda
+def test_ragged_variant_counts(cuda):
+    """Each launch counts under the kernel and under the variant its plan
+    names: an f32 bench fixture on the walk kernel, a bf16 chunk on the
+    tensor cores."""
+    f32 = DB.ragged_parity_cases(device=cuda)[0]
+    bf16 = DB.serving_case(torch.bfloat16, cuda, seed=4, q_tokens=32)
+    kernels.reset_launches()
+    A.paged_decode_attention(**_args(f32))
+    A.paged_decode_attention(**_args(bf16))
+    torch.cuda.synchronize()
+    assert kernels.launches[A.PAGED_RAGGED_KERNEL] == 2
+    assert kernels.launches[f"{A.PAGED_RAGGED_KERNEL}.{A.RAGGED_WALK}"] == 1
+    assert kernels.launches[f"{A.PAGED_RAGGED_KERNEL}.{A.RAGGED_TC}"] == 1
+
+
+@pytest.mark.cuda
+def test_ragged_kernel_raises_on_a_geometry_no_variant_takes(cuda):
+    """bf16 at a page size of 1 and 8,193 pages per slot: no split keeps
+    within 1,024 page ids, so the call raises and launches nothing."""
+    q = torch.zeros(1, 2, 4, 64, dtype=torch.bfloat16, device=cuda)
+    pool = torch.zeros(2, 1, 2, 64, dtype=torch.bfloat16, device=cuda)
+    pt = torch.zeros(1, 8193, dtype=torch.int32, device=cuda)
+    n = torch.tensor([3], dtype=torch.int32, device=cuda)
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="no split count"):
+        A.paged_decode_attention(q, pool, pool, pt, n, q_lens=n)
+    assert kernels.launches[A.PAGED_RAGGED_KERNEL] == 0
+
+
 # -- LayerNorm / RMSNorm -------------------------------------------------------
 
 from distributed_llm_scheduler_tpu_torch.ops import norms as N  # noqa: E402
