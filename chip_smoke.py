@@ -58,7 +58,15 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    layer norm per forward (96 and 200, every LayerNorm on the register
    kernel); the output must meet the fused forward; traces give device
    time per forward, the norm kernels' included;
-7. serve path: GPT-2 small bf16 at full width through the paged decode
+7. north-star bench: ``eval/bench.run("small")`` on the card: calibration,
+   greedy x1 per task and the fused forward (3 windows of 6 runs each),
+   the pre-flight memory pass, the link measured on the card, and every
+   ported policy placed on 8 nodes and replayed; its JSON line is printed
+   (``BENCH_LINE``), and each leg must launch the flash and LayerNorm
+   kernels once per attention and layer norm of each forward it runs (the
+   pre-flight once per distinct task), the oracle must hold, every policy
+   but round-robin must complete and the MFU must be measured;
+8. serve path: GPT-2 small bf16 at full width through the paged decode
    DAG (8 slots, page size 16, 257 pages, capacity 512), placed by
    ``greedy`` and served by ``DeviceBackend.paged_decode_engine`` in
    8-step segments: 16 requests, one warm-up run, then 3 timed runs, each
@@ -68,20 +76,20 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    request's token count, and a teacher-forced oracle against the fused
    forward; a traced segment gives device busy time and the paged and
    norm kernels' own device time;
-8. Llama path: Llama-3 8B bf16 at full width and depth (batch 8, seq
+9. Llama path: Llama-3 8B bf16 at full width and depth (batch 8, seq
    512, 8 microbatches, 8 vocab shards, linear chains fused: 1,945
    tasks), weights drawn on the card from a seeded generator, calibrated,
    placed by ``pipeline`` on 8 virtual nodes sharing the card and by
    ``greedy`` on one, executed with 256 flash and 520 RMSNorm launches
    (all on the register kernel) per forward in every counted run, and
    held against the fused forward;
-9. f32 leg: a 2-layer GPT-2 small-width DAG placed on the card must be
+10. f32 leg: a 2-layer GPT-2 small-width DAG placed on the card must be
    allclose to the port's fused forward run on the CPU with the plain
    versions;
-10. f32 serve leg: a 2-layer GPT-2 small-width f32 engine serves 4
+11. f32 serve leg: a 2-layer GPT-2 small-width f32 engine serves 4
     requests on the card (kernels) and on the CPU (plain versions) from
     the same weights, and every request's tokens must be equal;
-11. f32 Llama leg: Llama-3 8B widths at 2 layers, placed by ``pipeline``
+12. f32 Llama leg: Llama-3 8B widths at 2 layers, placed by ``pipeline``
     on 8 virtual nodes on the card, allclose to the fused forward on the
     CPU.
 
@@ -1094,6 +1102,76 @@ def run_main_path(torch, P, dev) -> dict:
     return launches
 
 
+def run_bench_path(torch, P, dev) -> dict:
+    """The port's north-star bench (``eval/bench.run("small")``) on the card:
+    calibration, the per-task and fused legs, the pre-flight, the replay of
+    every ported policy.  Prints its JSON line and each leg's launches;
+    fails unless the oracle holds, every policy but round-robin completes,
+    the MFU was measured and each leg launched the kernels as many times as
+    its forwards need.  Returns each leg's launch counts."""
+    from distributed_llm_scheduler_tpu_torch.eval import bench
+    from distributed_llm_scheduler_tpu_torch.ops import attention as A
+    from distributed_llm_scheduler_tpu_torch.ops import kernels
+    from distributed_llm_scheduler_tpu_torch.ops import norms as N
+
+    cfg = P.GPT2Config.small()
+    mb = bench.CONFIGS["small"][2]["microbatches"]
+    n_ln = 2 * cfg.n_layer + 1
+    ln_reg = N.LN_KERNEL + ".register"
+    # the DAG runs each microbatch's layers as tasks; the fused forward
+    # runs the whole batch through each layer once
+    per_dag = {A.KERNEL: mb * cfg.n_layer, N.LN_KERNEL: mb * n_ln,
+               ln_reg: mb * n_ln}
+    per_fused = {A.KERNEL: cfg.n_layer, N.LN_KERNEL: n_ln, ln_reg: n_ln}
+    reps = bench.REPS
+    expected = {
+        # each calibration window warms up once, then profiles
+        "calibrate": times(per_dag, bench.CAL_WINDOWS * (1 + bench.CAL_REPEATS)),
+        "per_task": times(per_dag, 2 + bench.WINDOWS * reps),
+        "fused": times(per_fused, 2 + 2 * bench.WINDOWS * reps),
+    }
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    result = bench.run("small", dev, reps=reps)
+    total = {k: kernels.launches.get(k, 0) for k in per_dag}
+    line = result.to_json()
+    print("BENCH_LINE " + json.dumps(line), flush=True)
+    legs = result.launches
+    log(f"  bench in {time.perf_counter() - t0:.1f} s; launches per leg: "
+        + json.dumps(legs))
+    for leg, want in expected.items():
+        got = {k: legs.get(leg, {}).get(k, 0) for k in want}
+        log(f"  bench {leg}: " + ", ".join(
+            f"{k} {got[k]} (expected {n})" for k, n in want.items()))
+        if got != want:
+            raise AssertionError(f"bench {leg}: launches {got} != {want}")
+    # the pre-flight runs each distinct (task fn, input shapes) once: at
+    # least one launch of each kernel, at most one forward's
+    pre = {k: legs.get("preflight", {}).get(k, 0) for k in per_dag}
+    log(f"  bench preflight: {pre} (1 to {per_dag} each)")
+    if any(not 1 <= pre[k] <= per_dag[k] for k in per_dag):
+        raise AssertionError(f"bench preflight launches {pre}")
+    summed = {k: sum(n.get(k, 0) for n in legs.values()) for k in per_dag}
+    if summed != total:
+        raise AssertionError(f"bench legs {summed} != launches in all {total}")
+    log(f"  bench: best {result.best_policy} {line['value']} ms vs "
+        f"round-robin -> {line['vs_baseline']}x; per-task "
+        f"{line['spread']['pt_makespan']['median_ms']} ms, fused "
+        f"{line['fused_forward_ms']} ms; single-card replay "
+        f"{line['singlechip_replay_ms']} ms; value over the calibration "
+        f"windows {line['spread']['value']}; MFU {line.get('mfu_single_chip')} "
+        f"(fused {line.get('mfu_fused')}); oracle {result.oracle_ok}")
+    incomplete = {n: c for n, (_, c) in result.policies.items()
+                  if n != "roundrobin" and c < 1.0}
+    if not result.oracle_ok:
+        raise AssertionError("bench: placed output fails the oracle")
+    if incomplete:
+        raise AssertionError(f"bench: policies did not complete: {incomplete}")
+    if result.mfu_single_chip is None:
+        raise AssertionError("bench: no MFU for this card")
+    return legs
+
+
 def run_f32_leg(torch, P, dev) -> None:
     """GPT-2: placed on the card vs fused on the CPU, in float32."""
     cfg = P.GPT2Config.small(n_layer=2)
@@ -1691,7 +1769,7 @@ def main() -> int:
     t_all = time.perf_counter()
     dev = torch.device("cuda", 0)
     smi = nvidia_smi_line()
-    log(f"[1/11] device: {torch.cuda.get_device_name(0)} ({smi}); torch "
+    log(f"[1/12] device: {torch.cuda.get_device_name(0)} ({smi}); torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1699,7 +1777,7 @@ def main() -> int:
 
     sources = (A.KERNEL, A.PAGED_SOURCE, N.SOURCE)
     secs = kernels.build(*sources)
-    log(f"[2/11] built {', '.join(f'{n}.cu' for n in sources)} with "
+    log(f"[2/12] built {', '.join(f'{n}.cu' for n in sources)} with "
         f"{kernels.nvcc_path()} for sm_90a in {secs:.1f} s (in parallel)")
     log_ptxas(kernels.build_logs.get(A.KERNEL, ""))
     log_ptxas(kernels.build_logs.get(A.PAGED_SOURCE, ""),
@@ -1711,42 +1789,46 @@ def main() -> int:
                     if "paged_ragged_tc" in k]
     norm_ptxas = log_norm_ptxas(kernels.build_logs.get(N.SOURCE, ""))
 
-    log("[3/11] flash kernel check against its plain version")
+    log("[3/12] flash kernel check against its plain version")
     attn = check_attention_kernel(
         torch, A, dev, P.LlamaConfig.llama3_8b(dtype=torch.bfloat16))
 
-    log("[4/11] paged kernel check against the plain versions")
+    log("[4/12] paged kernel check against the plain versions")
     paged = check_paged_kernels(torch, A, DB, dev)
     ragged_n = run_ragged_op_path(torch, A, DB, dev)
 
-    log("[5/11] LayerNorm and RMSNorm kernel check against the plain versions")
+    log("[5/12] LayerNorm and RMSNorm kernel check against the plain versions")
     norms = check_norm_kernels(torch, N, dev)
 
     def phase_done():  # free the phase's tensors before the next one
         gc.collect()
         torch.cuda.empty_cache()
 
-    log("[6/11] flagship forward path: GPT-2 small bf16 DAG on the card")
+    log("[6/12] flagship forward path: GPT-2 small bf16 DAG on the card")
     gpt2_n = run_main_path(torch, P, dev)
     phase_done()
 
-    log("[7/11] serve path: GPT-2 small bf16 through the paged decode engine")
+    log("[7/12] north-star bench: GPT-2 small bf16, 8 policies replayed")
+    bench_n = run_bench_path(torch, P, dev)
+    phase_done()
+
+    log("[8/12] serve path: GPT-2 small bf16 through the paged decode engine")
     serve_launches, serve_ragged, serve_ln, serve_tr = run_serve_path(
         torch, P, A, dev)
     phase_done()
 
-    log("[8/11] Llama path: Llama-3 8B bf16 DAG, pipeline stages, on the card")
+    log("[9/12] Llama path: Llama-3 8B bf16 DAG, pipeline stages, on the card")
     llama_n = run_llama_path(torch, P, dev)
     phase_done()
 
-    log("[9/11] f32 leg: GPT-2 placed on the card vs fused on the CPU")
+    log("[10/12] f32 leg: GPT-2 placed on the card vs fused on the CPU")
     run_f32_leg(torch, P, dev)
 
-    log("[10/11] f32 serve leg: the engine on the card vs on the CPU")
+    log("[11/12] f32 serve leg: the engine on the card vs on the CPU")
     run_f32_serve_leg(torch, P, dev)
     phase_done()
 
-    log("[11/11] f32 Llama leg: placed on the card vs fused on the CPU")
+    log("[12/12] f32 Llama leg: placed on the card vs fused on the CPU")
     run_llama_f32_leg(torch, P, dev)
 
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
@@ -1759,7 +1841,7 @@ def main() -> int:
     csrc = "distributed_llm_scheduler_tpu_torch/csrc/"
     tpu = "distributed_llm_scheduler_tpu/ops/attention.py:"
     tpu_norms = "distributed_llm_scheduler_tpu/ops/norms.py:"
-    runs = (("gpt2", gpt2_n), ("llama", llama_n))
+    runs = (("gpt2", gpt2_n), ("bench", bench_n), ("llama", llama_n))
     line = {"kernels": [
         {"name": A.KERNEL, "route": "cuda", "source": csrc + "flash_attention.cu",
          "replaces": tpu + "152",

@@ -9,7 +9,9 @@ hand-written CUDA kernel (``csrc/``); the Llama-3 forward likewise, with
 RMSNorm in a hand-written CUDA kernel, placed in pipeline stages; and the
 paged decode step is built as a task DAG, placed, and served by a
 continuous-batching engine whose attention runs in hand-written CUDA
-paged-attention kernels.  Module
+paged-attention kernels; the north-star bench (``eval/bench.py``)
+calibrates the GPT-2 flagship on the card, executes it, and replays every
+ported policy's placement against round-robin.  Module
 paths and public names follow the JAX package, which stays the reference
 this package is held against; this package imports neither JAX nor it.
 """
@@ -24,6 +26,7 @@ from .core.graph import (
 from .core.cluster import Cluster, DeviceState, estimate_cluster_memory_needed
 from .core.fusion import fuse_linear_chains
 from .core.schedule import Schedule, TaskTiming
+from .core.validate import ValidationReport, validate_schedule
 from .backends.sim import LinkModel, SimulatedBackend, TieredLinkModel
 from .backends.device import DeviceBackend, DeviceReport
 from .backends.decode_loop import (
@@ -33,6 +36,7 @@ from .backends.decode_loop import (
 )
 from .sched.base import BaseScheduler
 from .sched.heft import HEFTScheduler
+from .sched.pack import GroupPackScheduler
 from .sched.pipeline import PipelineStageScheduler
 from .sched.eventsim import (
     PlacementTimeline,
@@ -86,6 +90,8 @@ __all__ = [
     "fuse_linear_chains",
     "Schedule",
     "TaskTiming",
+    "ValidationReport",
+    "validate_schedule",
     "LinkModel",
     "SimulatedBackend",
     "TieredLinkModel",
@@ -96,6 +102,7 @@ __all__ = [
     "compose_paged_step_fn",
     "BaseScheduler",
     "HEFTScheduler",
+    "GroupPackScheduler",
     "PipelineStageScheduler",
     "PlacementTimeline",
     "dependency_aware_order",

@@ -1,0 +1,329 @@
+"""Structured diagnostics for the static-analysis passes.
+
+Every pass emits :class:`Diagnostic` records with a stable code (``DAG001``,
+``MEM003``, ...), a severity, and task/node/param provenance instead of
+raising ad-hoc exceptions.  A :class:`AnalysisReport` aggregates them and
+maps onto a process exit code.
+
+PyTorch port's copy of ``distributed_llm_scheduler_tpu.analysis.
+diagnostics``, whole: the codes, severities and messages are part of the
+contract the port is held to, including codes of passes not ported yet.
+"""
+
+from __future__ import annotations
+
+import enum
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional
+
+
+class Severity(enum.IntEnum):
+    """Ordered so ``max()`` over diagnostics yields the worst one."""
+
+    INFO = 0
+    WARNING = 1
+    ERROR = 2
+
+    def __str__(self) -> str:  # "error", not "Severity.ERROR"
+        return self.name.lower()
+
+
+#: The documented taxonomy: every code a pass may emit, with a short
+#: description.  docs/ANALYSIS.md mirrors this table; tests assert that
+#: emitted codes stay within it.
+CODES: Dict[str, str] = {
+    # -- graph hygiene (graph_pass) -------------------------------------
+    "DAG001": "dependency cycle",
+    "DAG002": "dependency on unknown task",
+    "DAG003": "duplicate dependency",
+    "DAG004": "task can never run: blocked behind a dependency cycle",
+    "DAG005": "negative memory or compute requirement",
+    "DAG006": "parameter used without a size declaration",
+    "DAG007": "conflicting parameter size declarations",
+    # -- schedule consistency (schedule_pass) ---------------------------
+    "SCH001": "per_node references unknown device",
+    "SCH002": "scheduled task not in graph",
+    "SCH003": "task placed on more than one node",
+    "SCH004": "assignment_order is not a permutation of placements",
+    "SCH005": "per-node order inconsistent with global order",
+    "SCH006": "task both completed and failed",
+    "SCH007": "task neither completed nor failed",
+    "SCH008": "completed/placement bookkeeping mismatch",
+    "SCH009": "task ordered before its dependency",
+    "SCH010": "completed task depends on a failed or unplaced task",
+    # -- memory feasibility (memory_pass) -------------------------------
+    "MEM001": "per-node no-eviction peak residency (informational)",
+    "MEM002": "no-eviction peak exceeds capacity: eviction required",
+    "MEM003": "hbm-overcommit: task cannot fit even with full eviction",
+    "MEM004": "parameter larger than the largest device",
+    # -- sharding consistency (sharding_pass) ---------------------------
+    "SHD001": "PartitionSpec names a mesh axis that does not exist",
+    "SHD002": "spec-rank-mismatch: PartitionSpec longer than param rank",
+    "SHD003": "dimension not divisible by mesh axis size",
+    "SHD004": "mesh axis used on more than one dimension of a spec",
+    "SHD005": "mesh axis shared between param and batch/activation specs",
+    # -- pipeline soundness (pipeline_pass) -----------------------------
+    "PIP001": "per-node order violates same-node stage dependency",
+    "PIP002": "cross-node deadlock in per-node execution orders",
+    # -- decode-loop composability (decode_pass) ------------------------
+    "DEC001": "mutable decode cache param aliased across nodes",
+    "DEC002": "decode step spans multiple nodes: scan-loop ineligible",
+    "DEC003": "inconsistent paged KV wiring (pools vs page_table)",
+    "DEC004": "per-step KV-cache residency (informational)",
+    "DEC005": "paged geometry ineligible for the fused Pallas kernel "
+              "(silent gather fallback)",
+    "DEC006": "degenerate chunked-prefill chunk size (ragged kernel "
+              "ineligible or chunk exceeds the per-segment budget)",
+    # -- quantization dtype flow (quant_pass) ---------------------------
+    "QNT001": "QParam with wrong component dtypes",
+    "QNT002": "QParam scale shape matches no known layout",
+    "QNT003": "quantized param that should_quantize would reject",
+    "QNT004": "task param_bytes disagree with quantized size",
+    # -- cost-model fidelity (cost_pass) --------------------------------
+    "CST001": "analytic memory estimate under-predicts XLA preflight",
+    "CST002": "analytic memory estimate over-predicts XLA preflight",
+    "CST003": "task missing from XLA preflight measurement",
+    # -- collective ordering (collective_pass) --------------------------
+    "COL001": "devices would issue divergent collective sequences",
+    "COL002": "per-node orders deadlock: no valid global collective order",
+    "COL003": "collective sequence diverges across control-flow branches",
+    "COL004": "collective permutation is not a valid partial permutation",
+    # -- MPMD happens-before model (hb_pass) ----------------------------
+    "COL005": "cross-stage wait cycle: guaranteed MPMD deadlock",
+    "COL006": "unmatched send/recv cardinality between pipeline stages",
+    "COL007": "interleaving serializes the pipeline steady state",
+    # -- parallel-strategy sweep (parallel_sweep) -----------------------
+    "COL008": "parallel entry point failed to trace",
+    # -- donation-alias races (donation_pass) ---------------------------
+    "DON001": "buffer read after its donating launch",
+    "DON002": "buffer donated more than once (aliased donation)",
+    "DON003": "donation crosses a transfer/collective boundary with a "
+              "remote reader",
+    # -- schedule typechecking (typecheck_pass) -------------------------
+    "TYP001": "producer/consumer aval disagreement on a dependency edge",
+    "TYP002": "illegal dtype promotion across a quantized edge",
+    "TYP003": "edge aval bytes diverge from the cost-model charge",
+    "TYP004": "program fan-in unsatisfiable: argument not available "
+              "on device at dispatch",
+    # -- stream-safety prover (stream_pass) -----------------------------
+    "STR001": "streamed schedule is compilable as-is (params fit resident)",
+    "STR002": "streamed schedule compilable only with a pinned prefix",
+    "STR003": "streamed schedule is interpreter-only (must evict from "
+              "the first task)",
+    # -- page-lifetime prover (page_pass) -------------------------------
+    "PGL001": "orphaned page: allocated but never freed",
+    "PGL002": "double-free in the page ownership event stream",
+    "PGL003": "page freed while still referenced by a live page table",
+    "PGL004": "reserved trash page crossed the allocator",
+    "PGL005": "pool accounting mismatch: free + used do not tile the pool",
+    "PGL006": "refcount underflow/overflow on a shared page",
+    "PGL007": "write or cow split violates copy-on-write discipline",
+    # -- request-lifecycle protocol (lifecycle_pass) --------------------
+    "LCY001": "illegal lifecycle transition (state/timestamp mismatch)",
+    "LCY002": "non-monotone per-request timestamps (time travel)",
+    "LCY003": "non-terminal state in a finished request log",
+    "LCY004": "unknown lifecycle state",
+    "LCY005": "token accounting disagrees with the delivery series",
+    # -- determinism lint (determinism_pass) ----------------------------
+    "DET001": "wall-clock read outside obs/clockutil.py",
+    "DET002": "global/unseeded RNG in serve/, sched/, or obs/",
+    "DET003": "iteration over an unordered set feeds downstream state",
+    "DET004": "id()-keyed container (process-dependent keys)",
+    "DET005": "environment read outside utils/config.py",
+}
+
+
+@dataclass(frozen=True)
+class Diagnostic:
+    """One finding: stable code + severity + human message + provenance."""
+
+    code: str
+    severity: Severity
+    message: str
+    task: Optional[str] = None
+    node: Optional[str] = None
+    param: Optional[str] = None
+    #: machine-readable payload (e.g. {"peak_gb": 12.3}); not rendered.
+    data: Dict[str, Any] = field(default_factory=dict, compare=False)
+
+    def __post_init__(self) -> None:
+        if self.code not in CODES:
+            raise ValueError(f"unknown diagnostic code {self.code!r}")
+
+    def render(self) -> str:
+        where = "".join(
+            f" [{k}={v}]"
+            for k, v in (
+                ("task", self.task),
+                ("node", self.node),
+                ("param", self.param),
+            )
+            if v is not None
+        )
+        n = self.data.get("occurrences", 1)
+        times = f" (x{n})" if n > 1 else ""
+        return f"{self.code} {self.severity}: {self.message}{where}{times}"
+
+
+class AnalysisError(ValueError):
+    """Raised by the pre-execution gate when a report contains errors.
+
+    Subclasses ``ValueError`` so existing callers treating backend input
+    problems as value errors keep working.  Carries the offending report.
+    """
+
+    def __init__(self, report: "AnalysisReport"):
+        self.report = report
+        errs = report.errors
+        shown = "; ".join(d.render() for d in errs[:5])
+        more = f" (+{len(errs) - 5} more)" if len(errs) > 5 else ""
+        super().__init__(f"static analysis found {len(errs)} error(s): {shown}{more}")
+
+
+#: Schema tag for :meth:`AnalysisReport.to_json`.  Bump only on breaking
+#: changes to the emitted structure; consumers key on it.
+JSON_SCHEMA = "dls.lint/1"
+
+
+def _jsonable(value: Any) -> Any:
+    """Best-effort conversion of a diagnostic ``data`` payload to plain
+    JSON types.  Sets become sorted lists, tuples become lists, numpy
+    scalars collapse via ``item()``, everything else unknown falls back
+    to ``repr``."""
+    if value is None or isinstance(value, (bool, int, float, str)):
+        return value
+    if isinstance(value, dict):
+        return {str(k): _jsonable(v) for k, v in value.items()}
+    if isinstance(value, (frozenset, set)):
+        return sorted(_jsonable(v) for v in value)
+    if isinstance(value, (list, tuple)):
+        return [_jsonable(v) for v in value]
+    item = getattr(value, "item", None)
+    if callable(item):
+        try:
+            return _jsonable(item())
+        except Exception:
+            pass
+    return repr(value)
+
+
+@dataclass
+class AnalysisReport:
+    """Aggregated diagnostics from one or more passes."""
+
+    diagnostics: List[Diagnostic] = field(default_factory=list)
+    #: ``Schedule.signature()`` of the schedule this report analyzed, when
+    #: one was given — lets :func:`..pre_execution_gate` accept the report
+    #: as precomputed and skip re-running the base passes.
+    schedule_signature: Optional[tuple] = None
+
+    def add(
+        self,
+        code: str,
+        severity: Severity,
+        message: str,
+        **provenance: Any,
+    ) -> Diagnostic:
+        d = Diagnostic(code, severity, message, **provenance)
+        self.diagnostics.append(d)
+        return d
+
+    def extend(self, other: "AnalysisReport") -> "AnalysisReport":
+        self.diagnostics.extend(other.diagnostics)
+        return self
+
+    def dedupe(self) -> "AnalysisReport":
+        """Collapse repeated findings — same code, severity, message, and
+        provenance — into ONE diagnostic carrying an occurrence count
+        (``data["occurrences"]``, rendered as ``(xN)``).  Jaxpr walks over
+        scanned/unrolled loops re-emit the identical finding once per
+        iteration; the parallel sweep dedupes so lint output stays
+        readable.  Order of first occurrence is preserved."""
+        seen: Dict[tuple, Diagnostic] = {}
+        out = AnalysisReport()
+        for d in self.diagnostics:
+            key = (d.code, d.severity, d.message, d.task, d.node, d.param)
+            kept = seen.get(key)
+            if kept is None:
+                kept = Diagnostic(
+                    d.code, d.severity, d.message,
+                    task=d.task, node=d.node, param=d.param,
+                    data=dict(d.data),
+                )
+                kept.data["occurrences"] = 1
+                seen[key] = kept
+                out.diagnostics.append(kept)
+            else:
+                kept.data["occurrences"] += 1
+        return out
+
+    @property
+    def errors(self) -> List[Diagnostic]:
+        return [d for d in self.diagnostics if d.severity == Severity.ERROR]
+
+    @property
+    def warnings(self) -> List[Diagnostic]:
+        return [d for d in self.diagnostics if d.severity == Severity.WARNING]
+
+    @property
+    def ok(self) -> bool:
+        return not self.errors
+
+    @property
+    def exit_code(self) -> int:
+        return 1 if self.errors else 0
+
+    def by_code(self, code: str) -> List[Diagnostic]:
+        return [d for d in self.diagnostics if d.code == code]
+
+    def has(self, code: str) -> bool:
+        return any(d.code == code for d in self.diagnostics)
+
+    def render(self, *, min_severity: Severity = Severity.INFO) -> str:
+        """Human-readable report, worst findings first."""
+        shown = [d for d in self.diagnostics if d.severity >= min_severity]
+        shown.sort(key=lambda d: (-int(d.severity), d.code))
+        lines = [d.render() for d in shown]
+        n_err, n_warn = len(self.errors), len(self.warnings)
+        n_info = len(self.diagnostics) - n_err - n_warn
+        lines.append(
+            f"analysis: {n_err} error(s), {n_warn} warning(s), {n_info} info"
+        )
+        return "\n".join(lines)
+
+    def to_json(self) -> Dict[str, Any]:
+        """Machine-readable form of the report (schema ``dls.lint/1``).
+
+        Stable contract: top-level keys ``schema``, ``exit_code``,
+        ``counts`` (error/warning/info), and ``diagnostics`` — each entry
+        carrying ``code``, ``severity`` (lowercase string), ``message``,
+        the ``task``/``node``/``param`` provenance (null when absent) and
+        the sanitized ``data`` payload.  Exit-code semantics are identical
+        to :attr:`exit_code`; the ``lint --json`` CLI emits exactly this.
+        """
+        n_err, n_warn = len(self.errors), len(self.warnings)
+        return {
+            "schema": JSON_SCHEMA,
+            "exit_code": self.exit_code,
+            "counts": {
+                "error": n_err,
+                "warning": n_warn,
+                "info": len(self.diagnostics) - n_err - n_warn,
+            },
+            "diagnostics": [
+                {
+                    "code": d.code,
+                    "severity": str(d.severity),
+                    "message": d.message,
+                    "task": d.task,
+                    "node": d.node,
+                    "param": d.param,
+                    "data": _jsonable(d.data),
+                }
+                for d in self.diagnostics
+            ],
+        }
+
+    def raise_if_errors(self) -> None:
+        if self.errors:
+            raise AnalysisError(self)

@@ -1,0 +1,70 @@
+"""Independent schedule validation: the framework's "race detector".
+
+Historical entry point, now a thin shim over the static-analysis
+subsystem (``analysis/``): :func:`validate_schedule` runs the
+schedule-consistency and memory-feasibility passes and re-shapes their
+structured diagnostics into the original :class:`ValidationReport`
+(message texts unchanged — callers and tests match on substrings).
+
+PyTorch port of ``distributed_llm_scheduler_tpu.core.validate``;
+framework-free, so the report is identical.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List
+
+from .cluster import Cluster
+from .graph import TaskGraph
+from .schedule import Schedule
+
+
+@dataclass
+class ValidationReport:
+    violations: List[str] = field(default_factory=list)
+    # diagnostics: per-node peak resident GB if nothing is ever evicted
+    peak_no_evict_gb: Dict[str, float] = field(default_factory=dict)
+    requires_eviction: List[str] = field(default_factory=list)
+
+    @property
+    def ok(self) -> bool:
+        return not self.violations
+
+    def summary(self) -> str:
+        if self.ok:
+            extra = (
+                f" (eviction required on {len(self.requires_eviction)} nodes)"
+                if self.requires_eviction else ""
+            )
+            return f"schedule valid{extra}"
+        head = "; ".join(self.violations[:5])
+        more = len(self.violations) - 5
+        return f"{len(self.violations)} violations: {head}" + (
+            f"; +{more} more" if more > 0 else ""
+        )
+
+
+def validate_schedule(
+    graph: TaskGraph,
+    cluster: Cluster,
+    schedule: Schedule,
+    strict: bool = False,
+) -> ValidationReport:
+    """Check a schedule against the graph/cluster it claims to place."""
+    from ..analysis import analyze_memory, analyze_schedule
+
+    graph.freeze()
+    rep = ValidationReport()
+    consistency = analyze_schedule(graph, cluster, schedule)
+    memory = analyze_memory(graph, cluster, schedule, strict=strict)
+    # MEM004 (param larger than any device) is a graph-level finding the
+    # historical validator never made; the lint CLI surfaces it instead
+    for d in consistency.errors + memory.errors:
+        if d.code != "MEM004":
+            rep.violations.append(d.message)
+    for d in memory.by_code("MEM001"):
+        rep.peak_no_evict_gb[d.node] = d.data["peak_gb"]
+    if not strict:
+        rep.requires_eviction = [d.node for d in memory.by_code("MEM002")]
+    return rep

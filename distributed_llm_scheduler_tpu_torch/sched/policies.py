@@ -281,10 +281,12 @@ class MRUScheduler(BaseScheduler):
 
 
 from .heft import HEFTScheduler  # noqa: E402  (avoids a circular import)
+from .pack import GroupPackScheduler  # noqa: E402
 from .pipeline import PipelineStageScheduler  # noqa: E402
 
-# The port's registry holds the ported policies only; pack, refine, search
-# and the native engine are still to be ported.
+# The port's registry holds the ported policies only: 8 of the JAX
+# registry's 10 (refine and search, and the native engine, are still to be
+# ported).
 ALL_SCHEDULERS = {
     cls.name: cls
     for cls in (
@@ -295,6 +297,7 @@ ALL_SCHEDULERS = {
         MRUScheduler,
         HEFTScheduler,
         PipelineStageScheduler,
+        GroupPackScheduler,
     )
 }
 

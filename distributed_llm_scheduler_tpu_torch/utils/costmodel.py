@@ -4,13 +4,17 @@ PyTorch port of the calibration half of ``distributed_llm_scheduler_tpu.
 utils.costmodel``: profile-execute the DAG on one device, record per-task
 times, and feed them back into ``Task.compute_time`` so the policies (HEFT
 and critical-path especially) optimize measured times instead of the
-builder's analytic seed estimates.
+analytic seed estimates the DAG frontends set.  ``repeat_capture`` is
+the one sample-collection idiom the bench shares with it.  Persistence
+(``calibrate_cached``) is not ported yet: the port's bench calibrates
+live on every run.
 """
 
 from __future__ import annotations
 
+import statistics
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 
@@ -20,11 +24,21 @@ from ..core.graph import TaskGraph
 @dataclass
 class CostModel:
     """task_id -> measured seconds on ``platform`` for the graph named
-    ``graph_name``."""
+    ``graph_name``, plus provenance.
+
+    ``dispatch_s`` is a per-task host dispatch cost for the replay to
+    charge on top of the task times (``SimulatedBackend(dispatch_s=...)``).
+    :func:`calibrate` records events around each task as it is dispatched, so
+    its task times already include what each launch costs, and it leaves
+    ``dispatch_s`` at 0, as the JAX package's profile method does:
+    charging it again would count it twice.  ``measured_at`` is the UTC
+    time the calibration was measured ("" when it was not)."""
 
     graph_name: str
     platform: str
     task_seconds: Dict[str, float] = field(default_factory=dict)
+    dispatch_s: float = 0.0
+    measured_at: str = ""
 
     def apply(self, graph: TaskGraph) -> int:
         """Overwrite compute_time for tasks present in the model.
@@ -56,7 +70,8 @@ def calibrate(
     task between CUDA events recorded on the device's stream around it
     (host clock on the CPU); keeps each task's minimum.  Per-task times
     include what per-task execution pays (launch latency when the host is
-    the bottleneck), which is what the placed run will pay too.
+    the bottleneck), which is what the placed run will pay too, so
+    ``dispatch_s`` stays 0.
     """
     from ..backends.device import DeviceBackend
     from ..core.cluster import Cluster
@@ -78,4 +93,32 @@ def calibrate(
             dur = t.duration
             if tid not in best or dur < best[tid]:
                 best[tid] = dur
-    return CostModel(graph.name, device.type, best)
+    return CostModel(graph.name, device.type, best, measured_at=_utc_stamp())
+
+
+def median_cost_model(models: Sequence[CostModel]) -> CostModel:
+    """One cost model from several calibrations of the same graph: each
+    task's median time over them, stamped with the last one's
+    ``measured_at``."""
+    first = models[0]
+    return CostModel(
+        first.graph_name, first.platform,
+        {tid: statistics.median(m.task_seconds[tid] for m in models)
+         for tid in first.task_seconds},
+        dispatch_s=first.dispatch_s, measured_at=models[-1].measured_at,
+    )
+
+
+def repeat_capture(fn: Any, n: int) -> List[Any]:
+    """All ``n`` samples of ``fn()``, in capture order — the raw material
+    every derived estimator (min for device time, median for headline
+    quotes, min/max for the bench's spread block) reduces from."""
+    return [fn() for _ in range(n)]
+
+
+def _utc_stamp() -> str:
+    import datetime
+
+    return datetime.datetime.now(datetime.timezone.utc).isoformat(
+        timespec="seconds"
+    )

@@ -109,8 +109,8 @@ def _graphs(kind):
 
 
 def test_registry_holds_the_ported_policies():
-    assert POLICIES == ["critical", "dfs", "greedy", "heft", "mru", "pipeline",
-                        "roundrobin"]
+    assert POLICIES == ["critical", "dfs", "greedy", "heft", "mru", "pack",
+                        "pipeline", "roundrobin"]
     assert set(POLICIES) <= set(J.ALL_SCHEDULERS)
 
 

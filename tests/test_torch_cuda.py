@@ -732,3 +732,70 @@ def test_flash_under_no_grad_takes_the_launcher(cuda):
         out = A.mha(q, k, v)
     assert out.grad_fn is None
     assert kernels.launches[A.KERNEL] == before + 1
+
+
+# -- the north-star bench's pieces on the card ---------------------------------
+
+@pytest.mark.cuda
+def test_calibrate_link_measures_the_host_link(cuda):
+    from distributed_llm_scheduler_tpu_torch.utils.linkmodel import calibrate_link
+
+    cal = calibrate_link([cuda], sizes=(1 << 10, 1 << 20, 1 << 24), repeats=3)
+    assert cal.provenance["param_load"] == "measured"
+    assert cal.param_load_gbps > 0 and cal.latency_s > 0
+    assert cal.provenance["interconnect"].startswith("estimated(h100 ")
+    assert len(cal.samples["param_load"]) == 3
+    # the latency is the 1 KB copy's best time, not a clamped intercept
+    assert cal.latency_s == cal.samples["param_load"][0][1] > 1e-6
+
+
+@pytest.mark.cuda
+def test_calibrate_link_measures_the_peer_link(cuda):
+    """With two cards the interconnect leg is a measured peer copy."""
+    from distributed_llm_scheduler_tpu_torch.utils.linkmodel import calibrate_link
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    cal = calibrate_link([torch.device("cuda", 0), torch.device("cuda", 1)],
+                         sizes=(1 << 10, 1 << 20, 1 << 24, 1 << 26), repeats=3)
+    assert cal.provenance == {"param_load": "measured",
+                              "interconnect": "measured"}
+    assert cal.interconnect_gbps > cal.param_load_gbps > 0
+    assert 0 < cal.latency_s < 1e-3
+    print(f"host {cal.param_load_gbps:.3f} GB/s, peer "
+          f"{cal.interconnect_gbps:.3f} GB/s, latency {cal.latency_s * 1e6:.3f} us")
+
+
+@pytest.mark.cuda
+def test_preflight_footprints_cover_outputs_and_never_lower(cuda):
+    import distributed_llm_scheduler_tpu_torch as P
+    from distributed_llm_scheduler_tpu_torch.utils.hbm import preflight_task_memory
+
+    dag = P.build_gpt2_dag(P.GPT2Config.tiny(dtype=torch.bfloat16), batch=4,
+                           seq_len=32, microbatches=2, vocab_shards=4)
+    graph = P.fuse_linear_chains(dag.graph)
+    pinned = next(iter(graph))
+    pinned.memory_required = 5.0
+    before = {t.task_id: t.memory_required for t in graph}
+    gb = preflight_task_memory(graph, dag.init_params(device=cuda),
+                               dag.make_inputs(device=cuda))
+    assert set(gb) == {t.task_id for t in graph}
+    for t in graph:
+        assert gb[t.task_id] * 1024**3 >= t.out_bytes > 0, t.task_id
+        assert t.memory_required == max(before[t.task_id], gb[t.task_id])
+    assert pinned.memory_required == 5.0
+
+
+@pytest.mark.cuda
+def test_bench_runs_the_tiny_bf16_config(cuda):
+    from distributed_llm_scheduler_tpu_torch.eval import bench
+
+    result = bench.run("tiny", cuda, reps=2)
+    assert result.oracle_ok is True
+    assert result.mfu_single_chip is not None and result.mfu_single_chip > 0
+    assert result.link_provenance.startswith("cuda:measured,")
+    assert not result.fallback and result.node_hbm_gb > 0
+    assert result.preflight_max_gb > 0
+    line = result.to_json()
+    assert line["metric"].endswith("_policies_cuda")
+    assert line["launches"]["per_task"][A.KERNEL] > 0
