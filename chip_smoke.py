@@ -58,15 +58,34 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    layer norm per forward (96 and 200, every LayerNorm on the register
    kernel); the output must meet the fused forward; traces give device
    time per forward, the norm kernels' included;
-7. north-star bench: ``eval/bench.run("small")`` on the card: calibration,
-   greedy x1 per task and the fused forward (3 windows of 6 runs each),
-   the pre-flight memory pass, the link measured on the card, and every
-   ported policy placed on 8 nodes and replayed; its JSON line is printed
-   (``BENCH_LINE``), and each leg must launch the flash and LayerNorm
-   kernels once per attention and layer norm of each forward it runs (the
-   pre-flight once per distinct task), the oracle must hold, every policy
-   but round-robin must complete and the MFU must be measured;
-8. serve path: GPT-2 small bf16 at full width through the paged decode
+7. execution ladder: the same flagship under ``greedy`` x1 per task,
+   planned, coalesced, segmented and compiled, and under ``heft`` x8 (8
+   nodes of the card, each on its own stream) per task, planned,
+   segmented and compiled; each run has its counts set to 0 just before
+   it: an eager rung must launch the kernels once per attention and layer
+   norm of each forward, a captured rung (segments, each one CUDA graph;
+   compiled, the whole run one CUDA graph) counts in its warm-up and
+   capture only (twice the kernels in its graphs), and its launches are
+   those its graphs' replays made, counted at each replay, which must be
+   the kernels in its graphs times the runs (the segmented rung's
+   re-batched segment: at most the per-task 96 flash launches per
+   forward); each output must meet the
+   fused forward, and the planned, coalesced and compiled ones must equal
+   the per-task output bit for bit; makespan, host dispatch wall, host
+   calls, idle share (a trace of one more run), peak memory allocated and
+   reserved are printed per run, and the table as ``LADDER_TABLE``;
+8. north-star bench: ``eval/bench.run("small")`` on the card: calibration,
+   greedy x1 per task (planned) and the fused forward (3 windows of 6
+   runs each), the segmented and compiled legs (the same, their
+   launches counted as phase 7 counts them), the pre-flight memory pass,
+   the link measured on the card, and every ported policy placed on 8
+   nodes and replayed; its JSON line is printed (``BENCH_LINE``), and
+   each leg must launch the flash and LayerNorm kernels once per
+   attention and layer norm of each forward it runs (the pre-flight once
+   per distinct task), the oracle must hold, every policy but round-robin
+   must complete and the MFUs and the compiled leg's host wall must be
+   measured;
+9. serve path: GPT-2 small bf16 at full width through the paged decode
    DAG (8 slots, page size 16, 257 pages, capacity 512), placed by
    ``greedy`` and served by ``DeviceBackend.paged_decode_engine`` in
    8-step segments: 16 requests, one warm-up run, then 3 timed runs, each
@@ -76,26 +95,28 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    request's token count, and a teacher-forced oracle against the fused
    forward; a traced segment gives device busy time and the paged and
    norm kernels' own device time;
-9. Llama path: Llama-3 8B bf16 at full width and depth (batch 8, seq
-   512, 8 microbatches, 8 vocab shards, linear chains fused: 1,945
-   tasks), weights drawn on the card from a seeded generator, calibrated,
-   placed by ``pipeline`` on 8 virtual nodes sharing the card and by
-   ``greedy`` on one, executed with 256 flash and 520 RMSNorm launches
-   (all on the register kernel) per forward in every counted run, and
-   held against the fused forward;
-10. f32 leg: a 2-layer GPT-2 small-width DAG placed on the card must be
-   allclose to the port's fused forward run on the CPU with the plain
-   versions;
-11. f32 serve leg: a 2-layer GPT-2 small-width f32 engine serves 4
+10. Llama path: Llama-3 8B bf16 at full width and depth (batch 8, seq
+    512, 8 microbatches, 8 vocab shards, linear chains fused: 1,945
+    tasks), weights drawn on the card from a seeded generator,
+    calibrated, placed by ``pipeline`` on 8 virtual nodes sharing the card
+    and by ``greedy`` on one, executed with 256 flash and 520 RMSNorm
+    launches (all on the register kernel) per forward in every counted
+    run, the pipeline placement also compiled (one CUDA graph, a stream
+    per stage node), and held against the fused forward;
+11. f32 leg: a 2-layer GPT-2 small-width DAG placed on the card, planned
+    and compiled, must be allclose to the port's fused forward run on the
+    CPU with the plain versions;
+12. f32 serve leg: a 2-layer GPT-2 small-width f32 engine serves 4
     requests on the card (kernels) and on the CPU (plain versions) from
     the same weights, and every request's tokens must be equal;
-12. f32 Llama leg: Llama-3 8B widths at 2 layers, placed by ``pipeline``
-    on 8 virtual nodes on the card, allclose to the fused forward on the
-    CPU.
+13. f32 Llama leg: Llama-3 8B widths at 2 layers, placed by ``pipeline``
+    on 8 virtual nodes on the card, planned and compiled, allclose to the
+    fused forward on the CPU.
 
 The last lines are one JSON object of per-kernel numbers (``launches`` is
 the count of the kernel's main path, ``launches_by_path`` each counted
-run's own), the card's name and power limit as nvidia-smi reports them,
+run's own; for a captured run, the launches its graphs' replays made,
+counted at each replay), the card's name and power limit as nvidia-smi reports them,
 and ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --paged-timing [ROOT]
@@ -351,6 +372,9 @@ def check_attention_kernel(torch, A, dev, llama) -> dict:
     cases = [  # (shape, dtype, causal, layout, KV heads)
         ((1, 12, 512, 64), "bfloat16", True, "heads", None),  # main path, per task
         ((1, 12, 512, 64), "bfloat16", True, "qkv", None),    # ... as the model's views
+        # the segmented rung's re-batched microbatch siblings: one call at batch 8
+        ((8, 12, 512, 64), "bfloat16", True, "heads", None),
+        ((8, 12, 512, 64), "bfloat16", True, "qkv", None),
         (llama_shape, "bfloat16", True, "gqa", llama.n_kv_heads),  # Llama-3 8B, per task
         ((1, 12, 512, 64), "float32", True, "heads", None),
         ((2, 3, 100, 64), "float32", False, "heads", None),   # ragged T, full attention
@@ -515,6 +539,7 @@ def graph_ms(torch, fn, inputs, reps: int = 5) -> float:
 # the variant ``norm_plan`` must pick for it; the main paths' shapes first
 NORM_CASES = [
     ("ln", (1, 512, 768), "bfloat16", False, 0, "register"),   # GPT-2 flagship task
+    ("ln", (8, 512, 768), "bfloat16", False, 0, "register"),   # ... re-batched segment
     ("ln", (8, 1, 768), "bfloat16", False, 0, "register"),     # GPT-2 decode step
     ("rms", (1, 512, 4096), "bfloat16", False, 0, "register"),  # Llama-3 8B task
     ("ln", (1, 512, 768), "float32", False, 0, "register"),
@@ -704,10 +729,38 @@ def check_norm_kernels(torch, N, dev) -> dict:
     return out
 
 
-def device_time_breakdown(torch, label: str, makespan_s: float, run) -> None:
-    """Trace one more placed forward with torch.profiler: device time per
-    forward, the device's idle share of the untraced makespan, and the
-    kernels that take most of it."""
+def busy_union_ms(torch, prof):
+    """(busy ms, window ms): the milliseconds in which at least one kernel
+    ran, the union of the trace's device intervals (kernels on concurrent
+    streams overlap, so their summed times can exceed the wall), and the
+    traced device window from the first kernel's start to the last one's
+    end.  None when the trace carries no device intervals."""
+    spans = sorted(
+        (e.time_range.start, e.time_range.end) for e in prof.events()
+        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+        and e.time_range.end > e.time_range.start
+    )
+    if not spans:
+        return None
+    total, (lo, hi) = 0.0, spans[0]
+    end = max(b for _, b in spans)
+    for a, b in spans[1:]:
+        if a > hi:
+            total, lo, hi = total + hi - lo, a, b
+        else:
+            hi = max(hi, b)
+    return (total + hi - lo) / 1e3, (end - spans[0][0]) / 1e3
+
+
+def device_time_breakdown(torch, label: str, makespan_s: float, run):
+    """Trace one more placed forward with torch.profiler: kernel time per
+    forward (summed over kernels), device busy time (the union of their
+    intervals), the device's idle share of the untraced makespan (1 - busy
+    / makespan) and of the traced device window (tracing stretches kernels
+    that share the card, so busy can exceed the untraced makespan), and
+    the kernels that take most of it.  Returns (busy ms, idle share, idle
+    share of the traced window), or None when the trace shows no device
+    time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -717,17 +770,27 @@ def device_time_breakdown(torch, label: str, makespan_s: float, run) -> None:
         for e in prof.key_averages()
         if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
     ]
-    busy_ms = sum(r[0] for r in rows) / 1e3
-    if busy_ms <= 0:
+    kernel_ms = sum(r[0] for r in rows) / 1e3
+    if kernel_ms <= 0:
         log(f"  {label} trace: no device time in the trace (not measured)")
-        return
+        return None
+    union = busy_union_ms(torch, prof)
+    if union is None:
+        log(f"  {label} trace: kernel time {kernel_ms:.3f} ms per forward; "
+            "no device intervals, so busy time and idle share not measured")
+        return None
+    busy_ms, window_ms = union
     share = 1.0 - busy_ms / (makespan_s * 1e3)
-    log(f"  {label} trace: device busy {busy_ms:.3f} ms per forward, idle "
-        f"share {share:.3f} of the {makespan_s * 1e3:.3f} ms makespan; "
-        f"{sum(r[1] for r in rows)} device ops")
+    traced = 1.0 - busy_ms / window_ms
+    log(f"  {label} trace: kernel time {kernel_ms:.3f} ms per forward, "
+        f"device busy {busy_ms:.3f} ms (union), idle share {share:.3f} of the "
+        f"{makespan_s * 1e3:.3f} ms makespan ({traced:.3f} of the "
+        f"{window_ms:.3f} ms traced window); {sum(r[1] for r in rows)} "
+        f"device ops")
     for us, n, key in sorted(rows, reverse=True)[:6]:
         log(f"    {us / 1e3:8.3f} ms  {n:5d}x  {key[:90]}")
     log_norm_device_time(f"{label} trace", "per forward", rows)
+    return busy_ms, share, traced
 
 
 def log_norm_device_time(label: str, per: str, rows) -> float:
@@ -1102,6 +1165,130 @@ def run_main_path(torch, P, dev) -> dict:
     return launches
 
 
+# the execution ladder on the flagship: (label, nodes, policy, rungs); each
+# rung is (name, execute() flags, output promised bit-equal to per task)
+LADDER = (
+    ("greedy x1", 1, "greedy", (
+        ("per task", dict(planned=False), True),
+        ("planned", {}, True),
+        ("coalesced", dict(coalesce=True), True),
+        ("segmented", dict(segments=True), False),
+        ("compiled", dict(compiled=True), True),
+    )),
+    ("heft x8", 8, "heft", (
+        ("per task", dict(planned=False), True),
+        ("planned", {}, True),
+        ("segmented", dict(segments=True), False),
+        ("compiled", dict(compiled=True), True),
+    )),
+)
+
+
+def run_ladder_path(torch, P, dev) -> dict:
+    """The GPT-2 flagship through every rung of the execution ladder:
+    per task, planned, coalesced, segmented (captured segments, siblings
+    re-batched) and compiled (the whole run one CUDA graph, a stream per
+    node), under greedy x1 and heft x8.  Each rung's run has its counts set
+    to 0 just before and read just after: an eager rung must launch the
+    flash and LayerNorm kernels once per attention and layer norm of each
+    forward it runs; a captured rung's wrappers count in its warm-up and
+    its capture only (2x the kernels in its graphs), and its launches are
+    those its graphs' replays made (``kernels.replayed``, counted at each
+    replay), which must be the kernels in its graphs times the runs.  Each
+    output meets the fused forward, and the planned, coalesced and
+    compiled outputs equal the per-task output bit for bit.  Returns each
+    run's launches."""
+    from distributed_llm_scheduler_tpu_torch.ops import attention as A
+    from distributed_llm_scheduler_tpu_torch.ops import kernels
+    from distributed_llm_scheduler_tpu_torch.ops import norms as N
+
+    cfg = P.GPT2Config.small(dtype=torch.bfloat16)
+    dag = P.build_gpt2_dag(cfg, **FLAGSHIP)
+    graph = P.fuse_linear_chains(dag.graph)
+    params = dag.init_params(seed=0, device=dev)
+    ids = dag.make_inputs(seed=1, device=dev)
+    mb = FLAGSHIP["microbatches"]
+    n_ln = 2 * cfg.n_layer + 1
+    per_forward = {A.KERNEL: mb * cfg.n_layer, N.LN_KERNEL: mb * n_ln}
+    # references on the host, so the card's peak is the rung's own
+    fused = dag.reference_forward(params, ids).cpu()
+    launches, table = {}, []
+    for label, n, policy, rungs in LADDER:
+        cluster = P.Cluster.from_torch_devices([dev] * n)
+        sched = P.get_scheduler(policy).schedule(graph, cluster)
+        backend = P.DeviceBackend(cluster)
+        base = None
+        for rung, kw, bit_equal in rungs:
+            name = f"{label} {rung}"
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated(dev) / 1024**3
+            kernels.reset_launches()
+            rep = backend.execute(graph, sched, params, ids, reps=REPS, **kw)
+            torch.cuda.synchronize()
+            eager = {k: kernels.launches[k] for k in per_forward}
+            replayed = {k: kernels.replayed.get(k, 0) for k in per_forward}
+            out = rep.output.cpu()  # read before the program runs again
+            captured = {k: rep.captured_launches.get(k, 0) for k in per_forward}
+            if rep.captured_launches:
+                if eager != {k: 2 * v for k, v in captured.items()}:
+                    raise AssertionError(f"{name}: eager {eager} != 2 x "
+                                         f"captured {captured}")
+                if captured[A.KERNEL] > per_forward[A.KERNEL] or (
+                        kw.get("compiled") and captured != per_forward):
+                    raise AssertionError(f"{name}: captured {captured}")
+                # every run replayed every graph: the warm-up and REPS runs
+                if replayed != times(captured, 1 + REPS):
+                    raise AssertionError(f"{name}: replays launched "
+                                         f"{replayed}, captured {captured}")
+                launches[name] = replayed
+            else:
+                if eager != times(per_forward, 1 + REPS):
+                    raise AssertionError(f"{name}: launches {eager}")
+                launches[name] = eager
+            ok, viol, allowed, rel = oracle_close(fused, out)
+            finite = bool(torch.isfinite(out).all())
+            if base is None:
+                base = out
+            same = torch.equal(out, base)
+            if not (ok and finite) or (bit_equal and not same):
+                raise AssertionError(
+                    f"{name}: oracle {ok} ({viol} outside the band, rel "
+                    f"{rel:.3e}), finite {finite}, bit-equal to per task "
+                    f"{same}")
+            peak = sum(rep.peak_hbm_bytes.values()) / 1024**3
+            reserved = torch.cuda.memory_reserved(dev) / 1024**3
+            tr = device_time_breakdown(
+                torch, name, rep.makespan_s, lambda: backend.execute(
+                    graph, sched, params, ids, warmup=False, reps=1, **kw))
+            row = dict(
+                run=name, makespan_ms=rep.makespan_s * 1e3,
+                dispatch_ms=rep.dispatch_overhead_s * 1e3,
+                host_calls=rep.n_dispatches,
+                flash=launches[name][A.KERNEL] // (1 + REPS),
+                layer_norm=launches[name][N.LN_KERNEL] // (1 + REPS),
+                busy_ms=tr[0] if tr else None, idle=tr[1] if tr else None,
+                idle_traced=tr[2] if tr else None,
+                peak_gib=peak, held_gib=held, reserved_gib=reserved,
+                transfer_edges=rep.transfer_edges, bit_equal=same,
+                warmup_s=rep.compile_s)
+            table.append(row)
+            log(f"  {name}: makespan {row['makespan_ms']:.3f} ms (mean of "
+                f"{REPS}), host dispatch {row['dispatch_ms']:.3f} ms in "
+                f"{rep.n_dispatches} host calls, per run {row['flash']} flash "
+                f"and {row['layer_norm']} layer_norm launches"
+                f"{' (captured)' if rep.captured_launches else ''}, idle "
+                f"{row['idle']}, peak {peak:.3f} GiB allocated ({held:.3f} held "
+                f"before the run, {reserved:.3f} reserved), "
+                f"{rep.transfer_edges} transfer edges, rel "
+                f"Frobenius {rel:.3e} vs fused, bit-equal to per task {same}, "
+                f"warmup {rep.compile_s:.2f} s")
+            del rep, out
+        del backend
+        torch.cuda.empty_cache()
+    print("LADDER_TABLE " + json.dumps(table), flush=True)
+    return launches
+
+
 def run_bench_path(torch, P, dev) -> dict:
     """The port's north-star bench (``eval/bench.run("small")``) on the card:
     calibration, the per-task and fused legs, the pre-flight, the replay of
@@ -1124,11 +1311,21 @@ def run_bench_path(torch, P, dev) -> dict:
                ln_reg: mb * n_ln}
     per_fused = {A.KERNEL: cfg.n_layer, N.LN_KERNEL: n_ln, ln_reg: n_ln}
     reps = bench.REPS
+    # the segmented leg's one captured segment re-batches the microbatch
+    # siblings: one launch per layer's op, as the fused forward
+    replays = 2 + bench.WINDOWS * reps
     expected = {
         # each calibration window warms up once, then profiles
         "calibrate": times(per_dag, bench.CAL_WINDOWS * (1 + bench.CAL_REPEATS)),
         "per_task": times(per_dag, 2 + bench.WINDOWS * reps),
         "fused": times(per_fused, 2 + 2 * bench.WINDOWS * reps),
+        # a captured leg's wrappers count in its warm-up and its capture;
+        # its launches are those its graph's replays made, counted at each
+        # replay: the kernels in its graph times the replays
+        "segmented_eager": times(per_fused, 2),
+        "segmented": times(per_fused, replays),
+        "compiled_eager": times(per_dag, 2),
+        "compiled": times(per_dag, replays + bench.WINDOWS),
     }
     kernels.reset_launches()
     t0 = time.perf_counter()
@@ -1151,7 +1348,9 @@ def run_bench_path(torch, P, dev) -> dict:
     log(f"  bench preflight: {pre} (1 to {per_dag} each)")
     if any(not 1 <= pre[k] <= per_dag[k] for k in per_dag):
         raise AssertionError(f"bench preflight launches {pre}")
-    summed = {k: sum(n.get(k, 0) for n in legs.values()) for k in per_dag}
+    summed = {k: sum(n.get(k, 0) for leg, n in legs.items()
+                     if leg not in ("segmented", "compiled"))
+              for k in per_dag}
     if summed != total:
         raise AssertionError(f"bench legs {summed} != launches in all {total}")
     log(f"  bench: best {result.best_policy} {line['value']} ms vs "
@@ -1169,6 +1368,13 @@ def run_bench_path(torch, P, dev) -> dict:
         raise AssertionError(f"bench: policies did not complete: {incomplete}")
     if result.mfu_single_chip is None:
         raise AssertionError("bench: no MFU for this card")
+    ladder = {k: line.get(k) for k in (
+        "segmented_makespan_ms", "mfu_segmented", "compiled_makespan_ms",
+        "mfu_compiled", "compiled_dispatch_overhead_ms")}
+    log(f"  bench ladder legs: {ladder}; spread segmented "
+        f"{line['spread']['segmented']}, compiled {line['spread']['compiled']}")
+    if None in ladder.values():
+        raise AssertionError(f"bench: a ladder leg is missing: {ladder}")
     return legs
 
 
@@ -1180,22 +1386,23 @@ def run_f32_leg(torch, P, dev) -> None:
     graph = P.fuse_linear_chains(dag.graph)
     cluster = P.Cluster.from_torch_devices([dev] * 8)
     sched = P.get_scheduler("heft").schedule(graph, cluster)
-    rep = P.DeviceBackend(cluster).execute(
-        graph, sched, dag.init_params(seed=2, device=dev),
-        dag.make_inputs(seed=3, device=dev), reps=1,
-    )
+    backend = P.DeviceBackend(cluster)
+    params = dag.init_params(seed=2, device=dev)
+    ids = dag.make_inputs(seed=3, device=dev)
     cpu = torch.device("cpu")
     want = dag.reference_forward(
         dag.init_params(seed=2, device=cpu), dag.make_inputs(seed=3, device=cpu)
     )
-    got = rep.output.cpu()
-    err = (got - want).abs().max().item()
-    ok = bool(torch.allclose(got, want, rtol=F32_RTOL, atol=F32_ATOL))
-    log(f"  {graph.name}: {len(graph)} tasks on 8 nodes, heft; max_abs_err "
-        f"{err:.3e} vs CPU fused forward (rtol=atol={F32_RTOL:g}) -> "
-        f"{'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise AssertionError("f32 placed output diverges from CPU forward")
+    for rung, kw in (("planned", {}), ("compiled", dict(compiled=True))):
+        got = backend.execute(graph, sched, params, ids, reps=1, **kw).output.cpu()
+        err = (got - want).abs().max().item()
+        ok = bool(torch.allclose(got, want, rtol=F32_RTOL, atol=F32_ATOL))
+        log(f"  {graph.name}: {len(graph)} tasks on 8 nodes, heft, {rung}; "
+            f"max_abs_err {err:.3e} vs CPU fused forward (rtol=atol="
+            f"{F32_RTOL:g}) -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(
+                f"f32 placed output ({rung}) diverges from CPU forward")
 
 
 def run_llama_path(torch, P, dev) -> dict:
@@ -1204,6 +1411,7 @@ def run_llama_path(torch, P, dev) -> dict:
     by ``greedy`` on one, executed, and held against the fused forward.
     Returns each run's own launch counts."""
     from distributed_llm_scheduler_tpu_torch.models import llama
+    from distributed_llm_scheduler_tpu_torch.ops import kernels
 
     cfg = P.LlamaConfig.llama3_8b(dtype=torch.bfloat16)
     t0 = time.perf_counter()
@@ -1281,6 +1489,32 @@ def run_llama_path(torch, P, dev) -> dict:
             graph, sched, params, ids, warmup=False, reps=1
         ))
         reports[label] = rep
+        if label == "pipeline x8":
+            pipeline = (backend, sched)
+
+    # the pipeline placement as one CUDA graph, a stream per stage node: its
+    # wrappers count in the warm-up and the capture; its replays (the
+    # warm-up run and REPS runs) launch the kernels in the graph
+    backend, sched = pipeline
+    label = "pipeline x8 compiled"
+    rep, eager = counted(label, times(per_forward, 2), lambda: backend.execute(
+        graph, sched, params, ids, compiled=True, reps=REPS))
+    if {k: rep.captured_launches.get(k, 0) for k in per_forward} != per_forward:
+        raise AssertionError(f"{label}: captured {rep.captured_launches}")
+    launches[label] = {k: kernels.replayed.get(k, 0) for k in per_forward}
+    if launches[label] != times(per_forward, 1 + REPS):
+        raise AssertionError(f"{label}: replays launched {launches[label]}")
+    peak = sum(rep.peak_hbm_bytes.values()) / 1024**3
+    log(f"  {label}: makespan {rep.makespan_s * 1e3:.3f} ms (mean of {REPS}), "
+        f"host dispatch {rep.dispatch_overhead_s * 1e3:.4f} ms in "
+        f"{rep.n_dispatches} host calls, {rep.transfer_edges} exchanges, peak "
+        f"{peak:.3f} GiB allocated ({torch.cuda.memory_reserved(dev) / 1024**3:.3f} "
+        f"reserved), warmup and capture {rep.compile_s:.2f} s")
+    device_time_breakdown(torch, label, rep.makespan_s, lambda: backend.execute(
+        graph, sched, params, ids, compiled=True, warmup=False, reps=1))
+    reports[label] = backend.execute(graph, sched, params, ids, compiled=True,
+                                     warmup=False)
+    del pipeline
 
     t0 = time.perf_counter()
     fused = dag.reference_forward(params, ids)
@@ -1325,20 +1559,23 @@ def run_llama_f32_leg(torch, P, dev) -> None:
     sched = P.get_scheduler("pipeline").schedule(graph, cluster)
     if sched.failed:
         raise AssertionError(f"{graph.name}: {len(sched.failed)} tasks failed")
-    rep = P.DeviceBackend(cluster).execute(graph, sched, card, ids.to(dev), reps=1)
+    backend = P.DeviceBackend(cluster)
     t0 = time.perf_counter()
     want = dag.reference_forward(host, ids)
     t_cpu = time.perf_counter() - t0
-    got = rep.output.cpu()
-    err = (got - want).abs().max().item()
-    ok = bool(torch.allclose(got, want, rtol=F32_RTOL, atol=F32_ATOL))
-    log(f"  {graph.name}: {len(graph)} tasks on "
-        f"{sum(1 for lst in sched.per_node.values() if lst)} nodes, pipeline; "
-        f"max_abs_err {err:.3e} vs CPU fused forward (rtol=atol={F32_RTOL:g}) "
-        f"-> {'ok' if ok else 'FAIL'} (weights {t_init:.1f} s, CPU forward "
-        f"{t_cpu:.1f} s)")
-    if not ok:
-        raise AssertionError("f32 Llama placed output diverges from CPU forward")
+    for rung, kw in (("planned", {}), ("compiled", dict(compiled=True))):
+        got = backend.execute(graph, sched, card, ids.to(dev), reps=1,
+                              **kw).output.cpu()
+        err = (got - want).abs().max().item()
+        ok = bool(torch.allclose(got, want, rtol=F32_RTOL, atol=F32_ATOL))
+        log(f"  {graph.name}: {len(graph)} tasks on "
+            f"{sum(1 for lst in sched.per_node.values() if lst)} nodes, "
+            f"pipeline, {rung}; max_abs_err {err:.3e} vs CPU fused forward "
+            f"(rtol=atol={F32_RTOL:g}) -> {'ok' if ok else 'FAIL'} (weights "
+            f"{t_init:.1f} s, CPU forward {t_cpu:.1f} s)")
+        if not ok:
+            raise AssertionError(
+                f"f32 Llama placed output ({rung}) diverges from CPU forward")
 
 
 
@@ -1769,7 +2006,7 @@ def main() -> int:
     t_all = time.perf_counter()
     dev = torch.device("cuda", 0)
     smi = nvidia_smi_line()
-    log(f"[1/12] device: {torch.cuda.get_device_name(0)} ({smi}); torch "
+    log(f"[1/13] device: {torch.cuda.get_device_name(0)} ({smi}); torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1777,7 +2014,7 @@ def main() -> int:
 
     sources = (A.KERNEL, A.PAGED_SOURCE, N.SOURCE)
     secs = kernels.build(*sources)
-    log(f"[2/12] built {', '.join(f'{n}.cu' for n in sources)} with "
+    log(f"[2/13] built {', '.join(f'{n}.cu' for n in sources)} with "
         f"{kernels.nvcc_path()} for sm_90a in {secs:.1f} s (in parallel)")
     log_ptxas(kernels.build_logs.get(A.KERNEL, ""))
     log_ptxas(kernels.build_logs.get(A.PAGED_SOURCE, ""),
@@ -1789,46 +2026,51 @@ def main() -> int:
                     if "paged_ragged_tc" in k]
     norm_ptxas = log_norm_ptxas(kernels.build_logs.get(N.SOURCE, ""))
 
-    log("[3/12] flash kernel check against its plain version")
+    log("[3/13] flash kernel check against its plain version")
     attn = check_attention_kernel(
         torch, A, dev, P.LlamaConfig.llama3_8b(dtype=torch.bfloat16))
 
-    log("[4/12] paged kernel check against the plain versions")
+    log("[4/13] paged kernel check against the plain versions")
     paged = check_paged_kernels(torch, A, DB, dev)
     ragged_n = run_ragged_op_path(torch, A, DB, dev)
 
-    log("[5/12] LayerNorm and RMSNorm kernel check against the plain versions")
+    log("[5/13] LayerNorm and RMSNorm kernel check against the plain versions")
     norms = check_norm_kernels(torch, N, dev)
 
     def phase_done():  # free the phase's tensors before the next one
         gc.collect()
         torch.cuda.empty_cache()
 
-    log("[6/12] flagship forward path: GPT-2 small bf16 DAG on the card")
+    log("[6/13] flagship forward path: GPT-2 small bf16 DAG on the card")
     gpt2_n = run_main_path(torch, P, dev)
     phase_done()
 
-    log("[7/12] north-star bench: GPT-2 small bf16, 8 policies replayed")
+    log("[7/13] execution ladder: the flagship per task, planned, coalesced, "
+        "segmented and compiled")
+    ladder_n = run_ladder_path(torch, P, dev)
+    phase_done()
+
+    log("[8/13] north-star bench: GPT-2 small bf16, 8 policies replayed")
     bench_n = run_bench_path(torch, P, dev)
     phase_done()
 
-    log("[8/12] serve path: GPT-2 small bf16 through the paged decode engine")
+    log("[9/13] serve path: GPT-2 small bf16 through the paged decode engine")
     serve_launches, serve_ragged, serve_ln, serve_tr = run_serve_path(
         torch, P, A, dev)
     phase_done()
 
-    log("[9/12] Llama path: Llama-3 8B bf16 DAG, pipeline stages, on the card")
+    log("[10/13] Llama path: Llama-3 8B bf16 DAG, pipeline stages, on the card")
     llama_n = run_llama_path(torch, P, dev)
     phase_done()
 
-    log("[10/12] f32 leg: GPT-2 placed on the card vs fused on the CPU")
+    log("[11/13] f32 leg: GPT-2 placed on the card vs fused on the CPU")
     run_f32_leg(torch, P, dev)
 
-    log("[11/12] f32 serve leg: the engine on the card vs on the CPU")
+    log("[12/13] f32 serve leg: the engine on the card vs on the CPU")
     run_f32_serve_leg(torch, P, dev)
     phase_done()
 
-    log("[12/12] f32 Llama leg: placed on the card vs fused on the CPU")
+    log("[13/13] f32 Llama leg: placed on the card vs fused on the CPU")
     run_llama_f32_leg(torch, P, dev)
 
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
@@ -1841,7 +2083,8 @@ def main() -> int:
     csrc = "distributed_llm_scheduler_tpu_torch/csrc/"
     tpu = "distributed_llm_scheduler_tpu/ops/attention.py:"
     tpu_norms = "distributed_llm_scheduler_tpu/ops/norms.py:"
-    runs = (("gpt2", gpt2_n), ("bench", bench_n), ("llama", llama_n))
+    runs = (("gpt2", gpt2_n), ("ladder", ladder_n), ("bench", bench_n),
+            ("llama", llama_n))
     line = {"kernels": [
         {"name": A.KERNEL, "route": "cuda", "source": csrc + "flash_attention.cu",
          "replaces": tpu + "152",

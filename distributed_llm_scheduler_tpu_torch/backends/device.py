@@ -1,31 +1,50 @@
 """Real device execution backend: placed, dispatched, measured.
 
-PyTorch port of the per-task path of ``distributed_llm_scheduler_tpu.
-backends.device``.  The scheduler's placement decision becomes real
-dispatch of each task's tensor fn onto the device its node is bound to:
+PyTorch port of ``distributed_llm_scheduler_tpu.backends.device``.  The
+scheduler's placement decision becomes real dispatch of each task's tensor
+fn onto the device its node is bound to:
 
 * parameters are copied onto every device that runs a task needing them
   (the reference's ``param_locations`` bookkeeping made physical);
+* every node bound to a CUDA device runs on a stream of its own, so the
+  nodes of one placement that share a card run side by side, as the
+  reference's per-device queues do;
 * a dependency edge whose producer and consumer sit on different nodes is
   a transfer, counted in ``transfer_edges`` / ``transfer_bytes`` exactly as
-  the JAX package counts it; it is a physical copy when the two nodes are
-  bound to different devices, while nodes bound to one card share its
-  memory and the edge moves nothing;
+  the JAX package counts it.  On one card it is an event recorded on the
+  producer's stream and waited on by the consumer's (nodes of one card
+  share its memory, so nothing is copied); across cards the consumer's
+  stream waits on that event and then issues the copy;
 * dispatch follows the schedule: :meth:`dispatch_order` linearizes the
-  per-node lists, and every task of a node bound to a CUDA device runs on
-  that device's current stream, so the dispatch order IS the execution
-  order.
+  per-node lists, and each node's stream executes its tasks in its
+  scheduled order.
 
-Timing: on a cluster bound to one CUDA device the makespan is read from
-CUDA events recorded on its stream around the timed repetitions; on the
-CPU, or across several cards, from the host clock after synchronizing.
-Profile mode records an event pair (or host timestamps on the CPU) around
-every task.  Peak device memory comes from ``torch.cuda.max_memory_allocated``.
+The execution ladder, from the finest rung to the coarsest:
+
+1. per task (``planned=False``): :meth:`_run` walks the dispatch order;
+2. planned (the default, :mod:`.dispatch_plan`): the same launches from a
+   table built once per ``execute``, each value released after its last
+   consumer; ``coalesce=True`` runs same-node runs as one host call;
+3. segmented (``segments=True``): each maximal same-node run of the order
+   (:meth:`build_segments`) is one program, its sibling microbatch tasks
+   re-batched (:mod:`.rebatch`); on a card each segment is captured once
+   into a CUDA graph and replayed once per run;
+4. compiled (``compiled=True``, :mod:`.compiled_schedule`): the whole placed
+   run is one CUDA graph with a stream per node; one replay per run.
+
+Timing: the makespan runs from an event on each card's current stream (the
+clock stream), which every node stream waits on at the start of a run, to
+an event on the clock stream after it has waited on every node stream; on
+the CPU, or across several cards, from the host clock after synchronizing.
+Profile mode records an event pair on the task's own stream (or host
+timestamps on the CPU) around every task.  Peak device memory comes from
+``torch.cuda.max_memory_allocated``.
 """
 
 from __future__ import annotations
 
 import time
+import weakref
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -34,6 +53,9 @@ import torch
 from ..core.cluster import Cluster
 from ..core.graph import TaskGraph
 from ..core.schedule import Schedule, TaskTiming
+from ..ops import kernels
+
+Segment = Tuple[str, Tuple[str, ...], Tuple[str, ...]]
 
 
 @dataclass
@@ -48,16 +70,31 @@ class DeviceReport:
     transfer_bytes: int
     param_bytes_placed: Dict[str, int]
     # seconds of the untimed warmup run (kernel builds, allocator and
-    # library warm-up; eager PyTorch has no graph compile)
+    # library warm-up, CUDA-graph captures)
     compile_s: float
     # only in profile mode: per-task measured times
     timings: Dict[str, TaskTiming] = field(default_factory=dict)
     # peak allocated bytes per CUDA device over the timed runs
     peak_hbm_bytes: Dict[str, int] = field(default_factory=dict)
-    # task fns dispatched per run
+    # host calls per run: one per task (per task), one per plan step
+    # (planned; a coalesced group counts once), one per segment
+    # (segmented), two (compiled: the input copy and the replay)
     n_dispatches: int = 0
     # host wall seconds inside the dispatch loop, per rep
     dispatch_overhead_s: float = 0.0
+    # True when the run used the planned path (dispatch_plan)
+    planned: bool = False
+    # True when the run was one captured program (compiled_schedule)
+    compiled: bool = False
+    # kernel launches inside the CUDA graphs one run replays, by kernel
+    # name (a wrapper counts its launch when it is captured, not when the
+    # graph replays); empty for the eager rungs
+    captured_launches: Dict[str, int] = field(default_factory=dict)
+    # keep_outputs=True: per-task outputs of the last run (every executed
+    # task per task and planned; the segment exports under segments).
+    # A captured segment's exports live in its graph's memory and hold
+    # until that segment replays again
+    task_outputs: Dict[str, Any] = field(default_factory=dict)
 
     @property
     def total_param_gb_placed(self) -> float:
@@ -74,6 +111,9 @@ class DeviceReport:
             "compile_s": self.compile_s,
             "n_dispatches": self.n_dispatches,
             "dispatch_overhead_ms": self.dispatch_overhead_s * 1e3,
+            "planned": self.planned,
+            "compiled": self.compiled,
+            "captured_launches": dict(self.captured_launches),
             "peak_hbm_gb": {
                 k: v / 1024**3 for k, v in self.peak_hbm_bytes.items()
             },
@@ -84,12 +124,124 @@ def _nbytes(x: torch.Tensor) -> int:
     return x.numel() * x.element_size()
 
 
+def _args_of(task) -> List[str]:
+    return task.arg_tasks or task.dependencies
+
+
+_NODE_STREAMS: Dict[Tuple[Any, int], Any] = {}
+
+
+def node_stream(device: torch.device, k: int):
+    """The k-th node stream of a card, made once per process.  Backends
+    share them: every stream that runs a matmul keeps a cuBLAS workspace
+    for the life of the process, so a stream made per backend would leak
+    one workspace per node and backend."""
+    s = _NODE_STREAMS.get((device, k))
+    if s is None:
+        s = _NODE_STREAMS[(device, k)] = torch.cuda.Stream(device=device)
+    return s
+
+
+class StreamSwitch:
+    """Makes a node's stream current as a dispatch loop moves between
+    nodes, and gives every card its clock stream (and the caller its
+    current device) back on exit.  A node on the CPU has no stream."""
+
+    def __init__(self, streams: Dict[str, Any], clocks: Dict[Any, Any]):
+        self.streams = streams
+        self.clocks = clocks
+        self.current = None
+        self.device = torch.cuda.current_device() if clocks else None
+
+    def to(self, node_id: str):
+        s = self.streams.get(node_id)
+        if s is not None and s is not self.current:
+            torch.cuda.set_stream(s)
+            self.current = s
+        return s
+
+    def __enter__(self) -> "StreamSwitch":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for clock in self.clocks.values():
+            torch.cuda.set_stream(clock)
+        if self.device is not None:
+            torch.cuda.set_device(self.device)
+
+
+class CapturedProgram:
+    """``fn(params, ext) -> outputs`` captured once into a CUDA graph.
+
+    The first call warms ``fn`` up eagerly on the current stream (every
+    kernel built and loaded, library handles created), copies ``ext`` into
+    static buffers, captures ``fn`` over them on ``stream`` (the current
+    stream when None; it must not be a card's default stream) into the
+    memory pool ``pool`` (a private one when None), and replays; every
+    later call copies ``ext`` into the static buffers and replays on the
+    current stream.  The inputs named in ``fixed`` are the same tensor at
+    every call (another program's outputs): the graph reads them in place,
+    and a call that passes another tensor raises.  Programs that share a
+    pool must replay in the order they were captured and never at once.
+    The outputs are the graph's own tensors: they hold until the program
+    replays again.  ``launches`` is
+    the kernel launches the capture recorded, by kernel name; each replay
+    adds them to ``kernels.replayed``.  A capture error (a task that reads
+    to the host, a launch the graph cannot hold) raises; nothing falls
+    back to eager execution."""
+
+    def __init__(self, fn, stream=None, pool=None):
+        self.fn = fn
+        self.stream = stream
+        self.pool = pool
+        self.graph = None
+        self.static_in: Dict[str, torch.Tensor] = {}
+        self.static_out: Any = None
+        self.launches: Dict[str, int] = {}
+
+    def __call__(self, params: Dict[str, Any], ext: Dict[str, torch.Tensor],
+                 fixed: frozenset = frozenset()):
+        if self.graph is None:
+            self._capture(params, ext, fixed)
+        else:
+            for k, buf in self.static_in.items():
+                if k not in fixed:
+                    buf.copy_(ext[k], non_blocking=True)
+                elif ext[k] is not buf:
+                    raise RuntimeError(
+                        f"captured program: input {k!r} was read in place "
+                        "at capture and is another tensor now")
+        self.graph.replay()
+        for k, v in self.launches.items():
+            kernels.replayed[k] = kernels.replayed.get(k, 0) + v
+        return self.static_out
+
+    def _capture(self, params, ext, fixed) -> None:
+        stream = self.stream or torch.cuda.current_stream()
+        with torch.no_grad():
+            self.fn(params, ext)  # warm-up
+        self.static_in = {k: v if k in fixed else v.clone()
+                          for k, v in ext.items()}
+        graph = torch.cuda.CUDAGraph()
+        before = dict(kernels.launches)
+        with torch.no_grad(), torch.cuda.graph(graph, pool=self.pool,
+                                               stream=stream):
+            self.static_out = self.fn(params, self.static_in)
+        self.launches = {
+            k: v - before.get(k, 0) for k, v in kernels.launches.items()
+            if v != before.get(k, 0)
+        }
+        self.graph = graph
+
+
 class DeviceBackend:
     """Executes a scheduled TaskGraph on torch devices.
 
     ``cluster`` must be built with ``Cluster.from_torch_devices`` (each
     DeviceState carries its ``torch_device``); the schedule's placement
-    maps task -> DeviceState -> real device.
+    maps task -> DeviceState -> real device.  Each node bound to a CUDA
+    device runs on a stream of its own (the k-th node of a card on that
+    card's k-th :func:`node_stream`, which every backend shares).
     """
 
     def __init__(self, cluster: Cluster):
@@ -102,10 +254,51 @@ class DeviceBackend:
         self.cluster = cluster
         self.devices = list(dict.fromkeys(d.torch_device for d in cluster))
         self.cuda_devices = [d for d in self.devices if d.type == "cuda"]
+        self._streams: Optional[Dict[str, Any]] = None
+        # graph -> {key: segment program}; graph -> {key: compiled
+        # program}.  Weak, so a dead graph releases its captured graphs
+        self._seg_cache: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+        self._prog_cache: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
     def _synchronize(self) -> None:
         for dev in self.cuda_devices:
             torch.cuda.synchronize(dev)
+
+    @property
+    def streams(self) -> Dict[str, Any]:
+        """node id -> its stream, for every node bound to a CUDA device:
+        the k-th node of a card takes that card's k-th stream of
+        :func:`node_stream`."""
+        if self._streams is None:
+            seen: Dict[Any, int] = {}
+            self._streams = {}
+            for d in self.cluster:
+                if d.torch_device.type == "cuda":
+                    k = seen.get(d.torch_device, 0)
+                    seen[d.torch_device] = k + 1
+                    self._streams[d.node_id] = node_stream(d.torch_device, k)
+        return self._streams
+
+    def stream_of(self, node_id: str):
+        """The node's stream, or None for a node on the CPU."""
+        return self.streams.get(node_id)
+
+    def _clocks(self) -> Dict[Any, Any]:
+        return {dev: torch.cuda.current_stream(dev) for dev in self.cuda_devices}
+
+    def _fork(self, clocks, nodes) -> None:
+        """Every node stream of ``nodes`` waits on its card's clock."""
+        for n in nodes:
+            s = self.streams.get(n)
+            if s is not None:
+                s.wait_stream(clocks[self.cluster[n].torch_device])
+
+    def _join(self, clocks, nodes) -> None:
+        """Each card's clock waits on every node stream of ``nodes``."""
+        for n in nodes:
+            s = self.streams.get(n)
+            if s is not None:
+                clocks[self.cluster[n].torch_device].wait_stream(s)
 
     # -- placement ---------------------------------------------------------
     def place_params(
@@ -135,7 +328,7 @@ class DeviceBackend:
     def dispatch_order(graph: TaskGraph, schedule: Schedule) -> List[str]:
         """Global dispatch linearization honoring per-node scheduled order.
 
-        A device stream executes enqueued work FIFO, so within one node
+        A node's stream executes enqueued work FIFO, so within one node
         the emitted sequence must be exactly ``schedule.per_node[node]``.
         Across nodes, a task can only be dispatched after its producers.
         Greedy merge: repeatedly emit, among node-queue heads whose deps
@@ -194,14 +387,130 @@ class DeviceBackend:
         )
         return order
 
+    # -- segment fusion ----------------------------------------------------
+    @staticmethod
+    def build_segments(
+        graph: TaskGraph, schedule: Schedule, order: List[str]
+    ) -> List[Segment]:
+        """Partition the dispatch order into per-node segments.
+
+        A segment is a maximal run of consecutive (in dispatch order) tasks
+        placed on the same node; each becomes ONE program, so the host
+        issues one call per segment instead of one per task.  Segment
+        boundaries are exactly the schedule's node switches: on one card
+        the whole DAG is one program; a pipeline's interleaving yields one
+        segment per microbatch-stage visit.
+
+        Returns (node_id, tids, exports): ``exports`` are the tasks whose
+        outputs are consumed by later segments or by nobody (leaves).
+        The reference's budget split for parameter streaming
+        (``max_union_gb``) waits for the streaming port.
+        """
+        placement = schedule.placement
+        runs: List[Tuple[str, List[str]]] = []
+        for tid in order:
+            if tid not in placement:
+                continue
+            node = placement[tid]
+            if runs and runs[-1][0] == node:
+                runs[-1][1].append(tid)
+            else:
+                runs.append((node, [tid]))
+        consumers: Dict[str, set] = {tid: set() for tid in placement}
+        for seg_i, (_, tids) in enumerate(runs):
+            for tid in tids:
+                for d in _args_of(graph[tid]):
+                    if d in consumers:
+                        consumers[d].add(seg_i)
+        segments = []
+        for seg_i, (node, tids) in enumerate(runs):
+            exports = tuple(
+                t for t in tids
+                if consumers[t] - {seg_i} or not consumers[t]
+            )
+            segments.append((node, tuple(tids), exports))
+        return segments
+
+    @staticmethod
+    def _segment_callable(
+        graph: TaskGraph,
+        tids: Tuple[str, ...],
+        exports: Tuple[str, ...],
+        rebatch: bool = True,
+    ):
+        """One callable running ``tids`` in order: (params-by-global-name,
+        external-inputs-by-task-id, the graph input under ``"__input__"``)
+        -> {export tid: output}.
+
+        ``rebatch=True`` applies the segment re-batching pass
+        (:mod:`.rebatch`): sibling tasks marked batch-axis-0 polymorphic
+        execute as ONE call on concatenated inputs.  Placement, transfers
+        and the export contract are unchanged; graphs with no eligible
+        siblings give the linear program, the planned path's coalesced
+        group function (:func:`.dispatch_plan._build_group_fn`).
+        """
+        from .rebatch import build_rebatched_seg_fn, plan_rebatch
+
+        if rebatch:
+            plan = plan_rebatch(graph, tids)
+            if plan.classes:
+                return build_rebatched_seg_fn(graph, tids, exports, plan)
+        from .dispatch_plan import GRAPH_INPUT, _build_group_fn, group_arg_binds
+
+        group_fn = _build_group_fn(graph, tids, exports)
+        ext_ids = tuple("__input__" if d == GRAPH_INPUT else d
+                        for d in group_arg_binds(graph, tids)[1])
+
+        def seg_fn(seg_params, ext):
+            # KeyError here = a segment-boundary bookkeeping bug
+            return dict(zip(exports, group_fn(
+                seg_params, *[ext[d] for d in ext_ids])))
+
+        return seg_fn
+
+    def _segment_programs(
+        self,
+        graph: TaskGraph,
+        segments: List[Segment],
+        rebatch: bool,
+        placed: Dict[Tuple[str, str], torch.Tensor],
+    ) -> List[Any]:
+        """One program per segment (:meth:`_segment_callable`).  On a card
+        each is a :class:`CapturedProgram`, captured on its first call and
+        replayed after; the segments of one node share one memory pool,
+        since they replay on that node's stream in the order they were
+        captured and never at once, so a segment reuses the memory of the
+        intermediates of those before it.  That holds only while they
+        replay together, so the list is cached whole, per (graph,
+        segments, rebatch) and per the params' addresses (a captured graph
+        reads its params where they were at capture); the reference caches
+        each segment's program per (graph, tids, exports, rebatch)."""
+        per_graph = self._seg_cache.setdefault(graph, {})
+        key = (tuple(segments), rebatch,
+               tuple(sorted((k, v.data_ptr()) for k, v in placed.items())))
+        fns = per_graph.get(key)
+        if fns is None:
+            fns, pools = [], {}
+            for node, tids, exports in segments:
+                fn = self._segment_callable(graph, tids, exports, rebatch)
+                if self.cluster[node].torch_device.type == "cuda":
+                    if node not in pools:
+                        pools[node] = torch.cuda.graph_pool_handle()
+                    fn = CapturedProgram(fn, pool=pools[node])
+                fns.append(fn)
+            per_graph[key] = fns
+        return fns
+
     # -- timing marks --------------------------------------------------------
     @staticmethod
-    def _mark(dev: torch.device) -> Any:
-        """A point on ``dev``'s timeline: a recorded CUDA event, or the
-        host clock for the CPU (whose ops run synchronously)."""
+    def _mark(dev: torch.device, stream=None) -> Any:
+        """A point on ``dev``'s timeline: a CUDA event recorded on
+        ``stream`` (the device's current stream by default), or the host
+        clock for the CPU (whose ops run synchronously)."""
         if dev.type == "cuda":
             ev = torch.cuda.Event(enable_timing=True)
-            ev.record(torch.cuda.current_stream(dev))
+            ev.record(stream if stream is not None
+                      else torch.cuda.current_stream(dev))
             return ev
         return time.perf_counter()
 
@@ -221,18 +530,35 @@ class DeviceBackend:
         placed: Dict[Tuple[str, str], torch.Tensor],
         graph_input: torch.Tensor,
         order: List[str],
+        clocks: Dict[Any, Any],
         profile: bool = False,
-    ) -> Tuple[Any, Dict[str, TaskTiming], int, int, int, float]:
+        ext_outputs: Optional[Dict[str, Any]] = None,
+        cross: frozenset = frozenset(),
+    ) -> Tuple[Any, Dict[str, TaskTiming], int, int, int, float, Dict[str, Any]]:
+        """Per-task rung: one host call per task, in dispatch order, each
+        on its node's stream.  Every output is held to the end of the run.
+        ``ext_outputs`` seed the value table with outputs produced outside
+        this graph (they count as transfers when consumed).  ``cross``
+        names the tasks read on another node's stream: each records an
+        event after it for those readers to wait on."""
         placement = schedule.placement
-        outputs: Dict[str, Any] = {}
+        outputs: Dict[str, Any] = dict(ext_outputs or {})
+        n_ext = len(outputs)
         transfer_edges = 0
         transfer_bytes = 0
         # the shared graph input placed once per node, not once per root
         input_on: Dict[str, torch.Tensor] = {}
-        origin = {dev: self._mark(dev) for dev in self.devices} if profile else {}
+        # producer -> event recorded after it on its stream (cross-stream
+        # consumers wait on it); (consumer stream, producer) pairs waited
+        events: Dict[str, Any] = {}
+        waited: set = set()
+        origin = (
+            {dev: self._mark(dev, clocks.get(dev)) for dev in self.devices}
+            if profile else {}
+        )
         marks: List[Tuple[str, str, torch.device, Any, Any]] = []
         t_loop0 = time.perf_counter()
-        with torch.no_grad():
+        with torch.no_grad(), StreamSwitch(self.streams, clocks) as sw:
             for tid in order:
                 if tid not in placement:
                     continue  # failed task: skip (fail-and-continue semantics)
@@ -240,10 +566,11 @@ class DeviceBackend:
                 node_id = placement[tid]
                 dev = self.cluster[node_id].torch_device
 
-                arg_ids = task.arg_tasks or task.dependencies
+                arg_ids = _args_of(task)
                 if arg_ids and any(d not in outputs for d in arg_ids):
                     continue  # upstream failed; propagate skip
 
+                s = sw.to(node_id)
                 pd = {
                     loc: placed[(glob, node_id)]
                     for loc, glob in task.param_items()
@@ -253,10 +580,16 @@ class DeviceBackend:
                     for d in arg_ids:
                         x = outputs[d]
                         if placement.get(d) != node_id:
-                            # cross-node edge; a copy only between devices
+                            # cross-node edge: an event wait on one card,
+                            # a copy between cards
                             transfer_edges += 1
                             transfer_bytes += _nbytes(x)
-                            x = x.to(dev, non_blocking=True)
+                            ev = events.get(d)
+                            if ev is not None and (s, d) not in waited:
+                                s.wait_event(ev)
+                                waited.add((s, d))
+                            if x.device != dev:
+                                x = x.to(dev, non_blocking=True)
                         args.append(x)
                 else:
                     inp = input_on.get(node_id)
@@ -266,12 +599,16 @@ class DeviceBackend:
                     args = [inp]
 
                 if profile:
-                    start = self._mark(dev)
+                    start = self._mark(dev, s)
                     out = task.fn(pd, *args)
-                    marks.append((tid, node_id, dev, start, self._mark(dev)))
+                    marks.append((tid, node_id, dev, start, self._mark(dev, s)))
                 else:
                     out = task.fn(pd, *args)
                 outputs[tid] = out
+                if s is not None and tid in cross:
+                    ev = torch.cuda.Event()
+                    ev.record(s)
+                    events[tid] = ev
         loop_s = time.perf_counter() - t_loop0
 
         timings: Dict[str, TaskTiming] = {}
@@ -283,7 +620,93 @@ class DeviceBackend:
                     tid, node_id, self._seconds(o, start), self._seconds(o, end)
                 )
         final = outputs.get(graph.topo_order[-1]) if graph.topo_order else None
-        return final, timings, transfer_edges, transfer_bytes, len(outputs), loop_s
+        executed = {
+            k: v for k, v in outputs.items()
+            if not ext_outputs or k not in ext_outputs
+        }
+        return (final, timings, transfer_edges, transfer_bytes,
+                len(outputs) - n_ext, loop_s, executed)
+
+    def _run_segmented(
+        self,
+        graph: TaskGraph,
+        schedule: Schedule,
+        placed: Dict[Tuple[str, str], torch.Tensor],
+        graph_input: torch.Tensor,
+        segments: List[Segment],
+        seg_fns: List[Any],
+        clocks: Dict[Any, Any],
+        ext_outputs: Optional[Dict[str, Any]] = None,
+    ) -> Tuple[Any, Dict, int, int, int, float, Dict[str, Any]]:
+        """Segment-fused execution: same placement, one call per segment,
+        on its node's stream.  Cross-segment inputs are deduplicated per
+        segment -- a remote value consumed by several tasks of one segment
+        counts (and, between cards, moves) once, so transfer counts can be
+        LOWER than per-task dispatch.  A captured segment reads an output
+        of another captured segment of its card in place (the same tensor
+        every run), so only the other inputs are copied before a replay."""
+        placement = schedule.placement
+        outputs: Dict[str, Any] = dict(ext_outputs or {})
+        # task ids whose value is a captured program's own output
+        static: set = set()
+        transfer_edges = 0
+        transfer_bytes = 0
+        events: Dict[str, Any] = {}
+        many = len(self.streams) > 1
+        t_loop0 = time.perf_counter()
+        with torch.no_grad(), StreamSwitch(self.streams, clocks) as sw:
+            for (node, tids, exports), fn in zip(segments, seg_fns):
+                dev = self.cluster[node].torch_device
+                s = sw.to(node)
+                ext: Dict[str, Any] = {}
+                inside = set(tids)
+                needs_input = False
+                union_names: Dict[str, None] = {}
+                waited: set = set()
+                for tid in tids:
+                    task = graph[tid]
+                    for _, g in task.param_items():
+                        union_names.setdefault(g)
+                    aids = _args_of(task)
+                    if not aids:
+                        needs_input = True
+                    for d in aids:
+                        if d not in inside and d not in ext:
+                            x = outputs[d]
+                            if placement.get(d) != node:
+                                transfer_edges += 1
+                                transfer_bytes += _nbytes(x)
+                                ev = events.get(d)
+                                if ev is not None and ev not in waited:
+                                    s.wait_event(ev)
+                                    waited.add(ev)
+                                if x.device != dev:
+                                    x = x.to(dev, non_blocking=True)
+                            ext[d] = x
+                if needs_input:
+                    ext["__input__"] = graph_input.to(dev)
+                union = {g: placed[(g, node)] for g in union_names}
+                if isinstance(fn, CapturedProgram):
+                    seg_out = fn(union, ext, frozenset(
+                        d for d, x in ext.items()
+                        if d in static and x is outputs[d]))
+                    static.update(seg_out)
+                else:
+                    seg_out = fn(union, ext)
+                if s is not None and many:
+                    ev = torch.cuda.Event()
+                    ev.record(s)
+                    for e in exports:
+                        events[e] = ev
+                outputs.update(seg_out)
+        loop_s = time.perf_counter() - t_loop0
+        final = outputs.get(graph.topo_order[-1]) if graph.topo_order else None
+        executed = {
+            k: v for k, v in outputs.items()
+            if not ext_outputs or k not in ext_outputs
+        }
+        return (final, {}, transfer_edges, transfer_bytes, len(segments),
+                loop_s, executed)
 
     def paged_decode_engine(
         self,
@@ -331,16 +754,98 @@ class DeviceBackend:
         graph_input: torch.Tensor,
         profile: bool = False,
         warmup: bool = True,
+        segments: bool = False,
+        ext_outputs: Optional[Dict[str, Any]] = None,
+        keep_outputs: bool = False,
+        stream_params: bool = False,
         reps: int = 1,
+        rebatch: bool = True,
+        planned: Optional[bool] = None,
+        coalesce: bool = False,
+        compiled: bool = False,
     ) -> DeviceReport:
         """Place params, warm up, run ``reps`` times, measure.
 
         ``warmup`` runs the placed DAG once untimed first (kernel builds,
-        allocator and library warm-up).  ``reps > 1`` dispatches the whole
-        placed run back to back and synchronizes once; ``makespan_s`` is
-        the per-run time.  ``profile=True`` records per-task times into
-        ``timings`` (and ``schedule.timings``); it needs ``reps == 1``.
+        allocator and library warm-up, CUDA-graph captures).  ``reps > 1``
+        dispatches the whole placed run back to back and synchronizes
+        once; ``makespan_s`` is the per-run time.  Each run starts when
+        every node stream has waited on the clock and ends when the clock
+        has waited on every node stream.
+
+        ``planned`` selects the pre-planned dispatch path
+        (:mod:`.dispatch_plan`): a table built once per call, integer
+        indices into a flat value table, each value released after its
+        last consumer.  Default (``None``) turns it on unless ``profile``
+        (per-task timing hooks) or ``segments`` (already fused).  Outputs
+        are bit-identical to the per-task path.  ``coalesce`` (planned
+        only) runs runs of consecutive same-node tasks as one host call.
+
+        ``segments=True`` runs each node's contiguous scheduled run as one
+        program (:meth:`build_segments`), with sibling microbatch tasks
+        re-batched unless ``rebatch=False``; on a card each segment is
+        captured once into a CUDA graph and replayed per run: an output of
+        another captured segment of its card is read in place, and its
+        other inputs are copied into static buffers first.  Incompatible with
+        ``profile``.
+
+        ``compiled=True`` captures the whole placed run into ONE CUDA
+        graph, each node's tasks on its stream and each exchange an event
+        between two streams (:mod:`.compiled_schedule`); a run is one
+        replay.  Incompatible with ``profile``, ``segments``,
+        ``coalesce``, ``keep_outputs``, ``ext_outputs`` and ``planned``;
+        one card only.  On the CPU the program runs eagerly.
+
+        The output of a captured rung (segments or compiled on a card) is
+        the graph's own tensor: it holds until the same program runs
+        again; clone it to keep it longer.
+
+        ``ext_outputs`` seeds task outputs produced OUTSIDE this graph (the
+        elastic-recovery path); ``keep_outputs=True`` returns per-task
+        outputs in ``task_outputs``.  ``profile=True`` records per-task
+        times into ``timings`` (and ``schedule.timings``); it needs
+        ``reps == 1``.
+
+        Left out against the reference: ``fence_rtt`` (CUDA events time
+        the device, so there is no readback fence to net out) and
+        ``donate`` (the planned path releases each value after its last
+        consumer instead).  ``stream_params`` is not ported yet and
+        raises.
         """
+        if stream_params:
+            raise NotImplementedError(
+                "stream_params: parameter streaming is not ported yet "
+                "(ROADMAP.md A.2)"
+            )
+        if segments and profile:
+            raise ValueError(
+                "profile=True needs per-task dispatch; run without segments"
+            )
+        if compiled:
+            incompatible = [
+                name for name, flag in (
+                    ("profile", profile),
+                    ("segments", segments), ("coalesce", coalesce),
+                    ("keep_outputs", keep_outputs),
+                    ("ext_outputs", ext_outputs is not None),
+                    ("planned", bool(planned)),
+                ) if flag
+            ]
+            if incompatible:
+                raise ValueError(
+                    "compiled=True lowers the whole run into one program "
+                    f"and is incompatible with {incompatible}"
+                )
+            planned = False
+        if planned is None:
+            planned = not (profile or segments)
+        elif planned and (profile or segments):
+            raise ValueError(
+                "planned dispatch is incompatible with profile (per-task "
+                "timing hooks) and segments (already fused)"
+            )
+        if coalesce and not planned:
+            raise ValueError("coalesce=True requires the planned path")
         if reps < 1:
             raise ValueError(f"reps must be >= 1, got {reps}")
         if reps > 1 and profile:
@@ -356,27 +861,89 @@ class DeviceBackend:
         if missing:
             raise ValueError(f"params missing for placement: {missing[:5]}")
 
-        order = self.dispatch_order(graph, schedule)
+        nodes = sorted(set(schedule.placement.values()))
+        if compiled:
+            from .compiled_schedule import one_device
+
+            one_device(self, nodes)
         placed, bytes_per_node = self.place_params(graph, schedule, params)
+        prog = plan = None
+        order: List[str] = []
+        cross: frozenset = frozenset()
+        segs: List[Segment] = []
+        seg_fns: List[Any] = []
+        if compiled:
+            from .compiled_schedule import CompiledSchedule
+
+            prog = CompiledSchedule.build(
+                self, graph, schedule, placed, graph_input)
+        else:
+            order = self.dispatch_order(graph, schedule)
+        if planned:
+            from .dispatch_plan import DispatchPlan
+
+            plan = DispatchPlan.build(
+                self, graph, schedule, order, placed,
+                ext_keys=tuple(ext_outputs or ()), coalesce=coalesce,
+                keep_outputs=keep_outputs,
+            )
+        elif not segments and not compiled:
+            placement = schedule.placement
+            cross = frozenset(
+                d for t in order for d in _args_of(graph[t])
+                if placement.get(d) not in (None, placement[t])
+            )
+        elif segments:
+            # drop tasks whose (transitive) producers never run, host side
+            # (ext_outputs count as alive producers)
+            alive: set = set(ext_outputs or ())
+            for tid in order:
+                if all(d in alive for d in _args_of(graph[tid])):
+                    alive.add(tid)
+            segs = self.build_segments(
+                graph, schedule,
+                [t for t in order
+                 if t in alive and t not in (ext_outputs or ())])
+            seg_fns = self._segment_programs(graph, segs, rebatch, placed)
+
+        def one_rep(clocks, prof: bool = False):
+            """One placed run: (output, timings, transfer edges, transfer
+            bytes, host calls, loop seconds, executed outputs)."""
+            if prog is not None:  # the graph forks and joins its streams
+                return prog.run(graph_input)
+            self._fork(clocks, nodes)
+            if plan is not None:
+                out = plan.run(graph_input, ext_outputs, clocks)
+            elif segments:
+                out = self._run_segmented(
+                    graph, schedule, placed, graph_input, segs, seg_fns,
+                    clocks, ext_outputs)
+            else:
+                out = self._run(graph, schedule, placed, graph_input, order,
+                                clocks, prof, ext_outputs, cross)
+            self._join(clocks, nodes)
+            return out
 
         compile_s = 0.0
         if warmup:
             t0 = time.perf_counter()
-            self._run(graph, schedule, placed, graph_input, order)
+            one_rep(self._clocks())
             self._synchronize()
             compile_s = time.perf_counter() - t0
 
         for dev in self.cuda_devices:
             torch.cuda.reset_peak_memory_stats(dev)
         self._synchronize()
-        # one card: CUDA events on its stream; else the host clock
+        clocks = self._clocks()
+        # one card: CUDA events on its clock stream; else the host clock
         one_card = len(self.devices) == 1 and bool(self.cuda_devices)
         t0 = self._mark(self.devices[0]) if one_card else time.perf_counter()
         loop_s = 0.0
         for _ in range(reps):
-            output, timings, tedges, tbytes, n_disp, rep_loop_s = self._run(
-                graph, schedule, placed, graph_input, order, profile=profile
-            )
+            # the last run's outputs die before this run's are made
+            output = executed = None
+            output, timings, tedges, tbytes, n_disp, rep_loop_s, executed = (
+                one_rep(clocks, profile))
             loop_s += rep_loop_s
         if one_card:
             t1 = self._mark(self.devices[0])
@@ -391,6 +958,10 @@ class DeviceBackend:
         }
         if timings:
             schedule.timings = timings
+        captured: Dict[str, int] = {}
+        for p in ([prog] if prog is not None else seg_fns):
+            for k, v in getattr(p, "launches", {}).items():
+                captured[k] = captured.get(k, 0) + v
         return DeviceReport(
             policy=schedule.policy,
             makespan_s=max(wall / reps, 1e-9),
@@ -404,4 +975,8 @@ class DeviceBackend:
             peak_hbm_bytes=peaks,
             n_dispatches=n_disp,
             dispatch_overhead_s=loop_s / reps,
+            planned=plan is not None,
+            compiled=prog is not None,
+            captured_launches=captured,
+            task_outputs=executed if keep_outputs else {},
         )

@@ -1,0 +1,475 @@
+"""Segment re-batching: fold isomorphic sibling tasks back into
+full-batch ops inside one segment program.
+
+PyTorch port of ``distributed_llm_scheduler_tpu.backends.rebatch``; the
+plan (:func:`plan_rebatch`) is pure Python and equal to the reference's.
+
+The flagship DAG splits the batch into M microbatch chains so the
+*scheduler* has placement freedom; the price on one device is M copies of
+every op at 1/M batch.  This pass recovers the fused shapes WITHOUT
+touching placement: within a segment, tasks that are provably the same
+computation applied to different data slices (same fn object, same global
+params, isomorphic argument structure) are executed as ONE call on their
+concatenated inputs, and consumers slice members back out (a slice is a
+view, so reading a member costs nothing).  Eager PyTorch does not elide a
+concat of slices the way XLA does, so where a class's arguments are
+exactly a producer class's members in order the batched tensor is passed
+straight through (``arg_class``), and a declared axis-0 concat of one
+class's members is the batched tensor itself.
+
+Correctness is opt-in per op: only fns marked batch-axis-0 polymorphic
+(:func:`..core.graph.mark_batch0` -- ``fn(p, cat(xs)) == cat(fn(p, x))``)
+are eligible; chain fusion propagates the marker.  Sibling detection is
+partition refinement (Weisfeiler-Lehman style): initial color = (fn
+identity, global param names); refined by positional argument colors
+until fixpoint.  Classes whose members depend on each other, whose
+outputs are not single tensors, or that participate in a condensed-graph
+cycle are demoted to singles, so the pass degrades to exactly the
+unbatched program.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+from ..core.graph import TaskGraph, is_batch0, rootslice_of
+
+
+def extract_steps(
+    graph: TaskGraph, tids: Sequence[str]
+) -> Tuple[Tuple[str, Any, Tuple[Tuple[str, str], ...], Tuple[str, ...]], ...]:
+    """Per-task ``(tid, fn, param_items, arg_ids)`` extracted up front.
+
+    Shared by every multi-task callable builder (segment fusion here and in
+    ``DeviceBackend._segment_callable``, coalesced launch groups in
+    :mod:`.dispatch_plan`, the compiled program): closures built over these
+    tuples never capture ``graph``, so a cache value keyed weakly by the
+    graph cannot keep its own key alive.
+    """
+    return tuple(
+        (
+            tid,
+            graph[tid].fn,
+            tuple(graph[tid].param_items()),
+            tuple(graph[tid].arg_tasks or graph[tid].dependencies),
+        )
+        for tid in tids
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class RebatchPlan:
+    """Static execution plan for one segment.
+
+    ``units``: topologically ordered ``("single", tid)`` /
+    ``("batched", class_index)`` entries.  ``classes``: member tids (in
+    dispatch order) per batched class.  ``arg_sources``: per batched
+    class, per argument position, the ordered per-member source ids
+    (in-segment tids or ext ids).  ``arg_class``: the passthrough
+    marker — the producer class index when an argument's sources are
+    exactly that class's members in order (the batched value is used
+    directly, no re-concat), else ``None``.  ``sizes``: per class, each
+    member's leading-axis extent (for slicing members back out).
+    """
+
+    units: Tuple[Tuple[str, Any], ...]
+    classes: Tuple[Tuple[str, ...], ...]
+    arg_sources: Tuple[Tuple[Tuple[str, ...], ...], ...]
+    arg_class: Tuple[Tuple[Optional[int], ...], ...]
+    sizes: Tuple[Tuple[int, ...], ...]
+
+    @property
+    def n_batched_tasks(self) -> int:
+        return sum(len(c) for c in self.classes)
+
+
+def _leading_dim(spec: Any) -> Optional[int]:
+    """Leading-axis extent of a single-array spec; None if not a single
+    array with at least one axis (pytree outputs are not batchable)."""
+    try:
+        leaves = _tree_leaves(spec)
+    except Exception:
+        return None
+    if len(leaves) != 1:
+        return None
+    shape = getattr(leaves[0], "shape", None)
+    if not shape:  # scalar or unknown
+        return None
+    return int(shape[0])
+
+
+def _tree_leaves(x: Any) -> List[Any]:
+    """Tensor leaves of a tensor or a dict/list/tuple nest of them."""
+    if isinstance(x, dict):
+        return [leaf for v in x.values() for leaf in _tree_leaves(v)]
+    if isinstance(x, (list, tuple)):
+        return [leaf for v in x for leaf in _tree_leaves(v)]
+    return [x]
+
+
+def _spec_sig(graph: TaskGraph, d: str, tag: str) -> Tuple:
+    """Color signature of a value by SPEC rather than identity.
+
+    Used for argument sources that are not themselves batchable — ext
+    values from other segments, and in-segment solo tasks (e.g. the
+    per-microbatch embedding roots).  Siblings consuming *different*
+    such values of the same shape may still merge: the runtime routes
+    each member's exact sources (``arg_sources``) and stacks them, so
+    identity does not matter for correctness — only the spec must align.
+    Without this, the distinct root tasks of isomorphic microbatch
+    chains would propagate unique colors down the entire chain and no
+    sibling would ever merge."""
+    if d in graph:
+        spec = graph[d].out_shape
+        if spec is not None:
+            leaves = _tree_leaves(spec)
+            return (
+                tag,
+                tuple(
+                    (tuple(l.shape), str(getattr(l, "dtype", "?")))
+                    for l in leaves
+                ),
+            )
+    return ("id", d)  # unknown spec: never merge across it
+
+
+def plan_rebatch(graph: TaskGraph, tids: Sequence[str]) -> RebatchPlan:
+    """Compute the re-batching plan for one segment's tasks (pure)."""
+    tid_set = set(tids)
+    order = list(tids)
+
+    # -- initial colors ----------------------------------------------------
+    color: Dict[str, Any] = {}
+    for t in order:
+        task = graph[t]
+        aids = task.arg_tasks or task.dependencies
+        rs = rootslice_of(task.fn) if task.fn is not None else None
+        if (
+            task.fn is not None
+            and is_batch0(task.fn)
+            and aids  # roots consume the shared graph input, not task args
+            and _leading_dim(task.out_shape) is not None
+        ):
+            # full (local, global) pairs, not globals alone: members with
+            # permuted param_alias mappings must NOT merge — the batched
+            # call binds every member to member[0]'s loc->global mapping
+            color[t] = ("fn", id(task.fn), tuple(task.param_items()))
+        elif (
+            rs is not None
+            and not aids
+            and _leading_dim(task.out_shape) is not None
+        ):
+            # slice-family root (mark_rootslice): the family key, not the
+            # fn identity — each member is a distinct (lo, hi) closure.
+            # Contiguity of the slices is checked after grouping.
+            color[t] = ("rootfn", rs[0], tuple(task.param_items()))
+        else:
+            color[t] = ("solo", t)
+
+    # -- refinement to fixpoint -------------------------------------------
+    def arg_color(d: str) -> Tuple:
+        if d not in tid_set:
+            return _spec_sig(graph, d, "ext")
+        c = color[d]
+        if c[0] == "solo":
+            # spec, not identity: distinct solo sources (microbatch
+            # roots) must not poison their consumers' colors
+            return _spec_sig(graph, d, "solo")
+        return c
+
+    prev: Optional[Dict[str, int]] = None
+    for _ in range(len(order) + 2):
+        canon: Dict[Any, int] = {}
+        comp: Dict[str, int] = {}
+        for t in order:
+            task = graph[t]
+            aids = task.arg_tasks or task.dependencies
+            acolors = tuple(arg_color(d) for d in aids)
+            key = (color[t], acolors)
+            comp[t] = canon.setdefault(key, len(canon))
+        if comp == prev:
+            break
+        prev = comp
+        # solo-ness must survive relabeling (a solo task may share a
+        # refined integer with nothing, but keep the marker explicit)
+        color = {
+            t: (("solo", t) if color[t][0] == "solo" else ("c", comp[t]))
+            for t in order
+        }
+
+    # -- classes (dispatch-order members) ---------------------------------
+    groups: Dict[Any, List[str]] = {}
+    for t in order:
+        groups.setdefault(color[t], []).append(t)
+    candidate_classes = [
+        members for c, members in groups.items()
+        if c[0] == "c" and len(members) > 1
+    ]
+
+    # -- in-segment ancestor sets: members must be mutually independent ---
+    anc: Dict[str, set] = {}
+    for t in order:  # dispatch order is topologically consistent
+        task = graph[t]
+        aids = task.arg_tasks or task.dependencies
+        s: set = set()
+        for d in aids:
+            if d in tid_set:
+                s.add(d)
+                s |= anc.get(d, set())
+        anc[t] = s
+
+    def independent(members: List[str]) -> bool:
+        mset = set(members)
+        return all(not (anc[m] & mset) for m in members)
+
+    candidate_classes = [m for m in candidate_classes if independent(m)]
+
+    # -- root classes: each class must tile ONE contiguous slice range ----
+    # (re-ordered by lo so the class offsets equal the slice offsets).
+    # A gap or overlap splits the members into maximal contiguous runs:
+    # co-located pairs still merge even when a sibling landed elsewhere;
+    # length-1 runs fall back to singles.
+    checked: List[List[str]] = []
+    for members in candidate_classes:
+        m0 = graph[members[0]]
+        if m0.arg_tasks or m0.dependencies:
+            checked.append(members)
+            continue
+        slices = [rootslice_of(graph[m].fn) for m in members]
+        if any(s is None for s in slices):  # unreachable: color requires it
+            continue
+        by_lo = sorted(zip(members, slices), key=lambda p: p[1][1])
+        run: List[str] = [by_lo[0][0]]
+        for i in range(1, len(by_lo)):
+            if by_lo[i - 1][1][2] == by_lo[i][1][1]:  # prev hi == lo
+                run.append(by_lo[i][0])
+            else:
+                if len(run) > 1:
+                    checked.append(run)
+                run = [by_lo[i][0]]
+        if len(run) > 1:
+            checked.append(run)
+    candidate_classes = checked
+
+    # -- argument alignment ------------------------------------------------
+    kept: List[List[str]] = []
+    kept_sources: List[List[Optional[Tuple[str, ...]]]] = []
+    for members in candidate_classes:
+        arity = len(
+            graph[members[0]].arg_tasks or graph[members[0]].dependencies
+        )
+        per_arg: List[Optional[Tuple[str, ...]]] = []
+        ok = True
+        for j in range(arity):
+            srcs = []
+            for m in members:
+                aids = graph[m].arg_tasks or graph[m].dependencies
+                srcs.append(aids[j])
+            # every source must have a known single-array leading dim
+            # (in-segment: producer out_shape; ext: graph spec) so the
+            # runtime concat/slice arithmetic is static
+            for d in srcs:
+                dim = _leading_dim(graph[d].out_shape) if d in graph else None
+                if dim is None:
+                    ok = False
+                    break
+            if not ok:
+                break
+            per_arg.append(tuple(srcs))
+        if ok:
+            kept.append(members)
+            kept_sources.append(per_arg)
+
+    # -- condensed unit graph: Kahn order, demoting classes in cycles -----
+    # (a cross-class cycle is impossible for genuinely isomorphic sibling
+    # chains, but partition refinement alone does not forbid it; demotion
+    # keeps the pass strictly-correct-or-degraded)
+    while True:
+        class_of = {
+            m: ci for ci, members in enumerate(kept) for m in members
+        }
+        single_ids = [t for t in order if t not in class_of]
+        uid_single = {
+            t: len(kept) + i for i, t in enumerate(single_ids)
+        }
+
+        def uid(t: str) -> int:
+            return class_of[t] if t in class_of else uid_single[t]
+
+        n_units = len(kept) + len(single_ids)
+        preds: List[set] = [set() for _ in range(n_units)]
+        first_pos: List[int] = [len(order)] * n_units
+        for i, t in enumerate(order):
+            first_pos[uid(t)] = min(first_pos[uid(t)], i)
+            aids = graph[t].arg_tasks or graph[t].dependencies
+            for d in aids:
+                if d in tid_set and uid(d) != uid(t):
+                    preds[uid(t)].add(uid(d))
+        done: set = set()
+        topo: List[int] = []
+        while len(topo) < n_units:
+            ready = [
+                i for i in range(n_units)
+                if i not in done and preds[i] <= done
+            ]
+            if not ready:
+                break
+            for i in sorted(ready, key=lambda i: first_pos[i]):
+                done.add(i)
+                topo.append(i)
+        if len(topo) == n_units:
+            final_units = [
+                ("batched", i) if i < len(kept)
+                else ("single", single_ids[i - len(kept)])
+                for i in topo
+            ]
+            break
+        stuck = {i for i in range(len(kept)) if i not in done}
+        if not stuck:  # cycle purely among singles: impossible in a DAG
+            raise AssertionError("unit cycle without batched classes")
+        kept = [m for ci, m in enumerate(kept) if ci not in stuck]
+        kept_sources = [
+            s for ci, s in enumerate(kept_sources) if ci not in stuck
+        ]
+
+    class_of = {m: ci for ci, members in enumerate(kept) for m in members}
+
+    # per-class arg: mark args that are exactly the producer class's
+    # batched value (no re-concat at runtime)
+    arg_class: List[List[Optional[int]]] = []
+    for ci, members in enumerate(kept):
+        row: List[Optional[int]] = []
+        for srcs in kept_sources[ci]:
+            cj = None
+            if srcs is not None and all(d in class_of for d in srcs):
+                cjs = {class_of[d] for d in srcs}
+                if len(cjs) == 1:
+                    cand = next(iter(cjs))
+                    if list(srcs) == list(kept[cand]):
+                        cj = cand
+            row.append(cj)
+        arg_class.append(row)
+
+    sizes = tuple(
+        tuple(_leading_dim(graph[m].out_shape) for m in members)
+        for members in kept
+    )
+    return RebatchPlan(
+        units=tuple(final_units),
+        classes=tuple(tuple(m) for m in kept),
+        arg_sources=tuple(
+            tuple(s for s in srcs) for srcs in kept_sources
+        ),
+        arg_class=tuple(tuple(r) for r in arg_class),
+        sizes=sizes,
+    )
+
+
+def build_rebatched_seg_fn(
+    graph: TaskGraph,
+    tids: Tuple[str, ...],
+    exports: Tuple[str, ...],
+    plan: RebatchPlan,
+):
+    """The segment callable executing ``plan``: (params-by-global-name,
+    ext-values-by-task-id) -> {export tid: output}.  Same contract as the
+    linear seg_fn in ``DeviceBackend._segment_callable``."""
+    import torch
+
+    from ..core.graph import is_concat0
+
+    # precompute per-task static info (the closure must not hold `graph`)
+    step_info = {
+        t: (fn, pitems, aids)
+        for t, fn, pitems, aids in extract_steps(graph, tids)
+    }
+    class_of: Dict[str, Tuple[int, int]] = {}
+    offsets: List[List[int]] = []
+    for ci, members in enumerate(plan.classes):
+        offs = []
+        acc = 0
+        for mi, m in enumerate(members):
+            class_of[m] = (ci, mi)
+            offs.append(acc)
+            acc += plan.sizes[ci][mi]
+        offsets.append(offs)
+
+    # merged-root classes (mark_rootslice): members tile one contiguous
+    # slice range (plan ordered them by lo), so the whole class is one
+    # call of the family's fn over [lo0, hiN) of the shared graph input
+    merged_root: Dict[int, Any] = {}
+    for ci, members in enumerate(plan.classes):
+        fn0, _, aids0 = step_info[members[0]]
+        if not aids0:
+            fam, lo0, _, make = rootslice_of(fn0)
+            _, _, hiN, _ = rootslice_of(step_info[members[-1]][0])
+            merged_root[ci] = make(lo0, hiN)
+
+    # single tasks that are declared axis-0 concats of exactly one
+    # batched class's members in order: identity on the batched value
+    concat_passthrough: Dict[str, int] = {}
+    members_of = {tuple(m): ci for ci, m in enumerate(plan.classes)}
+    for t in tids:
+        fn, _, aids = step_info[t]
+        if (
+            fn is not None
+            and is_concat0(fn)
+            and t not in class_of
+            and aids
+            and tuple(aids) in members_of
+        ):
+            concat_passthrough[t] = members_of[tuple(aids)]
+
+    def seg_fn(seg_params, ext):
+        singles: Dict[str, Any] = {}
+        class_val: Dict[int, Any] = {}
+
+        def value_of(d):
+            if d in singles:
+                return singles[d]
+            if d in class_of:
+                ci, mi = class_of[d]
+                lo = offsets[ci][mi]
+                return class_val[ci][lo:lo + plan.sizes[ci][mi]]
+            return ext[d]
+
+        for kind, val in plan.units:
+            if kind == "single":
+                t = val
+                fn, pitems, aids = step_info[t]
+                if t in concat_passthrough:
+                    # declared axis-0 concat of exactly one batched
+                    # class's members in order: the batched value IS the
+                    # result — skip the slice-and-recopy round-trip
+                    singles[t] = class_val[concat_passthrough[t]]
+                    continue
+                pd = {loc: seg_params[g] for loc, g in pitems}
+                args = (
+                    [value_of(d) for d in aids]
+                    if aids else [ext["__input__"]]
+                )
+                singles[t] = fn(pd, *args)
+            else:
+                ci = val
+                members = plan.classes[ci]
+                fn, pitems, _ = step_info[members[0]]
+                pd = {loc: seg_params[g] for loc, g in pitems}
+                if ci in merged_root:
+                    # root class: one family call over the merged slice
+                    # of the shared graph input
+                    class_val[ci] = merged_root[ci](pd, ext["__input__"])
+                    continue
+                args = []
+                for j, srcs in enumerate(plan.arg_sources[ci]):
+                    cj = plan.arg_class[ci][j]
+                    if cj is not None and cj in class_val:
+                        args.append(class_val[cj])
+                    else:
+                        args.append(
+                            torch.cat([value_of(d) for d in srcs], dim=0)
+                        )
+                class_val[ci] = fn(pd, *args)
+        return {t: value_of(t) for t in exports}
+
+    return seg_fn

@@ -16,8 +16,13 @@ The counterpart of the JAX package's ``bench.py`` (``main`` and
    forward the same way (with its logits, and as its f32 sum, the MFU
    anchor), and hold the placed output against the fused one under
    ``oracle_close``;
-4. measure each task's device-memory footprint (``preflight_task_memory``);
-5. place the DAG with every ported policy on an 8-node cluster model of
+4. run the same placement segment-fused (one program per same-node run,
+   sibling microbatch tasks re-batched; on the card one CUDA graph) and
+   compiled (the whole run one CUDA graph), each in 3 windows of ``reps``
+   runs with the median quoted, each held against the fused output, and
+   the compiled leg's host wall per run taken from 3 single-run windows;
+5. measure each task's device-memory footprint (``preflight_task_memory``);
+6. place the DAG with every ported policy on an 8-node cluster model of
    this card (each node's budget is the card's memory less what was
    already taken when the bench started), replay each placement under the
    full-fidelity cost model with the link measured on this card, and
@@ -29,11 +34,11 @@ The counterpart of the JAX package's ``bench.py`` (``main`` and
    ``value``.
 
 Prints ONE JSON line (``BenchResult.to_json``) on stdout; progress goes to
-stderr.  Nothing falls back: a failed build, launch, calibration or link
-measurement raises, and the run exits non-zero.  Left out against the JAX
-bench: its watchdog and retries, the light-rep mode, the f32 fallback, the
-segment-fused and whole-program legs (null in the line until they are
-ported) and the tracing block.
+stderr.  Nothing falls back: a failed build, launch, calibration, capture,
+replay or link measurement raises, and the run exits non-zero (the JAX
+bench only logs a failed segment-fused or whole-program leg).  Left out
+against the JAX bench: its watchdog and retries, the light-rep mode, the
+f32 fallback and the tracing block.
 """
 
 from __future__ import annotations
@@ -117,15 +122,17 @@ def nvidia_smi_line(device: torch.device) -> str:
     return out.stdout.strip()
 
 
+def _delta(counts: Dict[str, int], before: Dict[str, int]) -> Dict[str, int]:
+    return {k: v - before.get(k, 0) for k, v in sorted(counts.items())
+            if v != before.get(k, 0)}
+
+
 def _leg(launches: Dict[str, Dict[str, int]], name: str, fn: Callable[[], Any]):
     """Run one leg of the bench and record the kernel launches it made
     (the change in ``kernels.launches`` across it)."""
     before = dict(kernels.launches)
     out = fn()
-    launches[name] = {
-        k: v - before.get(k, 0) for k, v in sorted(kernels.launches.items())
-        if v != before.get(k, 0)
-    }
+    launches[name] = _delta(kernels.launches, before)
     return out
 
 
@@ -265,7 +272,6 @@ def run(
     spread["fused_forward"] = spread_stats(like_samples)
 
     oracle_ok = oracle_close(fused, rep.output, dtype_name)
-    del fused
     flops = graph_flops(graph)
     mfu = compute_mfu(flops, pt_makespan, kind, dtype_name)
     mfu_fused = compute_mfu(flops, fused_scalar_s, kind, dtype_name)
@@ -275,6 +281,45 @@ def run(
         f"fused {fused_like_s * 1e3:.3f} ms with logits, "
         f"{fused_scalar_s * 1e3:.3f} ms summed; MFU {mfu} / {mfu_fused}; "
         f"oracle {oracle_ok}")
+
+    # the captured legs: a replay's output is the graph's own tensor, so
+    # each leg's oracle reads its first run's output before the next run.
+    # A wrapper counts its kernel when the graph is captured (the leg's
+    # ``<name>_eager`` launches: its warm-up and its capture); the leg's
+    # own launches are those its graphs' replays made (``kernels.replayed``)
+    def captured_leg(name: str, single_runs: bool = False, **kw):
+        def leg():
+            first = backend.execute(graph, sched_one, params, ids, **kw)
+            ok = oracle_close(fused, first.output, dtype_name)
+            reports = repeat_capture(lambda: backend.execute(
+                graph, sched_one, params, ids, warmup=False, reps=reps, **kw,
+            ), WINDOWS)
+            # the host wall of one run alone (copy and replay)
+            alone = repeat_capture(lambda: backend.execute(
+                graph, sched_one, params, ids, warmup=False, reps=1, **kw,
+            ).dispatch_overhead_s, WINDOWS) if single_runs else None
+            return first, ok, reports, alone
+
+        before = dict(kernels.replayed)
+        first, ok, reports, alone = _leg(launches, f"{name}_eager", leg)
+        launches[name] = _delta(kernels.replayed, before)
+        samples = [r.makespan_s for r in reports]
+        spread[name] = spread_stats(samples)
+        return first, ok, statistics.median(samples), alone
+
+    srep, seg_ok, seg_makespan, _ = captured_leg("segmented", segments=True)
+    _, comp_ok, comp_makespan, alone = captured_leg(
+        "compiled", single_runs=True, compiled=True)
+    comp_overhead_ms = statistics.median(alone) * 1e3
+    del fused
+    mfu_seg = compute_mfu(flops, seg_makespan, kind, dtype_name)
+    mfu_comp = compute_mfu(flops, comp_makespan, kind, dtype_name)
+    log(f"segment-fused makespan {seg_makespan * 1e3:.3f} ms "
+        f"({srep.n_dispatches} host calls vs {rep.n_dispatches}), oracle "
+        f"{seg_ok}, MFU {mfu_seg}; compiled {comp_makespan * 1e3:.3f} ms, "
+        f"host wall per run {comp_overhead_ms:.4f} ms, oracle {comp_ok}, "
+        f"MFU {mfu_comp}")
+    oracle_ok = oracle_ok and seg_ok and comp_ok
 
     t0 = time.perf_counter()
     footprints = _leg(launches, "preflight",
@@ -352,6 +397,11 @@ def run(
             slots=2, prompt_len=8, max_new=6, page_size=8),
         mfu_single_chip=mfu,
         dispatch_overhead=overhead,
+        segmented_makespan_s=seg_makespan,
+        mfu_segmented=mfu_seg,
+        compiled_makespan_s=comp_makespan,
+        mfu_compiled=mfu_comp,
+        compiled_dispatch_overhead_ms=comp_overhead_ms,
         link_provenance=link_prov,
         fused_forward_s=fused_like_s,
         fused_scalar_s=fused_scalar_s,

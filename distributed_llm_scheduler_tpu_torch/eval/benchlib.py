@@ -231,9 +231,8 @@ class BenchResult:
 
     A field that is None is left out of the line, as in the JAX package's:
     ``eval/regress.py`` reads a key present in the baseline as a leg to
-    check, so a null would fail every later run as ``missing`` (the
-    segment-fused and whole-program legs, ``fence_rtt_s`` and, off the
-    card, the MFUs are None).  The JAX package's fields, plus ``device`` (the card's name and power
+    check, so a null would fail every later run as ``missing``
+    (``fence_rtt_s`` and, off the card, the MFUs are None).  The JAX package's fields, plus ``device`` (the card's name and power
     limit as ``nvidia-smi --query-gpu=name,power.limit --format=csv,
     noheader`` gives them), ``node_hbm_gb`` (each replay node's budget),
     each policy's replayed ``(makespan_s, completion)``, the fused leg's
@@ -259,7 +258,7 @@ class BenchResult:
     mfu_single_chip: Optional[float] = None
     dispatch_overhead: Optional[float] = None
     link_provenance: Optional[str] = None
-    # segment-fused and whole-program execution are not ported yet
+    # the segment-fused and whole-program (compiled) legs
     segmented_makespan_s: Optional[float] = None
     mfu_segmented: Optional[float] = None
     compiled_makespan_s: Optional[float] = None

@@ -12,7 +12,10 @@ and spills (``-Xptxas=-v``).
 
 ``launches`` counts kernel launches by name.  A wrapper adds one exactly
 where it launches its kernel, so a run can show that its main path went
-through the kernel; :func:`reset_launches` zeroes the counts.
+through the kernel.  Under CUDA-graph capture that launch is recorded, not
+run: ``replayed`` counts the kernels each replay of a captured graph
+launches (``backends.device.CapturedProgram`` adds them at every replay).
+:func:`reset_launches` zeroes both.
 """
 
 from __future__ import annotations
@@ -35,14 +38,17 @@ NVCC_FLAGS = (
 
 # kernel name -> launches since the last reset_launches()
 launches: Dict[str, int] = {}
+# kernel name -> launches by CUDA-graph replays since the last reset
+replayed: Dict[str, int] = {}
 # source name -> nvcc's output of the build this process ran
 build_logs: Dict[str, str] = {}
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, replayed):
+        for name in counts:
+            counts[name] = 0
 
 
 def nvcc_path() -> str:

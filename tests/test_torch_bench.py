@@ -137,25 +137,25 @@ def test_json_line(ran):
     assert line["unit"] == "ms" and line["modeled"] is True
     assert line["fallback"] is True and line["device"] == "cpu"
     assert line["node_hbm_gb"] == bench.CPU_NODE_GB
-    # not measured: the segment-fused and whole-program legs, the fence
-    # (CUDA events need none) and, off the card, the MFUs and footprints
-    for key in ("segmented_makespan_ms", "mfu_segmented",
-                "compiled_makespan_ms", "mfu_compiled",
-                "compiled_dispatch_overhead_ms", "fence_rtt_ms",
+    # not measured: the fence (CUDA events need none) and, off the card,
+    # the MFUs and footprints
+    for key in ("mfu_segmented", "mfu_compiled", "fence_rtt_ms",
                 "mfu_single_chip", "mfu_fused", "preflight_max_gb"):
         assert key not in line, key
-    for null in ("segmented_makespan_s", "compiled_makespan_s",
-                 "mfu_segmented", "mfu_compiled", "fence_rtt_s"):
+    for null in ("mfu_segmented", "mfu_compiled", "fence_rtt_s"):
         assert getattr(result, null) is None, null
     for key in ("fused_forward_ms", "fused_scalar_ms", "singlechip_replay_ms",
-                "dispatch_overhead_ms", "value", "vs_baseline"):
+                "dispatch_overhead_ms", "value", "vs_baseline",
+                "segmented_makespan_ms", "compiled_makespan_ms",
+                "compiled_dispatch_overhead_ms"):
         assert line[key] > 0, key
     assert line["link"] == "injected"
     assert set(line["spread"]) == {"quotes", "pt_makespan", "fused_scalar",
-                                   "fused_forward", "value",
-                                   "calibrated_task_sum"}
+                                   "fused_forward", "segmented", "compiled",
+                                   "value", "calibrated_task_sum"}
     assert all(line["spread"][k]["n"] == bench.WINDOWS
-               for k in ("pt_makespan", "fused_scalar", "fused_forward"))
+               for k in ("pt_makespan", "fused_scalar", "fused_forward",
+                         "segmented", "compiled"))
     # one injected calibration: one window, replaying the headline itself
     assert line["spread"]["value"] == {
         "median_ms": line["value"], "min_ms": line["value"],
@@ -166,7 +166,9 @@ def test_json_line(ran):
         line["calibrated_task_ms"])
     assert "calibration_runs" not in line
     # legs counted; the plain versions on the CPU launch no kernel
-    assert line["launches"] == {"per_task": {}, "fused": {}, "preflight": {}}
+    assert line["launches"] == {
+        "per_task": {}, "fused": {}, "segmented_eager": {}, "segmented": {},
+        "compiled_eager": {}, "compiled": {}, "preflight": {}}
     assert set(line["policies"]) == set(P.ALL_SCHEDULERS)
 
 
@@ -195,3 +197,18 @@ def test_cuda_without_a_card_raises(monkeypatch):
 def test_main_takes_only_the_bench_configs():
     with pytest.raises(SystemExit, match="usage"):
         bench.main(["tiny"])
+
+
+def test_segmented_and_compiled_legs_fill_their_fields(ran):
+    """The two captured legs run here eagerly (no card): each fills its
+    makespan and spread, the compiled leg its host wall per run, and each
+    leg's oracle joins ``oracle_ok``."""
+    result, _ = ran
+    assert result.segmented_makespan_s > 0
+    assert result.compiled_makespan_s > 0
+    assert result.compiled_dispatch_overhead_ms > 0
+    assert result.spread["segmented"]["median_ms"] == round(
+        result.segmented_makespan_s * 1e3, 4)
+    assert result.spread["compiled"]["median_ms"] == round(
+        result.compiled_makespan_s * 1e3, 4)
+    assert result.oracle_ok is True

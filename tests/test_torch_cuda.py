@@ -799,3 +799,198 @@ def test_bench_runs_the_tiny_bf16_config(cuda):
     line = result.to_json()
     assert line["metric"].endswith("_policies_cuda")
     assert line["launches"]["per_task"][A.KERNEL] > 0
+
+
+# -- the execution ladder: streams per node, captured segments, one graph ----
+
+def _ladder_setup(cuda, policy, n):
+    import distributed_llm_scheduler_tpu_torch as P
+
+    dag = P.build_gpt2_dag(P.GPT2Config.tiny(dtype=torch.bfloat16), batch=4,
+                           seq_len=32, microbatches=2, vocab_shards=4)
+    graph = P.fuse_linear_chains(dag.graph)
+    cluster = P.Cluster.from_torch_devices([cuda] * n)
+    sched = P.get_scheduler(policy).schedule(graph, cluster)
+    assert not sched.failed
+    return (P.DeviceBackend(cluster), graph, sched,
+            dag.init_params(device=cuda), dag.make_inputs(device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy,n", [("greedy", 1), ("heft", 4)])
+def test_captured_rungs_equal_the_planned_path_over_replays(cuda, policy, n):
+    """The captured segments (unbatched) and the one-graph program give the
+    planned path's output bit for bit, run after run; the rebatched
+    segments stay within the bf16 band of it."""
+    backend, graph, sched, params, ids = _ladder_setup(cuda, policy, n)
+    want = backend.execute(graph, sched, params, ids).output.clone()
+    per_task = backend.execute(graph, sched, params, ids, planned=False)
+    assert torch.equal(per_task.output, want)
+    for kw in (dict(segments=True, rebatch=False), dict(compiled=True),
+               dict(segments=True)):
+        for i in range(3):
+            rep = backend.execute(graph, sched, params, ids, reps=2,
+                                  warmup=i == 0, **kw)
+            torch.cuda.synchronize()
+            if kw.get("rebatch", True) and kw.get("segments"):
+                err = (rep.output.float() - want.float()).abs().max().item()
+                assert err < 5e-2, (kw, i, err)
+            else:
+                assert torch.equal(rep.output, want), (kw, i)
+            assert rep.captured_launches, kw
+    assert rep.n_dispatches <= per_task.n_dispatches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rung", ["per_task", "planned", "segments", "compiled"])
+def test_a_cross_node_edge_waits_on_its_producer(cuda, rung):
+    """Two nodes of one card run on two streams; the producer spins before
+    it writes, so a consumer that did not wait on its event would read the
+    zeros."""
+    import distributed_llm_scheduler_tpu_torch as P
+
+    def slow_ones(p, x):
+        out = torch.zeros(1 << 20, device=x.device)
+        torch.cuda._sleep(20_000_000)
+        return out.fill_(1.0)
+
+    graph = P.TaskGraph([
+        P.Task("a", 0.1, 0.1, [], fn=slow_ones),
+        P.Task("b", 0.1, 0.1, ["a"], fn=lambda p, x: x * 2.0),
+    ], name="edge").freeze()
+    cluster = P.Cluster([P.DeviceState(n, 1.0, torch_device=cuda)
+                         for n in ("n0", "n1")])
+    sched = P.Schedule(policy="hand", per_node={"n0": ["a"], "n1": ["b"]},
+                       assignment_order=["a", "b"])
+    backend = P.DeviceBackend(cluster)
+    s0, s1 = backend.stream_of("n0"), backend.stream_of("n1")
+    assert s0 is not None and s1 is not None and s0 != s1
+    assert torch.cuda.current_stream(cuda) not in (s0, s1)
+    kw = {"per_task": dict(planned=False), "planned": {},
+          "segments": dict(segments=True), "compiled": dict(compiled=True)}[rung]
+    rep = backend.execute(graph, sched, {}, torch.zeros(1, device=cuda),
+                          reps=2, **kw)
+    torch.cuda.synchronize()
+    assert rep.transfer_edges == 1
+    assert torch.equal(rep.output, torch.full((1 << 20,), 2.0, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(compiled=True), dict(segments=True)],
+                         ids=["compiled", "segments"])
+def test_a_task_that_reads_to_the_host_fails_the_capture(cuda, kw):
+    import distributed_llm_scheduler_tpu_torch as P
+
+    graph = P.TaskGraph([
+        P.Task("a", 0.1, 0.1, [], fn=lambda p, x: x + 1.0),
+        P.Task("b", 0.1, 0.1, ["a"],
+               fn=lambda p, x: x * float(x.sum().item())),
+    ], name="readback").freeze()
+    cluster = P.Cluster.from_torch_devices([cuda])
+    sched = P.get_scheduler("greedy").schedule(graph, cluster)
+    with pytest.raises(RuntimeError):
+        P.DeviceBackend(cluster).execute(
+            graph, sched, {}, torch.ones(4, device=cuda), **kw)
+    torch.cuda.synchronize()
+    # eager rungs read to the host freely, and the card still works
+    rep = P.DeviceBackend(cluster).execute(
+        graph, sched, {}, torch.ones(4, device=cuda))
+    assert rep.output.sum().item() == 4 * 2.0 * 8.0
+
+
+@pytest.mark.cuda
+def test_launch_counts_per_rung(cuda):
+    """Eager rungs count each launch as it runs; a captured rung's wrappers
+    count once in its warm-up and once in the capture, never at replay,
+    the report carries the kernels in the graphs one run replays, and
+    every replay adds those to ``kernels.replayed``."""
+    from distributed_llm_scheduler_tpu_torch.ops import norms as N
+
+    backend, graph, sched, params, ids = _ladder_setup(cuda, "greedy", 1)
+    mb, layers = 2, 2
+    per_forward = {A.KERNEL: mb * layers, N.LN_KERNEL: mb * (2 * layers + 1)}
+    rebatched = {A.KERNEL: layers, N.LN_KERNEL: 2 * layers + 1}
+
+    def counted(**kw):
+        kernels.reset_launches()
+        rep = backend.execute(graph, sched, params, ids, reps=3, **kw)
+        torch.cuda.synchronize()
+        return rep, ({k: kernels.launches[k] for k in per_forward},
+                     {k: kernels.replayed.get(k, 0) for k in per_forward})
+
+    for kw in (dict(planned=False), {}, dict(coalesce=True)):
+        rep, (got, replayed) = counted(**kw)
+        assert got == {k: v * 4 for k, v in per_forward.items()}, kw
+        assert rep.captured_launches == {}
+        assert replayed == {k: 0 for k in per_forward}, kw
+    for kw, per_run in ((dict(segments=True), rebatched),
+                        (dict(segments=True, rebatch=False), per_forward),
+                        (dict(compiled=True), per_forward)):
+        rep, (got, replayed) = counted(**kw)
+        assert {k: rep.captured_launches[k] for k in per_run} == per_run, kw
+        assert got == {k: 2 * v for k, v in per_run.items()}, kw
+        assert replayed == {k: 4 * v for k, v in per_run.items()}, kw
+        rep, (got, replayed) = counted(warmup=False, **kw)  # replays only
+        assert got == {k: 0 for k in per_run}, kw
+        assert replayed == {k: 3 * v for k, v in per_run.items()}, kw
+    assert rep.n_dispatches == 2  # the input copy and the replay
+
+
+@pytest.mark.cuda
+def test_a_captured_program_reads_fixed_inputs_in_place(cuda):
+    """An input named fixed is not copied: the graph reads the caller's
+    tensor itself, sees its new contents at each replay, and refuses
+    another tensor; other inputs are copied into static buffers."""
+    from distributed_llm_scheduler_tpu_torch.backends.device import (
+        CapturedProgram,
+    )
+
+    prog = CapturedProgram(lambda p, ext: ext["a"] * 2.0 + ext["b"],
+                           torch.cuda.Stream(device=cuda))
+    a, b = torch.ones(8, device=cuda), torch.zeros(8, device=cuda)
+    out = prog({}, {"a": a, "b": b}, frozenset({"a"}))
+    torch.cuda.synchronize()
+    assert prog.static_in["a"] is a and prog.static_in["b"] is not b
+    assert torch.equal(out, torch.full((8,), 2.0, device=cuda))
+    a.fill_(3.0)
+    out = prog({}, {"a": a, "b": torch.ones(8, device=cuda)}, frozenset({"a"}))
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.full((8,), 7.0, device=cuda))
+    with pytest.raises(RuntimeError, match="read in place"):
+        prog({}, {"a": a.clone(), "b": b}, frozenset({"a"}))
+
+
+@pytest.mark.cuda
+def test_segments_of_a_node_share_one_memory_pool(cuda):
+    """Under heft x4 each node's captured segments share one pool (they
+    replay in capture order on its stream) and no two nodes share one
+    (their segments run at once); the programs are cached as a whole."""
+    from distributed_llm_scheduler_tpu_torch.backends.device import (
+        CapturedProgram,
+    )
+
+    backend, graph, sched, params, ids = _ladder_setup(cuda, "heft", 4)
+    placed, _ = backend.place_params(graph, sched, params)
+    order = backend.dispatch_order(graph, sched)
+    segs = backend.build_segments(graph, sched, order)
+    fns = backend._segment_programs(graph, segs, True, placed)
+    assert all(isinstance(f, CapturedProgram) for f in fns)
+    pool_of = {}
+    for (node, _t, _e), f in zip(segs, fns):
+        assert pool_of.setdefault(node, f.pool) == f.pool
+    assert len(set(pool_of.values())) == len(pool_of) > 1
+    assert backend._segment_programs(graph, segs, True, placed) is fns
+
+
+@pytest.mark.cuda
+def test_node_streams_are_shared_across_backends(cuda):
+    """The k-th node of a card runs on the card's k-th node stream in every
+    backend, so a new backend adds no stream (and no cuBLAS workspace,
+    which a stream keeps for the life of the process)."""
+    import distributed_llm_scheduler_tpu_torch as P
+
+    one = P.DeviceBackend(P.Cluster.from_torch_devices([cuda] * 4))
+    two = P.DeviceBackend(P.Cluster.from_torch_devices([cuda] * 2))
+    streams = [one.stream_of(f"core_{i}") for i in range(4)]
+    assert len(set(streams)) == 4
+    assert [two.stream_of(f"core_{i}") for i in range(2)] == streams[:2]
