@@ -111,7 +111,22 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     the same weights, and every request's tokens must be equal;
 13. f32 Llama leg: Llama-3 8B widths at 2 layers, placed by ``pipeline``
     on 8 virtual nodes on the card, planned and compiled, allclose to the
-    fused forward on the CPU.
+    fused forward on the CPU;
+14. parameter streaming: ``eval/stream_bench.measure_streaming()`` at its
+    defaults (GPT-2 medium bf16, batch 8, seq 512, greedy on one node
+    capped at 0.3 of its params: per task, segmented, int8), its JSON
+    printed (``STREAM_LINE``), each leg's flash and LayerNorm launches
+    exactly one per attention and layer norm of each forward, every oracle
+    true, the budget respected, evictions made, and the streamed run's
+    allocator peak below the uncapped one's by at least half of (params
+    − budget); then the flagship placed by ``mru`` on one node capped at
+    0.35 of its params and by ``heft`` on 8 nodes of the card each capped
+    at half its own union (``STREAM_HEFT``), streamed against the same
+    placement unstreamed: bit-equal per task (and segmented without
+    re-batching), within the fused forward's band, launches counted; and
+    ``compiled=True, stream_params=True`` runs compiled at 4x the params
+    (bit-equal to the unstreamed compiled run) and is refused with a
+    STR002 or STR003 diagnosis at 0.3x.
 
 The last lines are one JSON object of per-kernel numbers (``launches`` is
 the count of the kernel's main path, ``launches_by_path`` each counted
@@ -375,6 +390,9 @@ def check_attention_kernel(torch, A, dev, llama) -> dict:
         # the segmented rung's re-batched microbatch siblings: one call at batch 8
         ((8, 12, 512, 64), "bfloat16", True, "heads", None),
         ((8, 12, 512, 64), "bfloat16", True, "qkv", None),
+        # the stream phase's GPT-2 medium bench: one call a layer at batch 8
+        ((8, 16, 512, 64), "bfloat16", True, "heads", None),
+        ((8, 16, 512, 64), "bfloat16", True, "qkv", None),
         (llama_shape, "bfloat16", True, "gqa", llama.n_kv_heads),  # Llama-3 8B, per task
         ((1, 12, 512, 64), "float32", True, "heads", None),
         ((2, 3, 100, 64), "float32", False, "heads", None),   # ragged T, full attention
@@ -540,6 +558,7 @@ def graph_ms(torch, fn, inputs, reps: int = 5) -> float:
 NORM_CASES = [
     ("ln", (1, 512, 768), "bfloat16", False, 0, "register"),   # GPT-2 flagship task
     ("ln", (8, 512, 768), "bfloat16", False, 0, "register"),   # ... re-batched segment
+    ("ln", (8, 512, 1024), "bfloat16", False, 0, "register"),  # GPT-2 medium stream bench
     ("ln", (8, 1, 768), "bfloat16", False, 0, "register"),     # GPT-2 decode step
     ("rms", (1, 512, 4096), "bfloat16", False, 0, "register"),  # Llama-3 8B task
     ("ln", (1, 512, 768), "float32", False, 0, "register"),
@@ -1378,6 +1397,189 @@ def run_bench_path(torch, P, dev) -> dict:
     return legs
 
 
+# parameter-streaming phase: GPT-2 small under mru on one node capped at
+# this fraction of its params (batch 1, so that no task's own logits
+# exceed the budget mru places under; the flagship's 8 vocab shards, so its
+# params are the flagship's), and the flagship under heft on 8 nodes each
+# capped at this fraction of its own node's param union
+STREAM_MRU_FRAC = 0.35
+STREAM_MRU_BUILD = dict(batch=1, seq_len=512, vocab_shards=8)
+STREAM_NODE_FRAC = 0.5
+
+
+def run_stream_path(torch, P, dev) -> dict:
+    """Parameter streaming on the card: the stream bench at its defaults
+    (GPT-2 medium bf16, batch 8, seq 512, greedy on one node capped at 0.3
+    of the params: per task, segmented and int8), then the flagship placed
+    by ``mru`` on one node capped at 0.35 of its params (at batch 1), by
+    ``heft`` on 8 nodes each capped at half its own union, and the
+    stream-safety pass deciding the compiled rung.  Every streamed output
+    meets the fused forward, equals the same placement's unstreamed output
+    bit for bit (per task, and segmented without re-batching), and every
+    streamed run launches the flash and LayerNorm kernels once per
+    attention and layer norm of each of its forwards (warm-up and timed
+    run).  Returns each streamed run's launches."""
+    from distributed_llm_scheduler_tpu_torch.analysis import AnalysisError
+    from distributed_llm_scheduler_tpu_torch.backends.device import pin_params
+    from distributed_llm_scheduler_tpu_torch.eval import stream_bench
+    from distributed_llm_scheduler_tpu_torch.ops import attention as A
+    from distributed_llm_scheduler_tpu_torch.ops import norms as N
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            raise AssertionError(f"stream phase: {what}")
+
+    # 1. the bench, each leg's launches counted
+    t0 = time.perf_counter()
+    res = stream_bench.measure_streaming(device=dev, log=log)
+    print("STREAM_LINE " + json.dumps(res), flush=True)
+    med = P.GPT2Config.medium()
+    per_med = {A.KERNEL: med.n_layer, N.LN_KERNEL: 2 * med.n_layer + 1}
+    legs = res["launches"]
+    want = {leg: times(per_med, n) for leg, n in (
+        ("uncapped", 2), ("fused", 1), ("capped", 2), ("segmented", 2),
+        ("quantized", 2), ("quantized_fused", 1))}
+    want.update({leg: times(per_med, 2) for leg in legs
+                 if leg.startswith("uncapped_rerun")})
+    for leg, n in want.items():
+        got = {k: legs.get(leg, {}).get(k, 0) for k in n}
+        log(f"  stream bench {leg}: {got} (expected {n})")
+        check(got == n, f"bench {leg} launched {got}, expected {n}")
+    drop = res["uncapped_peak_hbm_gb"] - res["capped_peak_hbm_gb"]
+    need = 0.5 * (res["total_param_gb"] - res["budget_gb"])
+    log(f"  stream bench in {time.perf_counter() - t0:.1f} s: uncapped "
+        f"{res['uncapped_makespan_ms']} ms, capped {res['capped_makespan_ms']}"
+        f" ms, segmented {res['segmented_capped_makespan_ms']} ms, int8 "
+        f"{res['quantized_capped_makespan_ms']} ms; link burst "
+        f"{res['host_link_gbps']} GB/s, sustained {res['sustained_gbps']} "
+        f"GB/s, achieved {res['achieved_gbps']} GB/s, bound utilization "
+        f"{res['bound_utilization']} ({res['floor_source']}); allocator peak "
+        f"{res['uncapped_peak_hbm_gb']:.4f} uncapped, "
+        f"{res['capped_peak_hbm_gb']:.4f} capped GiB (drop {drop:.4f}, "
+        f"needed {need:.4f})")
+    for key in ("oracle_ok", "segmented_oracle_ok", "quantized_oracle_ok",
+                "budget_respected", "quantized_budget_respected"):
+        check(res[key] is True, f"bench {key} is {res[key]}")
+    check(res["param_evictions"] > 0, "the bench evicted nothing")
+    check(res["sustained_gbps"] is not None, "no sustained link rate")
+    check(drop >= need, f"allocator peak dropped {drop:.4f} GiB, needed "
+                        f"{need:.4f}: the weights co-reside")
+    launches = {f"bench {leg}": n for leg, n in legs.items()
+                if leg in ("capped", "segmented", "quantized")}
+
+    # 2. GPT-2 small, its params on the host and pinned once
+    cfg = P.GPT2Config.small(dtype=torch.bfloat16)
+    per_layer = {A.KERNEL: cfg.n_layer, N.LN_KERNEL: 2 * cfg.n_layer + 1}
+
+    def build(**shape):
+        dag = P.build_gpt2_dag(cfg, **shape)
+        return dag, P.fuse_linear_chains(dag.graph), dag.make_inputs(
+            seed=1, device=dev)
+
+    dag, graph, ids = build(**FLAGSHIP)
+    params = pin_params(dag.init_params(seed=0, device="cpu"))
+    total = graph.total_param_gb()
+    on_dev = {k: v.to(dev) for k, v in params.items()}
+
+    def pair(label, backend, graph, ids, sched, **kw):
+        """The placement unstreamed, then streamed (counted): outputs on
+        the host, bit-equal, the streamed one within the fused forward's
+        band."""
+        mb = sum(1 for t in dag_of[graph].graph
+                 if t.task_id.endswith("final_ln"))  # one per microbatch
+        with torch.no_grad():
+            fused = dag_of[graph].reference_forward(on_dev, ids).cpu()
+        base = backend.execute(graph, sched, params, ids, **kw)
+        base_out = base.output.cpu()
+        rep, launches[label] = counted(
+            label, times(per_layer, 2 * mb), lambda: backend.execute(
+                graph, sched, params, ids, stream_params=True, **kw))
+        out = rep.output.cpu()
+        ok, viol, allowed, rel = oracle_close(fused, out)
+        same = torch.equal(out, base_out)
+        peak = {n: b / 1024**3 for n, b in rep.peak_param_bytes.items() if b}
+        budgets = {d.node_id: d.total_memory for d in backend.cluster
+                   if d.node_id in peak}
+        log(f"  {label}: unstreamed {base.makespan_s * 1e3:.3f} ms, streamed "
+            f"{rep.makespan_s * 1e3:.3f} ms; {rep.param_loads} loads in "
+            f"{rep.param_load_calls} calls ({rep.param_load_bytes / 1024**2:.1f}"
+            f" MiB), {rep.param_evictions} evictions, {rep.n_dispatches} host "
+            f"calls; ledger peak GiB {json.dumps(peak)} on budgets "
+            f"{json.dumps(budgets)}; allocator peak "
+            f"{stream_bench.run_peak_gb(base):.4f} unstreamed, "
+            f"{stream_bench.run_peak_gb(rep):.4f} streamed GiB; {viol} "
+            f"outside the band, rel {rel:.3e}; bit-equal {same}")
+        check(ok and bool(torch.isfinite(out).all()), f"{label}: oracle")
+        check(same, f"{label}: streamed output differs from unstreamed")
+        check(rep.param_evictions > 0, f"{label}: nothing evicted")
+        device_time_breakdown(
+            torch, f"{label} streamed", rep.makespan_s, lambda: backend.execute(
+                graph, sched, params, ids, stream_params=True, warmup=False,
+                **kw))
+        return base, rep
+
+    # the paper's headline: mru places under a budget below the model
+    hdag, hgraph, hids = build(**STREAM_MRU_BUILD)
+    dag_of = {graph: dag, hgraph: hdag}
+    cluster = P.Cluster.from_torch_devices(
+        [dev], hbm_cap_gb=STREAM_MRU_FRAC * hgraph.total_param_gb())
+    sched = P.get_scheduler("mru").schedule(hgraph, cluster)
+    check(not sched.failed, f"mru failed {len(sched.failed)} tasks")
+    backend = P.DeviceBackend(cluster)
+    pair("mru x1 per task", backend, hgraph, hids, sched, planned=False)
+    pair("mru x1 segmented", backend, hgraph, hids, sched, segments=True,
+         rebatch=False)
+
+    # several nodes of the card, each capped at half its own union
+    cluster = P.Cluster.from_torch_devices([dev] * 8)
+    sched = P.get_scheduler("heft").schedule(graph, cluster)
+    check(not sched.failed, f"heft failed {len(sched.failed)} tasks")
+    for d in cluster:
+        union = {g for t in sched.per_node.get(d.node_id, ())
+                 for _, g in graph[t].param_items()}
+        if union:
+            d.total_memory = STREAM_NODE_FRAC * sum(
+                graph.param_size_gb(g) for g in union)
+    base, rep = pair("heft x8 per task", P.DeviceBackend(cluster), graph, ids,
+                     sched, planned=False)
+    print("STREAM_HEFT " + json.dumps(dict(
+        nodes=sum(1 for lst in sched.per_node.values() if lst),
+        budgets_gb={d.node_id: d.total_memory for d in cluster},
+        unstreamed_ms=base.makespan_s * 1e3, streamed_ms=rep.makespan_s * 1e3,
+        param_loads=rep.param_loads, param_load_calls=rep.param_load_calls,
+        param_load_gb=rep.param_load_bytes / 1024**3,
+        param_evictions=rep.param_evictions,
+        peak_param_gb={n: b / 1024**3 for n, b in rep.peak_param_bytes.items()},
+        peak_hbm_gb={"unstreamed": stream_bench.run_peak_gb(base),
+                     "streamed": stream_bench.run_peak_gb(rep)},
+        transfer_edges=rep.transfer_edges)), flush=True)
+
+    # the stream-safety pass decides the compiled rung
+    roomy = P.Cluster.from_torch_devices([dev], hbm_cap_gb=4 * total)
+    sched = P.get_scheduler("greedy").schedule(graph, roomy)
+    backend = P.DeviceBackend(roomy)
+    unstreamed = backend.execute(graph, sched, params, ids, compiled=True)
+    base_out = unstreamed.output.cpu()
+    rep = backend.execute(graph, sched, params, ids, compiled=True,
+                          stream_params=True)
+    same = torch.equal(rep.output.cpu(), base_out)
+    log(f"  compiled at 4x the params: compiled {rep.compiled}, streamed "
+        f"{rep.streamed}, {rep.makespan_s * 1e3:.3f} ms, bit-equal to the "
+        f"unstreamed compiled run {same}")
+    check(rep.compiled and not rep.streamed and same, "compiled at 4x")
+    roomy.devices[0].total_memory = 0.3 * total
+    try:
+        backend.execute(graph, sched, params, ids, compiled=True,
+                        stream_params=True)
+    except AnalysisError as e:
+        codes = sorted({d.code for d in e.report.diagnostics})
+        log(f"  compiled at 0.3x the params: refused with {codes}")
+        check(bool(set(codes) & {"STR002", "STR003"}), f"refusal {codes}")
+    else:
+        raise AssertionError("stream phase: compiled at 0.3x was not refused")
+    return launches
+
+
 def run_f32_leg(torch, P, dev) -> None:
     """GPT-2: placed on the card vs fused on the CPU, in float32."""
     cfg = P.GPT2Config.small(n_layer=2)
@@ -2006,7 +2208,7 @@ def main() -> int:
     t_all = time.perf_counter()
     dev = torch.device("cuda", 0)
     smi = nvidia_smi_line()
-    log(f"[1/13] device: {torch.cuda.get_device_name(0)} ({smi}); torch "
+    log(f"[1/14] device: {torch.cuda.get_device_name(0)} ({smi}); torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2014,7 +2216,7 @@ def main() -> int:
 
     sources = (A.KERNEL, A.PAGED_SOURCE, N.SOURCE)
     secs = kernels.build(*sources)
-    log(f"[2/13] built {', '.join(f'{n}.cu' for n in sources)} with "
+    log(f"[2/14] built {', '.join(f'{n}.cu' for n in sources)} with "
         f"{kernels.nvcc_path()} for sm_90a in {secs:.1f} s (in parallel)")
     log_ptxas(kernels.build_logs.get(A.KERNEL, ""))
     log_ptxas(kernels.build_logs.get(A.PAGED_SOURCE, ""),
@@ -2026,52 +2228,58 @@ def main() -> int:
                     if "paged_ragged_tc" in k]
     norm_ptxas = log_norm_ptxas(kernels.build_logs.get(N.SOURCE, ""))
 
-    log("[3/13] flash kernel check against its plain version")
+    log("[3/14] flash kernel check against its plain version")
     attn = check_attention_kernel(
         torch, A, dev, P.LlamaConfig.llama3_8b(dtype=torch.bfloat16))
 
-    log("[4/13] paged kernel check against the plain versions")
+    log("[4/14] paged kernel check against the plain versions")
     paged = check_paged_kernels(torch, A, DB, dev)
     ragged_n = run_ragged_op_path(torch, A, DB, dev)
 
-    log("[5/13] LayerNorm and RMSNorm kernel check against the plain versions")
+    log("[5/14] LayerNorm and RMSNorm kernel check against the plain versions")
     norms = check_norm_kernels(torch, N, dev)
 
     def phase_done():  # free the phase's tensors before the next one
         gc.collect()
         torch.cuda.empty_cache()
 
-    log("[6/13] flagship forward path: GPT-2 small bf16 DAG on the card")
+    log("[6/14] flagship forward path: GPT-2 small bf16 DAG on the card")
     gpt2_n = run_main_path(torch, P, dev)
     phase_done()
 
-    log("[7/13] execution ladder: the flagship per task, planned, coalesced, "
+    log("[7/14] execution ladder: the flagship per task, planned, coalesced, "
         "segmented and compiled")
     ladder_n = run_ladder_path(torch, P, dev)
     phase_done()
 
-    log("[8/13] north-star bench: GPT-2 small bf16, 8 policies replayed")
+    log("[8/14] north-star bench: GPT-2 small bf16, 8 policies replayed")
     bench_n = run_bench_path(torch, P, dev)
     phase_done()
 
-    log("[9/13] serve path: GPT-2 small bf16 through the paged decode engine")
+    log("[9/14] serve path: GPT-2 small bf16 through the paged decode engine")
     serve_launches, serve_ragged, serve_ln, serve_tr = run_serve_path(
         torch, P, A, dev)
     phase_done()
 
-    log("[10/13] Llama path: Llama-3 8B bf16 DAG, pipeline stages, on the card")
+    log("[10/14] Llama path: Llama-3 8B bf16 DAG, pipeline stages, on the card")
     llama_n = run_llama_path(torch, P, dev)
     phase_done()
 
-    log("[11/13] f32 leg: GPT-2 placed on the card vs fused on the CPU")
+    log("[11/14] f32 leg: GPT-2 placed on the card vs fused on the CPU")
     run_f32_leg(torch, P, dev)
 
-    log("[12/13] f32 serve leg: the engine on the card vs on the CPU")
+    log("[12/14] f32 serve leg: the engine on the card vs on the CPU")
     run_f32_serve_leg(torch, P, dev)
     phase_done()
 
-    log("[13/13] f32 Llama leg: placed on the card vs fused on the CPU")
+    log("[13/14] f32 Llama leg: placed on the card vs fused on the CPU")
     run_llama_f32_leg(torch, P, dev)
+    phase_done()
+
+    log("[14/14] parameter streaming: GPT-2 medium and the flagship under "
+        "budgets below their params")
+    stream_n = run_stream_path(torch, P, dev)
+    phase_done()
 
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
 
@@ -2084,7 +2292,7 @@ def main() -> int:
     tpu = "distributed_llm_scheduler_tpu/ops/attention.py:"
     tpu_norms = "distributed_llm_scheduler_tpu/ops/norms.py:"
     runs = (("gpt2", gpt2_n), ("ladder", ladder_n), ("bench", bench_n),
-            ("llama", llama_n))
+            ("llama", llama_n), ("stream", stream_n))
     line = {"kernels": [
         {"name": A.KERNEL, "route": "cuda", "source": csrc + "flash_attention.cu",
          "replaces": tpu + "152",

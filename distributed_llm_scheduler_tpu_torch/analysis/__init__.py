@@ -3,7 +3,8 @@
 PyTorch port of the framework-free part of ``distributed_llm_scheduler_tpu.
 analysis`` that ``core.validate.validate_schedule`` needs: the structured
 diagnostics, the schedule-consistency pass and the memory-feasibility
-pass.  The other passes, the ``analyze`` entry point and the pre-execution gate
+pass; and the stream-safety prover that ``DeviceBackend.execute(
+compiled=True, stream_params=True)`` consults.  The other passes, the ``analyze`` entry point and the pre-execution gate
 are not ported yet.
 """
 
@@ -17,6 +18,7 @@ from .diagnostics import (
 )
 from .memory_pass import analyze_memory, node_memory_slice
 from .schedule_pass import analyze_schedule, placement_of
+from .stream_pass import analyze_streaming, compiled_stream_refusal, stream_verdict
 
 __all__ = [
     "CODES",
@@ -27,6 +29,9 @@ __all__ = [
     "Severity",
     "analyze_memory",
     "analyze_schedule",
+    "analyze_streaming",
+    "compiled_stream_refusal",
     "node_memory_slice",
     "placement_of",
+    "stream_verdict",
 ]

@@ -32,6 +32,13 @@ The execution ladder, from the finest rung to the coarsest:
 4. compiled (``compiled=True``, :mod:`.compiled_schedule`): the whole placed
    run is one CUDA graph with a stream per node; one replay per run.
 
+Parameter streaming (``stream_params=True``, :class:`DeviceBackend.
+_ParamStreamer`) runs a placement whose nodes cannot hold their weights:
+each node loads a parameter from pinned host memory before its first use
+and evicts under its budget, on the per-task and segmented rungs (a
+segment is then an eager program per load, never a captured one: a
+captured graph reads its parameters at fixed addresses).
+
 Timing: the makespan runs from an event on each card's current stream (the
 clock stream), which every node stream waits on at the start of a run, to
 an event on the clock stream after it has waited on every node stream; on
@@ -43,8 +50,10 @@ timestamps on the CPU) around every task.  Peak device memory comes from
 
 from __future__ import annotations
 
+import bisect
 import time
 import weakref
+from contextlib import nullcontext
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -95,6 +104,23 @@ class DeviceReport:
     # A captured segment's exports live in its graph's memory and hold
     # until that segment replays again
     task_outputs: Dict[str, Any] = field(default_factory=dict)
+    # bytes allocated on each card when execute began (the caller's
+    # tensors, earlier programs): peak_hbm_bytes minus this is the peak
+    # the call itself added
+    held_hbm_bytes: Dict[str, int] = field(default_factory=dict)
+    # stream_params=True: streaming statistics of the timed run.
+    # ``streamed`` is the mode flag (a streamed run that loaded nothing
+    # still reports its all-zero counts)
+    streamed: bool = False
+    param_loads: int = 0
+    # batched load calls (<= param_loads: a task's missing params go up in
+    # one call) and the bytes loaded over the host link
+    param_load_calls: int = 0
+    param_load_bytes: int = 0
+    param_evictions: int = 0
+    # the streamer's ledger peak per node: resident plus evicted bytes not
+    # yet freed
+    peak_param_bytes: Dict[str, int] = field(default_factory=dict)
 
     @property
     def total_param_gb_placed(self) -> float:
@@ -117,11 +143,54 @@ class DeviceReport:
             "peak_hbm_gb": {
                 k: v / 1024**3 for k, v in self.peak_hbm_bytes.items()
             },
+            **(
+                {
+                    "param_loads": self.param_loads,
+                    "param_load_calls": self.param_load_calls,
+                    "param_load_mb": self.param_load_bytes / 1024**2,
+                    "param_evictions": self.param_evictions,
+                    "peak_param_gb": {
+                        k: v / 1024**3
+                        for k, v in self.peak_param_bytes.items()
+                    },
+                }
+                if self.streamed
+                else {}
+            ),
         }
 
 
 def _nbytes(x: torch.Tensor) -> int:
     return x.numel() * x.element_size()
+
+
+def _leaves(v: Any) -> List[torch.Tensor]:
+    """The tensors of a parameter: a tensor, or a NamedTuple of tensors
+    (``utils.quantize.QParam``)."""
+    return [v] if isinstance(v, torch.Tensor) else list(v)
+
+
+def _array_bytes(v: Any) -> int:
+    """Bytes of a parameter over its leaves, as the JAX package's
+    ``_array_bytes`` counts a pytree."""
+    return sum(_nbytes(t) for t in _leaves(v))
+
+
+def _map_leaves(fn, v: Any) -> Any:
+    """``fn`` applied to each tensor of a parameter; a QParam stays one."""
+    if isinstance(v, torch.Tensor):
+        return fn(v)
+    return type(v)(*(fn(t) for t in v))
+
+
+def pin_params(params: Dict[str, Any]) -> Dict[str, Any]:
+    """``params`` with every host tensor in pinned memory (tensors that
+    are pinned already are kept): a ``non_blocking`` copy to a card
+    overlaps compute only from pinned memory.  Needs CUDA."""
+    return {
+        k: _map_leaves(lambda t: t if t.is_pinned() else t.pin_memory(), v)
+        for k, v in params.items()
+    }
 
 
 def _args_of(task) -> List[str]:
@@ -139,6 +208,20 @@ def node_stream(device: torch.device, k: int):
     s = _NODE_STREAMS.get((device, k))
     if s is None:
         s = _NODE_STREAMS[(device, k)] = torch.cuda.Stream(device=device)
+    return s
+
+
+_COPY_STREAMS: Dict[Any, Any] = {}
+
+
+def copy_stream(device: torch.device):
+    """The card's parameter-load stream, made once per process.  Every
+    streamer issues its host-to-card copies for that card here, so the
+    memory a load frees returns to this stream's pool and the next load
+    reuses it in stream order."""
+    s = _COPY_STREAMS.get(device)
+    if s is None:
+        s = _COPY_STREAMS[device] = torch.cuda.Stream(device=device)
     return s
 
 
@@ -310,18 +393,294 @@ class DeviceBackend:
         """Put each param onto the device of every node that runs a task
         needing it.  Returns ``(param_name, node_id) -> tensor`` plus the
         bytes placed per node (a param needed on k nodes counts k times;
-        a tensor already on the node's device is used in place)."""
-        placed: Dict[Tuple[str, str], torch.Tensor] = {}
+        a tensor already on the node's device is used in place; an int8
+        QParam moves and counts leaf by leaf)."""
+        placed: Dict[Tuple[str, str], Any] = {}
         bytes_per_node: Dict[str, int] = {d.node_id: 0 for d in self.cluster}
         for tid, node_id in schedule.placement.items():
             dev = self.cluster[node_id].torch_device
             for p in graph[tid].params_needed:
                 key = (p, node_id)
                 if key not in placed:
-                    placed[key] = params[p].to(dev)
-                    bytes_per_node[node_id] += _nbytes(params[p])
+                    placed[key] = _map_leaves(lambda t: t.to(dev), params[p])
+                    bytes_per_node[node_id] += _array_bytes(params[p])
         self._synchronize()
         return placed, bytes_per_node
+
+    # -- parameter streaming ----------------------------------------------
+    class _ParamStreamer:
+        """On-demand parameter residency with eviction under a per-node
+        budget: the reference's param-cache eviction model (reference
+        ``schedulers.py:404-442``) made physical.  A node whose weights
+        exceed its budget loads each parameter before its first use and
+        evicts residents to make room.  Every host-side decision (which
+        parameters load and evict, in which batched call, the ledger's
+        bytes) is the JAX package's ``_ParamStreamer``'s on the same plan:
+
+        * **plan-aware prefetch**: the schedule fixes each node's task
+          order (``plan``), so the parameters of the next ``lookahead``
+          units load while the current one computes; a prefetch never
+          overshoots the budget;
+        * **Belady eviction**: with a plan, the victim is the resident
+          whose next use is farthest away; LRU without one;
+        * **batched loads**: a unit's missing parameters go up in one call
+          (``load_calls``), each a ``non_blocking`` copy from the host on
+          the card's :func:`copy_stream`, with one event recorded after
+          the batch; the consumer's node stream waits on that event before
+          its first use of the batch;
+        * **deferred frees**: an evicted tensor may still feed queued work,
+          so it enters a graveyard with its last consumer's per-node step
+          and the event recorded after that consumer on the node's stream.
+          :meth:`_flush` drops it only once that event has completed (a
+          host wait, in place of the JAX package's ``block_until_ready``
+          on the consumer's output), and a per-node watermark makes a wait
+          on an already-passed step free.  Only then can the allocator
+          hand its block to the next load.
+
+        The ``bytes`` ledger counts resident plus graveyard bytes (memory
+        is not free until the drop), so ``peak`` is physically honest.  On
+        the CPU a load is ``Tensor.to("cpu")``, which returns the caller's
+        tensor itself: dropping it frees nothing, but the ledger counts it
+        exactly as the JAX package does.
+        """
+
+        def __init__(
+            self,
+            cluster: Cluster,
+            params: Dict[str, Any],
+            plan: Optional[Dict[str, List[Tuple[str, Tuple[str, ...]]]]] = None,
+            lookahead: int = 8,
+            streams: Optional[Dict[str, Any]] = None,
+        ):
+            self.cluster = cluster
+            self.host_params = params
+            # node id -> its stream, for the nodes on a card
+            self.streams = streams or {}
+            self.resident: Dict[str, Dict[str, Any]] = {
+                d.node_id: {} for d in cluster
+            }
+            # node -> name -> the event after the load of a resident param
+            # that the node's stream has not waited on yet
+            self.ready: Dict[str, Dict[str, Any]] = {
+                d.node_id: {} for d in cluster
+            }
+            self.bytes: Dict[str, int] = {d.node_id: 0 for d in cluster}
+            self.peak: Dict[str, int] = {d.node_id: 0 for d in cluster}
+            self.budget: Dict[str, int] = {
+                d.node_id: int(d.total_memory * 1024**3) for d in cluster
+            }
+            self.last_use: Dict[str, Dict[str, int]] = {
+                d.node_id: {} for d in cluster
+            }
+            # plan: node -> [(unit id, param globals)] in dispatch order
+            self.plan = plan or {}
+            self.pos: Dict[str, int] = {n: -1 for n in self.plan}
+            # node -> param -> ascending plan positions where it is used
+            self.uses: Dict[str, Dict[str, List[int]]] = {}
+            for n, entries in self.plan.items():
+                u: Dict[str, List[int]] = {}
+                for i, (_tid, globs) in enumerate(entries):
+                    for g in globs:
+                        u.setdefault(g, []).append(i)
+                self.uses[n] = u
+            self.lookahead = lookahead
+            # per node: dispatch step, last step known complete, each
+            # param's last consumer (step, event after it), and evicted
+            # tensors not yet dropped (step, event, tensor, bytes, name)
+            self.node_step: Dict[str, int] = {d.node_id: 0 for d in cluster}
+            self.fenced_step: Dict[str, int] = {d.node_id: 0 for d in cluster}
+            self.last_consumer: Dict[str, Dict[str, Tuple[int, Any]]] = {
+                d.node_id: {} for d in cluster
+            }
+            self.graveyard: Dict[str, List[Tuple[int, Any, Any, int, str]]] = {
+                d.node_id: [] for d in cluster
+            }
+            self.loads = 0
+            self.load_calls = 0
+            self.load_bytes = 0
+            # params not resident when their own unit asked for them (the
+            # loads a unit's dispatch waited for) against prefetched ones
+            self.demand_misses = 0
+            self.evictions = 0
+            self._step = 0
+
+        def note_task(self, node_id: str, globs) -> None:
+            """Record that a unit consuming ``globs`` was just issued on
+            the node: an event after it on the node's stream (None on the
+            CPU, whose ops are synchronous) anchors those params' frees."""
+            self.node_step[node_id] += 1
+            step = self.node_step[node_id]
+            ev = None
+            s = self.streams.get(node_id)
+            if s is not None:
+                ev = torch.cuda.Event()
+                ev.record(s)
+            for g in globs:
+                self.last_consumer[node_id][g] = (step, ev)
+
+        def _next_use(self, node_id: str, name: str) -> float:
+            uses = self.uses.get(node_id, {}).get(name)
+            if not uses:
+                return float("inf")
+            i = bisect.bisect_right(uses, self.pos.get(node_id, -1))
+            return uses[i] if i < len(uses) else float("inf")
+
+        def _flush(self, node_id: str, need_bytes: int) -> int:
+            """Drop graveyard tensors, oldest consumer first, until
+            ``need_bytes`` are freed or the graveyard is empty.  Waits only
+            for an entry whose consumer step is past the watermark, and
+            then for that consumer's event, not the node's last work."""
+            g = self.graveyard[node_id]
+            g.sort(key=lambda e: e[0])
+            freed = 0
+            while g and freed < need_bytes:
+                step, ev, _arr, nbytes, _name = g.pop(0)
+                if step > self.fenced_step[node_id] and ev is not None:
+                    ev.synchronize()
+                    self.fenced_step[node_id] = step
+                self.bytes[node_id] -= nbytes
+                freed += nbytes
+            return freed
+
+        def _evict_one(
+            self, node_id: str, pinned: set, horizon: Optional[int]
+        ) -> int:
+            """Move one victim to the graveyard.  Returns its bytes, 0 when
+            nothing is evictable (only pinned residents), or -1 when the
+            best victim is needed at or before ``horizon`` (prefetch would
+            thrash: the caller stops prefetching)."""
+            res = self.resident[node_id]
+            victims = [p for p in res if p not in pinned]
+            if not victims:
+                return 0
+            if node_id in self.uses:
+                victim = max(
+                    victims, key=lambda p: self._next_use(node_id, p)
+                )
+                if (
+                    horizon is not None
+                    and self._next_use(node_id, victim) <= horizon
+                ):
+                    return -1
+            else:
+                lru = self.last_use[node_id]
+                victim = min(victims, key=lambda p: lru.get(p, 0))
+            arr = res.pop(victim)
+            self.ready[node_id].pop(victim, None)
+            self.last_use[node_id].pop(victim, None)
+            step, ev = self.last_consumer[node_id].pop(victim, (0, None))
+            nbytes = _array_bytes(arr)
+            # the bytes stay on the ledger until _flush drops the tensor
+            self.graveyard[node_id].append((step, ev, arr, nbytes, victim))
+            self.evictions += 1
+            return nbytes
+
+        def _load(self, node_id: str, names: List[str]) -> None:
+            """ONE batched load of ``names`` onto the node's device."""
+            dev = self.cluster[node_id].torch_device
+            cs = copy_stream(dev) if dev.type == "cuda" else None
+            with torch.cuda.stream(cs) if cs is not None else nullcontext():
+                arrs = [
+                    _map_leaves(
+                        lambda t: t.to(dev, non_blocking=True),
+                        self.host_params[n],
+                    )
+                    for n in names
+                ]
+            ev = None
+            if cs is not None:
+                ev = torch.cuda.Event()
+                ev.record(cs)
+            self.load_calls += 1
+            for n, a in zip(names, arrs):
+                self.resident[node_id][n] = a
+                if ev is not None:
+                    self.ready[node_id][n] = ev
+                # the ledger counts the placed bytes
+                nb = _array_bytes(a)
+                self.bytes[node_id] += nb
+                self.load_bytes += nb
+                self.loads += 1
+                self.last_use[node_id][n] = self._step
+            self.peak[node_id] = max(self.peak[node_id], self.bytes[node_id])
+
+        def _ensure(
+            self,
+            node_id: str,
+            names: List[str],
+            pinned: set,
+            horizon: Optional[int] = None,
+        ) -> bool:
+            """Make ``names`` resident, evicting and freeing as needed.
+            Returns False when stopped by the prefetch ``horizon``."""
+            # a fused task can alias two local names to one global: load
+            # it once
+            missing = list(dict.fromkeys(
+                n for n in names if n not in self.resident[node_id]
+            ))
+            if not missing:
+                return True
+            need = sum(_array_bytes(self.host_params[n]) for n in missing)
+            budget = self.budget[node_id]
+            while self.bytes[node_id] + need > budget:
+                deficit = self.bytes[node_id] + need - budget
+                if self.graveyard[node_id]:
+                    self._flush(node_id, deficit)
+                    continue
+                r = self._evict_one(node_id, pinned, horizon)
+                if r == -1:
+                    return False
+                if r == 0:
+                    if horizon is not None:
+                        # a prefetch never overshoots the budget; only a
+                        # unit's own params may (it cannot run without them)
+                        return False
+                    break
+            self._load(node_id, missing)
+            return True
+
+        def get_task(self, tid: str, node_id: str, param_items) -> Dict[str, Any]:
+            """Resident params for unit ``tid`` (local name -> tensor), its
+            node's stream made to wait on their loads; then prefetch the
+            next ``lookahead`` planned units' params into the budget."""
+            self._step += 1
+            items = tuple(param_items)
+            names = [g for _, g in items]
+            entries = self.plan.get(node_id)
+            if entries is not None:
+                # advance the plan cursor to this unit; units skipped at
+                # dispatch (failed upstreams) fall out of the walk
+                i = self.pos[node_id] + 1
+                while i < len(entries) and entries[i][0] != tid:
+                    i += 1
+                if i < len(entries):
+                    self.pos[node_id] = i
+            pinned = set(names)
+            self.demand_misses += sum(
+                1 for n in pinned if n not in self.resident[node_id]
+            )
+            self._ensure(node_id, names, pinned)
+            for n in names:
+                self.last_use[node_id][n] = self._step
+            s = self.streams.get(node_id)
+            if s is not None:
+                waited = set()
+                for n in pinned:
+                    ev = self.ready[node_id].pop(n, None)
+                    if ev is not None and ev not in waited:
+                        s.wait_event(ev)
+                        waited.add(ev)
+            out = {loc: self.resident[node_id][g] for loc, g in items}
+            if entries is not None:
+                p = self.pos[node_id]
+                stop = min(p + 1 + self.lookahead, len(entries))
+                for j in range(p + 1, stop):
+                    _t, globs = entries[j]
+                    if not self._ensure(
+                        node_id, list(globs), pinned | set(globs), horizon=j
+                    ):
+                        break
+            return out
 
     # -- dispatch order ----------------------------------------------------
     @staticmethod
@@ -390,7 +749,11 @@ class DeviceBackend:
     # -- segment fusion ----------------------------------------------------
     @staticmethod
     def build_segments(
-        graph: TaskGraph, schedule: Schedule, order: List[str]
+        graph: TaskGraph,
+        schedule: Schedule,
+        order: List[str],
+        max_union_gb: Optional[Dict[str, float]] = None,
+        param_gb: Optional[Dict[str, float]] = None,
     ) -> List[Segment]:
         """Partition the dispatch order into per-node segments.
 
@@ -403,19 +766,46 @@ class DeviceBackend:
 
         Returns (node_id, tids, exports): ``exports`` are the tasks whose
         outputs are consumed by later segments or by nobody (leaves).
-        The reference's budget split for parameter streaming
-        (``max_union_gb``) waits for the streaming port.
+
+        ``max_union_gb`` (for segment-granular parameter streaming): a
+        per-node cap on a segment's param-global union.  A run splits
+        when adding a task would push its union past the cap, so each
+        segment's weights fit the streaming budget and eviction happens
+        between segments; a single task whose own params exceed the cap
+        still gets an (over-budget) segment.  ``param_gb`` overrides
+        per-name sizes (callers holding the tensors pass their true
+        bytes); missing names fall back to the graph's declared sizes.
         """
         placement = schedule.placement
         runs: List[Tuple[str, List[str]]] = []
+        run_names: set = set()   # current run's param-global names
+        run_total = 0.0          # its union GB, a running total
+        sizes = param_gb or {}
+
+        def size_of(g: str) -> float:
+            s = sizes.get(g)
+            return s if s is not None else graph.param_size_gb(g)
+
         for tid in order:
             if tid not in placement:
                 continue
             node = placement[tid]
-            if runs and runs[-1][0] == node:
+            globs = list(dict.fromkeys(g for _, g in graph[tid].param_items()))
+            same_node = bool(runs) and runs[-1][0] == node
+            if same_node and max_union_gb and node in max_union_gb:
+                extra = sum(size_of(g) for g in globs if g not in run_names)
+                if run_total + extra > max_union_gb[node] and run_names:
+                    same_node = False  # budget split (never an empty run)
+            if same_node:
                 runs[-1][1].append(tid)
             else:
                 runs.append((node, [tid]))
+                run_names = set()
+                run_total = 0.0
+            for g in globs:
+                if g not in run_names:
+                    run_names.add(g)
+                    run_total += size_of(g)
         consumers: Dict[str, set] = {tid: set() for tid in placement}
         for seg_i, (_, tids) in enumerate(runs):
             for tid in tids:
@@ -430,6 +820,34 @@ class DeviceBackend:
             )
             segments.append((node, tuple(tids), exports))
         return segments
+
+    # fraction of a node's streaming budget one segment's param union may
+    # take: 0.5 leaves room for the NEXT segment's union to prefetch while
+    # the current segment runs
+    STREAM_SEGMENT_FRAC = 0.5
+
+    def _stream_segment_caps(self) -> Dict[str, float]:
+        return {
+            d.node_id: d.total_memory * self.STREAM_SEGMENT_FRAC
+            for d in self.cluster
+        }
+
+    @staticmethod
+    def segment_stream_plan(
+        graph: TaskGraph, segments: List[Segment]
+    ) -> Dict[str, List[Tuple[str, Tuple[str, ...]]]]:
+        """Per-node streamer plan at segment granularity: each entry is
+        (``__seg<i>``, the segment's param-global union), so one batched
+        load serves a segment and the next segment prefetches while the
+        current one runs."""
+        plan: Dict[str, List[Tuple[str, Tuple[str, ...]]]] = {}
+        for i, (node, tids, _exports) in enumerate(segments):
+            seen: Dict[str, None] = {}
+            for tid in tids:
+                for _, g in graph[tid].param_items():
+                    seen.setdefault(g)
+            plan.setdefault(node, []).append((f"__seg{i}", tuple(seen)))
+        return plan
 
     @staticmethod
     def _segment_callable(
@@ -486,8 +904,9 @@ class DeviceBackend:
         reads its params where they were at capture); the reference caches
         each segment's program per (graph, tids, exports, rebatch)."""
         per_graph = self._seg_cache.setdefault(graph, {})
-        key = (tuple(segments), rebatch,
-               tuple(sorted((k, v.data_ptr()) for k, v in placed.items())))
+        key = (tuple(segments), rebatch, tuple(sorted(
+            (k, tuple(t.data_ptr() for t in _leaves(v)))
+            for k, v in placed.items())))
         fns = per_graph.get(key)
         if fns is None:
             fns, pools = [], {}
@@ -534,13 +953,16 @@ class DeviceBackend:
         profile: bool = False,
         ext_outputs: Optional[Dict[str, Any]] = None,
         cross: frozenset = frozenset(),
+        streamer: Optional["DeviceBackend._ParamStreamer"] = None,
     ) -> Tuple[Any, Dict[str, TaskTiming], int, int, int, float, Dict[str, Any]]:
         """Per-task rung: one host call per task, in dispatch order, each
         on its node's stream.  Every output is held to the end of the run.
         ``ext_outputs`` seed the value table with outputs produced outside
         this graph (they count as transfers when consumed).  ``cross``
         names the tasks read on another node's stream: each records an
-        event after it for those readers to wait on."""
+        event after it for those readers to wait on.  With a ``streamer``
+        a task's params come from it (loaded, its stream made to wait)
+        instead of ``placed``."""
         placement = schedule.placement
         outputs: Dict[str, Any] = dict(ext_outputs or {})
         n_ext = len(outputs)
@@ -571,10 +993,13 @@ class DeviceBackend:
                     continue  # upstream failed; propagate skip
 
                 s = sw.to(node_id)
-                pd = {
-                    loc: placed[(glob, node_id)]
-                    for loc, glob in task.param_items()
-                }
+                if streamer is not None:
+                    pd = streamer.get_task(tid, node_id, task.param_items())
+                else:
+                    pd = {
+                        loc: placed[(glob, node_id)]
+                        for loc, glob in task.param_items()
+                    }
                 if arg_ids:
                     args = []
                     for d in arg_ids:
@@ -605,6 +1030,9 @@ class DeviceBackend:
                 else:
                     out = task.fn(pd, *args)
                 outputs[tid] = out
+                if streamer is not None:
+                    streamer.note_task(
+                        node_id, [g for _, g in task.param_items()])
                 if s is not None and tid in cross:
                     ev = torch.cuda.Event()
                     ev.record(s)
@@ -637,6 +1065,7 @@ class DeviceBackend:
         seg_fns: List[Any],
         clocks: Dict[Any, Any],
         ext_outputs: Optional[Dict[str, Any]] = None,
+        streamer: Optional["DeviceBackend._ParamStreamer"] = None,
     ) -> Tuple[Any, Dict, int, int, int, float, Dict[str, Any]]:
         """Segment-fused execution: same placement, one call per segment,
         on its node's stream.  Cross-segment inputs are deduplicated per
@@ -644,7 +1073,14 @@ class DeviceBackend:
         counts (and, between cards, moves) once, so transfer counts can be
         LOWER than per-task dispatch.  A captured segment reads an output
         of another captured segment of its card in place (the same tensor
-        every run), so only the other inputs are copied before a replay."""
+        every run), so only the other inputs are copied before a replay.
+
+        With a ``streamer`` (segment-granular parameter streaming) the
+        segments were budget-split (:meth:`build_segments` with
+        ``max_union_gb``) and are eager callables: each segment's union
+        loads as one batched call (unit ``__seg<i>`` of
+        :meth:`segment_stream_plan`), and the event after the segment
+        anchors the frees of its params."""
         placement = schedule.placement
         outputs: Dict[str, Any] = dict(ext_outputs or {})
         # task ids whose value is a captured program's own output
@@ -655,7 +1091,8 @@ class DeviceBackend:
         many = len(self.streams) > 1
         t_loop0 = time.perf_counter()
         with torch.no_grad(), StreamSwitch(self.streams, clocks) as sw:
-            for (node, tids, exports), fn in zip(segments, seg_fns):
+            for seg_i, ((node, tids, exports), fn) in enumerate(
+                    zip(segments, seg_fns)):
                 dev = self.cluster[node].torch_device
                 s = sw.to(node)
                 ext: Dict[str, Any] = {}
@@ -685,7 +1122,11 @@ class DeviceBackend:
                             ext[d] = x
                 if needs_input:
                     ext["__input__"] = graph_input.to(dev)
-                union = {g: placed[(g, node)] for g in union_names}
+                if streamer is not None:
+                    union = streamer.get_task(
+                        f"__seg{seg_i}", node, [(g, g) for g in union_names])
+                else:
+                    union = {g: placed[(g, node)] for g in union_names}
                 if isinstance(fn, CapturedProgram):
                     seg_out = fn(union, ext, frozenset(
                         d for d, x in ext.items()
@@ -693,6 +1134,8 @@ class DeviceBackend:
                     static.update(seg_out)
                 else:
                     seg_out = fn(union, ext)
+                if streamer is not None:
+                    streamer.note_task(node, list(union_names))
                 if s is not None and many:
                     ev = torch.cuda.Event()
                     ev.record(s)
@@ -806,22 +1249,63 @@ class DeviceBackend:
         times into ``timings`` (and ``schedule.timings``); it needs
         ``reps == 1``.
 
+        ``stream_params=True`` replaces up-front placement with planned
+        streaming under each node's ``total_memory`` budget
+        (:class:`_ParamStreamer`): batched loads from pinned host memory
+        on the card's copy stream, prefetched 8 units ahead of the dispatch
+        cursor, Belady eviction and deferred frees,
+        so a node whose weights exceed its budget still runs.  ``params``
+        must lie on the host (parameters already on a card are resident
+        whatever the budget says, and raise) and, for a card, in pinned
+        memory (:func:`pin_params`; unpinned ones raise).  It runs on the per-task rung
+        (``planned`` off by default, refused when asked for) and, with
+        ``segments=True``, on budget-split eager segments, one batched
+        load per segment.  ``reps > 1`` is refused: a streamed run starts
+        cold (the warm-up streams through a streamer of its own).  With
+        ``compiled=True`` the stream-safety pass decides
+        (:func:`..analysis.analyze_streaming`): a schedule whose every
+        node's union fits its budget runs the compiled rung with every
+        parameter resident; any other raises ``AnalysisError`` with the
+        per-node STR002/STR003 diagnosis.  The report carries
+        ``param_loads``, ``param_load_calls``, ``param_load_bytes``,
+        ``param_evictions`` and ``peak_param_bytes``.
+
         Left out against the reference: ``fence_rtt`` (CUDA events time
         the device, so there is no readback fence to net out) and
         ``donate`` (the planned path releases each value after its last
-        consumer instead).  ``stream_params`` is not ported yet and
-        raises.
+        consumer instead).
         """
-        if stream_params:
-            raise NotImplementedError(
-                "stream_params: parameter streaming is not ported yet "
-                "(ROADMAP.md A.2)"
-            )
         if segments and profile:
             raise ValueError(
                 "profile=True needs per-task dispatch; run without segments"
             )
+        if stream_params:
+            on_card = sorted(
+                k for k, v in params.items()
+                if any(t.device.type == "cuda" for t in _leaves(v)))
+            if on_card:
+                raise ValueError(
+                    f"stream_params=True: params {on_card[:3]} are on a "
+                    "card, so the whole model is resident whatever the "
+                    "budget says; pass the params on the host"
+                )
         if compiled:
+            if stream_params:
+                # the stream-safety pass decides: every node's union fits
+                # its budget -> the compiled rung with every param
+                # resident; anything that must evict stays on the eager
+                # streamed rungs and is refused with the diagnosis
+                from ..analysis import (
+                    AnalysisError,
+                    analyze_streaming,
+                    compiled_stream_refusal,
+                    stream_verdict,
+                )
+
+                srep = analyze_streaming(graph, self.cluster, schedule)
+                if stream_verdict(srep) != "compilable":
+                    raise AnalysisError(compiled_stream_refusal(srep))
+                stream_params = False
             incompatible = [
                 name for name, flag in (
                     ("profile", profile),
@@ -838,11 +1322,12 @@ class DeviceBackend:
                 )
             planned = False
         if planned is None:
-            planned = not (profile or segments)
-        elif planned and (profile or segments):
+            planned = not (profile or stream_params or segments)
+        elif planned and (profile or stream_params or segments):
             raise ValueError(
                 "planned dispatch is incompatible with profile (per-task "
-                "timing hooks) and segments (already fused)"
+                "timing hooks), stream_params (param residency changes "
+                "mid-run), and segments (already fused)"
             )
         if coalesce and not planned:
             raise ValueError("coalesce=True requires the planned path")
@@ -850,6 +1335,11 @@ class DeviceBackend:
             raise ValueError(f"reps must be >= 1, got {reps}")
         if reps > 1 and profile:
             raise ValueError("profile mode times one run; use reps=1")
+        if reps > 1 and stream_params:
+            raise ValueError(
+                "stream_params runs must start cold: a later rep would "
+                "measure a warm param cache; use reps=1"
+            )
         graph.freeze()
         no_fn = [t.task_id for t in graph if t.fn is None]
         if no_fn:
@@ -866,7 +1356,25 @@ class DeviceBackend:
             from .compiled_schedule import one_device
 
             one_device(self, nodes)
-        placed, bytes_per_node = self.place_params(graph, schedule, params)
+        held = {
+            str(dev): int(torch.cuda.memory_allocated(dev))
+            for dev in self.cuda_devices
+        }
+        stream_plan: Dict[str, List[Tuple[str, Tuple[str, ...]]]] = {}
+        if stream_params:
+            if self.cuda_devices:
+                unpinned = sorted(
+                    k for k, v in params.items()
+                    if not all(t.is_pinned() for t in _leaves(v)))
+                if unpinned:
+                    raise ValueError(
+                        f"stream_params=True: params {unpinned[:3]} are not "
+                        "pinned, so a non_blocking load would run in step "
+                        "with the host; pin them once with pin_params"
+                    )
+            placed, bytes_per_node = {}, {d.node_id: 0 for d in self.cluster}
+        else:
+            placed, bytes_per_node = self.place_params(graph, schedule, params)
         prog = plan = None
         order: List[str] = []
         cross: frozenset = frozenset()
@@ -900,15 +1408,38 @@ class DeviceBackend:
             for tid in order:
                 if all(d in alive for d in _args_of(graph[tid])):
                     alive.add(tid)
-            segs = self.build_segments(
-                graph, schedule,
-                [t for t in order
-                 if t in alive and t not in (ext_outputs or ())])
-            seg_fns = self._segment_programs(graph, segs, rebatch, placed)
+            kept = [t for t in order
+                    if t in alive and t not in (ext_outputs or ())]
+            if stream_params:
+                # budget-split by the params' true bytes; eager callables,
+                # since a captured graph would read a streamed param at an
+                # address the next load frees
+                segs = self.build_segments(
+                    graph, schedule, kept,
+                    max_union_gb=self._stream_segment_caps(),
+                    param_gb={g: _array_bytes(params[g]) / 1024**3
+                              for g in graph.unique_params()})
+                seg_fns = [self._segment_callable(graph, tids, exports, rebatch)
+                           for _node, tids, exports in segs]
+                stream_plan = self.segment_stream_plan(graph, segs)
+            else:
+                segs = self.build_segments(graph, schedule, kept)
+                seg_fns = self._segment_programs(graph, segs, rebatch, placed)
+        if stream_params and not segments:
+            for tid in order:
+                node = schedule.placement.get(tid)
+                if node is not None:
+                    stream_plan.setdefault(node, []).append(
+                        (tid, tuple(g for _, g in graph[tid].param_items())))
 
-        def one_rep(clocks, prof: bool = False):
-            """One placed run: (output, timings, transfer edges, transfer
-            bytes, host calls, loop seconds, executed outputs)."""
+        def streamer():
+            return self._ParamStreamer(
+                self.cluster, params, plan=stream_plan, streams=self.streams)
+
+        def one_rep(clocks, prof: bool = False, st=None):
+            """One placed run (its params from ``st`` when streaming):
+            (output, timings, transfer edges, transfer bytes, host calls,
+            loop seconds, executed outputs)."""
             if prog is not None:  # the graph forks and joins its streams
                 return prog.run(graph_input)
             self._fork(clocks, nodes)
@@ -917,18 +1448,22 @@ class DeviceBackend:
             elif segments:
                 out = self._run_segmented(
                     graph, schedule, placed, graph_input, segs, seg_fns,
-                    clocks, ext_outputs)
+                    clocks, ext_outputs, st)
             else:
                 out = self._run(graph, schedule, placed, graph_input, order,
-                                clocks, prof, ext_outputs, cross)
+                                clocks, prof, ext_outputs, cross, st)
             self._join(clocks, nodes)
             return out
 
         compile_s = 0.0
         if warmup:
             t0 = time.perf_counter()
-            one_rep(self._clocks())
+            # a throwaway streamer, so the timed run's starts cold; it
+            # drops its params only after the card has finished with them
+            warm = streamer() if stream_params else None
+            one_rep(self._clocks(), st=warm)
             self._synchronize()
+            del warm
             compile_s = time.perf_counter() - t0
 
         for dev in self.cuda_devices:
@@ -939,11 +1474,12 @@ class DeviceBackend:
         one_card = len(self.devices) == 1 and bool(self.cuda_devices)
         t0 = self._mark(self.devices[0]) if one_card else time.perf_counter()
         loop_s = 0.0
+        st = streamer() if stream_params else None
         for _ in range(reps):
             # the last run's outputs die before this run's are made
             output = executed = None
             output, timings, tedges, tbytes, n_disp, rep_loop_s, executed = (
-                one_rep(clocks, profile))
+                one_rep(clocks, profile, st))
             loop_s += rep_loop_s
         if one_card:
             t1 = self._mark(self.devices[0])
@@ -979,4 +1515,11 @@ class DeviceBackend:
             compiled=prog is not None,
             captured_launches=captured,
             task_outputs=executed if keep_outputs else {},
+            held_hbm_bytes=held,
+            streamed=st is not None,
+            param_loads=st.loads if st else 0,
+            param_load_calls=st.load_calls if st else 0,
+            param_load_bytes=st.load_bytes if st else 0,
+            param_evictions=st.evictions if st else 0,
+            peak_param_bytes=dict(st.peak) if st else {},
         )

@@ -13,7 +13,12 @@ what the device backend pays on the card:
 * **interconnect** (device → device): a tensor on one card copied onto a
   second card (a peer copy over NVLink where the cards have it).  It is
   measured only when two CUDA devices are given; with one card it keeps
-  the H100 estimate below and says so in its provenance.
+  the H100 estimate below and says so in its provenance;
+* **sustained** (host → device, ``calibrate_link(sustained=True)``): a
+  back-to-back train of copies timed as one window, the copy the
+  parameter streamer issues (``backends.device._ParamStreamer``): from
+  pinned host memory, ``non_blocking``, on the card's copy stream.  It is
+  the floor of a streamed run, which moves hundreds of MB back to back.
 
 Each copy is timed with CUDA events on the stream that runs it, best of
 ``repeats`` per size, with a fresh source tensor every repeat.  The
@@ -110,6 +115,10 @@ class LinkCalibration:
     )
     samples: Dict[str, List[List[float]]] = field(default_factory=dict)
     measured_at: str = ""
+    # GB/s of a back-to-back train of pinned, asynchronous copies on the
+    # streamer's copy stream (calibrate_link(sustained=True)); None until
+    # measured
+    sustained_gbps: Optional[float] = None
 
     def to_link_model(self):
         from ..backends.sim import LinkModel
@@ -134,6 +143,7 @@ class LinkCalibration:
                     "samples": self.samples,
                     "measured_at": self.measured_at,
                     "baseline_gbps": self.baseline_gbps,
+                    "sustained_gbps": self.sustained_gbps,
                 },
                 f,
                 indent=1,
@@ -153,6 +163,7 @@ class LinkCalibration:
             samples=d.get("samples", {}),
             measured_at=d.get("measured_at", ""),
             baseline_gbps=d.get("baseline_gbps"),
+            sustained_gbps=d.get("sustained_gbps"),
         )
 
 
@@ -185,6 +196,7 @@ def calibrate_link(
     devices: Optional[Sequence[Any]] = None,
     sizes: Sequence[int] = _SIZES,
     repeats: int = 5,
+    sustained: bool = False,
 ) -> LinkCalibration:
     """Measure host->card and card->card copy costs.
 
@@ -192,6 +204,12 @@ def calibrate_link(
     the host-load target; the first two, when there are two, form the
     interconnect pair.  One warm-up copy per leg absorbs one-time CUDA
     and allocator set-up before timing.  Raises when there is no card.
+
+    ``sustained=True`` also times a back-to-back train of host->card
+    copies as the parameter streamer issues them (pinned source,
+    ``non_blocking``, on the card's copy stream): 8 buffers of the largest
+    size (at most 16 MB), between two events on that stream, best of 2
+    windows with fresh buffers each, into ``sustained_gbps``.
     """
     import numpy as np
     import torch
@@ -219,6 +237,39 @@ def calibrate_link(
     cal.param_load_gbps = gbps_h
     cal.provenance["param_load"] = "measured"
     cal.samples["param_load"] = [[s, t] for s, t in host_samples]
+
+    if sustained:
+        from ..backends.device import copy_stream
+
+        chunk = min(max(sizes), 16 << 20)
+        n_bufs = 8
+        cs = copy_stream(dev0)
+        with torch.cuda.stream(cs):
+            torch.ones(1024, dtype=torch.uint8).pin_memory().to(
+                dev0, non_blocking=True)
+        windows: List[float] = []
+        for w in range(2):
+            train = [
+                torch.from_numpy(np.random.default_rng(w * n_bufs + r).integers(
+                    0, 255, chunk, dtype=np.uint8)).pin_memory()
+                for r in range(n_bufs)
+            ]
+            torch.cuda.synchronize(dev0)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            with torch.cuda.stream(cs):
+                start.record(cs)
+                outs = [a.to(dev0, non_blocking=True) for a in train]
+                end.record(cs)
+            end.synchronize()
+            windows.append(start.elapsed_time(end) / 1e3)
+            del outs, train
+        t_train = min(windows)
+        if t_train <= 0:
+            raise RuntimeError(f"sustained link: windows {windows} s")
+        cal.sustained_gbps = (n_bufs * chunk) / t_train / 1024**3
+        cal.provenance["sustained"] = "measured"
+        cal.samples["sustained"] = [[n_bufs * chunk, w] for w in windows]
 
     # device -> device (interconnect leg) — needs a second card
     lat_d = None

@@ -139,11 +139,18 @@ def test_refused_combinations(tiny, bad):
 
 
 def test_stream_params_is_refused(tiny):
+    """A streamed schedule that must evict is refused by the stream-safety
+    pass with its diagnosis (one that fits runs compiled:
+    ``test_torch_stream_pass.py``)."""
+    from distributed_llm_scheduler_tpu_torch.analysis import AnalysisError
+
     tc, ts = placed(tiny, "greedy", 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.2"):
+    tc.devices[0].total_memory = 0.3 * tiny["tg"].total_param_gb()
+    with pytest.raises(AnalysisError) as e:
         P.DeviceBackend(tc).execute(
             tiny["tg"], ts, tiny["tparams"], torch.from_numpy(tiny["ids"]),
             compiled=True, stream_params=True)
+    assert {d.code for d in e.value.report.diagnostics} & {"STR002", "STR003"}
 
 
 def test_a_cluster_over_two_cards_is_refused(tiny):

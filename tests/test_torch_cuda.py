@@ -994,3 +994,120 @@ def test_node_streams_are_shared_across_backends(cuda):
     streams = [one.stream_of(f"core_{i}") for i in range(4)]
     assert len(set(streams)) == 4
     assert [two.stream_of(f"core_{i}") for i in range(2)] == streams[:2]
+
+
+# -- parameter streaming: copy stream, events, deferred frees ----------------
+
+def _stream_setup(cuda, n=1, policy="greedy"):
+    """GPT-2 small widths at 2 layers (bf16), params on the host, pinned."""
+    import distributed_llm_scheduler_tpu_torch as P
+    from distributed_llm_scheduler_tpu_torch.backends.device import pin_params
+
+    dag = P.build_gpt2_dag(P.GPT2Config.small(n_layer=2, dtype=torch.bfloat16),
+                           batch=2, seq_len=64, microbatches=2)
+    graph = dag.graph
+    cluster = P.Cluster.from_torch_devices([cuda] * n)
+    sched = P.get_scheduler(policy).schedule(graph, cluster)
+    assert not sched.failed
+    params = pin_params(dag.init_params(device="cpu"))
+    return P.DeviceBackend(cluster), graph, sched, params, dag.make_inputs(
+        device=cuda)
+
+
+@pytest.mark.cuda
+def test_streaming_under_heavy_block_reuse_is_bit_equal(cuda):
+    """A budget that holds one task's params: every load evicts, and the
+    allocator hands each freed block to the next load at once.  Over
+    several runs each streamed output equals the unstreamed one bit for
+    bit, per task and segmented (no re-batching)."""
+    backend, graph, sched, params, ids = _stream_setup(cuda)
+    biggest = max(sum(graph.param_size_gb(g) for g in t.params_needed)
+                  for t in graph)
+    for kw in (dict(planned=False), dict(segments=True, rebatch=False)):
+        backend.cluster.devices[0].total_memory = 16.0
+        want = backend.execute(graph, sched, params, ids, **kw).output.clone()
+        backend.cluster.devices[0].total_memory = biggest
+        for _ in range(3):
+            rep = backend.execute(graph, sched, params, ids,
+                                  stream_params=True, **kw)
+            torch.cuda.synchronize()
+            assert rep.param_evictions > 0 and rep.streamed
+            assert torch.equal(rep.output, want), kw
+
+
+@pytest.mark.cuda
+def test_stream_params_refuses_params_on_the_card(cuda):
+    backend, graph, sched, params, ids = _stream_setup(cuda)
+    on_card = {k: v.to(cuda) for k, v in params.items()}
+    with pytest.raises(ValueError, match="on a card"):
+        backend.execute(graph, sched, on_card, ids, stream_params=True)
+
+
+@pytest.mark.cuda
+def test_stream_params_refuses_unpinned_host_params(cuda):
+    """Pinning is the caller's, once: execute copies no params itself."""
+    backend, graph, sched, params, ids = _stream_setup(cuda)
+    pageable = {k: v.clone() for k, v in params.items()}
+    backend.cluster.devices[0].total_memory = 0.4 * graph.total_param_gb()
+    with pytest.raises(ValueError, match="not pinned"):
+        backend.execute(graph, sched, pageable, ids, stream_params=True)
+
+
+@pytest.mark.cuda
+def test_calibrate_link_measures_the_sustained_leg(cuda):
+    from distributed_llm_scheduler_tpu_torch.utils.linkmodel import calibrate_link
+
+    cal = calibrate_link([cuda], sizes=(1 << 20, 1 << 24), repeats=3,
+                         sustained=True)
+    assert cal.sustained_gbps > 0
+    assert cal.provenance["sustained"] == "measured"
+    assert [b for b, _ in cal.samples["sustained"]] == [8 << 24, 8 << 24]
+    # the burst leg stays as it was: pageable copies
+    assert cal.param_load_gbps > 0
+    assert calibrate_link([cuda], sizes=(1 << 20, 1 << 24),
+                          repeats=1).sustained_gbps is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(), dict(segments=True, rebatch=False)],
+                         ids=["per_task", "segments"])
+def test_no_captured_rung_runs_under_stream_params(cuda, kw):
+    """Streamed segments are eager programs: nothing is captured or
+    replayed, and each forward (warm-up and timed run) launches every
+    kernel of its tasks (segments not re-batched, so one per task)."""
+    from distributed_llm_scheduler_tpu_torch.ops import norms as N
+
+    backend, graph, sched, params, ids = _stream_setup(cuda)
+    backend.cluster.devices[0].total_memory = 0.4 * graph.total_param_gb()
+    kernels.reset_launches()
+    rep = backend.execute(graph, sched, params, ids, stream_params=True, **kw)
+    torch.cuda.synchronize()
+    assert rep.captured_launches == {} and not rep.compiled
+    assert not any(kernels.replayed.values())
+    n_attn = sum(1 for t in graph if t.task_id.endswith("_attention"))
+    n_ln = sum(1 for t in graph
+               if t.task_id.endswith(("_ln1", "_ln2", "final_ln")))
+    assert kernels.launches[A.KERNEL] == 2 * n_attn
+    assert kernels.launches[N.LN_KERNEL] == 2 * n_ln
+
+
+@pytest.mark.cuda
+def test_multi_node_streamed_output_equals_unstreamed(cuda):
+    """heft x4 on one card, each node capped at half its own union: each
+    node streams on its own budget, loads go on the card's copy stream,
+    and the output equals the unstreamed run's bit for bit."""
+    backend, graph, sched, params, ids = _stream_setup(cuda, 4, "heft")
+    want = backend.execute(graph, sched, params, ids,
+                           planned=False).output.clone()
+    capped = 0
+    for d in backend.cluster:
+        union = {g for t in sched.per_node.get(d.node_id, ())
+                 for _, g in graph[t].param_items()}
+        if union:
+            d.total_memory = 0.5 * sum(graph.param_size_gb(g) for g in union)
+            capped += 1
+    assert capped > 1
+    rep = backend.execute(graph, sched, params, ids, stream_params=True)
+    torch.cuda.synchronize()
+    assert rep.param_evictions > 0
+    assert torch.equal(rep.output, want)

@@ -248,7 +248,9 @@ def test_flag_validation_matches_jax(pair):
         pair["tb"].execute(*args, planned=True, profile=True)
     with pytest.raises(ValueError, match="incompatible with profile"):
         pair["tb"].execute(*args, planned=True, segments=True)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        pair["tb"].execute(*args, stream_params=True)
+    with pytest.raises(ValueError, match="incompatible with profile"):
+        pair["tb"].execute(*args, planned=True, stream_params=True)
+    # stream_params turns the plan off, as in JAX
+    assert not pair["tb"].execute(*args, stream_params=True).planned
     # profile turns the plan off, as in JAX
     assert not pair["tb"].execute(*args, profile=True).planned
