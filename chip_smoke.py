@@ -20,11 +20,17 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    of a fused qkv product, the layout the model hands it, bit for bit
    equal to contiguous copies), at the Llama path's shape through
    ``gqa_mha`` (32 query heads reading 8 KV heads in place, hd 128) and
-   at edge shapes (each head dim, T of 1, 77 and 300, full attention,
-   fewer KV heads given to ``flash_attention`` itself), with its time as
-   CUDA-graph replays and issued back to back, the plain version's, one
-   PyTorch library call's as a yardstick, and the least time the card
-   could take (its bound);
+   at edge shapes (each head dim, 16 included, T of 1, 77 and 300, full
+   attention, fewer KV heads given to ``flash_attention`` itself,
+   float16, head dims between the instances through ``mha``/``gqa_mha``
+   on padded copies), with its time as CUDA-graph replays and issued back
+   to back, the plain version's, one PyTorch library call's as a
+   yardstick, and the least time the card could take (its bound), at the
+   main path's shape and at ``EDGE_TIMED``'s (head dim 16, float16, head
+   dim 80 padded); then ``mha``/``gqa_mha``'s routes: a head dim without
+   an instance runs the kernel on padded copies, float16 as given, a
+   misaligned bf16 view on contiguous copies, the copies counted, and
+   head dim 192 raises; every main path below requires no such route;
 4. paged kernel check: both paged kernels against their plain versions
    on the card, on the JAX decode bench's 7 single-token and 5 ragged
    fixtures (f32, trash page poisoned, 1e-5; each ragged fixture on the
@@ -84,7 +90,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    attention and layer norm of each forward it runs (the pre-flight once
    per distinct task), the oracle must hold, every policy but round-robin
    must complete and the MFUs and the compiled leg's host wall must be
-   measured;
+   measured; the first run measures the calibration afresh and saves it,
+   and a second run (one rep a measured leg, the same link) replays the
+   saved file: ``cache_hit`` true and ``value`` and ``vs_baseline`` equal
+   to the first run's (``BENCH_REPLAY_LINE``);
 9. serve path: GPT-2 small bf16 at full width through the paged decode
    DAG (8 slots, page size 16, 257 pages, capacity 512), placed by
    ``greedy`` and served by ``DeviceBackend.paged_decode_engine`` in
@@ -126,7 +135,26 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     re-batching), within the fused forward's band, launches counted; and
     ``compiled=True, stream_params=True`` runs compiled at 4x the params
     (bit-equal to the unstreamed compiled run) and is refused with a
-    STR002 or STR003 diagnosis at 0.3x.
+    STR002 or STR003 diagnosis at 0.3x;
+15. online serving: a. the serve bench (``eval/serve_bench.
+    measure_serving``: GPT-2 tiny f32 on a virtual clock, fifo against
+    slo with preemption, the prefix and chunked legs) on the card and on
+    the CPU: every gate passes, every ``serve.*`` metric equals the CPU
+    run's and ``SERVE_r18.json``'s, and each leg's digest the CPU's; then
+    the ``ServingFrontend`` over phase 9's GPT-2 small bf16 engine on a
+    real clock: b. 64 Poisson arrivals from seed 7 at twice the capacity
+    phase 9 measured, fifo admit-all against slo admission with
+    preemption (TTFT target 4x phase 9's mean segment wall), and the slo
+    leg on the first 16 arrivals run untraced (wall, idle sleeps) and
+    traced (device busy) for the device's idle share;
+    c. a mix with a 448-token prompt every 6th arrival, whole against
+    chunked prefill (64-token chunks), with the share of tokens that
+    agree; d. two-turn sessions on a 256-token system prompt, prefix
+    sharing on against off, the ownership log through the page-lifetime
+    prover.  Every leg must leak no page, pass the lifecycle lint and
+    launch the paged kernel 12 times per decode step and LayerNorm 25
+    times per decode step and per prefill call, and every delivered token
+    must pass phase 9's teacher-forced oracle (``ONLINE_LINE``).
 
 The last lines are one JSON object of per-kernel numbers (``launches`` is
 the count of the kernel's main path, ``launches_by_path`` each counted
@@ -168,10 +196,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet, dense): device memory rate and the
-# compute rate for each input type (bf16 on the tensor cores; float32
-# outside them)
+# compute rate for each input type (bf16 and f16 on the tensor cores;
+# float32 outside them)
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
 
 # main path: GPT-2 small, as bench.py's flagship build
 FLAGSHIP = dict(batch=8, seq_len=512, microbatches=8, vocab_shards=8)
@@ -192,6 +220,14 @@ PAGED_TOL = 1e-5
 # flagship build (eval/ici_probe.py:192-196), linear chains fused
 LLAMA_FLAGSHIP = dict(batch=8, seq_len=512, microbatches=8, vocab_shards=8)
 LLAMA_TASKS = 1945
+# flash edge cases timed at the flagship's batch and length, by the key
+# of their numbers in the kernel line: head dim 16 (Mixtral tiny's d_model
+# 64 as 4 heads of 16), float16 at GPT-2 small's heads, and head dim 80
+# (padded to the 128 instance) at 32 heads
+HD16_TIMED = (8, 4, 512, 16)
+EDGE_TIMED = {(HD16_TIMED, "bfloat16"): "at_head_dim_16",
+              ((8, 12, 512, 64), "float16"): "at_float16",
+              ((8, 32, 512, 80), "bfloat16"): "at_head_dim_80_padded"}
 # the card's L2 cache: kernels that move a few MB are timed over distinct
 # inputs totalling twice this, so no launch finds its input in L2
 L2_BYTES = 50e6
@@ -204,12 +240,14 @@ F32_RTOL = F32_ATOL = 2e-4
 # kernel vs plain version on the same inputs: f32 differs by summation
 # order only; in bf16 the plain version rounds scores and probabilities
 # to bf16 and both round the output (5e-2 is oracle_close's bf16 band)
-KERNEL_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+KERNEL_TOL = {"float32": 1e-4, "bfloat16": 5e-2, "float16": 5e-2}
 # kernel vs the plain version in f32 on the same (bf16-valued) inputs: the
 # kernel computes in f32 and rounds once on output, so every element must
 # lie within bf16's unit roundoff 2^-8 of the exact value, plus 1e-4 for
-# f32 summation order; in f32 the limit is KERNEL_TOL's
+# f32 summation order; in f32 the limit is KERNEL_TOL's (the flash kernel's
+# f16 instance: f16's 2^-11)
 BF16_ROUNDOFF, F32_SLACK = 2.0 ** -8, 1e-4
+ROUNDOFF = {"bfloat16": BF16_ROUNDOFF, "float16": 2.0 ** -11}
 
 
 def log(msg: str) -> None:
@@ -324,7 +362,7 @@ def attention_bound_ms(shape, dtype_name: str, causal: bool,
     against the QK^T and PV products over the type's peak (causal: only
     the (T+1)/2 keys each query sees on average)."""
     B, H, T, hd = shape
-    itemsize = 2 if dtype_name == "bfloat16" else 4
+    itemsize = 4 if dtype_name == "float32" else 2
     nbytes = 2 * B * (H + (kv_heads or H)) * T * hd * itemsize
     pairs = B * H * (T * (T + 1) // 2 if causal else T * T)
     flops = 2 * 2 * hd * pairs
@@ -412,6 +450,23 @@ def check_attention_kernel(torch, A, dev, llama) -> dict:
         ((1, 4, 300, 128), "bfloat16", True, "qkv", None),
         ((2, 2, 77, 32), "bfloat16", False, "qkv", None),
         ((1, 8, 200, 128), "float32", True, "kv", 2),
+        # head dim 16 (Mixtral tiny's), f32 and bf16, plain, GQA and views
+        ((2, 4, 77, 16), "float32", True, "heads", None),
+        ((2, 4, 77, 16), "bfloat16", True, "heads", None),
+        ((2, 4, 300, 16), "bfloat16", False, "heads", None),
+        ((1, 8, 300, 16), "bfloat16", True, "kv", 2),
+        ((1, 8, 200, 16), "float32", True, "kv", 4),
+        ((2, 4, 128, 16), "bfloat16", True, "qkv", None),
+        # float16 on its tensor-core instance; head dims between the
+        # instances, through mha/gqa_mha on copies padded to the next one
+        ((2, 3, 77, 64), "float16", True, "heads", None),
+        ((1, 8, 300, 128), "float16", True, "kv", 2),
+        ((2, 4, 128, 32), "float16", False, "qkv", None),
+        ((2, 4, 77, 48), "float32", True, "heads", None),
+        ((2, 4, 300, 80), "bfloat16", True, "heads", None),
+        ((1, 8, 200, 96), "float16", False, "kv", 2),
+        ((2, 4, 77, 8), "bfloat16", True, "qkv", None),
+        *((shape, dname, True, "heads", None) for shape, dname in EDGE_TIMED),
     ]
     rng = np.random.default_rng(0)
     main = None
@@ -419,8 +474,11 @@ def check_attention_kernel(torch, A, dev, llama) -> dict:
         q, k, v = attention_inputs(torch, rng, dev, shape, dname, layout, kv_heads)
         group = q.shape[1] // k.shape[1]
         kr, vr = k.repeat_interleave(group, 1), v.repeat_interleave(group, 1)
-        got = (A.gqa_mha(q, k, v, causal=causal) if layout == "gqa"
-               else A.flash_attention(q, k, v, causal=causal))
+        # flash_attention itself, but for the Llama path's call and the
+        # head dims only mha/gqa_mha take (padded)
+        fn = (A.gqa_mha if layout == "gqa" or shape[-1] not in A._HEAD_DIMS
+              else A.flash_attention)
+        got = fn(q, k, v, causal=causal)
         torch.cuda.synchronize()
         want = A.reference_mha(q, kr, vr, causal=causal)
         err = (got.float() - want.float()).abs().max().item()
@@ -429,9 +487,10 @@ def check_attention_kernel(torch, A, dev, llama) -> dict:
         want32 = A.reference_mha(q.float(), kr.float(), vr.float(), causal=causal)
         diff32 = (got.float() - want32).abs()
         err32 = diff32.max().item()
-        if dname == "bfloat16":
-            out32 = int((diff32 > BF16_ROUNDOFF * want32.abs() + F32_SLACK).sum())
-            rule32 = f"{out32} elements beyond 2^-8*|x|+{F32_SLACK:g}"
+        if dname in ROUNDOFF:
+            out32 = int((diff32 > ROUNDOFF[dname] * want32.abs() + F32_SLACK).sum())
+            rule32 = (f"{out32} elements beyond 2^{math.log2(ROUNDOFF[dname]):.0f}"
+                      f"*|x|+{F32_SLACK:g}")
         else:
             out32 = 0 if err32 < KERNEL_TOL[dname] else 1
             rule32 = f"tol {KERNEL_TOL[dname]:g}"
@@ -439,12 +498,12 @@ def check_attention_kernel(torch, A, dev, llama) -> dict:
               and math.isfinite(err32) and out32 == 0)
         same = ""
         if layout == "qkv":  # strided views read in place, bit for bit
-            dense = A.flash_attention(q.contiguous(), k.contiguous(),
-                                      v.contiguous(), causal=causal)
+            dense = fn(q.contiguous(), k.contiguous(), v.contiguous(),
+                       causal=causal)
             equal = bool(torch.equal(got, dense))
             same = f", equal to contiguous copies: {equal}"
             ok = ok and equal
-        log(f"  flash_attention {shape} {dname} causal={causal} {layout}"
+        log(f"  {fn.__name__} {shape} {dname} causal={causal} {layout}"
             f"{f' {kv_heads} KV heads' if kv_heads else ''}: max_abs_err "
             f"{err:.3e} vs plain (tol {KERNEL_TOL[dname]:g}), {err32:.3e} vs "
             f"plain in f32 ({rule32}){same} -> {'ok' if ok else 'FAIL'}")
@@ -469,6 +528,25 @@ def check_attention_kernel(torch, A, dev, llama) -> dict:
                 f"kernel {ms:.5f} ms ({ms_b2b:.5f}), plain {plain_ms:.5f} ms, "
                 f"SDPA {lib_ms:.5f} ms ({lib_b2b:.5f}), bound "
                 f"{bound_ms * 1e3:.3f} us ({bound_by})")
+        edge = EDGE_TIMED.get((shape, dname))
+        if edge:
+            ms, ms_b2b = time_attention(
+                torch, lambda *a: A.mha(*a, causal=True), (q, k, v), 200)
+            plain_ms = graph_ms(torch, lambda *a: A.reference_mha(*a, causal=True),
+                                [(q, k, v)] * 20)
+            lib_ms, lib_b2b = time_attention(
+                torch, lambda *a: F.scaled_dot_product_attention(*a, is_causal=True),
+                (q, k, v), 200)
+            bound_ms, bound_by = attention_bound_ms(shape, dname, True)
+            main[edge] = dict(
+                shape=list(shape), dtype=dname, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=lib_ms, ms_back_to_back=ms_b2b,
+                library_ms_back_to_back=lib_b2b)
+            log(f"  {edge} {shape} {dname} (mha; CUDA-graph replays, back to "
+                f"back in brackets): kernel {ms:.5f} ms ({ms_b2b:.5f}), "
+                f"plain {plain_ms:.5f} ms, SDPA {lib_ms:.5f} ms ({lib_b2b:.5f}), "
+                f"bound {bound_ms * 1e3:.3f} us ({bound_by})")
         if layout == "gqa":
             # the Llama path's call: gqa_mha, one launch on the un-repeated K/V
             ms, ms_b2b = time_attention(torch, A.gqa_mha, (q, k, v), 100)
@@ -488,7 +566,59 @@ def check_attention_kernel(torch, A, dev, llama) -> dict:
                 f"({ms_b2b:.5f}), plain (K/V repeated) {plain_ms:.5f} ms, SDPA "
                 f"(enable_gqa) {lib_ms:.5f} ms ({lib_b2b:.5f}), bound "
                 f"{bound_ms * 1e3:.3f} us ({bound_by})")
+    main["routes"] = check_flash_routes(torch, A, dev, rng)
     return main
+
+
+def check_flash_routes(torch, A, dev, rng) -> dict:
+    """``mha``/``gqa_mha`` on the card take every call to the kernel, by
+    the path ``resolve_flash_path`` names: a head dim without an instance
+    (48) on copies padded to the next one (counted), float16 GQA as given,
+    a bf16 view the kernel's 16-byte copies cannot read on contiguous
+    copies (counted, equal to the kernel on copies made by hand); a head
+    dim above 128 raises."""
+    import numpy as np
+
+    from distributed_llm_scheduler_tpu_torch.ops import kernels
+
+    def draw(shape, dt):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, dt)
+
+    kernels.reset_launches()
+    x = draw((2, 4, 77, 48), torch.float32)
+    out48 = A.mha(x, x, x)
+    h = draw((2, 8, 77, 64), torch.float16)
+    kv = draw((2, 2, 77, 64), torch.float16)
+    out16 = A.gqa_mha(h, kv, kv)
+    wide = draw((2, 4, 77, 33), torch.bfloat16)
+    view, q = wide[..., 1:33], wide[..., 1:33].contiguous()
+    got = A.mha(q, view, view)
+    torch.cuda.synchronize()
+    routes = {k: v for k, v in kernels.routes.items() if v}
+    launched = kernels.launches[A.KERNEL]
+    ok48 = (out48 - A.reference_mha(x, x, x)).abs().max().item() < KERNEL_TOL["float32"]
+    kr = kv.repeat_interleave(4, dim=1)
+    ok16 = ((out16.float() - A.reference_mha(h, kr, kr).float()).abs().max().item()
+            < KERNEL_TOL["float16"])
+    same = bool(torch.equal(got, A.flash_attention(q, q, q)))
+    big = draw((1, 2, 8, 192), torch.float32)
+    try:
+        A.mha(big, big, big)
+        refused = False
+    except ValueError:
+        refused = True
+    ok = (routes == {f"{A.KERNEL}.kernel:padded": 1,
+                     f"{A.KERNEL}.kernel:contiguous": 1}
+          and launched == 3 and ok48 and ok16 and same and refused)
+    log(f"  flash routes on the card: {routes}, kernel launches {launched} "
+        f"(expected 3); hd 48 f32 (padded) equal to the plain version within "
+        f"{KERNEL_TOL['float32']:g}: {ok48}; fp16 GQA within "
+        f"{KERNEL_TOL['float16']:g}: {ok16}; misaligned bf16 view equal to "
+        f"the kernel on copies: {same}; hd 192 refused: {refused} -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("flash routes on the card are off")
+    return routes
 
 
 def norm_inputs(torch, rng, dev, shape, dname, offset=False, pad=0):
@@ -826,14 +956,27 @@ def log_norm_device_time(label: str, per: str, rows) -> float:
     return total
 
 
+def no_routes(label: str) -> None:
+    """Raise if, since the counts were last set to 0, a wrapper handed its
+    kernel a call on copies (``kernels.routes``: a misaligned view or a
+    padded head dim), which a main path never needs."""
+    from distributed_llm_scheduler_tpu_torch.ops import kernels
+
+    taken = {k: v for k, v in kernels.routes.items() if v}
+    if taken:
+        raise AssertionError(f"{label}: kernels took calls on copies: {taken}")
+
+
 def counted(label: str, expected: dict, run):
     """Run ``run()`` with every launch count set to 0 just before and the
     counts of the kernels in ``expected`` read just after; each must equal
-    its expected number.  Returns (run's result, {kernel: count})."""
+    its expected number, and no call may have gone to a kernel on copies
+    (:func:`no_routes`).  Returns (run's result, {kernel: count})."""
     from distributed_llm_scheduler_tpu_torch.ops import kernels
 
     kernels.reset_launches()
     out = run()
+    no_routes(label)
     got = {k: kernels.launches[k] for k in expected}
     log(f"  {label}: " + ", ".join(
         f"{k} launched {got[k]} times (expected {n})" for k, n in expected.items()))
@@ -1244,6 +1387,7 @@ def run_ladder_path(torch, P, dev) -> dict:
             kernels.reset_launches()
             rep = backend.execute(graph, sched, params, ids, reps=REPS, **kw)
             torch.cuda.synchronize()
+            no_routes(name)
             eager = {k: kernels.launches[k] for k in per_forward}
             replayed = {k: kernels.replayed.get(k, 0) for k in per_forward}
             out = rep.output.cpu()  # read before the program runs again
@@ -1348,7 +1492,9 @@ def run_bench_path(torch, P, dev) -> dict:
     }
     kernels.reset_launches()
     t0 = time.perf_counter()
-    result = bench.run("small", dev, reps=reps)
+    # measured afresh and saved: the second run below replays the file
+    result = bench.run("small", dev, reps=reps, refresh=True)
+    no_routes("bench")
     total = {k: kernels.launches.get(k, 0) for k in per_dag}
     line = result.to_json()
     print("BENCH_LINE " + json.dumps(line), flush=True)
@@ -1394,6 +1540,26 @@ def run_bench_path(torch, P, dev) -> dict:
         f"{line['spread']['segmented']}, compiled {line['spread']['compiled']}")
     if None in ladder.values():
         raise AssertionError(f"bench: a ladder leg is missing: {ladder}")
+    # the saved calibration replayed (one rep a measured leg; the same link,
+    # so the replay sees the same inputs): the headline must not move
+    t0 = time.perf_counter()
+    again = bench.run("small", dev, reps=1, link=result.link_model)
+    line2 = again.to_json()
+    print("BENCH_REPLAY_LINE " + json.dumps(line2), flush=True)
+    same = (again.cache_hit is True and result.cache_hit is False
+            and line2["value"] == line["value"]
+            and line2["vs_baseline"] == line["vs_baseline"]
+            and again.best_makespan_s == result.best_makespan_s)
+    log(f"  bench from the saved calibration in {time.perf_counter() - t0:.1f} "
+        f"s: cache_hit {again.cache_hit} (first run {result.cache_hit}), age "
+        f"{again.calibration_age_days} days, value {line2['value']} ms (first "
+        f"run {line['value']}), vs_baseline {line2['vs_baseline']} (first run "
+        f"{line['vs_baseline']}), best {again.best_policy}; per-task "
+        f"{line2['spread']['pt_makespan']['median_ms']} ms measured live "
+        f"-> {'ok' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError("bench: the saved calibration did not replay "
+                             "the first run's headline")
     return legs
 
 
@@ -1902,7 +2068,9 @@ def serve_oracle(torch, P, cfg, weights, reqs, results) -> None:
 def run_serve_path(torch, P, A, dev) -> tuple:
     """GPT-2 small bf16 served through the paged engine; returns each
     timed run's launch counts of the single-token and the ragged paged
-    kernel and of the LayerNorm kernel."""
+    kernel and of the LayerNorm kernel, the trace's numbers, and what the
+    online serving phase reuses: the warmed engine, its weights and
+    config, the median run's useful tok/s and its mean segment wall."""
     import numpy as np
 
     cfg = P.GPT2Config.small(dtype=torch.bfloat16)
@@ -1933,6 +2101,7 @@ def run_serve_path(torch, P, A, dev) -> tuple:
         results = serve(eng, reqs)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t)
+        no_routes(label)
         n_paged = kernels.launches[A.PAGED_KERNEL]
         n_ragged = kernels.launches[A.PAGED_RAGGED_KERNEL]
         n_ln = kernels.launches["layer_norm"]
@@ -1975,7 +2144,9 @@ def run_serve_path(torch, P, A, dev) -> tuple:
     serve_oracle(torch, P, cfg, weights, reqs, results)
     seg_wall = (walls[med] - prefill_s[med]) / segs[med]
     trace = serve_trace(torch, eng, reqs, seg_wall)
-    return paged_n, ragged_n, ln_n, trace
+    served = dict(engine=eng, weights=weights, cfg=cfg,
+                  tok_s=useful / walls[med], seg_wall_s=seg_wall)
+    return paged_n, ragged_n, ln_n, trace, served
 
 
 def run_f32_serve_leg(torch, P, dev) -> None:
@@ -1996,6 +2167,361 @@ def run_f32_serve_leg(torch, P, dev) -> None:
         f"(plain): tokens equal={equal} -> {'ok' if equal else 'FAIL'}")
     if not equal:
         raise AssertionError("f32 serve tokens differ between card and CPU")
+
+
+# online serving phase (15), parts b-d: the frontend over phase 9's GPT-2
+# small bf16 engine on a real clock.  b: one Poisson schedule from seed 7
+# at LOAD x the capacity phase 9 measured (its useful tok/s over the
+# schedule's mean new tokens per request), fifo admit-all against slo
+# admission with preemption, the TTFT target TTFT_SEGMENTS x phase 9's
+# mean segment wall; c: the long-prompt mix, chunked against whole
+# prefill; d: sessions sharing a 256-token system prompt, sharing on and
+# off.  Every prompt plus its output fits the 512-token capacity.
+ONLINE = dict(n_requests=64, prompt_lens=(64, 128, 192, 256),
+              max_new_tokens=(64, 96, 128), priorities=(0, 1),
+              priority_weights=(0.3, 0.7), seed=7)
+ONLINE_LOAD = 2.0
+TTFT_SEGMENTS = 4
+SLO_WINDOW_SEGMENTS = 16
+ONLINE_TRACED = 16  # arrivals of the traced slo leg
+CHUNKED_ONLINE = dict(n_requests=24, short_lens=(32, 48, 64), long_len=448,
+                      long_every=6, max_new_tokens=(32, 64),
+                      long_max_new_tokens=8)
+CHUNK_TOKENS = 64
+PREFIX_ONLINE = dict(n_sessions=16, system_len=256, user_len=64, turns=2,
+                     max_new_tokens=(64,), priorities=(0, 1),
+                     priority_weights=(0.3, 0.7), think_time_s=0.05)
+
+
+def run_serve_bench_on_card(torch, dev) -> dict:
+    """Part a: the serve bench (``eval/serve_bench.measure_serving``, GPT-2
+    tiny f32 on a virtual clock, its prefix and chunked legs included) on
+    the card and on the CPU.  Every gate must pass on the card, and every
+    ``serve.*`` metric must equal the CPU run's and ``SERVE_r18.json``'s;
+    each leg's digest (its request rows and every generated token) must
+    equal the CPU's.  Returns the card's numbers and its launches."""
+    from distributed_llm_scheduler_tpu_torch.eval import serve_bench as SB
+    from distributed_llm_scheduler_tpu_torch.ops import kernels
+
+    banked = json.loads((ROOT / "SERVE_r18.json").read_text())
+    keys = sorted(k for k in banked if k.startswith("serve."))
+    t0 = time.perf_counter()
+    host = SB.measure_serving(seed=7, device="cpu")
+    t_host = time.perf_counter() - t0
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    card = SB.measure_serving(seed=7, device=dev)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    no_routes("serve bench on the card")
+    launches = {k: v for k, v in sorted(kernels.launches.items()) if v}
+    fails = SB.gate_failures(card) + [
+        f"artifact: {e}" for e in SB.validate_serve_artifact(card)]
+    off = {k: dict(card=card.get(k), cpu=host.get(k), banked=banked[k])
+           for k in keys if not card.get(k) == host.get(k) == banked[k]}
+    legs = {"fifo_admit_all": ("legs",), "slo_preempt": ("legs",),
+            "shared": ("prefix", "legs"), "unshared": ("prefix", "legs"),
+            "whole": ("chunked", "legs"), "chunked": ("chunked", "legs")}
+
+    def leg(art, name):
+        for k in legs[name]:
+            art = art[k]
+        return art[name]
+
+    digests = {n: leg(card, n)["digest"] == leg(host, n)["digest"] for n in legs}
+    rows = {n: leg(card, n)["requests"] == leg(host, n)["requests"] for n in legs}
+    residual = card["serve.attribution.max_residual_s"]
+    log(f"  serve bench on the card in {t_card:.1f} s (CPU {t_host:.1f} s): "
+        f"{len(keys)} serve.* metrics, {len(keys) - len(off)} equal to the CPU "
+        f"run's and SERVE_r18.json's; gates {'pass' if not fails else fails}; "
+        f"attribution residual {residual}; digests equal to the CPU's "
+        f"{digests}; request rows equal {rows}; launches {launches}")
+    for k in keys:
+        log(f"    {k} = {card[k]!r}")
+    if off or fails or residual != 0.0 or not all(digests.values()):
+        if not all(digests.values()):
+            log_divergent_tokens(dev)
+        raise AssertionError(
+            f"serve bench on the card: metrics off {off}, gates {fails}, "
+            f"residual {residual}, digests {digests}")
+    return dict(metrics={k: card[k] for k in keys}, seconds=t_card,
+                launches=launches)
+
+
+def log_divergent_tokens(dev) -> None:
+    """On a digest mismatch: the fifo leg's tokens on the card and on the
+    CPU, request by request, where they differ."""
+    from distributed_llm_scheduler_tpu_torch.eval import serve_bench as SB
+    from distributed_llm_scheduler_tpu_torch.obs import SLOPolicy
+    from distributed_llm_scheduler_tpu_torch.serve import (
+        ServiceTimeModel, ServingFrontend, VirtualClock, poisson_arrivals)
+
+    sc = SB.SCENARIO
+    arrivals = poisson_arrivals(
+        sc["rate_rps"], sc["n_requests"], 7, prompt_lens=sc["prompt_lens"],
+        max_new_tokens=sc["max_new_tokens"], priorities=sc["priorities"],
+        priority_weights=sc["priority_weights"])
+    out = {}
+    for where in (dev, "cpu"):
+        eng, _ = SB.build_serve_engine(
+            slots=sc["slots"], page_size=sc["page_size"], n_pages=sc["n_pages"],
+            pages_per_seq=sc["pages_per_seq"], seg_steps=sc["seg_steps"],
+            clock=VirtualClock(), device=where)
+        fe = ServingFrontend(
+            eng, arrivals, SLOPolicy(ttft_s=sc["ttft_s"], window_s=sc["window_s"]),
+            admission="fifo", preemption=False, time_model=ServiceTimeModel(
+                wave_s=sc["wave_s"], segment_s=sc["segment_s"],
+                idle_s=sc["idle_s"]))
+        fe.run()
+        out[str(where)] = fe.results
+    card, host = out[str(dev)], out["cpu"]
+    for rid in sorted(host):
+        if not (rid in card and (card[rid] == host[rid]).all()):
+            log(f"    fifo {rid}: card {card.get(rid, []).tolist()} vs CPU "
+                f"{host[rid].tolist()}")
+
+
+def online_oracle(torch, P, served, fe, label: str) -> int:
+    """Every token the frontend delivered, through phase 9's teacher-forced
+    oracle (prompts rebuilt by the frontend's own materializer).  Returns
+    the number of requests checked."""
+    reqs = [(rid, fe.prompt_fn(rid, fe._reqs[rid].a.prompt_len, fe.vocab_size,
+                               fe.prompt_seed), len(toks))
+            for rid, toks in sorted(fe.results.items())]
+    log(f"  {label}: oracle over {len(reqs)} completed requests")
+    serve_oracle(torch, P, served["cfg"], served["weights"], reqs, fe.results)
+    return len(reqs)
+
+
+def online_leg(torch, A, eng, arrivals, policy, label: str, *, admission="slo",
+               preemption=True, prompt_fn=None, ownlog=None, sleep=None) -> tuple:
+    """One frontend run over the engine on the real clock: rebound first
+    (fresh metrics and request log, a pristine pool that keeps the sharing
+    mode), its launch counts set to 0 just before and read just after.
+    The paged kernel must launch 12 times per decode step and LayerNorm 25
+    times per decode step and per prefill call (admission waves and
+    prefill chunks), the ragged kernel never; no page may leak and the
+    lifecycle lint must find nothing.  ``sleep`` replaces the frontend's
+    idle sleep.  Returns (frontend, report, launch counts, wall seconds)."""
+    from distributed_llm_scheduler_tpu_torch.obs.reqlog import _percentiles
+    from distributed_llm_scheduler_tpu_torch.ops import kernels
+    from distributed_llm_scheduler_tpu_torch.serve import ServingFrontend
+
+    eng.rebind_obs(ownlog=ownlog)
+    fe = ServingFrontend(eng, arrivals, policy, admission=admission,
+                         preemption=preemption, prompt_fn=prompt_fn, sleep=sleep)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rep = fe.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    no_routes(label)
+    counts = {k: kernels.launches[k] for k in (
+        A.PAGED_KERNEL, A.PAGED_RAGGED_KERNEL, A.KERNEL, "layer_norm",
+        "layer_norm.register")}
+    c = eng.metrics.counter
+    steps = eng.seg_steps * eng.segments_run
+    prefills = int(c("decode.admission_waves").value + c("decode.chunk_waves").value)
+    n_layer = eng.n_layers
+    want = {A.PAGED_KERNEL: n_layer * steps, A.PAGED_RAGGED_KERNEL: 0,
+            "layer_norm": (2 * n_layer + 1) * (steps + prefills)}
+    qwait = _percentiles([r["queue_wait_s"] for r in rep["requests"]
+                          if r["state"] == "retired"])
+    lint = fe.lint()
+    findings = [d.code for d in lint.diagnostics]
+    log(f"  {label}: {rep['completed']} of {rep['n_requests']} completed, "
+        f"{rep['shed']} shed, {rep['preemptions']} preemptions "
+        f"({rep['preempted_requests']} requests), in {wall:.2f} s wall; "
+        f"goodput {rep['goodput_tok_s']:.1f} tok/s (throughput "
+        f"{rep['throughput_tok_s']:.1f}); TTFT p50/p95/p99 "
+        f"{rep['ttft_p50_ms']}/{rep['ttft_p95_ms']}/{rep['ttft_p99_ms']} ms; "
+        f"TPOT p50/p95/p99 {rep['tpot_p50_ms']}/{rep['tpot_p95_ms']}/"
+        f"{rep['tpot_p99_ms']} ms; queue wait p50/p95/p99 "
+        f"{rep['queue_wait_p50_ms']}/{rep['queue_wait_p95_ms']}/"
+        f"{None if qwait['p99'] is None else qwait['p99'] * 1e3} ms; "
+        f"{rep['pages_leaked']} pages leaked; lint {findings or 'clean'}")
+    log(f"  {label}: {A.PAGED_KERNEL} {counts[A.PAGED_KERNEL]} (expected "
+        f"{n_layer} x {steps} decode steps = {want[A.PAGED_KERNEL]}), "
+        f"{A.PAGED_RAGGED_KERNEL} {counts[A.PAGED_RAGGED_KERNEL]} (expected 0), "
+        f"layer_norm {counts['layer_norm']} (expected {2 * n_layer + 1} x "
+        f"({steps} steps + {prefills} prefill calls) = {want['layer_norm']}), "
+        f"{counts['layer_norm.register']} on the register kernel, "
+        f"{A.KERNEL} {counts[A.KERNEL]}")
+    bad = {k: counts[k] for k, n in want.items() if counts[k] != n}
+    if (bad or counts["layer_norm.register"] != counts["layer_norm"]
+            or not counts[A.PAGED_KERNEL] or rep["pages_leaked"] or findings):
+        raise AssertionError(
+            f"{label}: launches {bad}, leaked {rep['pages_leaked']}, lint "
+            f"{findings}")
+    rep["queue_wait_p99_ms"] = None if qwait["p99"] is None else qwait["p99"] * 1e3
+    rep["wall_s"] = wall
+    rep["launches"] = counts
+    return fe, rep, counts, wall
+
+
+def leg_numbers(rep) -> dict:
+    keys = ("n_requests", "completed", "shed", "preemptions",
+            "preempted_requests", "goodput_tok_s", "throughput_tok_s",
+            "ttft_p50_ms", "ttft_p95_ms", "ttft_p99_ms", "tpot_p50_ms",
+            "tpot_p95_ms", "tpot_p99_ms", "queue_wait_p50_ms",
+            "queue_wait_p95_ms", "queue_wait_p99_ms", "pages_leaked",
+            "makespan_s", "wall_s", "launches")
+    return {k: rep[k] for k in keys}
+
+
+def run_online_path(torch, P, A, dev, served) -> dict:
+    """Parts b-d on phase 9's warmed GPT-2 small bf16 engine; returns each
+    leg's numbers (``ONLINE_LINE``) and launch counts."""
+    import functools
+
+    from distributed_llm_scheduler_tpu_torch.eval.serve_bench import _page_peaks
+    from distributed_llm_scheduler_tpu_torch.analysis import analyze_pages
+    from distributed_llm_scheduler_tpu_torch.models.kv_pages import PageOwnershipLog
+    from distributed_llm_scheduler_tpu_torch.obs import SLOPolicy
+    from distributed_llm_scheduler_tpu_torch.serve import (
+        mixed_long_prompt_arrivals, poisson_arrivals, session_arrivals,
+        session_prompt_token_ids)
+
+    eng = served["engine"]
+    out, launches = {}, {}
+    ttft = TTFT_SEGMENTS * served["seg_wall_s"]
+    policy = SLOPolicy(ttft_s=ttft, window_s=SLO_WINDOW_SEGMENTS * served["seg_wall_s"],
+                       percentile="p95")
+    kw = {k: v for k, v in ONLINE.items() if k not in ("n_requests", "seed")}
+    probe = poisson_arrivals(1.0, ONLINE["n_requests"], ONLINE["seed"], **kw)
+    mean_new = sum(a.max_new_tokens for a in probe) / len(probe)
+    capacity = served["tok_s"] / mean_new
+    rate = ONLINE_LOAD * capacity
+    arrivals = poisson_arrivals(rate, ONLINE["n_requests"], ONLINE["seed"], **kw)
+    log(f"  b. {len(arrivals)} Poisson arrivals (seed {ONLINE['seed']}) at "
+        f"{rate:.3f} req/s = {ONLINE_LOAD:g} x the {capacity:.3f} req/s capacity "
+        f"phase 9 measured ({served['tok_s']:.1f} useful tok/s over "
+        f"{mean_new:.2f} new tokens a request), over {arrivals[-1].t:.2f} s; "
+        f"TTFT target {ttft * 1e3:.2f} ms = {TTFT_SEGMENTS} x the "
+        f"{served['seg_wall_s'] * 1e3:.3f} ms mean segment wall, window "
+        f"{policy.window_s * 1e3:.1f} ms, p95")
+    for name, adm, pre in (("fifo", "fifo", False), ("slo", "slo", True)):
+        label = f"online {name}"
+        fe, rep, counts, _ = online_leg(torch, A, eng, arrivals, policy, label,
+                                        admission=adm, preemption=pre)
+        online_oracle(torch, P, served, fe, label)
+        out[name], launches[label] = leg_numbers(rep), counts
+    out["offered"] = dict(rate_rps=rate, capacity_rps=capacity,
+                          ttft_target_ms=ttft * 1e3, n_requests=len(arrivals),
+                          arrival_span_s=arrivals[-1].t)
+    # the device's idle share in one slo leg over the first arrivals: run
+    # once untraced (its wall, and the time the frontend slept with nothing
+    # to run while it waited for arrivals) and once traced with the
+    # device's activity only (the busy time); idle is 1 - busy over the
+    # untraced wall, and over that wall less the sleeps
+    from torch.profiler import ProfilerActivity, profile
+
+    head = arrivals[:ONLINE_TRACED]
+    slept = []
+
+    def sleep(dt):
+        t = time.perf_counter()
+        time.sleep(dt)
+        slept.append(time.perf_counter() - t)
+
+    _, _, _, wall = online_leg(torch, A, eng, head, policy,
+                               f"online slo untraced ({ONLINE_TRACED} arrivals)",
+                               sleep=sleep)
+    segments = eng.segments_run
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, _, _, wall_traced = online_leg(
+            torch, A, eng, head, policy,
+            f"online slo traced ({ONLINE_TRACED} arrivals)")
+    union = busy_union_ms(torch, prof)
+    if union is None:
+        log("  traced leg: no device intervals (idle share not measured)")
+        out["traced"] = None
+    else:
+        busy_ms = union[0]
+        working_s = wall - sum(slept)
+        out["traced"] = dict(
+            wall_s=wall, slept_s=sum(slept), busy_ms=busy_ms,
+            idle_share=1.0 - busy_ms / (wall * 1e3),
+            idle_share_working=1.0 - busy_ms / (working_s * 1e3),
+            segments=segments, wall_traced_s=wall_traced,
+            segments_traced=eng.segments_run)
+        log(f"  idle share: device busy {busy_ms:.3f} ms (union, traced leg "
+            f"of {eng.segments_run} segments, {wall_traced * 1e3:.3f} ms wall) "
+            f"over the untraced leg's {wall * 1e3:.3f} ms wall ({segments} "
+            f"segments): {out['traced']['idle_share']:.4f}; over its "
+            f"{working_s * 1e3:.3f} ms with work (the wall less "
+            f"{sum(slept) * 1e3:.3f} ms slept waiting for arrivals): "
+            f"{out['traced']['idle_share_working']:.4f}")
+
+    # c. chunked against whole prefill
+    mix = mixed_long_prompt_arrivals(rate, CHUNKED_ONLINE["n_requests"], 7, **{
+        k: v for k, v in CHUNKED_ONLINE.items() if k != "n_requests"})
+    n_long = sum(1 for a in mix if a.prompt_len == CHUNKED_ONLINE["long_len"])
+    log(f"  c. {len(mix)} mixed arrivals at {rate:.3f} req/s, {n_long} of "
+        f"{CHUNKED_ONLINE['long_len']} tokens, chunk_tokens {CHUNK_TOKENS}")
+    loose = SLOPolicy(ttft_s=10.0, window_s=policy.window_s, percentile="p95")
+    toks = {}
+    try:
+        for name, ct in (("whole", None), ("chunked", CHUNK_TOKENS)):
+            eng.chunk_tokens = ct
+            label = f"online {name} prefill"
+            fe, rep, counts, _ = online_leg(torch, A, eng, mix, loose, label,
+                                            preemption=False)
+            online_oracle(torch, P, served, fe, label)
+            toks[name] = fe.results
+            out[f"{name}_prefill"] = dict(
+                leg_numbers(rep),
+                chunk_admitted=eng.metrics.counter("decode.chunk_admitted").value)
+            launches[label] = counts
+    finally:
+        eng.chunk_tokens = None
+    both = sorted(set(toks["whole"]) & set(toks["chunked"]))
+    n_tok = sum(len(toks["whole"][r]) for r in both)
+    agree = sum(int((toks["whole"][r] == toks["chunked"][r]).sum()) for r in both)
+    out["chunked_token_agreement"] = dict(tokens=n_tok, equal=agree,
+                                          share=agree / n_tok if n_tok else None)
+    log(f"  chunked vs whole: {agree} of {n_tok} tokens equal "
+        f"({out['chunked_token_agreement']['share']}); TPOT p99 "
+        f"{out['chunked_prefill']['tpot_p99_ms']} vs "
+        f"{out['whole_prefill']['tpot_p99_ms']} ms, TTFT p99 "
+        f"{out['chunked_prefill']['ttft_p99_ms']} vs "
+        f"{out['whole_prefill']['ttft_p99_ms']} ms")
+    if not out["chunked_prefill"]["chunk_admitted"]:
+        raise AssertionError("online chunked leg chunked no prompt")
+
+    # d. prefix sharing, shared against unshared
+    sess = session_arrivals(rate, PREFIX_ONLINE["n_sessions"], 7, **{
+        k: v for k, v in PREFIX_ONLINE.items() if k != "n_sessions"})
+    prompt_fn = functools.partial(
+        session_prompt_token_ids, system_len=PREFIX_ONLINE["system_len"],
+        user_len=PREFIX_ONLINE["user_len"])
+    log(f"  d. {len(sess)} session arrivals ({PREFIX_ONLINE['n_sessions']} "
+        f"sessions x {PREFIX_ONLINE['turns']} turns) at {rate:.3f} sessions/s, "
+        f"a {PREFIX_ONLINE['system_len']}-token system prompt")
+    try:
+        for name, mode in (("unshared", False), ("shared", True)):
+            eng.pool.sharing = mode
+            own = PageOwnershipLog()
+            label = f"online {name} prefix"
+            fe, rep, counts, _ = online_leg(torch, A, eng, sess, policy, label,
+                                            prompt_fn=prompt_fn, ownlog=own)
+            online_oracle(torch, P, served, fe, label)
+            findings = [d.code for d in analyze_pages(own).diagnostics]
+            acct = _page_peaks(own.events)
+            out[name] = dict(leg_numbers(rep), page_pass=findings, **acct)
+            launches[label] = counts
+            log(f"  {label}: {acct['shared_page_hits']} shared-page hits, "
+                f"physical peak {acct['physical_pages_peak']}, logical peak "
+                f"{acct['logical_pages_peak']}; page pass "
+                f"{findings or 'clean'} over {len(own)} events")
+            if findings or acct["physical_pages_end"] or acct["logical_pages_end"]:
+                raise AssertionError(f"{label}: page pass {findings}, books {acct}")
+    finally:
+        eng.pool.sharing = False
+        eng.rebind_obs()
+    if not out["shared"]["shared_page_hits"]:
+        raise AssertionError("online shared leg aliased no page")
+    return out, launches
 
 
 def paged_timing(root: Path) -> int:
@@ -2208,7 +2734,7 @@ def main() -> int:
     t_all = time.perf_counter()
     dev = torch.device("cuda", 0)
     smi = nvidia_smi_line()
-    log(f"[1/14] device: {torch.cuda.get_device_name(0)} ({smi}); torch "
+    log(f"[1/15] device: {torch.cuda.get_device_name(0)} ({smi}); torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2216,7 +2742,7 @@ def main() -> int:
 
     sources = (A.KERNEL, A.PAGED_SOURCE, N.SOURCE)
     secs = kernels.build(*sources)
-    log(f"[2/14] built {', '.join(f'{n}.cu' for n in sources)} with "
+    log(f"[2/15] built {', '.join(f'{n}.cu' for n in sources)} with "
         f"{kernels.nvcc_path()} for sm_90a in {secs:.1f} s (in parallel)")
     log_ptxas(kernels.build_logs.get(A.KERNEL, ""))
     log_ptxas(kernels.build_logs.get(A.PAGED_SOURCE, ""),
@@ -2228,57 +2754,68 @@ def main() -> int:
                     if "paged_ragged_tc" in k]
     norm_ptxas = log_norm_ptxas(kernels.build_logs.get(N.SOURCE, ""))
 
-    log("[3/14] flash kernel check against its plain version")
+    log("[3/15] flash kernel check against its plain version")
     attn = check_attention_kernel(
         torch, A, dev, P.LlamaConfig.llama3_8b(dtype=torch.bfloat16))
 
-    log("[4/14] paged kernel check against the plain versions")
+    log("[4/15] paged kernel check against the plain versions")
     paged = check_paged_kernels(torch, A, DB, dev)
     ragged_n = run_ragged_op_path(torch, A, DB, dev)
 
-    log("[5/14] LayerNorm and RMSNorm kernel check against the plain versions")
+    log("[5/15] LayerNorm and RMSNorm kernel check against the plain versions")
     norms = check_norm_kernels(torch, N, dev)
 
     def phase_done():  # free the phase's tensors before the next one
         gc.collect()
         torch.cuda.empty_cache()
 
-    log("[6/14] flagship forward path: GPT-2 small bf16 DAG on the card")
+    log("[6/15] flagship forward path: GPT-2 small bf16 DAG on the card")
     gpt2_n = run_main_path(torch, P, dev)
     phase_done()
 
-    log("[7/14] execution ladder: the flagship per task, planned, coalesced, "
+    log("[7/15] execution ladder: the flagship per task, planned, coalesced, "
         "segmented and compiled")
     ladder_n = run_ladder_path(torch, P, dev)
     phase_done()
 
-    log("[8/14] north-star bench: GPT-2 small bf16, 8 policies replayed")
+    log("[8/15] north-star bench: GPT-2 small bf16, 8 policies replayed")
     bench_n = run_bench_path(torch, P, dev)
     phase_done()
 
-    log("[9/14] serve path: GPT-2 small bf16 through the paged decode engine")
-    serve_launches, serve_ragged, serve_ln, serve_tr = run_serve_path(
+    log("[9/15] serve path: GPT-2 small bf16 through the paged decode engine")
+    serve_launches, serve_ragged, serve_ln, serve_tr, served = run_serve_path(
         torch, P, A, dev)
     phase_done()
 
-    log("[10/14] Llama path: Llama-3 8B bf16 DAG, pipeline stages, on the card")
+    log("[10/15] Llama path: Llama-3 8B bf16 DAG, pipeline stages, on the card")
     llama_n = run_llama_path(torch, P, dev)
     phase_done()
 
-    log("[11/14] f32 leg: GPT-2 placed on the card vs fused on the CPU")
+    log("[11/15] f32 leg: GPT-2 placed on the card vs fused on the CPU")
     run_f32_leg(torch, P, dev)
 
-    log("[12/14] f32 serve leg: the engine on the card vs on the CPU")
+    log("[12/15] f32 serve leg: the engine on the card vs on the CPU")
     run_f32_serve_leg(torch, P, dev)
     phase_done()
 
-    log("[13/14] f32 Llama leg: placed on the card vs fused on the CPU")
+    log("[13/15] f32 Llama leg: placed on the card vs fused on the CPU")
     run_llama_f32_leg(torch, P, dev)
     phase_done()
 
-    log("[14/14] parameter streaming: GPT-2 medium and the flagship under "
+    log("[14/15] parameter streaming: GPT-2 medium and the flagship under "
         "budgets below their params")
     stream_n = run_stream_path(torch, P, dev)
+    phase_done()
+
+    log("[15/15] online serving: the serve bench on the card, then the "
+        "frontend over GPT-2 small bf16 on a real clock")
+    t15 = time.perf_counter()
+    bench_on_card = run_serve_bench_on_card(torch, dev)
+    online, online_n = run_online_path(torch, P, A, dev, served)
+    online["serve_bench"] = bench_on_card
+    print("ONLINE_LINE " + json.dumps(online), flush=True)
+    log(f"  phase 15 in {time.perf_counter() - t15:.1f} s")
+    del served
     phase_done()
 
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
@@ -2301,8 +2838,9 @@ def main() -> int:
         {"name": A.PAGED_KERNEL, "route": "cuda",
          "source": csrc + "paged_attention.cu", "replaces": tpu + "411",
          "launches": serve_launches["serve run 1"],
-         "launches_by_path": serve_launches, **paged[A.PAGED_KERNEL],
-         "serve_trace": serve_tr},
+         "launches_by_path": {**serve_launches, **{
+             k: n[A.PAGED_KERNEL] for k, n in online_n.items()}},
+         **paged[A.PAGED_KERNEL], "serve_trace": serve_tr},
         {"name": A.PAGED_RAGGED_KERNEL, "route": "cuda",
          "source": csrc + "paged_attention.cu", "replaces": tpu + "547",
          "launches": ragged_n[A.PAGED_RAGGED_KERNEL],
@@ -2315,7 +2853,8 @@ def main() -> int:
          "replaces": tpu_norms + "58",
          "launches": gpt2_n["greedy x1"][N.LN_KERNEL],
          "launches_by_path": {**by_path(N.LN_KERNEL, runs),
-                              **{f"gpt2 {k}": v for k, v in serve_ln.items()}},
+                              **{f"gpt2 {k}": v for k, v in serve_ln.items()},
+                              **{k: n[N.LN_KERNEL] for k, n in online_n.items()}},
          **norms[N.LN_KERNEL]},
         {"name": N.RMS_KERNEL, "route": "cuda", "source": csrc + "norms.cu",
          "replaces": tpu_norms + "76",

@@ -1166,16 +1166,26 @@ class DeviceBackend:
         clock: Any = None,
         memprof: Any = None,
         flight: Any = None,
+        attention_impl: Optional[str] = None,
         chunk_tokens: Optional[int] = None,
     ):
         """Continuous-batching paged decode engine over a SCHEDULED paged
         decode-step DAG (``frontend.build_paged_decode_dag``), running on
         the device the schedule placed the step on.  ``pool`` is the
         host-side ``models.kv_pages.PagePool`` whose geometry must match
-        the graph's pool params.  (The JAX package first runs its static
+        the graph's pool params.  ``attention_impl`` (one of
+        ``ops.attention.PAGED_IMPLS``), when given, must be the impl the
+        DAG's layer tasks were built with (they choose the path; the engine
+        reports it), else ValueError; ``chunk_tokens`` turns on chunked
+        prefill.  (The JAX package first runs its static
         pre-execution analysis gate here; that gate is not ported.)"""
+        from ..ops.attention import PAGED_IMPLS
         from .decode_loop import PagedDecodeEngine
 
+        if attention_impl not in PAGED_IMPLS:
+            raise ValueError(
+                f"attention_impl must be one of {PAGED_IMPLS}, got "
+                f"{attention_impl!r}")
         nodes = set(schedule.placement.values())
         if len(nodes) != 1:
             raise ValueError(
@@ -1186,7 +1196,8 @@ class DeviceBackend:
             graph, schedule, config, weights, pool,
             slots=slots, pages_per_seq=pages_per_seq, seg_steps=seg_steps,
             tracer=trace, metrics=metrics, clock=clock, memprof=memprof,
-            flight=flight, chunk_tokens=chunk_tokens, device=device,
+            flight=flight, attention_impl=attention_impl,
+            chunk_tokens=chunk_tokens, device=device,
         )
 
     def execute(

@@ -9,9 +9,11 @@
 // h / (Hq / Hkv), the mapping of `repeat_interleave` and `jnp.repeat`, in
 // place, so no repeated copy of K and V is ever made.
 //
-// Two kernels, one per input type:
+// Two kernels:
 //
-// bfloat16: `flash_fwd_tc_kernel`, on the tensor cores.
+// bfloat16 and float16: `flash_fwd_tc_kernel`, on the tensor cores, one
+//   instance per 16-bit type (the same code; `mma.sync` m16n8k16 takes
+//   either, and P is split and the output rounded in the input's type).
 //   * one block of 4 warps per (b, query head, 64-row Q tile); each warp
 //     owns 16 query rows.  Q tiles are issued last-first, so under `causal`
 //     the longest (most K/V tiles) blocks start first;
@@ -20,8 +22,8 @@
 //     16-byte `cp.async` in two stages, so tile j+1 loads while tile j
 //     computes.  Rows are XOR-swizzled in 16-byte chunks, so `ldmatrix` and
 //     `ldmatrix.trans` read without bank conflicts;
-//   * S = Q K^T and O += P V run on `mma.sync.m16n8k16` (bf16 in, f32
-//     accumulate).  S stays in registers; scale * log2(e) is applied in
+//   * S = Q K^T and O += P V run on `mma.sync.m16n8k16` (bf16 or f16 in,
+//     f32 accumulate).  S stays in registers; scale * log2(e) is applied in
 //     f32, the masks only on the diagonal tile and the ragged last tile,
 //     and the online softmax (exp2) reduces over the 4 lanes that share a
 //     row in the mma layout;
@@ -31,7 +33,8 @@
 //     the split keeps ~16 bits of P, so the output, rounded to bf16 once
 //     at the end, is as close to the f32 function as the TPU kernel's
 //     (which casts q, k and v to f32 and keeps P in f32).  The
-//     denominator sums the f32 P.
+//     denominator sums the f32 P.  In f16 the same split keeps P to
+//     within 2^-24, the low half's subnormal step.
 //   Why `mma.sync` and not `wgmma` with TMA: at the main paths' shapes a
 //   block walks at most 8 K/V tiles and the grid is 96-256 blocks, so
 //   latency, overlap and grid fill set the time, not the peak tensor rate;
@@ -44,8 +47,13 @@
 //   cores would not meet that.
 //
 // Both take (b, h, t) strides with a unit stride on the head dim and mask
-// the ragged tail, so any T >= 1 works.  The bf16 kernel's copies need a
-// 16-byte aligned base and (b, h, t) strides; the wrapper checks that.
+// the ragged tail, so any T >= 1 works.  The tensor-core kernel's copies
+// need a 16-byte aligned base and (b, h, t) strides; the wrapper checks
+// that.  Head dims 16, 32, 64 and 128 are instantiated (16 is one k-step
+// of m16n8k16 for Q K^T and two 8-dim column blocks of P V); `mha` pads
+// any other head dim up to 128 with zero columns to the next instance
+// (zeros add nothing to q k^T, and V's zero columns give output columns
+// that the wrapper slices off).
 //
 // What bounds it on this card: bytes.  q, k, v read once and o written
 // once: at GPT-2's (1, 12, 512, 64) bf16, 3.15 MB, 0.94 us at 3.35 TB/s,
@@ -57,6 +65,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -193,9 +202,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// -- bfloat16: tensor-core kernel ---------------------------------------------
+// -- bfloat16 and float16: tensor-core kernel ---------------------------------
 
 typedef __nv_bfloat16 bf16;
+typedef __half f16;
 
 constexpr int TC_BM = 64;        // query rows per block: 4 warps x 16
 constexpr int TC_BN = 64;        // keys per K/V tile
@@ -235,41 +245,76 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       : "r"(addr));
 }
 
-// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// The 16-bit input types: d += a (16x16, row) * b (16x8, col) in that type
+// with f32 accumulation, and two f32 values packed as one x2 register (x in
+// the low half).
+template <typename T>
+struct Tc;
 
-// two f32 values as one bf16x2 register (x in the low half), and the
-// bf16x2 of what each rounding left over
-__device__ __forceinline__ void split_bf16x2(float x, float y, uint32_t& hi,
-                                             uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const __nv_bfloat162 r = __floats2bfloat162_rn(x - __low2float(h),
-                                                 y - __high2float(h));
+template <>
+struct Tc<bf16> {
+  typedef __nv_bfloat162 T2;
+  static __device__ __forceinline__ T2 pack(float x, float y) {
+    return __floats2bfloat162_rn(x, y);
+  }
+  static __device__ __forceinline__ void mma(float (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+};
+
+template <>
+struct Tc<f16> {
+  typedef __half2 T2;
+  static __device__ __forceinline__ T2 pack(float x, float y) {
+    return __floats2half2_rn(x, y);
+  }
+  static __device__ __forceinline__ void mma(float (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+};
+
+// two f32 values as one x2 register of T, and the x2 of what each
+// rounding left over
+template <typename T>
+__device__ __forceinline__ void split_x2(float x, float y, uint32_t& hi,
+                                         uint32_t& lo) {
+  const typename Tc<T>::T2 h = Tc<T>::pack(x, y);
+  const typename Tc<T>::T2 r =
+      Tc<T>::pack(x - __low2float(h), y - __high2float(h));
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = *reinterpret_cast<const uint32_t*>(&r);
 }
 
-// Element offset of 16-byte chunk `c` of row `r` in a [rows][HD] bf16
+// Element offset of 16-byte chunk `c` of row `r` in a [rows][HD] 16-bit
 // tile, XOR-swizzled so that the 8 rows one `ldmatrix` phase reads at the
 // same logical chunk land in 8 different 16-byte bank groups.
 template <int HD>
 __device__ __forceinline__ int swz(int r, int c) {
   constexpr int CH = HD / 8;  // chunks per row
-  const int x = CH >= 8 ? (c ^ (r & 7)) : (c ^ ((r >> 1) & 3));  // HD 32: 2 rows per 128 B
+  // HD 32: 2 rows per 128 B; HD 16: 4 rows per 128 B, so rows r and r + 4
+  // trade their two chunks
+  const int x = CH >= 8   ? (c ^ (r & 7))
+                : CH == 4 ? (c ^ ((r >> 1) & 3))
+                          : (c ^ ((r >> 2) & 1));
   return r * HD + x * 8;
 }
 
 // rows [row0, row0 + 64) of a (T, HD) matrix with row stride `rs` into a
 // swizzled shared tile; rows at or past Tlen are zero-filled
-template <int HD>
-__device__ __forceinline__ void load_tile(bf16* s, const bf16* g, int64_t rs,
+template <int HD, typename T>
+__device__ __forceinline__ void load_tile(T* s, const T* g, int64_t rs,
                                           int row0, int Tlen, int tid) {
   constexpr int CH = HD / 8;
   constexpr int PER_THREAD = TC_BN * CH / TC_THREADS;
@@ -284,10 +329,10 @@ __device__ __forceinline__ void load_tile(bf16* s, const bf16* g, int64_t rs,
   }
 }
 
-template <int HD>
+template <typename T, int HD>
 __global__ void __launch_bounds__(TC_THREADS)
-flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, bf16* __restrict__ o,
+flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, T* __restrict__ o,
                     int H, int group, int Tlen, int n_qtiles,
                     int64_t qsb, int64_t qsh, int64_t qst,
                     int64_t ksb, int64_t ksh, int64_t kst,
@@ -298,9 +343,9 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int KK = HD / 16;       // k-steps of Q K^T; dim pairs of P V
   constexpr int NB = TC_BN / 8;     // 8-key column blocks of S
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [2][TILE]
-  bf16* Vs = Ks + 2 * TILE;                      // [2][TILE]
-  bf16* Qs = Ks + TILE;  // Q is staged in K's second stage before the walk
+  T* Ks = reinterpret_cast<T*>(smem_raw);  // [2][TILE]
+  T* Vs = Ks + 2 * TILE;                   // [2][TILE]
+  T* Qs = Ks + TILE;  // Q is staged in K's second stage before the walk
 
   // last Q tile first; the heads of one KV head are adjacent
   const int BH = gridDim.x / n_qtiles;
@@ -310,9 +355,9 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int q0 = qt * TC_BM;
 
-  const bf16* qb = q + b * qsb + h * qsh;
-  const bf16* kb = k + b * ksb + hk * ksh;
-  const bf16* vb = v + b * vsb + hk * vsh;
+  const T* qb = q + b * qsb + h * qsh;
+  const T* kb = k + b * ksb + hk * ksh;
+  const T* vb = v + b * vsb + hk * vsh;
 
   const int kv_end = causal ? min(q0 + TC_BM, Tlen) : Tlen;
   const int n_kt = (kv_end + TC_BN - 1) / TC_BN;
@@ -350,8 +395,8 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       load_tile<HD>(Vs + nxt, vb, vst, (j + 1) * TC_BN, Tlen, tid);
       cp_async_commit();
     }
-    const bf16* Kc = Ks + (j & 1) * TILE;
-    const bf16* Vc = Vs + (j & 1) * TILE;
+    const T* Kc = Ks + (j & 1) * TILE;
+    const T* Vc = Vs + (j & 1) * TILE;
     const int k0 = j * TC_BN;
 
     // S = Q K^T: K rows are B's columns; one ldmatrix.x4 gives the
@@ -368,8 +413,8 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         uint32_t kf[4];
         const int key = p * 16 + (lane & 7) + ((lane >> 4) << 3);
         ldmatrix_x4(kf, smem_u32(Kc + swz<HD>(key, 2 * kk + ((lane >> 3) & 1))));
-        mma_bf16(s[2 * p], qf[kk], kf[0], kf[1]);
-        mma_bf16(s[2 * p + 1], qf[kk], kf[2], kf[3]);
+        Tc<T>::mma(s[2 * p], qf[kk], kf[0], kf[1]);
+        Tc<T>::mma(s[2 * p + 1], qf[kk], kf[2], kf[3]);
       }
     }
 
@@ -425,19 +470,19 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int kk = 0; kk < NB / 2; ++kk) {
       uint32_t ph[4], pl[4];
-      split_bf16x2(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
-      split_bf16x2(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
-      split_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
-      split_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
+      split_x2<T>(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
+      split_x2<T>(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
+      split_x2<T>(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
+      split_x2<T>(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
       const int key = kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3);
 #pragma unroll
       for (int p = 0; p < KK; ++p) {
         uint32_t vf[4];
         ldmatrix_x4_trans(vf, smem_u32(Vc + swz<HD>(key, 2 * p + (lane >> 4))));
-        mma_bf16(acc[2 * p], ph, vf[0], vf[1]);
-        mma_bf16(acc[2 * p], pl, vf[0], vf[1]);
-        mma_bf16(acc[2 * p + 1], ph, vf[2], vf[3]);
-        mma_bf16(acc[2 * p + 1], pl, vf[2], vf[3]);
+        Tc<T>::mma(acc[2 * p], ph, vf[0], vf[1]);
+        Tc<T>::mma(acc[2 * p], pl, vf[0], vf[1]);
+        Tc<T>::mma(acc[2 * p + 1], ph, vf[2], vf[3]);
+        Tc<T>::mma(acc[2 * p + 1], pl, vf[2], vf[3]);
       }
     }
 
@@ -445,8 +490,8 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();  // this stage consumed, the next one landed
   }
 
-  // the quad's partial denominators; one rounding to bf16 on the way out
-  bf16* ob = o + b * osb + h * osh;
+  // the quad's partial denominators; one rounding to T on the way out
+  T* ob = o + b * osb + h * osh;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     float l = l_r[i];
@@ -458,8 +503,8 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int n = 0; n < 2 * KK; ++n) {
         const int d = n * 8 + 2 * (lane & 3);
-        *reinterpret_cast<__nv_bfloat162*>(ob + row * ost + d) =
-            __floats2bfloat162_rn(acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
+        *reinterpret_cast<typename Tc<T>::T2*>(ob + row * ost + d) =
+            Tc<T>::pack(acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
       }
     }
   }
@@ -491,15 +536,15 @@ cudaError_t launch_f32(const Args& a) {
   return cudaGetLastError();
 }
 
-template <int HD>
-cudaError_t launch_bf16(const Args& a) {
-  constexpr int smem = 4 * TC_BN * HD * (int)sizeof(bf16);  // K, V x 2 stages
+template <typename T, int HD>
+cudaError_t launch_tc(const Args& a) {
+  constexpr int smem = 4 * TC_BN * HD * (int)sizeof(T);  // K, V x 2 stages
   static unsigned configured = 0;  // one bit per device
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev < 32 && !(configured & (1u << dev))) {
-    e = cudaFuncSetAttribute(flash_fwd_tc_kernel<HD>,
+    e = cudaFuncSetAttribute(flash_fwd_tc_kernel<T, HD>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
     configured |= 1u << dev;
@@ -507,8 +552,8 @@ cudaError_t launch_bf16(const Args& a) {
   const int n_qtiles = (a.Tlen + TC_BM - 1) / TC_BM;
   const long long blocks = (long long)a.B * a.H * n_qtiles;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  flash_fwd_tc_kernel<HD><<<(unsigned)blocks, TC_THREADS, smem, a.stream>>>(
-      DLS_FLASH_ARGS(bf16));
+  flash_fwd_tc_kernel<T, HD><<<(unsigned)blocks, TC_THREADS, smem, a.stream>>>(
+      DLS_FLASH_ARGS(T));
   return cudaGetLastError();
 }
 
@@ -516,8 +561,8 @@ cudaError_t launch_bf16(const Args& a) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  q and o have H heads, k and v Hkv
-// (H a multiple of Hkv).  strides: 12 element strides, (b, h, t) for q, k,
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  q and o have H heads, k
+// and v Hkv (H a multiple of Hkv).  strides: 12 element strides, (b, h, t) for q, k,
 // v and o in that order; the head dim has unit stride.  Returns the
 // launch's cudaError_t (0 on success); does not synchronise.
 extern "C" int dls_flash_attention_fwd(const void* q, const void* k,
@@ -532,15 +577,24 @@ extern "C" int dls_flash_attention_fwd(const void* q, const void* k,
                sm_scale * LOG2E, reinterpret_cast<cudaStream_t>(stream)};
   if (dtype == 0) {
     switch (hd) {
+      case 16: return (int)launch_f32<16, 64>(a);
       case 32: return (int)launch_f32<32, 64>(a);
       case 64: return (int)launch_f32<64, 64>(a);
       case 128: return (int)launch_f32<128, 32>(a);
     }
   } else if (dtype == 1) {
     switch (hd) {
-      case 32: return (int)launch_bf16<32>(a);
-      case 64: return (int)launch_bf16<64>(a);
-      case 128: return (int)launch_bf16<128>(a);
+      case 16: return (int)launch_tc<bf16, 16>(a);
+      case 32: return (int)launch_tc<bf16, 32>(a);
+      case 64: return (int)launch_tc<bf16, 64>(a);
+      case 128: return (int)launch_tc<bf16, 128>(a);
+    }
+  } else if (dtype == 2) {
+    switch (hd) {
+      case 16: return (int)launch_tc<f16, 16>(a);
+      case 32: return (int)launch_tc<f16, 32>(a);
+      case 64: return (int)launch_tc<f16, 64>(a);
+      case 128: return (int)launch_tc<f16, 128>(a);
     }
   }
   return (int)cudaErrorInvalidValue;

@@ -9,8 +9,12 @@ The counterpart of the JAX package's ``bench.py`` (``main`` and
 1. build the GPT-2 forward DAG, the flagship build: bf16, batch 8 split
    into 8 microbatches, 8 vocab shards, linear chains fused (537 tasks for
    ``small``), weights from numpy seed 0 on the card;
-2. calibrate per-task times live on the card (``calibrate``) in 3
-   windows, and apply each task's median over them;
+2. load the graph's saved calibration (``.costmodel_torch/{graph}_cuda.
+   json``, the JAX bench's choice: ``eval/benchlib.py`` through
+   ``calibrate_cached``) when it covers the graph's tasks; otherwise, or
+   under ``DLS_RECALIBRATE``, calibrate per-task times live on the card
+   (``calibrate``) in 3 windows, apply each task's median over them and
+   save that; the line records ``cache_hit`` and the calibration's age;
 3. execute the DAG placed by ``greedy`` on one card (3 repeat-captured
    windows of ``reps`` back-to-back runs, median quoted), time the fused
    forward the same way (with its logits, and as its f32 sum, the MFU
@@ -33,8 +37,8 @@ The counterpart of the JAX package's ``bench.py`` (``main`` and
    window's times, so the line shows how far the calibration alone moves
    ``value``.
 
-Prints ONE JSON line (``BenchResult.to_json``) on stdout; progress goes to
-stderr.  Nothing falls back: a failed build, launch, calibration, capture,
+The measured legs (steps 3-5) run live on every run.  Prints ONE JSON
+line (``BenchResult.to_json``) on stdout; progress goes to stderr.  Nothing falls back: a failed build, launch, calibration, capture,
 replay or link measurement raises, and the run exits non-zero (the JAX
 bench only logs a failed segment-fused or whole-program leg).  Left out
 against the JAX bench: its watchdog and retries, the light-rep mode, the
@@ -64,8 +68,12 @@ from ..ops import kernels
 from ..sched.policies import ALL_SCHEDULERS, get_scheduler
 from ..utils.costmodel import (
     CostModel,
+    cache_age_days,
     calibrate,
+    calibration_path,
+    load_cached,
     median_cost_model,
+    recalibrate_requested,
     repeat_capture,
 )
 from ..utils.hbm import preflight_task_memory
@@ -82,8 +90,8 @@ from .benchlib import (
     spread_stats,
 )
 
-# the link calibration's cache (the degradation guard's baseline), in the
-# checkout and ignored by git
+# the saved calibrations and the link calibration's cache (the degradation
+# guard's baseline), in the checkout and ignored by git
 CACHE_DIR = str(Path(__file__).resolve().parents[2] / ".costmodel_torch")
 
 # config name -> (config factory, model tag, DAG shape).  small and medium
@@ -167,24 +175,33 @@ def run(
     cost_model: Optional[CostModel] = None,
     link: Optional[LinkModel] = None,
     reps: int = REPS,
+    refresh: Optional[bool] = None,
+    cache_dir: str = CACHE_DIR,
 ) -> BenchResult:
     """Run the bench on ``device`` and return its result.
 
-    ``cost_model`` and ``link`` replace the live calibration and the live
-    link measurement (tests inject both to run on the CPU); off CUDA both
-    are required, and the result says ``fallback``.  ``dtype`` is the
-    model's (the bench's own runs are bf16)."""
+    ``cost_model`` and ``link`` replace the calibration and the live link
+    measurement (tests inject both to run on the CPU).  Without
+    ``cost_model`` the graph's calibration saved under ``cache_dir`` is
+    replayed when it covers the graph's tasks, unless ``refresh`` (by
+    default :func:`recalibrate_requested`, ``DLS_RECALIBRATE``) asks for
+    a new one; a calibration measured here is saved there.  Off CUDA the
+    link is required and the cost model must be injected or saved (only
+    a card is measured), and the result says ``fallback``.  ``dtype`` is
+    the model's (the bench's own runs are bf16)."""
     device = torch.device(device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("bench: no CUDA device visible")
         if device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
-    elif cost_model is None or link is None:
+    elif link is None:
         raise ValueError(
-            f"bench on {device} needs an injected cost model and link: only "
-            "a card is measured"
+            f"bench on {device} needs an injected cost model (or a saved "
+            "calibration) and an injected link: only a card is measured"
         )
+    if refresh is None:
+        refresh = recalibrate_requested()
     make_cfg, model_tag, shape = CONFIGS[config_name]
     t_start = time.perf_counter()
     on_card = device.type == "cuda"
@@ -208,17 +225,31 @@ def run(
         f"{graph.total_param_gb():.3f} GB params")
 
     launches: Dict[str, Dict[str, int]] = {}
+    cache_hit = None
     if cost_model is None:
+        path = calibration_path(cache_dir, graph.name, device.type)
+        cost_model = None if refresh else load_cached(path, graph)
+        if cost_model is None and not on_card:
+            raise ValueError(
+                f"bench on {device} needs an injected cost model or a saved "
+                f"calibration at {path}: only a card is measured")
+        cache_hit = cost_model is not None
+    if cache_hit:
+        windows, calibration_runs = [cost_model], None
+        log(f"calibration replayed from {path} (measured "
+            f"{cost_model.measured_at or 'at an unknown time'})")
+    elif cost_model is None:
         t0 = time.perf_counter()
         windows = _leg(launches, "calibrate", lambda: repeat_capture(
             lambda: calibrate(graph, params, ids, device=device,
                               repeats=CAL_REPEATS), CAL_WINDOWS))
         cost_model = median_cost_model(windows)
+        cost_model.save(path)
         calibration_runs = CAL_WINDOWS * CAL_REPEATS
         log(f"calibrated on {cost_model.platform} in "
             f"{time.perf_counter() - t0:.1f} s: per-task totals " + ", ".join(
                 f"{sum(w.task_seconds.values()) * 1e3:.3f}" for w in windows)
-            + " ms")
+            + f" ms; saved to {path}")
     else:
         windows, calibration_runs = [cost_model], None
     applied = cost_model.apply(graph)
@@ -422,6 +453,10 @@ def run(
         cost_measured_at=cost_model.measured_at or None,
         calibrated_task_s=sum(cost_model.task_seconds.values()),
         calibration_runs=calibration_runs,
+        cache_hit=cache_hit,
+        calibration_age_days=(
+            cache_age_days(cost_model.measured_at) if cache_hit else None),
+        link_model=link,
     )
     log(f"best={best_name} ({best * 1e3:.3f} ms) vs roundrobin "
         f"({rr * 1e3:.3f} ms) -> {result.vs_baseline:.3f}x; total "

@@ -239,7 +239,12 @@ class BenchResult:
     MFU, the measured pre-flight footprint's maximum, the kernel
     launches of each measured leg, the per-task total of the calibration
     the replay used (``calibrated_task_s``) and the profile runs it was
-    reduced from (``calibration_runs``; None for an injected one)."""
+    reduced from (``calibration_runs``; None for an injected or saved
+    one), whether the calibration was a saved one (``cache_hit``; None
+    for an injected one) and, for a saved one, its age in days
+    (``calibration_age_days``).  ``link_model`` is the link the replay
+    used (not printed: ``link`` names its provenance), so a caller can
+    replay again under the same link."""
 
     n_policies: int
     platform_suffix: str
@@ -289,6 +294,9 @@ class BenchResult:
     cost_measured_at: Optional[str] = None
     calibrated_task_s: Optional[float] = None
     calibration_runs: Optional[int] = None
+    cache_hit: Optional[bool] = None
+    calibration_age_days: Optional[float] = None
+    link_model: Optional[Any] = None
 
     @property
     def metric(self) -> str:
@@ -383,7 +391,8 @@ class BenchResult:
         if self.calibrated_task_s is not None:
             out["calibrated_task_ms"] = round(self.calibrated_task_s * 1e3, 4)
         for key in ("device", "node_hbm_gb", "preflight_max_gb", "launches",
-                    "cost_measured_at", "calibration_runs"):
+                    "cost_measured_at", "calibration_runs", "cache_hit",
+                    "calibration_age_days"):
             if getattr(self, key) is not None:
                 out[key] = getattr(self, key)
         return out

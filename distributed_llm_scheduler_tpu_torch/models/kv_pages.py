@@ -8,6 +8,9 @@ the pool is sized for the working set, not ``slots x max_len``.
 
 * :class:`PagePool` — the host-side free-list allocator, a framework-free
   copy of the JAX package's (same alloc/free order, same errors).
+* :class:`PageOwnershipLog` — the append-only page-ownership event stream
+  the pool and the decode engine record into, which
+  ``analysis/page_pass.py`` replays (the JAX package's, whole).
 * :func:`init_paged_kv` — the device-side per-layer page pools
   ``(n_pages, page_size, n_kv_heads, head_dim)``, pages on the leading
   axis, the layout the paged-attention kernels read.
@@ -39,6 +42,65 @@ DEFAULT_PAGE_SIZE = 16
 #: Physical page id reserved for unallocated table entries and inactive
 #: slot writes (never handed out by the allocator).
 TRASH_PAGE = 0
+
+#: Schema tag for :meth:`PageOwnershipLog.snapshot`.
+OWNERSHIP_SCHEMA = "dls.pages/1"
+
+
+class PageOwnershipLog:
+    """Append-only page ownership event stream.
+
+    The :class:`PagePool` records ``alloc``/``free`` (with its free/used
+    counts after the event, the tiling witness) and, with prefix sharing,
+    ``share``/``unshare`` (refcounts up/down, the free list untouched);
+    the decode engine records ``assign``/``release`` (the owning request
+    id and the lifecycle edge: ``admit``/``retire``/``preempt``/``reset``),
+    ``cow`` (``pages=[src, dst]`` of a copy-on-write split, dst allocated
+    before src is released) and ``write`` (a first write into a page).
+    Ref-counted events carry ``refcounts`` (post-event, aligned with
+    ``pages``); producers without sharing omit the key.  The page-lifetime
+    prover (``analysis/page_pass.py``) replays the stream.  Recording is a
+    dict append per pool operation; with no log attached nothing is
+    recorded and the engine behaves identically."""
+
+    def __init__(self, n_pages: Optional[int] = None):
+        self.n_pages = n_pages
+        self.events: List[Dict[str, Any]] = []
+
+    def record(
+        self,
+        kind: str,
+        pages: Sequence[int],
+        *,
+        owner: Optional[str] = None,
+        site: Optional[str] = None,
+        free_pages: Optional[int] = None,
+        used_pages: Optional[int] = None,
+        refcounts: Optional[Sequence[int]] = None,
+    ) -> None:
+        e: Dict[str, Any] = {
+            "seq": len(self.events),
+            "kind": kind,
+            "pages": [int(p) for p in pages],
+            "owner": owner,
+            "site": site,
+            "free_pages": free_pages,
+            "used_pages": used_pages,
+        }
+        if refcounts is not None:
+            e["refcounts"] = [int(r) for r in refcounts]
+        self.events.append(e)
+
+    def __len__(self) -> int:
+        return len(self.events)
+
+    def snapshot(self) -> Dict[str, Any]:
+        """JSON-ready view (schema ``dls.pages/1``)."""
+        return {
+            "schema": OWNERSHIP_SCHEMA,
+            "n_pages": self.n_pages,
+            "events": [dict(e) for e in self.events],
+        }
 
 
 def _itemsize(dtype: Any) -> int:
@@ -103,18 +165,17 @@ class PagePool:
     matches a new request's prefix is aliased via :meth:`share` instead
     of re-allocated, reference counts track logical owners per physical
     page, and :meth:`release_ref` returns a page to the LIFO free list
-    only on last release.  The pool supports it as the JAX package's
-    does; the port's decode engine does not use it yet.  With sharing off
-    (the default) every page has refcount 1.
+    only on last release.  With sharing off (the default) every page has
+    refcount 1.
     """
 
     n_pages: int
     page_size: int = DEFAULT_PAGE_SIZE
     _free: List[int] = field(default_factory=list, repr=False)
     _allocated: set = field(default_factory=set, repr=False)
-    #: optional ownership log (``record(kind, pages, **kw)``); every
-    #: alloc/free appends one event carrying the post-event free/used
-    #: counts.  None — the default — records nothing and costs nothing.
+    #: optional :class:`PageOwnershipLog`; every alloc/free appends one
+    #: event carrying the post-event free/used counts.  None — the
+    #: default — records nothing and costs nothing.
     ownlog: Optional[Any] = field(default=None, repr=False, compare=False)
     #: enable content-addressed prefix sharing (intern table + refcounts)
     sharing: bool = False
@@ -517,7 +578,9 @@ def paged_param_bytes(
 
 __all__ = [
     "DEFAULT_PAGE_SIZE",
+    "OWNERSHIP_SCHEMA",
     "TRASH_PAGE",
+    "PageOwnershipLog",
     "PagePool",
     "pages_needed",
     "prefix_chunk_keys",

@@ -4,11 +4,12 @@ PyTorch port of ``distributed_llm_scheduler_tpu.ops.attention``.
 
 Dense half: the Pallas TPU kernel ``_flash_kernel`` becomes
 ``csrc/flash_attention.cu``, CUDA kernels for Hopper that keep the (T, T)
-score matrix out of device memory with the same online softmax: bf16 on
-the tensor cores (``mma.sync``, P split into two bf16 terms so the output
-stays within one bf16 rounding of the f32 function), f32 on the CUDA
-cores.  K and V may carry fewer heads than q (grouped-query attention);
-the kernels read each KV head in place for its group of query heads.
+score matrix out of device memory with the same online softmax: bf16 and
+f16 on the tensor cores (``mma.sync``, P split into two terms of the
+input's type so the output stays within one rounding of the f32
+function), f32 on the CUDA cores.  K and V may carry fewer heads than q
+(grouped-query attention); the kernels read each KV head in place for its
+group of query heads.
 ``mha`` and ``gqa_mha`` are the public entries, with the JAX package's
 signatures and (B, H, T, hd) layout.  The flash path is differentiable
 as the JAX package's ``_flash_with_vjp`` is: the kernel runs the forward,
@@ -30,7 +31,12 @@ memory); f32 walks the positions on the CUDA cores.
 signature.
 
 Dispatch is by device: a CUDA tensor goes to a kernel, which either
-launches or raises; a CPU or meta tensor goes to the plain version
+launches or raises (``mha``/``gqa_mha`` first ask
+:func:`resolve_flash_path`, the counterpart of the JAX package's
+``resolve_attention_impl``, how the kernel takes the call: as given, on
+contiguous copies, or with the head dim padded to the next instance;
+every shape and type the TPU kernel takes stays in the kernel); a CPU or
+meta tensor goes to the plain version
 (:func:`reference_mha`, :func:`reference_paged_attention`,
 :func:`reference_paged_attention_ragged`), which is how the CPU tests and
 shape inference (``device="meta"`` in the DAG builders) run.  No other
@@ -49,9 +55,15 @@ import torch
 from . import kernels
 
 KERNEL = "flash_attention"
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}  # the paged kernels'
+_FLASH_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_HEAD_DIMS = (16, 32, 64, 128)
+# resolve_flash_path's answers: the kernel as given, the kernel on
+# contiguous copies, or the kernel on copies padded to the next head dim
+FLASH_PATHS = ("kernel", "kernel:contiguous", "kernel:padded")
 kernels.launches.setdefault(KERNEL, 0)
+for _route in FLASH_PATHS[1:]:
+    kernels.routes.setdefault(f"{KERNEL}.{_route}", 0)
 
 
 def reference_mha(q, k, v, causal: bool = True, sm_scale: Optional[float] = None):
@@ -86,8 +98,9 @@ def _library() -> ctypes.CDLL:
 def _check(q, k, v) -> None:
     """Raise unless the kernel takes (q, k, v): q (B, Hq, T, hd), k and v
     (B, Hkv, T, hd) with Hq a multiple of Hkv, one dtype, one CUDA device,
-    a unit head-dim stride, and for bf16 a 16-byte aligned base and (b, h,
-    t) strides (the tensor-core kernel copies 16-byte chunks)."""
+    a unit head-dim stride, and for bf16 and f16 a 16-byte aligned base
+    and (b, h, t) strides (the tensor-core kernel copies 16-byte
+    chunks)."""
     if q.dim() != 4:
         raise ValueError(f"expected (B, H, T, hd) tensors, got {tuple(q.shape)}")
     B, H, T, hd = q.shape
@@ -107,24 +120,70 @@ def _check(q, k, v) -> None:
             raise ValueError(f"{name} dtype {t.dtype} != q dtype {q.dtype}")
         if t.device != q.device:
             raise ValueError(f"{name} on {t.device}, q on {q.device}")
-    if q.dtype not in _DTYPE_CODE:
-        raise ValueError(f"dtype {q.dtype} not supported (float32, bfloat16)")
+    if q.dtype not in _FLASH_DTYPE_CODE:
+        raise ValueError(
+            f"dtype {q.dtype} not supported (float32, bfloat16, float16)")
     if hd not in _HEAD_DIMS:
         raise ValueError(f"head dim {hd} not in {_HEAD_DIMS}")
     if T < 1:
         raise ValueError("sequence length must be >= 1")
-    bf16 = q.dtype == torch.bfloat16
+    tc = q.dtype != torch.float32
     for name, t in (("q", q), ("k", k), ("v", v)):
         sb, sh, st, sd = t.stride()
         if sd != 1:
             raise ValueError(f"{name} head dim must be contiguous (stride 1)")
-        # 16 bytes = 8 bf16 elements: every stride a multiple of 8
-        if bf16 and (t.data_ptr() % 16 or (sb | sh | st) % 8):
+        # 16 bytes = 8 16-bit elements: every stride a multiple of 8
+        if tc and (t.data_ptr() % 16 or (sb | sh | st) % 8):
             raise ValueError(
                 f"{name}: base and (b, h, t) strides must be 16-byte aligned "
-                f"for the bf16 kernel, got strides {t.stride()}")
+                f"for the tensor-core kernel, got strides {t.stride()}")
     if q.device.type != "cuda":
         raise ValueError(f"the kernel takes CUDA tensors, got {q.device}")
+
+
+def _tc_aligned(t) -> bool:
+    """Whether the tensor-core kernel's 16-byte copies can read ``t`` in
+    place: a 16-byte aligned base and (b, h, t) strides of whole 8-element
+    chunks."""
+    sb, sh, st, _ = t.stride()
+    return t.data_ptr() % 16 == 0 and (sb | sh | st) % 8 == 0
+
+
+def padded_head_dim(hd: int) -> int:
+    """The smallest instantiated head dim that holds ``hd``.  Raises
+    ValueError above the largest (128)."""
+    for inst in _HEAD_DIMS:
+        if hd <= inst:
+            return inst
+    raise ValueError(
+        f"head dim {hd}: the flash kernel is built for head dims up to "
+        f"{_HEAD_DIMS[-1]}")
+
+
+def resolve_flash_path(q, k, v) -> str:
+    """How the flash kernel takes (q, k, v) for ``mha``/``gqa_mha`` on a
+    card, from their dtype, head dim and layout alone: ``"kernel"``, as
+    given; ``"kernel:padded"`` for a head dim between the instances
+    (:func:`padded_head_dim`), on copies padded with zero columns; for a
+    bf16 or f16 view whose base or strides the kernel's 16-byte copies
+    cannot read, ``"kernel:contiguous"``, on contiguous copies.  The
+    counterpart of the JAX package's ``resolve_attention_impl``, whose
+    Pallas kernel takes every head dim and type: no answer is the plain
+    version.  Raises ValueError for a dtype other than float32, bfloat16
+    and float16 and a head dim above 128.  Shapes that are wrong for
+    attention itself are not routed: the kernel's checks raise on them.
+    Nothing here catches a build or launch error."""
+    if q.dtype not in _FLASH_DTYPE_CODE:
+        raise ValueError(
+            f"flash attention: dtype {q.dtype} not supported (float32, "
+            f"bfloat16, float16)")
+    if padded_head_dim(q.shape[-1]) != q.shape[-1]:
+        return "kernel:padded"
+    if q.dtype != torch.float32 and not all(
+            t.dim() == 4 and t.stride(-1) == 1 and _tc_aligned(t)
+            for t in (q, k, v)):
+        return "kernel:contiguous"
+    return "kernel"
 
 
 def flash_attention(q, k, v, causal: bool = True, sm_scale: Optional[float] = None):
@@ -165,7 +224,7 @@ def _flash_forward(q, k, v, causal, sm_scale):
         err = lib.dls_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             B, H, k.shape[1], T, hd, ctypes.addressof(strides),
-            _DTYPE_CODE[q.dtype], int(bool(causal)), float(scale), stream,
+            _FLASH_DTYPE_CODE[q.dtype], int(bool(causal)), float(scale), stream,
         )
     if err != 0:
         raise RuntimeError(f"flash attention launch failed: cudaError {err}")
@@ -211,11 +270,36 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+def on_padded_head_dim(fn, q, k, v, causal: bool = True,
+                       sm_scale: Optional[float] = None):
+    """``fn(q, k, v)`` on copies padded with zero columns to the next
+    instantiated head dim (:func:`padded_head_dim`), at the scale of the
+    true head dim, with the output's padding sliced off: the zero columns
+    add nothing to q k^T, and V's give output columns of zeros."""
+    hd = q.shape[-1]
+    pad = (0, padded_head_dim(hd) - hd)
+    q, k, v = (torch.nn.functional.pad(t, pad) for t in (q, k, v))
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(hd)
+    return fn(q, k, v, causal=causal, sm_scale=scale)[..., :hd]
+
+
 def mha(q, k, v, causal: bool = True, sm_scale: Optional[float] = None):
-    """Multi-head attention on (B, H, T, hd) tensors: the CUDA kernel for
-    CUDA tensors, the plain version for CPU and meta tensors."""
+    """Multi-head attention on (B, H, T, hd) tensors: for CUDA tensors
+    the CUDA kernel, by the path :func:`resolve_flash_path` names (as
+    given; on contiguous copies where the tensor-core kernel cannot read
+    the views; or on copies padded with zero columns to the next head dim
+    it is built for, at the scale of the true head dim, the output's
+    padding sliced off), each path but the first counted in
+    ``kernels.routes``; the plain version for CPU and meta tensors."""
     kind = q.device.type
     if kind == "cuda":
+        path = resolve_flash_path(q, k, v)
+        if path != "kernel":
+            kernels.routes[f"{KERNEL}.{path}"] += 1
+        if path == "kernel:padded":
+            return on_padded_head_dim(flash_attention, q, k, v, causal, sm_scale)
+        if path == "kernel:contiguous":
+            q, k, v = (t.contiguous() for t in (q, k, v))
         return flash_attention(q, k, v, causal=causal, sm_scale=sm_scale)
     if kind in ("cpu", "meta"):
         return reference_mha(q, k, v, causal=causal, sm_scale=sm_scale)
@@ -224,10 +308,10 @@ def mha(q, k, v, causal: bool = True, sm_scale: Optional[float] = None):
 
 def gqa_mha(q, k, v, causal: bool = True, sm_scale: Optional[float] = None):
     """Grouped-query attention: q (B, Hq, T, hd), k/v (B, Hkv, T, hd) with
-    Hq a multiple of Hkv.  CUDA tensors go to the flash kernel, which reads
-    each KV head in place for its query group (one launch, no copy); CPU
-    and meta tensors repeat each KV head across its group, as the JAX
-    package does, and take the plain version."""
+    Hq a multiple of Hkv.  CUDA tensors go to the flash kernel, which
+    reads each KV head in place for its query group (one launch, no
+    repeated copy); CPU and meta tensors repeat each KV head across its
+    group, as the JAX package does."""
     Hq, Hkv = q.shape[1], k.shape[1]
     if Hq != Hkv and q.device.type != "cuda":
         if Hkv < 1 or Hq % Hkv:

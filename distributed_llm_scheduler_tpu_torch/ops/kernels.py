@@ -15,7 +15,10 @@ where it launches its kernel, so a run can show that its main path went
 through the kernel.  Under CUDA-graph capture that launch is recorded, not
 run: ``replayed`` counts the kernels each replay of a captured graph
 launches (``backends.device.CapturedProgram`` adds them at every replay).
-:func:`reset_launches` zeroes both.
+``routes`` counts the calls on a CUDA tensor that a wrapper's resolver
+handed its kernel on copies, by ``<kernel>.<route>`` (for example
+``flash_attention.kernel:padded``): the views and head dims the kernel
+does not read as given.  :func:`reset_launches` zeroes all three.
 """
 
 from __future__ import annotations
@@ -40,13 +43,15 @@ NVCC_FLAGS = (
 launches: Dict[str, int] = {}
 # kernel name -> launches by CUDA-graph replays since the last reset
 replayed: Dict[str, int] = {}
+# "<kernel>.<route>" -> CUDA calls a resolver handed the kernel on copies
+routes: Dict[str, int] = {}
 # source name -> nvcc's output of the build this process ran
 build_logs: Dict[str, str] = {}
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
 def reset_launches() -> None:
-    for counts in (launches, replayed):
+    for counts in (launches, replayed, routes):
         for name in counts:
             counts[name] = 0
 

@@ -136,6 +136,84 @@ def test_bf16_kernel_refuses_unaligned_rows(cuda):
         A.flash_attention(q, wide[..., 4:68], q)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv_heads", [4, 2])
+def test_head_dim_16_runs_the_kernel(cuda, dtype, kv_heads):
+    """Head dim 16 (Mixtral tiny's): ``mha`` and ``gqa_mha`` launch the
+    flash kernel, in f32 and bf16, plain and GQA, allclose to
+    ``reference_mha`` at the kernel tolerances (f32 1e-4, bf16 5e-2)."""
+    rng = np.random.default_rng(16 + kv_heads)
+    shape, kv = (2, 4, 77, 16), (2, kv_heads, 77, 16)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(cuda, dtype) for s in (shape, kv, kv))
+    kernels.reset_launches()
+    got = (A.mha(q, k, v) if kv_heads == 4 else A.gqa_mha(q, k, v))
+    torch.cuda.synchronize()
+    assert kernels.launches[A.KERNEL] == 1
+    assert sum(kernels.routes.values()) == 0
+    kr, vr = (t.repeat_interleave(4 // kv_heads, dim=1) for t in (k, v))
+    want = A.reference_mha(q, kr, vr)
+    tol = 5e-2 if dtype == torch.bfloat16 else 1e-4
+    assert (got.float() - want.float()).abs().max().item() < tol
+    if dtype == torch.bfloat16:
+        _bf16_close(got, q, k, v, True)
+
+
+@pytest.mark.cuda
+def test_resolver_routes_on_the_card(cuda):
+    """On a card every call launches the kernel: a head dim without an
+    instance on copies padded to the next one (counted), float16 GQA as
+    given, a misaligned bf16 view on contiguous copies (counted, equal to
+    the kernel on copies made by hand)."""
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((1, 2, 40, 48)).astype(np.float32)).to(cuda)
+    kernels.reset_launches()
+    out = A.mha(x, x, x)
+    torch.cuda.synchronize()
+    assert kernels.launches[A.KERNEL] == 1
+    assert kernels.routes[f"{A.KERNEL}.kernel:padded"] == 1
+    assert torch.allclose(out, A.reference_mha(x, x, x), atol=1e-4)
+    h = x[..., :32].half()
+    A.gqa_mha(h, h[:, :1], h[:, :1])
+    torch.cuda.synchronize()
+    assert kernels.launches[A.KERNEL] == 2
+    wide = torch.from_numpy(rng.standard_normal((1, 2, 40, 33)).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    view = wide[..., 1:33]
+    q = view.contiguous()
+    got = A.mha(q, view, view)
+    torch.cuda.synchronize()
+    assert kernels.routes[f"{A.KERNEL}.kernel:contiguous"] == 1
+    assert kernels.launches[A.KERNEL] == 3
+    assert torch.equal(got, A.flash_attention(q, q, q))
+    with pytest.raises(ValueError, match="head dims up to 128"):
+        A.mha(*(torch.zeros(1, 2, 8, 192, device=cuda) for _ in range(3)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("hd,kv_heads", [(8, 4), (48, 2), (80, 4), (96, 1),
+                                         (64, 4), (128, 2)])
+def test_every_head_dim_and_type_runs_the_kernel(cuda, dtype, hd, kv_heads):
+    """Head dims between the instances (padded) and float16 (its own
+    tensor-core instance): ``mha``/``gqa_mha`` launch the flash kernel
+    once, allclose to ``reference_mha`` by the kernel rule of the type."""
+    rng = np.random.default_rng(hd + kv_heads)
+    shape, kv = (2, 4, 77, hd), (2, kv_heads, 77, hd)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(cuda, dtype) for s in (shape, kv, kv))
+    kernels.reset_launches()
+    got = A.mha(q, k, v) if kv_heads == 4 else A.gqa_mha(q, k, v)
+    torch.cuda.synchronize()
+    assert kernels.launches[A.KERNEL] == 1
+    assert got.shape == q.shape
+    kr, vr = (t.repeat_interleave(4 // kv_heads, dim=1) for t in (k, v))
+    want = A.reference_mha(q, kr, vr)
+    want32 = A.reference_mha(q.float(), kr.float(), vr.float())
+    _kernel_close(got, want, want32, dtype)
+
+
 # -- paged attention ----------------------------------------------------------
 
 from distributed_llm_scheduler_tpu_torch.eval import decode_bench as DB  # noqa: E402
@@ -461,15 +539,17 @@ def _norm_inputs(shape, dtype, device, seed, offset=False, pad=0, g_dtype=None):
 
 
 def _kernel_close(got, want, want32, dtype):
-    """f32: within 1e-4 of the plain version (summation order).  bf16:
-    within 5e-2 of the plain version and every element within bf16 unit
-    roundoff (2^-8 |y| + 1e-4) of the plain version computed in f32."""
+    """f32: within 1e-4 of the plain version (summation order).  bf16 and
+    f16: within 5e-2 of the plain version and every element within the
+    type's unit roundoff (2^-8 for bf16, 2^-11 for f16, times |y|, plus
+    1e-4) of the plain version computed in f32."""
     assert torch.isfinite(got).all()
     if dtype == torch.float32:
         assert (got - want).abs().max().item() < 1e-4
         return
+    roundoff = 2.0 ** -8 if dtype == torch.bfloat16 else 2.0 ** -11
     assert (got.float() - want.float()).abs().max().item() < 5e-2
-    assert ((got.float() - want32).abs() - (2.0 ** -8 * want32.abs() + 1e-4)
+    assert ((got.float() - want32).abs() - (roundoff * want32.abs() + 1e-4)
             ).max().item() <= 0
 
 
@@ -1111,3 +1191,94 @@ def test_multi_node_streamed_output_equals_unstreamed(cuda):
     torch.cuda.synchronize()
     assert rep.param_evictions > 0
     assert torch.equal(rep.output, want)
+
+
+# -- the serving layer ---------------------------------------------------------
+
+def _serve_reqs():
+    """Seeded requests at the serve bench's geometry (capacity 32): 8- and
+    24-token prompts (24 takes three 8-token chunks), one long generation
+    in three."""
+    rng = np.random.default_rng(31)
+    reqs = []
+    for i in range(8):
+        plen = (8, 24)[i % 2]
+        ids = rng.integers(0, 512, size=(1, plen), dtype=np.int32)
+        ids[0, :8] = 7  # one shared first page
+        reqs.append((f"c{i}", ids, 32 - plen if i % 3 == 0 else min(3 + i, 32 - plen)))
+    return reqs
+
+
+def _serve_run(device, sharing, chunk, preempt):
+    """The serve bench's tiny f32 engine on ``device``: the requests in two
+    waves, ``c0`` preempted after two segments and resumed from its
+    prefix when ``preempt``.  Returns {rid: tokens}, passes stitched."""
+    from distributed_llm_scheduler_tpu_torch.eval import serve_bench as SB
+    from distributed_llm_scheduler_tpu_torch.serve import VirtualClock
+
+    eng, _ = SB.build_serve_engine(sharing=sharing, chunk_tokens=chunk,
+                                   clock=VirtualClock(), device=device)
+    reqs = _serve_reqs()
+    for rid, ids, gen in reqs[:4]:
+        eng.submit(rid, ids, gen)
+    eng.step_segment()
+    eng.step_segment()
+    res = None
+    if preempt:
+        res = eng.preempt("c0")
+        eng.submit("c0#p1", np.concatenate([reqs[0][1], res["tokens"][None]], 1),
+                   res["remaining"])
+    for rid, ids, gen in reqs[4:]:
+        eng.submit(rid, ids, gen)
+    out = {k: np.asarray(v) for k, v in eng.run().items()}
+    if res is not None:
+        out["c0"] = np.concatenate([res["tokens"], out.pop("c0#p1")])
+    assert eng.page_occupancy()["free_pages"] == eng.pool.n_pages - 1
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sharing,chunk,preempt", [
+    (False, None, False), (False, 8, False), (True, None, False),
+    (False, None, True), (True, 8, True)])
+def test_serve_engine_on_the_card_equals_the_cpu(cuda, sharing, chunk, preempt):
+    """The serving engine in f32 on the card (the kernels) and on the CPU
+    (the plain versions), from the same numpy weights, with chunked
+    prefill, prefix sharing and a preempted request resumed: every
+    request's tokens equal."""
+    kernels.reset_launches()
+    card = _serve_run(cuda, sharing, chunk, preempt)
+    torch.cuda.synchronize()
+    assert kernels.launches[A.PAGED_KERNEL] > 0
+    host = _serve_run(torch.device("cpu"), sharing, chunk, preempt)
+    assert sorted(card) == sorted(host)
+    for rid in host:
+        np.testing.assert_array_equal(card[rid], host[rid], err_msg=rid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("admission", ["fifo", "slo"])
+def test_frontend_virtual_clock_leg_on_the_card_equals_the_cpu(cuda, admission):
+    """The serve bench's frontend leg on a virtual clock, on the card and
+    on the CPU: equal digests (request rows and every token)."""
+    from distributed_llm_scheduler_tpu_torch.eval import serve_bench as SB
+    from distributed_llm_scheduler_tpu_torch.obs import SLOPolicy
+    from distributed_llm_scheduler_tpu_torch.serve import (
+        ServiceTimeModel, VirtualClock, poisson_arrivals)
+
+    sc = SB.SCENARIO
+    arrivals = poisson_arrivals(
+        sc["rate_rps"], sc["n_requests"], 7, prompt_lens=sc["prompt_lens"],
+        max_new_tokens=sc["max_new_tokens"], priorities=sc["priorities"],
+        priority_weights=sc["priority_weights"])
+    policy = SLOPolicy(ttft_s=sc["ttft_s"], window_s=sc["window_s"],
+                       percentile=sc["percentile"])
+    tm = ServiceTimeModel(wave_s=sc["wave_s"], segment_s=sc["segment_s"],
+                          idle_s=sc["idle_s"])
+    legs = {}
+    for where in (cuda, torch.device("cpu")):
+        eng, _ = SB.build_serve_engine(clock=VirtualClock(), device=where)
+        legs[where.type] = SB.run_serving_leg(
+            arrivals, policy, admission, admission == "slo", tm, engine=eng)
+    assert legs["cuda"]["digest"] == legs["cpu"]["digest"]
+    assert legs["cuda"]["pages_leaked"] == 0

@@ -344,32 +344,42 @@ def test_unported_engine_features_raise(weights):
         return backend.paged_decode_engine(
             td.graph, sched, td.config, tw, pool, slots=4, pages_per_seq=8, **kw)
 
-    with pytest.raises(NotImplementedError, match="prefix sharing"):
-        make(P.PagePool(n_pages=64, page_size=16, sharing=True))
-    with pytest.raises(NotImplementedError, match="chunk_tokens"):
-        make(chunk_tokens=8)
+    # the tracer, memprof and flight hooks are still not ported: refused
     for hook in ("trace", "memprof", "flight"):
         with pytest.raises(NotImplementedError):
             make(**{hook: object()})
-    # the graph's layer tasks choose the attention path; the engine takes
-    # no impl of its own and reports the graph's
-    with pytest.raises(TypeError, match="attention_impl"):
+    # sharing, chunked prefill, an impl name, preempt and drain are ported;
+    # the impl must be the graph's (its layer tasks choose the path)
+    eng = make(P.PagePool(n_pages=64, page_size=16, sharing=True),
+               chunk_tokens=8, attention_impl="auto")
+    assert eng.sharing and eng.chunk_tokens == 8
+    assert eng.summary()["attention_impl"] == "auto"
+    with pytest.raises(ValueError, match="attention_impl"):
+        make(attention_impl="pallas")
+    with pytest.raises(ValueError, match="differs from the graph's"):
         make(attention_impl="plain")
-    eng = make()
-    with pytest.raises(NotImplementedError, match="preempt"):
+    with pytest.raises(ValueError, match="not in flight"):
         eng.preempt("r0")
-    with pytest.raises(NotImplementedError, match="drain"):
-        eng.begin_drain()
+    eng.begin_drain()
+    assert eng.draining
+    eng.end_drain()
+    assert not eng.draining
 
 
 def test_engine_reports_the_graphs_attention_impl(weights):
     _, tw = weights
     td = torch_build(tgpt2.GPT2Config.tiny(), attention_impl="plain", **GEOM)
     tc = P.Cluster.from_torch_devices([CPU])
-    eng = P.DeviceBackend(tc).paged_decode_engine(
-        td.graph, P.get_scheduler("greedy").schedule(td.graph, tc), td.config,
-        tw, P.PagePool(n_pages=64, page_size=16), slots=4, pages_per_seq=8)
-    assert eng.summary()["attention_impl"] == "plain"
+    sched = P.get_scheduler("greedy").schedule(td.graph, tc)
+    for impl in (None, "plain"):
+        eng = P.DeviceBackend(tc).paged_decode_engine(
+            td.graph, sched, td.config, tw, P.PagePool(n_pages=64, page_size=16),
+            slots=4, pages_per_seq=8, attention_impl=impl)
+        assert eng.summary()["attention_impl"] == "plain"
+    with pytest.raises(ValueError, match="differs from the graph's"):
+        P.DeviceBackend(tc).paged_decode_engine(
+            td.graph, sched, td.config, tw, P.PagePool(n_pages=64, page_size=16),
+            slots=4, pages_per_seq=8, attention_impl="kernel")
 
 
 def test_engine_backpressure_and_stall():
