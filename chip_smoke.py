@@ -154,7 +154,31 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     prover.  Every leg must leak no page, pass the lifecycle lint and
     launch the paged kernel 12 times per decode step and LayerNorm 25
     times per decode step and per prefill call, and every delivered token
-    must pass phase 9's teacher-forced oracle (``ONLINE_LINE``).
+    must pass phase 9's teacher-forced oracle (``ONLINE_LINE``);
+16. run doctor: a. the flagship under ``greedy`` x1 (planned, segmented)
+    and ``heft`` x8 (planned, compiled) with a ``Tracer`` and a
+    ``MemoryProfiler``, launches counted as phase 7 counts them, then run
+    untraced: outputs bit-equal, both makespans printed; the Perfetto
+    export validates with every node's track, flows across nodes (heft
+    x8 planned) and the memory counter tracks; the attribution is
+    non-null and tiles its makespan; the memory timeline verifies, its
+    peak printed beside the allocator's.  b. phase 9's engine and
+    workload bare, traced (tracer, flight recorder, request waterfalls,
+    memory profiler) and bare again: tokens bit-equal, launches counted
+    as phase 9 counts them, one waterfall per request, the export and
+    the flight ring valid, 0 leaked pages, and the traced wall split into
+    the engine's segment spans, admission waves (their prefill spans) and
+    the rest.  c. the soak of ``SOAK_r17.json``'s config (GPT-2 tiny f32,
+    virtual clock) on the card: its seven ``soak.*`` values equal the
+    banked file's and a CPU run's; an injected page leak trips HLT001 and
+    dumps a flight trace that validates; injected compile-class churn
+    trips HLT003; then phase 9's engine soaks 8 s (2 s warm-up) on the
+    real clock at half the capacity phase 9 measured: healthy, no leaked
+    page.  d. ``measure_fleet(seed=7)`` over three GPT-2 tiny f32
+    replicas on the card: the eight ``fleet.*`` values and the fleet
+    health history equal ``FLEET_r20.json``'s, the gates pass, and the
+    card's allocated memory is back at its level after the restarts.
+    Each leg's launches are counted; the numbers as ``DOCTOR_LINE``.
 
 The last lines are one JSON object of per-kernel numbers (``launches`` is
 the count of the kernel's main path, ``launches_by_path`` each counted
@@ -2524,6 +2548,442 @@ def run_online_path(torch, P, A, dev, served) -> dict:
     return out, launches
 
 
+# the run doctor's phase (16): a, the flagship traced and memory-profiled
+# on four rungs; b, phase 9's engine traced with a flight recorder and
+# request waterfalls; c, the soak doctor (virtual clock on the banked
+# config, the leak and churn injections, a real-clock soak of phase 9's
+# engine at SOAK_LOAD x its measured capacity); d, the health-routed fleet
+DOCTOR_LEGS = (
+    ("greedy x1", 1, "greedy", (("planned", {}),
+                                ("segmented", dict(segments=True)))),
+    ("heft x8", 8, "heft", (("planned", {}),
+                            ("compiled", dict(compiled=True)))),
+)
+SOAK_LOAD = 0.5
+SOAK_REAL = dict(duration_s=8.0, warmup_s=2.0)
+FLIGHT_DIR = ROOT / "chip_smoke_out" / "flight"
+
+
+def traced_checks(tr, nodes, flows: bool, counters: int) -> dict:
+    """The Perfetto export of ``tr``: it validates, every node has its
+    track, flows where promised and at least ``counters`` counter tracks.
+    Returns the trace summary."""
+    from distributed_llm_scheduler_tpu_torch.obs.export import (
+        chrome_events, trace_summary, validate_trace)
+
+    obj = {"traceEvents": chrome_events(tr), "displayTimeUnit": "ms"}
+    errs = validate_trace(obj)
+    summ = trace_summary(obj)
+    missing = set(nodes) - set(summ["rows"])
+    if (errs or missing or (flows and not summ["flows"])
+            or len(summ["counter_tracks"]) < counters):
+        raise AssertionError(
+            f"trace: errors {errs[:3]}, node tracks missing {missing}, flows "
+            f"{summ['flows']}, counter tracks {summ['counter_tracks']}")
+    return summ
+
+
+def run_traced_forward(torch, P, dev) -> tuple:
+    """Part a: the flagship under greedy x1 (planned, segmented) and heft
+    x8 (planned, compiled), each run with a tracer and a memory profiler,
+    its launches counted as phase 7 counts them, then once untraced: the
+    outputs bit-equal, the makespans side by side.  The export validates
+    with the node tracks, flows across nodes and the memory counter
+    tracks; the attribution is non-null and tiles its makespan; the
+    memory timeline verifies, its model peak beside the allocator's."""
+    from distributed_llm_scheduler_tpu_torch.obs import MemoryProfiler, Tracer
+    from distributed_llm_scheduler_tpu_torch.ops import attention as A
+    from distributed_llm_scheduler_tpu_torch.ops import kernels
+    from distributed_llm_scheduler_tpu_torch.ops import norms as N
+
+    cfg = P.GPT2Config.small(dtype=torch.bfloat16)
+    dag = P.build_gpt2_dag(cfg, **FLAGSHIP)
+    graph = P.fuse_linear_chains(dag.graph)
+    params = dag.init_params(seed=0, device=dev)
+    ids = dag.make_inputs(seed=1, device=dev)
+    mb = FLAGSHIP["microbatches"]
+    per_forward = {A.KERNEL: mb * cfg.n_layer,
+                   N.LN_KERNEL: mb * (2 * cfg.n_layer + 1)}
+    out, launches = {}, {}
+    for label, n, policy, rungs in DOCTOR_LEGS:
+        cluster = P.Cluster.from_torch_devices([dev] * n)
+        sched = P.get_scheduler(policy).schedule(graph, cluster)
+        backend = P.DeviceBackend(cluster)
+        nodes = sorted(set(sched.placement.values()))
+        for rung, kw in rungs:
+            name = f"{label} {rung}"
+            tr = Tracer()
+            mem = MemoryProfiler(tracer=tr)
+            kernels.reset_launches()
+            rep = backend.execute(graph, sched, params, ids, reps=REPS,
+                                  trace=tr, memprof=mem, **kw)
+            torch.cuda.synchronize()
+            no_routes(name)
+            eager = {k: kernels.launches[k] for k in per_forward}
+            replayed = {k: kernels.replayed.get(k, 0) for k in per_forward}
+            captured = {k: rep.captured_launches.get(k, 0) for k in per_forward}
+            if rep.captured_launches:
+                if (eager != times(captured, 2)
+                        or replayed != times(captured, 1 + REPS)):
+                    raise AssertionError(f"{name}: eager {eager}, replayed "
+                                         f"{replayed}, captured {captured}")
+                launches[f"doctor {name}"] = replayed
+            else:
+                if eager != times(per_forward, 1 + REPS):
+                    raise AssertionError(f"{name}: launches {eager}")
+                launches[f"doctor {name}"] = eager
+            on = rep.output.clone()
+            summ = traced_checks(tr, nodes, flows="planned" in rung and n > 1,
+                                 counters=min(n, 2))
+            att = rep.attribution
+            if att is None or not att["critical_path"]:
+                raise AssertionError(f"{name}: no attribution")
+            residual = sum(att["breakdown_s"].values()) - att["makespan_s"]
+            if abs(residual) > 1e-9:
+                raise AssertionError(f"{name}: attribution residual {residual}")
+            errs = mem.verify()
+            if errs:
+                raise AssertionError(f"{name}: memory timeline {errs[:3]}")
+            devs = rep.memory["devices"]
+            model_peak = max(d["peak_bytes"] for d in devs.values())
+            plat = {d.get("platform_peak_bytes") for d in devs.values()}
+            if len(plat) != 1 or None in plat:
+                raise AssertionError(f"{name}: allocator peaks {plat}")
+            off = backend.execute(graph, sched, params, ids, reps=REPS, **kw)
+            torch.cuda.synchronize()
+            same = torch.equal(off.output, on)
+            if not same:
+                raise AssertionError(f"{name}: traced output differs")
+            frac = {k: v for k, v in att["fractions"].items()}
+            row = dict(
+                makespan_ms_traced=rep.makespan_s * 1e3,
+                makespan_ms_untraced=off.makespan_s * 1e3,
+                dispatch_ms_traced=rep.dispatch_overhead_s * 1e3,
+                dispatch_ms_untraced=off.dispatch_overhead_s * 1e3,
+                events=len(tr.events), spans=summ["spans"],
+                flows=summ["flows"], counter_tracks=len(summ["counter_tracks"]),
+                attribution_makespan_ms=att["makespan_s"] * 1e3,
+                breakdown_ms={k: v * 1e3 for k, v in att["breakdown_s"].items()},
+                fractions=frac, critical_path=len(att["critical_path"]),
+                stragglers=att["stragglers"],
+                model_peak_bytes=model_peak,
+                allocator_peak_bytes=plat.pop(), memory_events=len(mem),
+                bit_equal=same)
+            out[name] = row
+            log(f"  {name}: makespan {row['makespan_ms_traced']:.3f} ms traced "
+                f"vs {row['makespan_ms_untraced']:.3f} untraced (host dispatch "
+                f"{row['dispatch_ms_traced']:.3f} vs "
+                f"{row['dispatch_ms_untraced']:.3f} ms); outputs bit-equal; "
+                f"{row['events']} events ({row['spans']} spans, {row['flows']} "
+                f"flows, {row['counter_tracks']} counter tracks), export valid; "
+                f"attribution of {row['attribution_makespan_ms']:.3f} ms: "
+                + ", ".join(f"{k} {v:.3f}" for k, v in row["breakdown_ms"].items())
+                + f" ms (residual {residual:.1e}), critical path "
+                f"{row['critical_path']} spans; memory model peak "
+                f"{model_peak / 1024**2:.1f} MiB beside the allocator's "
+                f"{row['allocator_peak_bytes'] / 1024**2:.1f} MiB, "
+                f"{len(mem)} events, verified")
+            del rep, off, on
+        del backend
+        torch.cuda.empty_cache()
+    return out, launches
+
+
+def span_sum(tr, name: str, track: str = "decode") -> tuple:
+    """(count, seconds) of the spans called ``name`` on ``track`` (the
+    request waterfalls carry spans of the same names on their own
+    tracks)."""
+    spans = [e for e in tr.events if e["type"] == "span"
+             and e["name"] == name and e["track"] == track]
+    return len(spans), sum(e["t1"] - e["t0"] for e in spans)
+
+
+def run_traced_serving(torch, P, A, dev, served) -> tuple:
+    """Part b: phase 9's engine and workload bare, then with a tracer, a
+    flight recorder and request waterfalls (and a memory profiler): the
+    tokens equal, the launches counted as phase 9 counts them, the
+    export valid with one waterfall per request, 0 leaked pages, and the
+    run's wall split into the engine's segment spans, its admission waves
+    (the prefill spans inside them) and the rest."""
+    from distributed_llm_scheduler_tpu_torch.obs import (
+        FlightRecorder, MemoryProfiler, Tracer, request_track)
+    from distributed_llm_scheduler_tpu_torch.ops import kernels
+
+    eng, cfg = served["engine"], served["cfg"]
+    reqs = serve_workload(cfg.vocab_size)
+
+    def bare_run():
+        eng.rebind_obs()
+        t0 = time.perf_counter()
+        got = {k: v.copy() for k, v in serve(eng, reqs).items()}
+        torch.cuda.synchronize()
+        return got, time.perf_counter() - t0
+
+    # bare, traced, bare: the tracer's cost against both neighbours
+    bare, bare_wall = bare_run()
+    tr, fl, mem = Tracer(), FlightRecorder(), MemoryProfiler()
+    eng.rebind_obs(tracer=tr, flight=fl, memprof=mem)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    got = serve(eng, reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    no_routes("doctor serve")
+    snap = eng.metrics.snapshot()
+    steps = eng.seg_steps * eng.segments_run
+    waves = snap["counters"]["decode.admission_waves"]["value"]
+    want = {A.PAGED_KERNEL: cfg.n_layer * steps, A.PAGED_RAGGED_KERNEL: 0,
+            "layer_norm": (2 * cfg.n_layer + 1) * (steps + waves)}
+    counts = {k: kernels.launches[k] for k in want}
+    if counts != want or kernels.launches["layer_norm.register"] != counts[
+            "layer_norm"]:
+        raise AssertionError(f"doctor serve: launches {counts} != {want}")
+    got = {k: v.copy() for k, v in got.items()}
+    leaked = snap["gauges"]["decode.pages_leaked"]["value"]
+    summ = traced_checks(tr, [], flows=False, counters=3)
+    tracks = set(tr.tracks())
+    missing = [rid for rid, _, _ in reqs if request_track(rid) not in tracks]
+    flight = traced_checks(fl.tracer, [], flows=False, counters=1)
+    mem_errs = mem.verify()
+    n_events, kv_peak = len(tr.events), mem.peak(mem.devices()[0])[0]
+    bare_again, bare_wall_after = bare_run()
+    diff = [rid for rid in bare if not (got[rid] == bare[rid]).all()
+            or not (bare_again[rid] == bare[rid]).all()]
+    if diff or leaked or missing or mem_errs:
+        raise AssertionError(
+            f"doctor serve: tokens differ {diff}, {leaked} leaked, waterfalls "
+            f"missing {missing}, memory {mem_errs[:2]}")
+    n_seg, seg_s = span_sum(tr, "segment")
+    n_wave, wave_s = span_sum(tr, "admission_wave")
+    n_pf, pf_s = span_sum(tr, "prefill")
+    rest_s = wall - seg_s - wave_s
+    split = dict(
+        wall_s=wall, bare_wall_s=bare_wall,
+        bare_wall_after_s=bare_wall_after, segments=n_seg,
+        segment_span_s=seg_s, segment_mean_ms=seg_s / n_seg * 1e3,
+        admission_waves=n_wave, wave_span_s=wave_s, prefill_span_s=pf_s,
+        rest_s=rest_s, rest_per_segment_ms=rest_s / n_seg * 1e3,
+        events=n_events, spans=summ["spans"],
+        waterfalls=len(reqs), flight_ring_events=len(fl.tracer.events),
+        flight_spans=flight["spans"], kv_peak_bytes=kv_peak,
+        launches=counts)
+    log(f"  doctor serve: {len(reqs)} requests in {wall:.4f} s traced "
+        f"({bare_wall:.4f} s bare before, {bare_wall_after:.4f} s after), "
+        f"tokens bit-equal; of the traced wall: "
+        f"{n_seg} segment spans {seg_s:.4f} s (mean "
+        f"{split['segment_mean_ms']:.3f} ms: the eager step's launches and "
+        f"its token readback), {n_wave} admission waves {wave_s:.4f} s "
+        f"(their prefill spans {pf_s:.4f} s), the rest {rest_s:.4f} s "
+        f"({split['rest_per_segment_ms']:.3f} ms a segment: slot bookkeeping "
+        f"and the engine loop); {n_events} events, {len(reqs)} "
+        f"waterfalls, export valid; flight ring {len(fl.tracer.events)} "
+        f"events, valid; kv peak {split['kv_peak_bytes'] / 1024**2:.1f} MiB; "
+        f"0 leaked pages; launches {counts}")
+    eng.rebind_obs()
+    return split, {"doctor serve": counts}
+
+
+def soak_launches(A, eng) -> dict:
+    """What one soak's engine must have launched: the paged kernel per
+    layer and decode step, LayerNorm per decode step and prefill call."""
+    c = eng.metrics.counter
+    steps = eng.seg_steps * eng.segments_run
+    prefills = int(c("decode.admission_waves").value
+                   + c("decode.chunk_waves").value)
+    return {A.PAGED_KERNEL: eng.n_layers * steps, A.PAGED_RAGGED_KERNEL: 0,
+            "layer_norm": (2 * eng.n_layers + 1) * (steps + prefills)}
+
+
+def counted_soak(torch, A, label, eng, run):
+    from distributed_llm_scheduler_tpu_torch.ops import kernels
+
+    kernels.reset_launches()
+    art = run()
+    torch.cuda.synchronize()
+    no_routes(label)
+    want = soak_launches(A, eng)
+    got = {k: kernels.launches[k] for k in want}
+    if got != want or not got[A.PAGED_KERNEL]:
+        raise AssertionError(f"{label}: launches {got} != {want}")
+    return art, got
+
+
+def run_soak_path(torch, P, A, dev, served) -> tuple:
+    """Part c: the soak of ``SOAK_r17.json``'s config (GPT-2 tiny f32,
+    virtual clock) on the card: its seven ``soak.*`` values equal the
+    banked file's and a CPU run's; an injected page leak trips HLT001 and
+    dumps a flight trace that validates; injected compile-class churn
+    trips HLT003; then phase 9's GPT-2 small bf16 engine soaks on the real
+    clock at SOAK_LOAD x the capacity phase 9 measured: healthy, no leak."""
+    from distributed_llm_scheduler_tpu_torch.eval import serve_bench as SB
+    from distributed_llm_scheduler_tpu_torch.obs.export import validate_trace
+    from distributed_llm_scheduler_tpu_torch.serve import (
+        VirtualClock, poisson_arrivals)
+    from distributed_llm_scheduler_tpu_torch.serve.soak import (
+        SLOPE_METRICS, SoakConfig, run_soak, validate_soak_artifact)
+
+    banked = json.loads((ROOT / "SOAK_r17.json").read_text())
+    keys = sorted(k for k in banked if k.startswith("soak."))
+    cfg = SoakConfig(**banked["config"])
+    t0 = time.perf_counter()
+    host = run_soak(cfg, device="cpu")
+    t_host = time.perf_counter() - t0
+    tiny, _ = SB.build_serve_engine(clock=VirtualClock(), device=dev)
+
+    def factory(eng):
+        def make(*, clock=None, flight=None, attention_impl=None):
+            eng.rebind_obs(clock=clock, flight=flight)
+            return eng
+        return make
+
+    out, launches = {}, {}
+    t0 = time.perf_counter()
+    card, launches["soak virtual"] = counted_soak(
+        torch, A, "soak virtual", tiny,
+        lambda: run_soak(cfg, engine_factory=factory(tiny)))
+    t_card = time.perf_counter() - t0
+    off = {k: (card[k], host[k], banked[k]) for k in keys
+           if not card[k] == host[k] == banked[k]}
+    log(f"  soak (banked config, virtual clock) on the card in {t_card:.1f} s "
+        f"(CPU {t_host:.1f} s): {len(keys) - len(off)} of {len(keys)} soak.* "
+        f"values equal the CPU's and SOAK_r17.json's, verdict "
+        f"{card['verdict']}, digest equal to the CPU's "
+        f"{card['digest'] == host['digest']}")
+    for k in keys:
+        log(f"    {k} = {card[k]!r}")
+    if (off or card["digest"] != host["digest"] or card["verdict"] != "healthy"
+            or validate_soak_artifact(card)):
+        raise AssertionError(f"soak virtual: off {off}")
+    out["virtual"] = dict({k: card[k] for k in keys}, seconds=t_card)
+
+    FLIGHT_DIR.mkdir(parents=True, exist_ok=True)
+    for name, kw, code in (
+        ("leak", dict(flight_dir=str(FLIGHT_DIR), inject_leak_every=2),
+         "HLT001"),
+        ("churn", dict(inject_churn=True), "HLT003"),
+    ):
+        art, launches[f"soak {name}"] = counted_soak(
+            torch, A, f"soak {name}", tiny,
+            lambda: run_soak(SoakConfig(), engine_factory=factory(tiny), **kw))
+        errors = [f for f in art["health"]["findings"]
+                  if f["severity"] == "error"]
+        dumps = art["flight_dumps"]
+        dump_ok = all(validate_trace(d["trace"]) == [] for d in dumps)
+        log(f"  soak {name}: verdict {art['verdict']}, breaches "
+            + "; ".join(f["message"] for f in errors)
+            + f"; {len(dumps)} flight dump(s), valid {dump_ok}"
+            + (f", reasons {dumps[0]['reasons']}" if dumps else ""))
+        if (art["verdict"] != "breach" or code not in {f["code"] for f in errors}
+                or not dump_ok or (name == "leak" and not dumps)):
+            raise AssertionError(f"soak {name} did not trip {code}")
+        out[name] = dict(verdict=art["verdict"],
+                         breaches=[f["code"] for f in errors],
+                         dumps=len(dumps),
+                         **{m: art[m] for m in SLOPE_METRICS.values()})
+
+    eng = served["engine"]
+    probe = poisson_arrivals(1.0, 256, cfg.seed,
+                             prompt_lens=SB.SCENARIO["prompt_lens"],
+                             max_new_tokens=SB.SCENARIO["max_new_tokens"])
+    mean_new = sum(a.max_new_tokens for a in probe) / len(probe)
+    capacity = served["tok_s"] / mean_new
+    rate = SOAK_LOAD * capacity
+    real = SoakConfig(rate_rps=rate, real_clock=True,
+                      ttft_s=TTFT_SEGMENTS * served["seg_wall_s"],
+                      window_s=SLO_WINDOW_SEGMENTS * served["seg_wall_s"],
+                      **SOAK_REAL)
+    t0 = time.perf_counter()
+    art, launches["soak real"] = counted_soak(
+        torch, A, "soak real", eng,
+        lambda: run_soak(real, engine_factory=factory(eng)))
+    t_real = time.perf_counter() - t0
+    sv = art["serving"]
+    slopes = {m: art[m] for m in SLOPE_METRICS.values()}
+    log(f"  soak real clock, GPT-2 small bf16: {SOAK_REAL['duration_s']:g} s "
+        f"({SOAK_REAL['warmup_s']:g} s warm-up) at {rate:.3f} req/s = "
+        f"{SOAK_LOAD:g} x the {capacity:.3f} req/s phase 9 measured "
+        f"({served['tok_s']:.1f} tok/s over {mean_new:.2f} new tokens), TTFT "
+        f"target {real.ttft_s * 1e3:.1f} ms; {t_real:.1f} s wall; verdict "
+        f"{art['verdict']}; goodput {art['soak.goodput_tok_s']:.1f} tok/s; "
+        f"{sv['completed']} of {sv['n_requests']} completed, {sv['shed']} shed, "
+        f"{sv['pages_leaked']} pages leaked; slopes {slopes}")
+    if art["verdict"] != "healthy" or sv["pages_leaked"] or validate_soak_artifact(art):
+        raise AssertionError(f"soak real: verdict {art['verdict']}, health "
+                             f"{art['health']['findings']}")
+    out["real"] = dict(rate_rps=rate, capacity_rps=capacity, wall_s=t_real,
+                       verdict=art["verdict"],
+                       goodput_tok_s=art["soak.goodput_tok_s"],
+                       completed=sv["completed"], shed=sv["shed"],
+                       n_requests=sv["n_requests"], **slopes)
+    eng.rebind_obs()
+    return out, launches
+
+
+def run_fleet_path(torch, A, dev) -> tuple:
+    """Part d: ``measure_fleet(seed=7)`` over three GPT-2 tiny f32 replicas
+    sharing the card: all eight ``fleet.*`` values and the ``fleet_health``
+    history equal ``FLEET_r20.json``'s, every gate passes, and the card's
+    allocated memory is back at its level once the legs' restarts are
+    done."""
+    from distributed_llm_scheduler_tpu_torch.eval import serve_bench as SB
+    from distributed_llm_scheduler_tpu_torch.ops import kernels
+    from distributed_llm_scheduler_tpu_torch.serve import VirtualClock
+
+    banked = json.loads((ROOT / "FLEET_r20.json").read_text())
+    keys = sorted(k for k in banked if k.startswith("fleet."))
+    engines = {rid: SB.build_serve_engine(clock=VirtualClock(), device=dev)[0]
+               for rid in ("n0", "n1", "n2")}
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    art = SB.measure_fleet(seed=7, engines=engines, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    no_routes("fleet")
+    counts = {k: kernels.launches[k] for k in (
+        A.PAGED_KERNEL, A.PAGED_RAGGED_KERNEL, "layer_norm")}
+    for eng in engines.values():
+        eng.rebind_obs()
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated(dev)
+    off = {k: (art[k], banked[k]) for k in keys if art[k] != banked[k]}
+    fails = SB.fleet_gate_failures(art) + SB.validate_fleet_artifact(art)
+    same_health = art["fleet_health"] == banked["fleet_health"]
+    log(f"  fleet (3 GPT-2 tiny f32 replicas on the card, one leaking) in "
+        f"{secs:.1f} s: {len(keys) - len(off)} of {len(keys)} fleet.* values "
+        f"equal FLEET_r20.json's, fleet_health equal {same_health}, gates "
+        f"{'pass' if not fails else fails}; allocated {held} bytes before and "
+        f"{after} after the restarts; launches {counts}")
+    for k in keys:
+        log(f"    {k} = {art[k]!r}")
+    if (off or fails or not same_health or after != held
+            or not counts[A.PAGED_KERNEL] or counts[A.PAGED_RAGGED_KERNEL]):
+        raise AssertionError(f"fleet: off {off}, gates {fails}, health "
+                             f"{same_health}, memory {held} -> {after}")
+    return dict({k: art[k] for k in keys}, seconds=secs), {"fleet": counts}
+
+
+def run_doctor_path(torch, P, A, dev, served) -> tuple:
+    """Phase 16, parts a-d; returns (``DOCTOR_LINE``'s object, each leg's
+    launch counts)."""
+    out, launches = {}, {}
+    log("  a. the flagship traced and memory-profiled")
+    out["forward"], n = run_traced_forward(torch, P, dev)
+    launches.update(n)
+    torch.cuda.empty_cache()
+    log("  b. phase 9's engine traced, with a flight recorder and waterfalls")
+    out["serve"], n = run_traced_serving(torch, P, A, dev, served)
+    launches.update(n)
+    log("  c. the soak doctor")
+    out["soak"], n = run_soak_path(torch, P, A, dev, served)
+    launches.update(n)
+    log("  d. the health-routed fleet")
+    out["fleet"], n = run_fleet_path(torch, A, dev)
+    launches.update(n)
+    return out, launches
+
+
 def paged_timing(root: Path) -> int:
     """``python3 chip_smoke.py --paged-timing [ROOT]``: the single-token
     paged kernel of the package under ROOT (default: this checkout) alone,
@@ -2734,7 +3194,7 @@ def main() -> int:
     t_all = time.perf_counter()
     dev = torch.device("cuda", 0)
     smi = nvidia_smi_line()
-    log(f"[1/15] device: {torch.cuda.get_device_name(0)} ({smi}); torch "
+    log(f"[1/16] device: {torch.cuda.get_device_name(0)} ({smi}); torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2742,7 +3202,7 @@ def main() -> int:
 
     sources = (A.KERNEL, A.PAGED_SOURCE, N.SOURCE)
     secs = kernels.build(*sources)
-    log(f"[2/15] built {', '.join(f'{n}.cu' for n in sources)} with "
+    log(f"[2/16] built {', '.join(f'{n}.cu' for n in sources)} with "
         f"{kernels.nvcc_path()} for sm_90a in {secs:.1f} s (in parallel)")
     log_ptxas(kernels.build_logs.get(A.KERNEL, ""))
     log_ptxas(kernels.build_logs.get(A.PAGED_SOURCE, ""),
@@ -2754,60 +3214,60 @@ def main() -> int:
                     if "paged_ragged_tc" in k]
     norm_ptxas = log_norm_ptxas(kernels.build_logs.get(N.SOURCE, ""))
 
-    log("[3/15] flash kernel check against its plain version")
+    log("[3/16] flash kernel check against its plain version")
     attn = check_attention_kernel(
         torch, A, dev, P.LlamaConfig.llama3_8b(dtype=torch.bfloat16))
 
-    log("[4/15] paged kernel check against the plain versions")
+    log("[4/16] paged kernel check against the plain versions")
     paged = check_paged_kernels(torch, A, DB, dev)
     ragged_n = run_ragged_op_path(torch, A, DB, dev)
 
-    log("[5/15] LayerNorm and RMSNorm kernel check against the plain versions")
+    log("[5/16] LayerNorm and RMSNorm kernel check against the plain versions")
     norms = check_norm_kernels(torch, N, dev)
 
     def phase_done():  # free the phase's tensors before the next one
         gc.collect()
         torch.cuda.empty_cache()
 
-    log("[6/15] flagship forward path: GPT-2 small bf16 DAG on the card")
+    log("[6/16] flagship forward path: GPT-2 small bf16 DAG on the card")
     gpt2_n = run_main_path(torch, P, dev)
     phase_done()
 
-    log("[7/15] execution ladder: the flagship per task, planned, coalesced, "
+    log("[7/16] execution ladder: the flagship per task, planned, coalesced, "
         "segmented and compiled")
     ladder_n = run_ladder_path(torch, P, dev)
     phase_done()
 
-    log("[8/15] north-star bench: GPT-2 small bf16, 8 policies replayed")
+    log("[8/16] north-star bench: GPT-2 small bf16, 8 policies replayed")
     bench_n = run_bench_path(torch, P, dev)
     phase_done()
 
-    log("[9/15] serve path: GPT-2 small bf16 through the paged decode engine")
+    log("[9/16] serve path: GPT-2 small bf16 through the paged decode engine")
     serve_launches, serve_ragged, serve_ln, serve_tr, served = run_serve_path(
         torch, P, A, dev)
     phase_done()
 
-    log("[10/15] Llama path: Llama-3 8B bf16 DAG, pipeline stages, on the card")
+    log("[10/16] Llama path: Llama-3 8B bf16 DAG, pipeline stages, on the card")
     llama_n = run_llama_path(torch, P, dev)
     phase_done()
 
-    log("[11/15] f32 leg: GPT-2 placed on the card vs fused on the CPU")
+    log("[11/16] f32 leg: GPT-2 placed on the card vs fused on the CPU")
     run_f32_leg(torch, P, dev)
 
-    log("[12/15] f32 serve leg: the engine on the card vs on the CPU")
+    log("[12/16] f32 serve leg: the engine on the card vs on the CPU")
     run_f32_serve_leg(torch, P, dev)
     phase_done()
 
-    log("[13/15] f32 Llama leg: placed on the card vs fused on the CPU")
+    log("[13/16] f32 Llama leg: placed on the card vs fused on the CPU")
     run_llama_f32_leg(torch, P, dev)
     phase_done()
 
-    log("[14/15] parameter streaming: GPT-2 medium and the flagship under "
+    log("[14/16] parameter streaming: GPT-2 medium and the flagship under "
         "budgets below their params")
     stream_n = run_stream_path(torch, P, dev)
     phase_done()
 
-    log("[15/15] online serving: the serve bench on the card, then the "
+    log("[15/16] online serving: the serve bench on the card, then the "
         "frontend over GPT-2 small bf16 on a real clock")
     t15 = time.perf_counter()
     bench_on_card = run_serve_bench_on_card(torch, dev)
@@ -2815,6 +3275,16 @@ def main() -> int:
     online["serve_bench"] = bench_on_card
     print("ONLINE_LINE " + json.dumps(online), flush=True)
     log(f"  phase 15 in {time.perf_counter() - t15:.1f} s")
+    phase_done()
+
+    log("[16/16] run doctor: the flagship and the engine traced, the soak "
+        "doctor and the health-routed fleet")
+    t16 = time.perf_counter()
+    doctor, doctor_n = run_doctor_path(torch, P, A, dev, served)
+    doctor["seconds"] = time.perf_counter() - t16
+    doctor["card"] = smi
+    print("DOCTOR_LINE " + json.dumps(doctor), flush=True)
+    log(f"  phase 16 in {doctor['seconds']:.1f} s")
     del served
     phase_done()
 
@@ -2829,7 +3299,7 @@ def main() -> int:
     tpu = "distributed_llm_scheduler_tpu/ops/attention.py:"
     tpu_norms = "distributed_llm_scheduler_tpu/ops/norms.py:"
     runs = (("gpt2", gpt2_n), ("ladder", ladder_n), ("bench", bench_n),
-            ("llama", llama_n), ("stream", stream_n))
+            ("llama", llama_n), ("stream", stream_n), ("run", doctor_n))
     line = {"kernels": [
         {"name": A.KERNEL, "route": "cuda", "source": csrc + "flash_attention.cu",
          "replaces": tpu + "152",
@@ -2839,7 +3309,9 @@ def main() -> int:
          "source": csrc + "paged_attention.cu", "replaces": tpu + "411",
          "launches": serve_launches["serve run 1"],
          "launches_by_path": {**serve_launches, **{
-             k: n[A.PAGED_KERNEL] for k, n in online_n.items()}},
+             k: n[A.PAGED_KERNEL] for k, n in online_n.items()}, **{
+             k: n[A.PAGED_KERNEL] for k, n in doctor_n.items()
+             if A.PAGED_KERNEL in n}},
          **paged[A.PAGED_KERNEL], "serve_trace": serve_tr},
         {"name": A.PAGED_RAGGED_KERNEL, "route": "cuda",
          "source": csrc + "paged_attention.cu", "replaces": tpu + "547",

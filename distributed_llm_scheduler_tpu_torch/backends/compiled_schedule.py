@@ -43,7 +43,7 @@ import torch
 from ..core.graph import TaskGraph
 from ..core.schedule import Schedule
 from ..sched.linearize import ProgramIR, linearize
-from .device import CapturedProgram
+from .device import CapturedProgram, _array_bytes
 from .dispatch_plan import DispatchPlan
 
 
@@ -80,6 +80,8 @@ class CompiledSchedule:
                  device: torch.device):
         self.ir = ir
         self.device = device
+        self.placement = schedule.placement
+        self.graph_final = graph.topo_order[-1] if graph.topo_order else None
         self.transfer_edges = ir.n_exchanges
         self.transfer_bytes = 0
         self.plan = DispatchPlan.build(backend, graph, schedule, ir.order,
@@ -135,21 +137,75 @@ class CompiledSchedule:
             current.wait_stream(s)
         return out
 
-    def run(self, graph_input: Any) -> Tuple[Any, Dict, int, int, int, float, Dict]:
+    def run(self, graph_input: Any, tracer: Any = None, metrics: Any = None,
+            mem: Any = None, dclock: Any = None,
+            slab_bytes: Optional[Dict[str, int]] = None,
+            ) -> Tuple[Any, Dict, int, int, int, float, Dict]:
         """One run: ``(final, timings, transfer_edges, transfer_bytes,
         host calls, loop seconds, {})``.  On a card: the input copied into
         the static buffer and one replay on the current stream (the first
         run warms up and captures first); on the CPU the plan runs
-        eagerly."""
+        eagerly.
+
+        The run has no per-task boundaries, so ``tracer`` gets one
+        ``program`` span per node (the attribution then works at program
+        granularity): on a card the replay's window on the device, from
+        CUDA events through ``dclock``, beside the host's ``replay`` call
+        on the host track; on the CPU the host window.  ``metrics`` counts
+        the host calls and exchanges; ``mem`` books the build-time model
+        as the reference's compiled rung does, once per run (labels
+        replace across reps): a param slab per node (``slab_bytes``), the
+        input on each node, each exchange on its destination and the
+        final output on its owner."""
         t0 = time.perf_counter()
+        a = b = None
         with torch.no_grad():
             if self._program is None:
                 out, calls = self.plan.run(graph_input)[0], 1
             else:
+                stream = torch.cuda.current_stream(self.device)
+                a = dclock.mark(stream) if dclock is not None else None
                 out, calls = self._program({}, {"input": graph_input}), 2
+                b = dclock.mark(stream) if dclock is not None else None
+        t1 = time.perf_counter()
         if not self.transfer_bytes:  # the exchanged values' sizes, once known
             self.transfer_bytes = sum(
                 self.plan.xfer_nbytes[ex.tid]
                 for ph in self.ir.phases for ex in ph.exchanges)
+        if tracer is not None:
+            n_tasks = {
+                node: sum(len(ph.compute.get(node, ()))
+                          for ph in self.ir.phases)
+                for node in self.ir.devices
+            }
+            for node in self.ir.devices:
+                kw = dict(track=node, cat="program", tasks=n_tasks[node],
+                          phases=len(self.ir.phases))
+                if a is not None:
+                    dclock.window(("program", node), "program", self.device,
+                                  a, b, **kw)
+                else:
+                    tracer.complete("program", t0, t1, **kw)
+            if self._program is not None:
+                tracer.complete("replay", t0, t1, track="host", cat="launch")
+        if metrics is not None:
+            metrics.counter("compiled.launches").inc(calls)
+            metrics.counter("compiled.exchanges").inc(self.transfer_edges)
+        if mem is not None:
+            in_bytes = graph_input.numel() * graph_input.element_size()
+            for node in self.ir.devices:
+                pb = (slab_bytes or {}).get(node, 0)
+                if pb:
+                    mem.alloc(node, "slab:params", pb, "params")
+                mem.alloc(node, "input", in_bytes, "activations")
+            for ph in self.ir.phases:
+                for ex in ph.exchanges:
+                    mem.alloc(ex.dst, f"xfer:{ex.tid}",
+                              self.plan.xfer_nbytes[ex.tid], "transfers")
+            order = set(self.ir.order)
+            final = (self.graph_final if self.graph_final in order
+                     else self.ir.order[-1])
+            mem.alloc(self.placement[final], f"out:{final}",
+                      _array_bytes(out), "activations")
         return (out, {}, self.transfer_edges, self.transfer_bytes, calls,
-                time.perf_counter() - t0, {})
+                t1 - t0, {})

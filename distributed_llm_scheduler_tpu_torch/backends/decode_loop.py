@@ -172,9 +172,17 @@ class PagedDecodeEngine:
     prefix; ``begin_drain``/``end_drain`` close and reopen submission;
     every request's lifecycle goes to ``reqlog`` (:class:`...obs.reqlog.
     RequestLog`) and, when one is attached, every page event to a
-    :class:`...models.kv_pages.PageOwnershipLog`.  The tracer, memprof and
-    flight hooks are not ported and are refused rather than ignored.
-    Construct via ``DeviceBackend.paged_decode_engine``.
+    :class:`...models.kv_pages.PageOwnershipLog`.
+
+    Observability, as in the JAX package: ``tracer`` (explicit, or the
+    ambient one under ``DLS_TRACE``) records the engine's segment, wave,
+    prefill and chunk spans and its queue, pool and compile-class
+    counters on the ``decode`` track; ``flight`` (explicit, or ambient
+    under ``DLS_FLIGHT``) tees its ring into that stream; a tracer brings a
+    :class:`...obs.reqtrace.RequestTraceRecorder` (``reqtrace``) with it;
+    ``memprof`` folds each request's KV pages onto a memory timeline.
+    Every record is behind a ``None`` check, so a bare engine does no
+    observability work.  Construct via ``DeviceBackend.paged_decode_engine``.
     """
 
     def __init__(
@@ -196,9 +204,6 @@ class PagedDecodeEngine:
         chunk_tokens: Optional[int] = None,
         device: Any = None,
     ):
-        from ..obs import MetricsRegistry, RequestLog, resolve_clock
-
-        _refuse_unported(tracer=tracer, memprof=memprof, flight=flight)
         self.config = config
         self.device = torch.device(
             device if device is not None else next(iter(weights.values())).device
@@ -236,17 +241,70 @@ class PagedDecodeEngine:
             graph, schedule, config, seg_steps, weights=self.weights
         )
         self._new_state()
-        # the registry always exists, so a run can snapshot TTFT/TPOT and
-        # occupancy unconditionally; recording happens at segment
-        # boundaries, on the host
-        self.metrics = metrics if metrics is not None else MetricsRegistry()
-        self._clock = resolve_clock(clock)
-        # the request lifecycle log: timestamps are the same clock reads
-        # the ttft/tpot histograms observe
-        self.reqlog = RequestLog(clock=self._clock)
-        # the page-ownership seam: None records nothing (see
-        # attach_ownership_log)
+        # bytes of one physical page over every pool: page_size rows x
+        # (Hkv, hd) x k+v x n_layers, the memory profiler's kv page size
+        self._page_bytes = (
+            n_layers * 2 * pool.page_size * n_kv * hd
+            * torch.empty((), dtype=config.dtype).element_size()
+        )
+        # the pools are one placed slab: kv pages count on the node the
+        # schedule put the decode step on
+        self._mem_node = next(iter(schedule.placement.values()), "node0")
         self.ownlog = None
+        self._wire_obs(clock, tracer, metrics, flight, memprof)
+        self.reqlog = None
+        self._new_log()
+
+    def _wire_obs(self, clock, tracer, metrics, flight, memprof) -> None:
+        """Bind the observability surfaces (the JAX package's order):
+        the tracer (or the ambient one), the registry (explicit, ambient or
+        a fresh one: it always exists, so a run can snapshot TTFT/TPOT and
+        occupancy unconditionally), the clock, the flight recorder (its
+        ring tracer joins the span stream, alone or teed beside the
+        tracer), the request waterfalls (they ride the tracer), and the
+        memory profiler (explicit only)."""
+        from ..obs import (
+            MetricsRegistry,
+            RequestTraceRecorder,
+            TeeTracer,
+            ambient_flight,
+            ambient_metrics,
+            ambient_tracer,
+            resolve_clock,
+        )
+
+        self.tracer = tracer if tracer is not None else ambient_tracer()
+        self.metrics = (
+            metrics if metrics is not None
+            else (ambient_metrics() or MetricsRegistry())
+        )
+        self._clock = resolve_clock(clock)
+        self.flight = flight if flight is not None else ambient_flight()
+        if self.flight is not None:
+            if self.tracer is None:
+                self.tracer = self.flight.tracer
+            else:
+                self.tracer = TeeTracer(self.tracer, self.flight.tracer)
+        self.reqtrace = (
+            RequestTraceRecorder(self.tracer)
+            if self.tracer is not None else None
+        )
+        self.memprof = memprof
+
+    def _new_log(self) -> None:
+        """A fresh request lifecycle log (timestamps are the same clock
+        reads the ttft/tpot histograms observe), its sinks (the flight
+        ring's log too, which survives across runs) and a fresh waterfall
+        recorder state."""
+        from ..obs import RequestLog
+
+        self.reqlog = RequestLog(clock=self._clock)
+        self._reqlogs = (
+            (self.reqlog, self.flight.reqlog) if self.flight is not None
+            else (self.reqlog,)
+        )
+        if self.reqtrace is not None:
+            self.reqtrace.reset()
 
     def _new_state(self) -> None:
         """Zeroed pools and empty slot, queue and request state."""
@@ -264,6 +322,12 @@ class PagedDecodeEngine:
         self.cur_tok = np.zeros((self.slots, 1), np.int32)
         self.remaining = np.zeros((self.slots,), np.int32)
         self._queue: list = []
+        # the per-run seen-set of prefill compile classes, keyed as the JAX
+        # package keys its jitted prefills ((P, b, impl), ("shared", P, h,
+        # b, impl), ("chunk", chunk_tokens, 1, impl)): eager kernels need
+        # no build per class, but the soak's compile-class series
+        # (``jit.prefill_entries``, HLT003) counts exactly these
+        self._prefill_cache: Dict[Any, Any] = {}
         self._slot_req: list = [None] * self.slots  # request id per busy slot
         self._slot_pages: list = [[] for _ in range(self.slots)]
         self._tokens: Dict[Any, list] = {}
@@ -299,11 +363,14 @@ class PagedDecodeEngine:
         engine re-times a workload.  ``fresh_metrics`` also starts a new
         registry, so the next run's histograms and counters are its
         own."""
-        from ..obs import MetricsRegistry, RequestLog
+        from ..obs import MetricsRegistry
 
         for s, pages in enumerate(self._slot_pages):
             if pages:
                 self._release_pages(pages, str(self._slot_req[s]), "reset")
+                if self.memprof is not None:
+                    self.memprof.free(
+                        self._mem_node, f"kv:{self._slot_req[s]}")
         # the KV arrays are rebuilt: a retained prefix intern entry would
         # point at zeroed pages, and a warm cache would make same-seed
         # repeat runs diverge (a fault-injecting wrapper may lack it)
@@ -311,7 +378,7 @@ class PagedDecodeEngine:
         if drop is not None:
             drop()
         self._new_state()
-        self.reqlog = RequestLog(clock=self._clock)
+        self._new_log()
         if fresh_metrics:
             self.metrics = MetricsRegistry()
 
@@ -327,17 +394,15 @@ class PagedDecodeEngine:
     ) -> None:
         """Re-wire the observability surfaces and wipe run state, keeping
         the weights and the step composition: one engine serves many
-        independent legs, each with its own clock, metrics and ownership
-        log, indistinguishable from a fresh build.  A wrapped pool (a
-        fault injector) is replaced by a pristine :class:`...models.
-        kv_pages.PagePool` of the same geometry, and an instance-level
-        ``step_segment`` override is dropped."""
+        independent legs, each with its own clock, tracer, metrics, flight
+        recorder, memory profiler and ownership log, indistinguishable
+        from a fresh build.  A wrapped pool (a fault injector) is replaced
+        by a pristine :class:`...models.kv_pages.PagePool` of the same
+        geometry, and an instance-level ``step_segment`` override is
+        dropped."""
         from ..models.kv_pages import PagePool
-        from ..obs import MetricsRegistry, resolve_clock
 
-        _refuse_unported(tracer=tracer, memprof=memprof, flight=flight)
-        self.metrics = metrics if metrics is not None else MetricsRegistry()
-        self._clock = resolve_clock(clock)
+        self._wire_obs(clock, tracer, metrics, flight, memprof)
         # drop the slot pages before the pool swap: a wrapped pool must not
         # receive the stale pages reset() would free
         self._slot_pages = [[] for _ in range(self.slots)]
@@ -436,6 +501,8 @@ class PagedDecodeEngine:
                 src = int(self.page_table[s, li])
                 if self.pool.refcount(src) <= 1:
                     continue
+                t_c0 = (self._clock()
+                        if self.reqtrace is not None else None)
                 dst = self.pool.alloc(1)[0]
                 rid = str(self._slot_req[s])
                 if self.ownlog is not None:
@@ -456,6 +523,9 @@ class PagedDecodeEngine:
                         refcounts=[self.pool.refcount(dst)],
                     )
                 self.metrics.counter("decode.cow_splits").inc()
+                if self.reqtrace is not None:
+                    self.reqtrace.cow(rid, t_c0, self._clock(),
+                                      src=src, dst=dst)
 
     # -- drain ---------------------------------------------------------------
     @property
@@ -470,6 +540,11 @@ class PagedDecodeEngine:
         if not self._draining:
             self._draining = True
             self.metrics.counter("decode.drains_begun").inc()
+            if self.tracer is not None:
+                self.tracer.instant(
+                    "drain_begin", track="decode", cat="decode",
+                    t=self._clock(),
+                )
 
     def end_drain(self) -> None:
         """Reopen submission (``reset()`` and ``rebind_obs()`` also clear
@@ -510,12 +585,30 @@ class PagedDecodeEngine:
         return occ
 
     def _emit_pool_occupancy(self) -> None:
+        """Pool occupancy to the gauge and, when tracing, the counter
+        track: one value for both."""
+        used = self.pool.used_pages
         self.metrics.gauge(
             "decode.page_pool_occupancy_pages", unit="pages"
-        ).set(self.pool.used_pages)
+        ).set(used)
+        if self.tracer is not None:
+            self.tracer.counter("decode.page_pool_occupancy_pages", used)
 
     def _emit_queue_depth(self) -> None:
-        self.metrics.gauge("decode.queue_depth").set(len(self._queue))
+        depth = len(self._queue)
+        self.metrics.gauge("decode.queue_depth").set(depth)
+        if self.tracer is not None:
+            self.tracer.counter("decode.queue_depth", depth)
+
+    def _emit_jit_cache_size(self) -> None:
+        """The compile-class seen-set's size per segment: the soak's
+        recompile-churn series, flat once warm-up has met every class."""
+        entries = len(self._prefill_cache)
+        self.metrics.gauge(
+            "decode.jit_cache_entries", unit="entries"
+        ).set(entries)
+        if self.tracer is not None:
+            self.tracer.counter("decode.jit_cache_entries", entries)
 
     def summary(self) -> Dict[str, Any]:
         """Engine-state snapshot at this segment boundary."""
@@ -573,7 +666,16 @@ class PagedDecodeEngine:
         self._queue.append((rid, prompt_ids, max_new_tokens))
         t_sub = self._clock()
         self._submit_t[rid] = t_sub
-        self.reqlog.submit(rid, int(prompt_ids.shape[1]), max_new_tokens, t_sub)
+        for rl in self._reqlogs:
+            rl.submit(rid, int(prompt_ids.shape[1]), max_new_tokens, t_sub)
+        if self.reqtrace is not None:
+            # idempotent: a serving frontend may have registered the rid
+            # at its arrival already; a resume rid joins the first pass's
+            # track
+            self.reqtrace.submit(
+                rid, t_sub, prompt_len=int(prompt_ids.shape[1]),
+                max_new_tokens=max_new_tokens,
+            )
         self.metrics.counter("decode.requests_submitted").inc()
         self._emit_queue_depth()
 
@@ -627,6 +729,7 @@ class PagedDecodeEngine:
         from ..models import gpt2
 
         b, P = prompt_ids.shape
+        self._prefill_cache.setdefault((P, b, self.attention_impl))
         cache = self._dense_cache(b)
         ids = torch.from_numpy(prompt_ids).to(self.device)
         if self.prefill_time_charge is not None:
@@ -654,6 +757,8 @@ class PagedDecodeEngine:
         from ..models import gpt2
 
         b, P = prompt_ids.shape
+        self._prefill_cache.setdefault(
+            ("shared", P, int(h), b, self.attention_impl))
         pre = int(h) * self.page_size
         cache = self._dense_cache(b)
         self._gather(cache, shared_rows, pre)
@@ -682,6 +787,8 @@ class PagedDecodeEngine:
         the chunk's last real row, ``creal - 1``) as a (1,) tensor."""
         from ..models import gpt2
 
+        self._prefill_cache.setdefault(
+            ("chunk", self.chunk_tokens, 1, self.attention_impl))
         cache = self._dense_cache(1)
         self._gather(cache, pt_row[None, :], self.capacity)
         ids = torch.from_numpy(ids_chunk).to(self.device)
@@ -729,9 +836,25 @@ class PagedDecodeEngine:
             "rid": rid, "ids": np.asarray(ids), "P": P, "max_new": max_new,
             "next": 0,
         }
+        if self.memprof is not None:
+            # the full-horizon footprint, as whole-prompt admission books
+            # it: the profiler tracks the request's eventual residency
+            self.memprof.alloc(
+                self._mem_node, f"kv:{rid}",
+                pages_needed(P + max_new, self.page_size) * self._page_bytes,
+                "kv_pages",
+            )
         self._record_assign(pages, rid)
-        self.reqlog.admit(rid, t0)
+        for rl in self._reqlogs:
+            rl.admit(rid, t0)
         self.metrics.counter("decode.chunk_admitted").inc()
+        if self.tracer is not None:
+            self.tracer.instant(
+                "admit_chunked", track="decode", cat="decode", t=t0,
+                rid=str(rid), prompt_len=P,
+            )
+        if self.reqtrace is not None:
+            self.reqtrace.admitted(rid, t0, chunked=True)
         self._emit_pool_occupancy()
         self._emit_queue_depth()
 
@@ -750,17 +873,20 @@ class PagedDecodeEngine:
         if budget is None:
             budget = max(ct, self.slots * self.seg_steps)
         advanced = 0
+        spent_by: list = []   # rids whose chunks spent budget here
         order = sorted(self._chunk_state)
         n = len(order)
         rr = self._chunk_rr % n
         for k in range(n):
             if budget <= 0:
+                self._trace_budget_stalls(spent_by)
                 break
             s = order[(rr + k) % n]
             st = self._chunk_state[s]
             P, base = st["P"], st["next"]
             C = min(ct, P - base)
             if C > budget:
+                self._trace_budget_stalls(spent_by)
                 break
             final = base + C >= P
             target_rows = P + st["max_new"] if final else base + C
@@ -769,6 +895,19 @@ class PagedDecodeEngine:
             if need > 0:
                 if not self.pool.can_alloc(need):
                     self.metrics.counter("decode.chunk_stalls").inc()
+                    if self.tracer is not None:
+                        # the total rides the ring, so the flight
+                        # recorder's chunk-stall trigger sees its growth
+                        self.tracer.counter(
+                            "decode.chunk_stalls",
+                            self.metrics.counter("decode.chunk_stalls").value,
+                        )
+                    if self.reqtrace is not None:
+                        self.reqtrace.wait(
+                            st["rid"], self._clock(), "page_pool",
+                            by=[str(r) for r in self._slot_req
+                                if r is not None and r != st["rid"]],
+                        )
                     continue
                 fresh = self.pool.alloc(need)
                 k0 = len(self._slot_pages[s])
@@ -777,7 +916,21 @@ class PagedDecodeEngine:
                 self._record_assign(fresh, st["rid"])
             chunk = np.zeros((1, ct), np.int32)
             chunk[0, :C] = st["ids"][0, base:base + C]
+            ev = None
+            if self.tracer is not None:
+                ev = self.tracer.begin(
+                    "prefill_chunk", track="decode", cat="decode",
+                    rid=str(st["rid"]), base=base, tokens=C,
+                )
             first = self._chunk_prefill(chunk, self.page_table[s], base, C)
+            if ev is not None:
+                self.tracer.end(ev)
+                if self.reqtrace is not None:
+                    # the decode-track span's own timestamps
+                    self.reqtrace.chunk(
+                        st["rid"], ev["t0"], ev["t1"], base=base, tokens=C,
+                    )
+            spent_by.append(str(st["rid"]))
             st["next"] = base + C
             advanced += C
             budget -= C
@@ -802,13 +955,49 @@ class PagedDecodeEngine:
         self._tokens[rid] = [int(first[0])]
         self._first_tok_t[rid] = t_done
         del self._chunk_state[s]
-        self.reqlog.first_token(rid, t_done)
+        for rl in self._reqlogs:
+            rl.first_token(rid, t_done)
+        if self.reqtrace is not None:
+            self.reqtrace.first_token(rid, t_done)
         sub_t = self._submit_t.pop(rid, None)
         if sub_t is not None:
             self.metrics.histogram("decode.ttft_s", unit="s").observe(
                 t_done - sub_t)
         if st["max_new"] == 1:  # the fold produced the only token
             self._retire(s)
+
+    def _trace_budget_stalls(self, spent_by: list) -> None:
+        """The segment's prefill token budget ran out: every slot still
+        mid prefill waits on ``chunk_budget``, charged to the requests
+        whose chunks spent it and to the co-resident decoders."""
+        rt = self.reqtrace
+        if rt is None:
+            return
+        t = self._clock()
+        decoders = [
+            str(self._slot_req[s]) for s in range(self.slots)
+            if self._slot_req[s] is not None and self.remaining[s] > 0
+        ]
+        by = list(dict.fromkeys(list(spent_by) + decoders))
+        for st in self._chunk_state.values():
+            rid = str(st["rid"])
+            if rid in spent_by or st["next"] >= st["P"]:
+                continue
+            rt.wait(rid, t, "chunk_budget", by=by)
+
+    def _trace_queue_block(self, cause: str) -> None:
+        """Why admission stopped, on every queued request's waterfall:
+        the head waits on ``cause`` (held by the residents), everyone
+        behind it on the head."""
+        rt = self.reqtrace
+        if rt is None or not self._queue:
+            return
+        t = self._clock()
+        holders = [str(r) for r in self._slot_req if r is not None]
+        head = str(self._queue[0][0])
+        rt.wait(head, t, cause, by=holders)
+        for entry in self._queue[1:]:
+            rt.wait(str(entry[0]), t, "head_of_line", by=[head])
 
     # -- admission / retirement (between segments) ---------------------------
     def _admit(self) -> int:
@@ -829,11 +1018,13 @@ class PagedDecodeEngine:
                 s for s in range(self.slots) if self._slot_req[s] is None
             ]
             if not free_slots:
+                self._trace_queue_block("slots_full")
                 break
             P = self._queue[0][1].shape[1]
             if self.chunk_eligible(int(P)):
                 if pages_needed(min(self.chunk_tokens, int(P)),
                                 self.page_size) > self.pool.free_pages:
+                    self._trace_queue_block("page_pool")
                     break  # backpressure: the head waits for frees
                 self._admit_chunked(free_slots[0])
                 admitted += 1
@@ -878,8 +1069,15 @@ class PagedDecodeEngine:
                         seen_keys.add(kt)
                     hits.append((spages, keys))
             if not batch:
+                self._trace_queue_block("page_pool")
                 break  # backpressure: the head waits for frees
             del self._queue[:len(batch)]
+            ev_wave = None
+            if self.tracer is not None:
+                ev_wave = self.tracer.begin(
+                    "admission_wave", track="decode", cat="decode",
+                    requests=len(batch), prompt_len=P,
+                )
             pt_rows = np.full((len(batch), self.pages_per_seq), TRASH_PAGE,
                               np.int32)
             wt_rows = sh_rows = None
@@ -909,6 +1107,11 @@ class PagedDecodeEngine:
                     pages = self.pool.alloc(need)
                 page_lists.append(pages)
                 pt_rows[j, :len(pages)] = pages
+                if self.memprof is not None:
+                    self.memprof.alloc(
+                        self._mem_node, f"kv:{rid}",
+                        need * self._page_bytes, "kv_pages",
+                    )
                 self._record_assign(pages, rid)
             # each request's admission timestamp in the lifecycle log
             t_pf0 = self._clock()
@@ -921,6 +1124,11 @@ class PagedDecodeEngine:
             # the first token exists now (the prefill's readback): each
             # request's TTFT anchor, and the end of the wave's prefill
             t_adm = self._clock()
+            if self.tracer is not None:
+                self.tracer.complete(
+                    "prefill", t_pf0, t_adm, track="decode", cat="decode",
+                    requests=len(batch), prompt_len=P,
+                )
             self.metrics.histogram("decode.prefill_s", unit="s").observe(
                 t_adm - t_pf0)
             ttft_h = self.metrics.histogram("decode.ttft_s", unit="s")
@@ -941,8 +1149,18 @@ class PagedDecodeEngine:
                         "write", freshp, owner=str(rid), site="admit",
                         refcounts=[self.pool.refcount(p) for p in freshp],
                     )
-                self.reqlog.admit(rid, t_pf0)
-                self.reqlog.first_token(rid, t_adm)
+                for rl in self._reqlogs:
+                    rl.admit(rid, t_pf0)
+                    rl.first_token(rid, t_adm)
+                if self.reqtrace is not None:
+                    self.reqtrace.admitted(
+                        rid, t_pf0, wave=[b[0] for b in batch],
+                    )
+                    self.reqtrace.prefill(
+                        rid, t_pf0, t_adm, tokens=int(P),
+                        wave_size=len(batch), shared_pages=h0,
+                    )
+                    self.reqtrace.first_token(rid, t_adm)
                 sub_t = self._submit_t.pop(rid, None)
                 if sub_t is not None:
                     ttft_h.observe(t_adm - sub_t)
@@ -955,6 +1173,8 @@ class PagedDecodeEngine:
                     h0 * len(batch))
                 self.metrics.counter("decode.prefix_tokens_skipped").inc(
                     h0 * self.page_size * len(batch))
+            if ev_wave is not None:
+                self.tracer.end(ev_wave)
             self._emit_pool_occupancy()
             self._emit_queue_depth()
         return admitted
@@ -962,6 +1182,8 @@ class PagedDecodeEngine:
     def _retire(self, s: int) -> None:
         rid = self._slot_req[s]
         self._release_pages(self._slot_pages[s], str(rid), "retire")
+        if self.memprof is not None:
+            self.memprof.free(self._mem_node, f"kv:{rid}")
         self.results[rid] = np.asarray(self._tokens.pop(rid), dtype=np.int32)
         self._slot_req[s] = None
         self._slot_pages[s] = []
@@ -969,7 +1191,8 @@ class PagedDecodeEngine:
         # TPOT = steady-state inter-token gap: last token's arrival (this
         # retire happens at the segment fold that produced it) minus the
         # first token's, over n-1 gaps; single-token requests have none.
-        # One clock read feeds the histogram and the lifecycle log
+        # One clock read feeds the histogram, the lifecycle log and the
+        # trace marker
         n = len(self.results[rid])
         t_first = self._first_tok_t.pop(rid, None)
         t_ret = self._clock()
@@ -977,7 +1200,15 @@ class PagedDecodeEngine:
             self.metrics.histogram("decode.tpot_s", unit="s").observe(
                 (t_ret - t_first) / (n - 1)
             )
-        self.reqlog.retire(rid, t_ret)
+        for rl in self._reqlogs:
+            rl.retire(rid, t_ret)
+        if self.tracer is not None:
+            self.tracer.instant(
+                "retire", track="decode", cat="decode", t=t_ret,
+                rid=str(rid), tokens=n,
+            )
+        if self.reqtrace is not None:
+            self.reqtrace.retire(rid, t_ret, tokens=n)
 
     def preempt(
         self, rid: Any, *, cause: Optional[str] = None, by: Any = None,
@@ -985,8 +1216,8 @@ class PagedDecodeEngine:
         """Evict an in-flight request between segments: free its pages
         and hand its generated prefix back for re-queueing.  ``cause``
         stamps the lifecycle record's terminal cause; ``by`` names the
-        request the eviction made room for (kept for the JAX package's
-        signature: it feeds the request tracer, which is not ported).
+        request the eviction made room for (the waterfall's interference
+        arrow).
 
         Greedy decode is deterministic, so re-submitting ``prompt +
         tokens`` under a new rid with the returned ``remaining`` budget
@@ -1009,6 +1240,8 @@ class PagedDecodeEngine:
         tokens = np.asarray(self._tokens.pop(rid), dtype=np.int32)
         remaining = int(self.remaining[slot])
         self._release_pages(self._slot_pages[slot], str(rid), "preempt")
+        if self.memprof is not None:
+            self.memprof.free(self._mem_node, f"kv:{rid}")
         self.page_table[slot] = TRASH_PAGE
         self.lengths[slot] = 0
         self.cur_tok[slot, 0] = 0
@@ -1016,8 +1249,18 @@ class PagedDecodeEngine:
         self._slot_req[slot] = None
         self._slot_pages[slot] = []
         self._first_tok_t.pop(rid, None)
-        self.reqlog.preempt(rid, self._clock(), cause)
+        t_pre = self._clock()
+        for rl in self._reqlogs:
+            rl.preempt(rid, t_pre, cause)
         self.metrics.counter("decode.requests_preempted").inc()
+        if self.tracer is not None:
+            self.tracer.instant(
+                "preempt", track="decode", cat="decode", t=t_pre,
+                rid=str(rid), tokens=int(tokens.shape[0]),
+                remaining=remaining,
+            )
+        if self.reqtrace is not None:
+            self.reqtrace.preempt(rid, t_pre, by=by, cause=cause)
         self._emit_pool_occupancy()
         return {"rid": rid, "tokens": tokens, "remaining": remaining}
 
@@ -1049,6 +1292,7 @@ class PagedDecodeEngine:
                 return 0
         self._ensure_exclusive()
         dev = self.device
+        t_sg0 = self._clock()
         toks, self.pools = self._seg(
             self.pools,
             torch.from_numpy(self.page_table).to(dev),
@@ -1057,8 +1301,30 @@ class PagedDecodeEngine:
             torch.from_numpy(self.remaining).to(dev),
         )
         toks = toks.cpu().numpy()  # the one readback per segment
-        # every token this segment delivered became host-visible here
+        # every token this segment delivered became host-visible here: the
+        # readback waited for the segment's work, so the host span bounds
+        # the device's
         t_fold = self._clock()
+        if self.tracer is not None:
+            self.tracer.complete(
+                "segment", t_sg0, t_fold, track="decode", cat="decode",
+                steps=self.seg_steps, active=int((owed > 0).sum()),
+            )
+        if self.reqtrace is not None:
+            # per-request decode spans reuse the segment's two clock reads
+            residents = [
+                str(self._slot_req[s]) for s in range(self.slots)
+                if self._slot_req[s] is not None and owed[s] > 0
+            ]
+            for s in range(self.slots):
+                rid = self._slot_req[s]
+                if rid is None or owed[s] <= 0:
+                    continue
+                self.reqtrace.segment(
+                    rid, t_sg0, t_fold,
+                    tokens=int(min(int(owed[s]), self.seg_steps)),
+                    co_resident=residents,
+                )
         # slot state advances host-side: each slot ran min(owed, K) active
         # steps, its current token is the last one it emitted
         ran = np.minimum(owed, self.seg_steps)
@@ -1074,7 +1340,8 @@ class PagedDecodeEngine:
                 self._tokens[rid].extend(int(t) for t in toks[s, :n])
                 self.cur_tok[s, 0] = toks[s, n - 1]
                 delivered += n
-                self.reqlog.deliver(rid, t_fold, n)
+                for rl in self._reqlogs:
+                    rl.deliver(rid, t_fold, n)
             # owed == 0: the slot is mid chunked prefill, retired only
             # after its fold
             if 0 < owed[s] <= self.seg_steps:
@@ -1084,6 +1351,7 @@ class PagedDecodeEngine:
         self.metrics.counter("decode.tokens_delivered").inc(delivered)
         self._emit_pool_occupancy()
         self._emit_queue_depth()
+        self._emit_jit_cache_size()
         return delivered
 
     def run(self) -> Dict[Any, Any]:
@@ -1112,15 +1380,6 @@ class PagedDecodeEngine:
             (self.pool.n_pages - 1) - self.pool.free_pages
         )
         return self.results
-
-
-def _refuse_unported(**hooks: Any) -> None:
-    """The engine's tracer, memprof and flight hooks are not ported: one
-    given raises rather than being ignored."""
-    for name, val in hooks.items():
-        if val is not None:
-            raise NotImplementedError(
-                f"PagedDecodeEngine: {name} is not ported yet")
 
 
 __all__ = [

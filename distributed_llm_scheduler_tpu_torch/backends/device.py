@@ -39,6 +39,13 @@ and evicts under its budget, on the per-task and segmented rungs (a
 segment is then an eager program per load, never a captured one: a
 captured graph reads its parameters at fixed addresses).
 
+Observability (``execute(trace=, metrics=, memprof=)``, or the ambient
+pair under ``DLS_TRACE``): host phase spans, per-launch spans on each
+node's track (a captured rung's device windows from CUDA events, through
+:class:`DeviceClock`), transfer flows, counters, the run doctor's
+attribution, and a per-node memory timeline; with none of them given,
+every record is skipped behind a ``None`` check.
+
 Timing: the makespan runs from an event on each card's current stream (the
 clock stream), which every node stream waits on at the start of a run, to
 an event on the clock stream after it has waited on every node stream; on
@@ -121,6 +128,13 @@ class DeviceReport:
     # the streamer's ledger peak per node: resident plus evicted bytes not
     # yet freed
     peak_param_bytes: Dict[str, int] = field(default_factory=dict)
+    # traced runs: the run doctor's attribution of this execute's span
+    # window (obs/attribution.py): the makespan split into compute,
+    # transfer, dispatch and idle, and the measured critical path
+    attribution: Optional[Dict[str, Any]] = None
+    # memprof runs: the memory profiler's summary (per-device peaks,
+    # watermark buckets, the allocator's peak beside the model's)
+    memory: Optional[Dict[str, Any]] = None
 
     @property
     def total_param_gb_placed(self) -> float:
@@ -157,6 +171,11 @@ class DeviceReport:
                 if self.streamed
                 else {}
             ),
+            **(
+                {"attribution": self.attribution}
+                if self.attribution is not None
+                else {}
+            ),
         }
 
 
@@ -170,10 +189,78 @@ def _leaves(v: Any) -> List[torch.Tensor]:
     return [v] if isinstance(v, torch.Tensor) else list(v)
 
 
-def _array_bytes(v: Any) -> int:
-    """Bytes of a parameter over its leaves, as the JAX package's
-    ``_array_bytes`` counts a pytree."""
-    return sum(_nbytes(t) for t in _leaves(v))
+def _array_bytes(x: Any) -> int:
+    """Bytes of a tensor, or of a dict, list or tuple of them (a QParam,
+    the paged decode step's dicts), as the JAX package's ``_array_bytes``
+    counts a pytree's leaves."""
+    if isinstance(x, torch.Tensor):
+        return _nbytes(x)
+    if isinstance(x, dict):
+        return sum(_array_bytes(v) for v in x.values())
+    if isinstance(x, (list, tuple)):
+        return sum(_array_bytes(v) for v in x)
+    return 0
+
+
+class DeviceClock:
+    """CUDA events on the host clock, for the tracer.
+
+    A host span around an asynchronous launch (a CUDA-graph replay above
+    all) bounds the launch, not the device's work.  The device's window
+    comes from a pair of CUDA events; events carry no absolute time, so
+    each card gets an anchor: an event recorded right after a
+    synchronize (the card is idle, so the event completes at once) and a
+    ``time.perf_counter`` read taken right after it.  An event's host
+    time is the anchor's read plus the event's elapsed time from the
+    anchor event.  Windows are read after the run's final synchronize
+    (:meth:`flush`) and recorded through ``Tracer.complete`` with those
+    timestamps, with the flow arrows between them."""
+
+    def __init__(self, devices: List[torch.device]):
+        self.anchor: Dict[Any, Tuple[Any, float]] = {}
+        for dev in devices:
+            torch.cuda.synchronize(dev)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record(torch.cuda.current_stream(dev))
+            self.anchor[dev] = (ev, time.perf_counter())
+        self._windows: List[Tuple[Any, ...]] = []
+        self._flows: List[Tuple[Any, ...]] = []
+
+    @staticmethod
+    def mark(stream) -> Any:
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(stream)
+        return ev
+
+    def host_time(self, dev: torch.device, ev: Any) -> float:
+        a, h = self.anchor[dev]
+        return h + a.elapsed_time(ev) / 1e3
+
+    def window(self, key: Any, name: str, dev: torch.device, a: Any, b: Any,
+               track: str, cat: str, **args: Any) -> None:
+        """A device window from event ``a`` to ``b``, recorded at flush."""
+        self._windows.append((key, name, dev, a, b, track, cat, args))
+
+    def flow(self, src_key: Any, dst_key: Any, **args: Any) -> None:
+        """A transfer arrow from the end of window ``src_key`` to the
+        start of window ``dst_key``."""
+        self._flows.append((src_key, dst_key, args))
+
+    def flush(self, tracer: Any) -> None:
+        """Read every pending window (the events must have completed) into
+        ``tracer``, then the flows between them."""
+        at: Dict[Any, Tuple[str, float, float]] = {}
+        for key, name, dev, a, b, track, cat, args in self._windows:
+            t0, t1 = self.host_time(dev, a), self.host_time(dev, b)
+            tracer.complete(name, t0, t1, track=track, cat=cat, **args)
+            at[key] = (track, t0, t1)
+        for src_key, dst_key, args in self._flows:
+            src, dst = at.get(src_key), at.get(dst_key)
+            if src is not None and dst is not None:
+                tracer.flow("transfer", src[0], src[2], dst[0], dst[1],
+                            **args)
+        self._windows.clear()
+        self._flows.clear()
 
 
 def _map_leaves(fn, v: Any) -> Any:
@@ -389,12 +476,14 @@ class DeviceBackend:
         graph: TaskGraph,
         schedule: Schedule,
         params: Dict[str, torch.Tensor],
+        mem: Any = None,
     ) -> Tuple[Dict[Tuple[str, str], torch.Tensor], Dict[str, int]]:
         """Put each param onto the device of every node that runs a task
         needing it.  Returns ``(param_name, node_id) -> tensor`` plus the
         bytes placed per node (a param needed on k nodes counts k times;
         a tensor already on the node's device is used in place; an int8
-        QParam moves and counts leaf by leaf)."""
+        QParam moves and counts leaf by leaf).  ``mem`` (a memory
+        profiler) books each placement as a param birth."""
         placed: Dict[Tuple[str, str], Any] = {}
         bytes_per_node: Dict[str, int] = {d.node_id: 0 for d in self.cluster}
         for tid, node_id in schedule.placement.items():
@@ -403,7 +492,10 @@ class DeviceBackend:
                 key = (p, node_id)
                 if key not in placed:
                     placed[key] = _map_leaves(lambda t: t.to(dev), params[p])
-                    bytes_per_node[node_id] += _array_bytes(params[p])
+                    nb = _array_bytes(params[p])
+                    bytes_per_node[node_id] += nb
+                    if mem is not None:
+                        mem.alloc(node_id, f"param:{p}", nb, "params")
         self._synchronize()
         return placed, bytes_per_node
 
@@ -451,9 +543,13 @@ class DeviceBackend:
             plan: Optional[Dict[str, List[Tuple[str, Tuple[str, ...]]]]] = None,
             lookahead: int = 8,
             streams: Optional[Dict[str, Any]] = None,
+            mem: Any = None,
         ):
             self.cluster = cluster
             self.host_params = params
+            # an optional memory profiler: loads are param births, the
+            # graveyard's drops the matching frees
+            self.mem = mem
             # node id -> its stream, for the nodes on a card
             self.streams = streams or {}
             self.resident: Dict[str, Dict[str, Any]] = {
@@ -534,11 +630,13 @@ class DeviceBackend:
             g.sort(key=lambda e: e[0])
             freed = 0
             while g and freed < need_bytes:
-                step, ev, _arr, nbytes, _name = g.pop(0)
+                step, ev, _arr, nbytes, name = g.pop(0)
                 if step > self.fenced_step[node_id] and ev is not None:
                     ev.synchronize()
                     self.fenced_step[node_id] = step
                 self.bytes[node_id] -= nbytes
+                if self.mem is not None:
+                    self.mem.free(node_id, f"param:{name}")
                 freed += nbytes
             return freed
 
@@ -601,6 +699,8 @@ class DeviceBackend:
                 self.bytes[node_id] += nb
                 self.load_bytes += nb
                 self.loads += 1
+                if self.mem is not None:
+                    self.mem.alloc(node_id, f"param:{n}", nb, "params")
                 self.last_use[node_id][n] = self._step
             self.peak[node_id] = max(self.peak[node_id], self.bytes[node_id])
 
@@ -941,6 +1041,18 @@ class DeviceBackend:
             return b - a
         return a.elapsed_time(b) / 1e3
 
+    @staticmethod
+    def _trace_flows(tracer, done_at, flow_srcs, node: str, t0: float,
+                     dst: str) -> None:
+        """One transfer arrow per value ``dst`` received from another node:
+        from the end of its producer's span to the start of ``dst``'s."""
+        for d, nb in flow_srcs:
+            src_pt = done_at.get(d)
+            # (a captured producer's end is read later, through the clock)
+            if src_pt is not None and isinstance(src_pt[1], float):
+                tracer.flow("transfer", src_pt[0], src_pt[1], node, t0,
+                            src=d, dst=dst, bytes=nb)
+
     # -- execution ---------------------------------------------------------
     def _run(
         self,
@@ -954,6 +1066,10 @@ class DeviceBackend:
         ext_outputs: Optional[Dict[str, Any]] = None,
         cross: frozenset = frozenset(),
         streamer: Optional["DeviceBackend._ParamStreamer"] = None,
+        tracer: Any = None,
+        metrics: Any = None,
+        mem: Any = None,
+        dclock: Optional[DeviceClock] = None,
     ) -> Tuple[Any, Dict[str, TaskTiming], int, int, int, float, Dict[str, Any]]:
         """Per-task rung: one host call per task, in dispatch order, each
         on its node's stream.  Every output is held to the end of the run.
@@ -962,8 +1078,18 @@ class DeviceBackend:
         names the tasks read on another node's stream: each records an
         event after it for those readers to wait on.  With a ``streamer``
         a task's params come from it (loaded, its stream made to wait)
-        instead of ``placed``."""
+        instead of ``placed``.
+
+        ``tracer`` records each task's span on its node's track (its host
+        dispatch window; in profile mode its measured window, on a card
+        through ``dclock``) and a flow arrow per transfer; ``metrics`` the
+        bytes per edge; ``mem`` input staging, transfers and output
+        births."""
         placement = schedule.placement
+        # task -> (node, end of its span), for the flow arrows
+        done_at: Optional[Dict[str, Tuple[str, float]]] = (
+            {} if tracer is not None else None
+        )
         outputs: Dict[str, Any] = dict(ext_outputs or {})
         n_ext = len(outputs)
         transfer_edges = 0
@@ -1000,6 +1126,7 @@ class DeviceBackend:
                         loc: placed[(glob, node_id)]
                         for loc, glob in task.param_items()
                     }
+                flow_srcs = [] if tracer is not None else None
                 if arg_ids:
                     args = []
                     for d in arg_ids:
@@ -1008,28 +1135,58 @@ class DeviceBackend:
                             # cross-node edge: an event wait on one card,
                             # a copy between cards
                             transfer_edges += 1
-                            transfer_bytes += _nbytes(x)
+                            nb = _nbytes(x)
+                            transfer_bytes += nb
                             ev = events.get(d)
                             if ev is not None and (s, d) not in waited:
                                 s.wait_event(ev)
                                 waited.add((s, d))
                             if x.device != dev:
                                 x = x.to(dev, non_blocking=True)
+                            if tracer is not None:
+                                flow_srcs.append((d, nb))
+                            if metrics is not None:
+                                metrics.counter(
+                                    "transfer.bytes."
+                                    f"{placement.get(d, 'ext')}->{node_id}",
+                                    unit="bytes",
+                                ).inc(nb)
+                            if mem is not None:
+                                mem.alloc(node_id, f"xfer:{d}", nb,
+                                          "transfers")
                         args.append(x)
                 else:
                     inp = input_on.get(node_id)
                     if inp is None:
                         inp = graph_input.to(dev)
                         input_on[node_id] = inp
+                        if mem is not None:
+                            mem.alloc(node_id, "input", _nbytes(graph_input),
+                                      "activations")
                     args = [inp]
 
                 if profile:
                     start = self._mark(dev, s)
                     out = task.fn(pd, *args)
-                    marks.append((tid, node_id, dev, start, self._mark(dev, s)))
+                    marks.append((tid, node_id, dev, start, self._mark(dev, s),
+                                  flow_srcs))
                 else:
+                    if tracer is not None:
+                        t0 = time.perf_counter()
                     out = task.fn(pd, *args)
+                    if tracer is not None:
+                        # the host dispatch window (a launch returns at
+                        # enqueue)
+                        t1 = time.perf_counter()
+                        tracer.complete(tid, t0, t1, track=node_id,
+                                        cat="launch")
+                        done_at[tid] = (node_id, t1)
+                        self._trace_flows(tracer, done_at, flow_srcs,
+                                          node_id, t0, tid)
                 outputs[tid] = out
+                if mem is not None:
+                    mem.alloc(node_id, f"out:{tid}", _array_bytes(out),
+                              "activations")
                 if streamer is not None:
                     streamer.note_task(
                         node_id, [g for _, g in task.param_items()])
@@ -1042,11 +1199,22 @@ class DeviceBackend:
         timings: Dict[str, TaskTiming] = {}
         if profile:
             self._synchronize()
-            for tid, node_id, dev, start, end in marks:
+            for tid, node_id, dev, start, end, flow_srcs in marks:
                 o = origin[dev]
                 timings[tid] = TaskTiming(
                     tid, node_id, self._seconds(o, start), self._seconds(o, end)
                 )
+                if tracer is not None:
+                    # the measured window on the host clock
+                    if isinstance(start, float):
+                        t0, t1 = start, end
+                    else:
+                        t0 = dclock.host_time(dev, start)
+                        t1 = dclock.host_time(dev, end)
+                    tracer.complete(tid, t0, t1, track=node_id, cat="task")
+                    done_at[tid] = (node_id, t1)
+                    self._trace_flows(tracer, done_at, flow_srcs, node_id,
+                                      t0, tid)
         final = outputs.get(graph.topo_order[-1]) if graph.topo_order else None
         executed = {
             k: v for k, v in outputs.items()
@@ -1066,6 +1234,10 @@ class DeviceBackend:
         clocks: Dict[Any, Any],
         ext_outputs: Optional[Dict[str, Any]] = None,
         streamer: Optional["DeviceBackend._ParamStreamer"] = None,
+        tracer: Any = None,
+        metrics: Any = None,
+        mem: Any = None,
+        dclock: Optional[DeviceClock] = None,
     ) -> Tuple[Any, Dict, int, int, int, float, Dict[str, Any]]:
         """Segment-fused execution: same placement, one call per segment,
         on its node's stream.  Cross-segment inputs are deduplicated per
@@ -1080,8 +1252,18 @@ class DeviceBackend:
         ``max_union_gb``) and are eager callables: each segment's union
         loads as one batched call (unit ``__seg<i>`` of
         :meth:`segment_stream_plan`), and the event after the segment
-        anchors the frees of its params."""
+        anchors the frees of its params.
+
+        ``tracer`` records one span per segment on its node's track: the
+        host call's window for an eager segment; for a captured one the
+        replay's window on the card (CUDA events through ``dclock``) there
+        and the host's replay call on the host track; and a flow arrow per
+        transferred value.  ``metrics`` counts the bytes per edge; ``mem``
+        books transfers, input staging and the exports' births."""
         placement = schedule.placement
+        done_at: Optional[Dict[str, Tuple[str, float]]] = (
+            {} if tracer is not None else None
+        )
         outputs: Dict[str, Any] = dict(ext_outputs or {})
         # task ids whose value is a captured program's own output
         static: set = set()
@@ -1100,6 +1282,8 @@ class DeviceBackend:
                 needs_input = False
                 union_names: Dict[str, None] = {}
                 waited: set = set()
+                flow_srcs = [] if tracer is not None else None
+                t_s0 = time.perf_counter() if tracer is not None else 0.0
                 for tid in tids:
                     task = graph[tid]
                     for _, g in task.param_items():
@@ -1112,28 +1296,82 @@ class DeviceBackend:
                             x = outputs[d]
                             if placement.get(d) != node:
                                 transfer_edges += 1
-                                transfer_bytes += _nbytes(x)
+                                nb = _nbytes(x)
+                                transfer_bytes += nb
                                 ev = events.get(d)
                                 if ev is not None and ev not in waited:
                                     s.wait_event(ev)
                                     waited.add(ev)
                                 if x.device != dev:
                                     x = x.to(dev, non_blocking=True)
+                                if tracer is not None:
+                                    flow_srcs.append((d, nb))
+                                if metrics is not None:
+                                    metrics.counter(
+                                        "transfer.bytes."
+                                        f"{placement.get(d, 'ext')}->{node}",
+                                        unit="bytes",
+                                    ).inc(nb)
+                                if mem is not None:
+                                    mem.alloc(node, f"xfer:{d}", nb,
+                                              "transfers")
                             ext[d] = x
-                if needs_input:
-                    ext["__input__"] = graph_input.to(dev)
                 if streamer is not None:
                     union = streamer.get_task(
                         f"__seg{seg_i}", node, [(g, g) for g in union_names])
                 else:
                     union = {g: placed[(g, node)] for g in union_names}
-                if isinstance(fn, CapturedProgram):
+                if needs_input:
+                    ext["__input__"] = graph_input.to(dev)
+                    if mem is not None:
+                        mem.alloc(node, "input", _nbytes(graph_input),
+                                  "activations")
+                captured = isinstance(fn, CapturedProgram)
+                if captured and dclock is not None:
+                    a = dclock.mark(s)
+                if captured:
                     seg_out = fn(union, ext, frozenset(
                         d for d, x in ext.items()
                         if d in static and x is outputs[d]))
                     static.update(seg_out)
                 else:
                     seg_out = fn(union, ext)
+                if mem is not None:
+                    for e in exports:
+                        mem.alloc(node, f"out:{e}", _array_bytes(seg_out[e]),
+                                  "activations")
+                if tracer is not None:
+                    t_s1 = time.perf_counter()
+                    name = f"seg{seg_i}"
+                    if captured and dclock is not None:
+                        # the replay returns at enqueue: the device window
+                        # goes on the node's track, the host call on the
+                        # host's
+                        dclock.window(
+                            seg_i, name, dev, a, dclock.mark(s), track=node,
+                            cat="launch", tasks=len(tids),
+                            exports=len(exports),
+                        )
+                        tracer.complete(
+                            "replay", t_s0, t_s1, track="host",
+                            cat="launch", segment=seg_i, node=node,
+                        )
+                        for e in exports:
+                            done_at[e] = (node, seg_i)
+                        for d, nb in flow_srcs:
+                            src = done_at.get(d)
+                            if src is not None and isinstance(src[1], int):
+                                dclock.flow(src[1], seg_i, src=d, dst=name,
+                                            bytes=nb)
+                    else:
+                        tracer.complete(
+                            name, t_s0, t_s1, track=node, cat="launch",
+                            tasks=len(tids), exports=len(exports),
+                        )
+                        for e in exports:
+                            done_at[e] = (node, t_s1)
+                        self._trace_flows(tracer, done_at, flow_srcs, node,
+                                          t_s0, name)
                 if streamer is not None:
                     streamer.note_task(node, list(union_names))
                 if s is not None and many:
@@ -1217,6 +1455,9 @@ class DeviceBackend:
         planned: Optional[bool] = None,
         coalesce: bool = False,
         compiled: bool = False,
+        trace: Any = None,
+        metrics: Any = None,
+        memprof: Any = None,
     ) -> DeviceReport:
         """Place params, warm up, run ``reps`` times, measure.
 
@@ -1281,10 +1522,30 @@ class DeviceBackend:
         ``param_loads``, ``param_load_calls``, ``param_load_bytes``,
         ``param_evictions`` and ``peak_param_bytes``.
 
+        ``trace`` / ``metrics`` attach an :class:`..obs.trace.Tracer` /
+        :class:`..obs.metrics.MetricsRegistry` to this run: host phase
+        spans (``dispatch_order``, ``place_params``, ``plan_build`` or
+        ``program_build``, ``warmup``, one ``rep<r>`` per run, the final
+        ``fence``), per-launch spans on each node's track (a captured
+        rung's from CUDA events, :class:`DeviceClock`), transfer flow
+        arrows, per-edge byte counters, launch and transfer counters and
+        makespan/overhead histograms; the report then carries
+        ``attribution`` (:func:`..obs.attribution.attribute_run` over the
+        ``execute`` span).  ``None`` falls back to the ambient pair under
+        ``DLS_TRACE=1``; else nothing is recorded (every record is behind a
+        ``None`` check).  ``memprof`` attaches an :class:`..obs.memprof.
+        MemoryProfiler`: param placements and streamed loads, input
+        staging, transfers, output births and the planned rung's deaths
+        (the JAX plan's donation lifetimes) on per-node timelines of
+        tensor bytes; the warm-up is not recorded, and the report carries
+        ``memory`` with the allocator's peak
+        (``torch.cuda.max_memory_allocated``) reconciled in on a card.
+
         Left out against the reference: ``fence_rtt`` (CUDA events time
-        the device, so there is no readback fence to net out) and
-        ``donate`` (the planned path releases each value after its last
-        consumer instead).
+        the device, so there is no readback fence to net out), ``donate``
+        (the planned path releases each value after its last consumer
+        instead) and ``pre_report`` (it feeds the pre-execution analysis
+        gate, whose ``analyze()`` is not ported yet).
         """
         if segments and profile:
             raise ValueError(
@@ -1367,6 +1628,18 @@ class DeviceBackend:
             from .compiled_schedule import one_device
 
             one_device(self, nodes)
+        # explicit trace=/metrics= win, else the DLS_TRACE ambient pair,
+        # else None: every instrumented path below records nothing then
+        from ..obs import ambient_metrics, ambient_tracer
+
+        tracer = trace if trace is not None else ambient_tracer()
+        mreg = metrics if metrics is not None else ambient_metrics()
+        ev_exec = None
+        if tracer is not None:
+            ev_exec = tracer.begin(
+                "execute", cat="schedule", policy=schedule.policy,
+                segments=segments, reps=reps,
+            )
         held = {
             str(dev): int(torch.cuda.memory_allocated(dev))
             for dev in self.cuda_devices
@@ -1385,7 +1658,17 @@ class DeviceBackend:
                     )
             placed, bytes_per_node = {}, {d.node_id: 0 for d in self.cluster}
         else:
-            placed, bytes_per_node = self.place_params(graph, schedule, params)
+            t_ph = time.perf_counter() if tracer is not None else 0.0
+            # the compiled rung books its params as one slab per node at
+            # each run, as the reference's does
+            placed, bytes_per_node = self.place_params(
+                graph, schedule, params, mem=None if compiled else memprof)
+            if tracer is not None:
+                tracer.complete(
+                    "place_params", t_ph, time.perf_counter(),
+                    track="host", cat="stage",
+                    bytes=sum(bytes_per_node.values()),
+                )
         prog = plan = None
         order: List[str] = []
         cross: frozenset = frozenset()
@@ -1394,18 +1677,37 @@ class DeviceBackend:
         if compiled:
             from .compiled_schedule import CompiledSchedule
 
+            t_ph = time.perf_counter() if tracer is not None else 0.0
             prog = CompiledSchedule.build(
                 self, graph, schedule, placed, graph_input)
+            if tracer is not None:
+                tracer.complete(
+                    "program_build", t_ph, time.perf_counter(),
+                    track="host", cat="plan", phases=len(prog.ir.phases),
+                    exchanges=prog.ir.n_exchanges,
+                )
         else:
+            t_ph = time.perf_counter() if tracer is not None else 0.0
             order = self.dispatch_order(graph, schedule)
+            if tracer is not None:
+                tracer.complete(
+                    "dispatch_order", t_ph, time.perf_counter(),
+                    track="host", cat="schedule", tasks=len(order),
+                )
         if planned:
             from .dispatch_plan import DispatchPlan
 
+            t_ph = time.perf_counter() if tracer is not None else 0.0
             plan = DispatchPlan.build(
                 self, graph, schedule, order, placed,
                 ext_keys=tuple(ext_outputs or ()), coalesce=coalesce,
                 keep_outputs=keep_outputs,
             )
+            if tracer is not None:
+                tracer.complete(
+                    "plan_build", t_ph, time.perf_counter(),
+                    track="host", cat="plan", steps=len(plan.steps),
+                )
         elif not segments and not compiled:
             placement = schedule.placement
             cross = frozenset(
@@ -1443,26 +1745,33 @@ class DeviceBackend:
                     stream_plan.setdefault(node, []).append(
                         (tid, tuple(g for _, g in graph[tid].param_items())))
 
-        def streamer():
+        def streamer(mem=None):
             return self._ParamStreamer(
-                self.cluster, params, plan=stream_plan, streams=self.streams)
+                self.cluster, params, plan=stream_plan, streams=self.streams,
+                mem=mem)
 
-        def one_rep(clocks, prof: bool = False, st=None):
-            """One placed run (its params from ``st`` when streaming):
-            (output, timings, transfer edges, transfer bytes, host calls,
-            loop seconds, executed outputs)."""
+        def one_rep(clocks, prof: bool = False, st=None, obs=None):
+            """One placed run (its params from ``st`` when streaming;
+            recorded into ``obs`` = (tracer, metrics, memprof, device
+            clock) when given): (output, timings, transfer edges, transfer
+            bytes, host calls, loop seconds, executed outputs)."""
+            tr, mr, mem, dc = obs or (None, None, None, None)
             if prog is not None:  # the graph forks and joins its streams
-                return prog.run(graph_input)
+                return prog.run(graph_input, tracer=tr, metrics=mr, mem=mem,
+                                dclock=dc, slab_bytes=bytes_per_node)
             self._fork(clocks, nodes)
             if plan is not None:
-                out = plan.run(graph_input, ext_outputs, clocks)
+                out = plan.run(graph_input, ext_outputs, clocks,
+                               tracer=tr, metrics=mr, mem=mem)
             elif segments:
                 out = self._run_segmented(
                     graph, schedule, placed, graph_input, segs, seg_fns,
-                    clocks, ext_outputs, st)
+                    clocks, ext_outputs, st, tracer=tr, metrics=mr, mem=mem,
+                    dclock=dc)
             else:
                 out = self._run(graph, schedule, placed, graph_input, order,
-                                clocks, prof, ext_outputs, cross, st)
+                                clocks, prof, ext_outputs, cross, st,
+                                tracer=tr, metrics=mr, mem=mem, dclock=dc)
             self._join(clocks, nodes)
             return out
 
@@ -1470,28 +1779,50 @@ class DeviceBackend:
         if warmup:
             t0 = time.perf_counter()
             # a throwaway streamer, so the timed run's starts cold; it
-            # drops its params only after the card has finished with them
+            # drops its params only after the card has finished with them.
+            # The warm-up is not recorded: its launches are builds and
+            # captures, not the steady state
             warm = streamer() if stream_params else None
             one_rep(self._clocks(), st=warm)
             self._synchronize()
             del warm
             compile_s = time.perf_counter() - t0
+            if tracer is not None:
+                tracer.complete(
+                    "warmup", t0, time.perf_counter(), track="host",
+                    cat="plan", compile_s=compile_s,
+                )
 
         for dev in self.cuda_devices:
             torch.cuda.reset_peak_memory_stats(dev)
         self._synchronize()
+        # CUDA events onto the host clock, anchored after this synchronize
+        dclock = (
+            DeviceClock(self.cuda_devices)
+            if tracer is not None and self.cuda_devices else None
+        )
+        obs = ((tracer, mreg, memprof, dclock)
+               if tracer is not None or mreg is not None
+               or memprof is not None else None)
         clocks = self._clocks()
         # one card: CUDA events on its clock stream; else the host clock
         one_card = len(self.devices) == 1 and bool(self.cuda_devices)
         t0 = self._mark(self.devices[0]) if one_card else time.perf_counter()
         loop_s = 0.0
-        st = streamer() if stream_params else None
-        for _ in range(reps):
+        st = streamer(memprof) if stream_params else None
+        for r in range(reps):
+            t_ph = time.perf_counter() if tracer is not None else 0.0
             # the last run's outputs die before this run's are made
             output = executed = None
             output, timings, tedges, tbytes, n_disp, rep_loop_s, executed = (
-                one_rep(clocks, profile, st))
+                one_rep(clocks, profile, st, obs))
             loop_s += rep_loop_s
+            if tracer is not None:
+                tracer.complete(
+                    f"rep{r}", t_ph, time.perf_counter(), track="host",
+                    cat="launch", dispatches=n_disp, fenced=r == reps - 1,
+                )
+        t_f0 = time.perf_counter() if tracer is not None else 0.0
         if one_card:
             t1 = self._mark(self.devices[0])
             self._synchronize()
@@ -1499,19 +1830,53 @@ class DeviceBackend:
         else:
             self._synchronize()
             wall = time.perf_counter() - t0
+        if tracer is not None:
+            tracer.complete(
+                "fence", t_f0, time.perf_counter(), track="host",
+                cat="collect", devices=len(self.cuda_devices),
+            )
+            if dclock is not None:
+                dclock.flush(tracer)
+        makespan = max(wall / reps, 1e-9)
         peaks = {
             str(dev): int(torch.cuda.max_memory_allocated(dev))
             for dev in self.cuda_devices
         }
+        if memprof is not None:
+            # the allocator's peak beside the model's, per node of a card
+            # (the nodes of one card share its allocator, so each carries
+            # the card's peak)
+            memprof.reconcile({
+                d.node_id: peaks[str(d.torch_device)]
+                for d in self.cluster if str(d.torch_device) in peaks
+            })
         if timings:
             schedule.timings = timings
+        if mreg is not None:
+            self._record_metrics(mreg, n_disp, tedges, tbytes, reps,
+                                 loop_s / reps, makespan, compile_s, timings)
+        attribution = None
+        if ev_exec is not None:
+            tracer.end(ev_exec, makespan_s=makespan)
+            # attribute this execute's window (an ambient tracer holds
+            # earlier runs too).  Diagnosis only: a failure here never
+            # fails the run, and leaves the attribution None
+            try:
+                from ..obs.attribution import attribute_run
+
+                att = attribute_run(
+                    tracer, window=(ev_exec["t0"], ev_exec["t1"]))
+                if att.critical_path:
+                    attribution = att.summary()
+            except Exception:
+                attribution = None
         captured: Dict[str, int] = {}
         for p in ([prog] if prog is not None else seg_fns):
             for k, v in getattr(p, "launches", {}).items():
                 captured[k] = captured.get(k, 0) + v
         return DeviceReport(
             policy=schedule.policy,
-            makespan_s=max(wall / reps, 1e-9),
+            makespan_s=makespan,
             output=output,
             n_devices=len(self.cluster),
             transfer_edges=tedges,
@@ -1533,4 +1898,31 @@ class DeviceBackend:
             param_load_bytes=st.load_bytes if st else 0,
             param_evictions=st.evictions if st else 0,
             peak_param_bytes=dict(st.peak) if st else {},
+            attribution=attribution,
+            memory=memprof.summary() if memprof is not None else None,
         )
+
+    @staticmethod
+    def _record_metrics(mreg, n_disp: int, tedges: int, tbytes: int,
+                        reps: int, overhead_s: float, makespan: float,
+                        compile_s: float,
+                        timings: Dict[str, TaskTiming]) -> None:
+        """One execute's totals into the registry: per-run counts times
+        ``reps`` (every rep is the same run), one histogram sample each,
+        and in profile mode each node's busy fraction of the measured
+        span."""
+        mreg.counter("dispatch.launches").inc(n_disp * reps)
+        mreg.counter("dispatch.transfer_edges").inc(tedges * reps)
+        mreg.counter("dispatch.transfer_bytes", unit="bytes").inc(
+            tbytes * reps)
+        mreg.histogram("dispatch.overhead_s", unit="s").observe(overhead_s)
+        mreg.histogram("execute.makespan_s", unit="s").observe(makespan)
+        mreg.histogram("execute.compile_s", unit="s").observe(compile_s)
+        if timings:
+            span_end = max(t.finish for t in timings.values())
+            busy: Dict[str, float] = {}
+            for t in timings.values():
+                busy[t.node_id] = busy.get(t.node_id, 0.0) + t.duration
+            for n, b in busy.items():
+                mreg.gauge(f"device.utilization.{n}", unit="frac").set(
+                    b / span_end if span_end > 0 else 0.0)

@@ -47,7 +47,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from .device import StreamSwitch, _args_of, _nbytes
+from .device import StreamSwitch, _args_of, _nbytes, _array_bytes
 from .rebatch import extract_steps
 
 
@@ -207,6 +207,12 @@ class PlanStep:
         "xfer_bytes",    # per-run transferred bytes; filled on first run
         "out_slots",     # value-table indices written (exports, in order)
         "release",       # slots dropped from the table after this step
+        "out_tids",      # task ids of out_slots, in order
+        "xfer_src_tids",  # producer of each distinct transferred slot
+        "xfer_src_nodes",  # its node ("ext" for an ext value)
+        "xfer_src_pos",  # an arg position of each distinct transferred slot
+        "mem_frees",     # producers whose value dies in this step in the
+                         # memory model (the JAX plan's donation set)
         "group",         # True => fn returns a tuple aligned with out_slots
     )
 
@@ -349,6 +355,13 @@ class DispatchPlan:
         for s, gi in producer_group.items():
             if s not in protected:
                 release_at.setdefault(last_use.get(s, gi), []).append(s)
+        # the memory model's deaths: the values the JAX plan donates (read
+        # at one position of their last reading step, on the producer's
+        # node, neither the final output nor a node's fence value), so a
+        # memory profile of the port's run books the reference's
+        # lifetimes.  The port itself drops its reference at ``release``
+        fence_slots = {placement[g[0]]: slot_of[g[-1]] for g in groups}
+        mem_keep = {final_slot} | set(fence_slots.values())
 
         # producer groups whose outputs are read on another stream
         evented: set = set()
@@ -408,10 +421,26 @@ class DispatchPlan:
             step.xfer_pos = tuple(xfer_pos)
             step.xfer_bytes = None if xfer_pos else 0
             step.release = tuple(sorted(release_at.get(gi, ())))
+            src_pos: Dict[int, int] = {}
+            for p in xfer_pos:
+                src_pos.setdefault(arg_slots[p], p)
+            step.xfer_src_tids = tuple(tid_of_slot[s] for s in src_pos)
+            step.xfer_src_nodes = tuple(
+                placement.get(t, "ext") for t in step.xfer_src_tids)
+            step.xfer_src_pos = tuple(src_pos.values())
+            frees = []
+            if not keep_outputs:
+                for s in dict.fromkeys(arg_slots):
+                    if (arg_slots.count(s) == 1 and s in producer_group
+                            and last_use.get(s) == gi and s not in mem_keep
+                            and placement.get(tid_of_slot[s]) == node):
+                        frees.append(tid_of_slot[s])
+            step.mem_frees = tuple(frees)
             step.group = len(g) > 1
             if step.group:
                 exports = exports_of[gi]
                 step.out_slots = tuple(slot_of[t] for t in exports)
+                step.out_tids = exports
                 step.fn = _build_group_fn(graph, tuple(g), exports)
                 step.pd = {
                     glob: placed_params[(glob, node)]
@@ -421,6 +450,7 @@ class DispatchPlan:
             else:
                 task = graph[g[0]]
                 step.out_slots = (slot_of[g[0]],)
+                step.out_tids = (g[0],)
                 step.fn = task.fn
                 step.pd = {
                     loc: placed_params[(glob, node)]
@@ -476,12 +506,25 @@ class DispatchPlan:
         graph_input: Any,
         ext_outputs: Optional[Dict[str, Any]] = None,
         clocks: Optional[Dict[Any, Any]] = None,
+        tracer: Any = None,
+        metrics: Any = None,
+        mem: Any = None,
     ) -> Tuple[Any, Dict, int, int, int, float, Dict[str, Any]]:
         """Execute the plan once.  Same return contract as the per-task
         runner: ``(final, timings, transfer_edges, transfer_bytes,
         n_dispatches, loop seconds, kept outputs)``.  ``clocks`` maps each
-        card to its clock stream (restored as current on exit)."""
+        card to its clock stream (restored as current on exit).
+
+        ``tracer`` (optional) records the input staging, each step's
+        transfer staging and host launch window on its node's track, and a
+        flow arrow from each transferred value's producer launch;
+        ``metrics`` per-edge transfer bytes; ``mem`` (a memory profiler)
+        input staging, transfer copies, output births and the deaths of
+        ``mem_frees``.  Every record is behind a ``None`` check."""
         vals: List[Any] = [None] * self.n_slots
+        done: Optional[Dict[str, Tuple[str, float]]] = (
+            {} if tracer is not None else None
+        )
         t_loop0 = time.perf_counter()
         if ext_outputs:
             for k, s in self.ext_slots:
@@ -490,10 +533,20 @@ class DispatchPlan:
         with torch.no_grad(), StreamSwitch(
             {st.node_id: st.stream for st in self.steps}, clocks or {}
         ) as sw:
+            t0 = time.perf_counter()
             for _n, dev, s in self.input_slots:
                 sw.to(_n)
                 vals[s] = graph_input.to(dev)
+                if mem is not None:
+                    mem.alloc(_n, "input", _nbytes(vals[s]), "activations")
+            if tracer is not None and self.input_slots:
+                tracer.complete(
+                    "stage_input", t0, time.perf_counter(), track="host",
+                    cat="stage", devices=len(self.input_slots),
+                )
             for step in self.steps:
+                if tracer is not None and step.xfer_pos:
+                    t_x0 = time.perf_counter()
                 stream = sw.to(step.node_id)
                 for ev in step.waits:
                     stream.wait_event(ev)
@@ -512,6 +565,25 @@ class DispatchPlan:
                     for p in step.use_pos:
                         args[p].record_stream(stream)
                 tbytes += step.xfer_bytes
+                if step.xfer_pos and (metrics is not None or mem is not None):
+                    per_edge = [_nbytes(args[p]) for p in step.xfer_src_pos]
+                    if metrics is not None:
+                        for ui, src_node in enumerate(step.xfer_src_nodes):
+                            metrics.counter(
+                                f"transfer.bytes.{src_node}->{step.node_id}",
+                                unit="bytes",
+                            ).inc(per_edge[ui])
+                    if mem is not None:
+                        for ui, src in enumerate(step.xfer_src_tids):
+                            mem.alloc(step.node_id, f"xfer:{src}",
+                                      per_edge[ui], "transfers")
+                if tracer is not None:
+                    t_l0 = time.perf_counter()
+                    if step.xfer_pos:
+                        tracer.complete(
+                            "stage", t_x0, t_l0, track=step.node_id,
+                            cat="stage", transfers=len(step.xfer_src_tids),
+                        )
                 if step.group:
                     outs = step.fn(step.pd, *args)
                     for s, o in zip(step.out_slots, outs):
@@ -520,6 +592,33 @@ class DispatchPlan:
                     vals[step.out_slots[0]] = step.fn(step.pd, *args)
                 if step.event is not None:
                     step.event.record(stream)
+                if mem is not None:
+                    # births, then the deaths the memory model books here
+                    for t, s in zip(step.out_tids, step.out_slots):
+                        mem.alloc(step.node_id, f"out:{t}",
+                                  _array_bytes(vals[s]), "activations")
+                    for t in step.mem_frees:
+                        mem.free(step.node_id, f"out:{t}")
+                if tracer is not None:
+                    t_l1 = time.perf_counter()
+                    name = (
+                        step.tids[0] if len(step.tids) == 1
+                        else f"{step.tids[0]}+{len(step.tids) - 1}"
+                    )
+                    tracer.complete(
+                        name, t_l0, t_l1, track=step.node_id, cat="launch",
+                        tasks=len(step.tids), edges=len(step.xfer_pos),
+                    )
+                    for t in step.tids:
+                        done[t] = (step.node_id, t_l1)
+                    for src in step.xfer_src_tids:
+                        src_pt = done.get(src)
+                        if src_pt is not None:
+                            tracer.flow(
+                                "transfer", src_pt[0], src_pt[1],
+                                step.node_id, t_l0, src=src,
+                                dst=step.tids[0],
+                            )
                 for s in step.release:
                     vals[s] = None
         loop_s = time.perf_counter() - t_loop0

@@ -34,10 +34,13 @@ The PyTorch port of ``distributed_llm_scheduler_tpu.eval.serve_bench``'s
 serving, prefix and chunked legs: the same scenarios, legs, gates and
 artifact, over the port's engine (on the card unless told otherwise).
 Because the legs run on a virtual clock, every ``serve.*`` metric is a
-function of the engine's decisions alone and equals the JAX bench's.  The
-fleet legs are not ported.
+function of the engine's decisions alone and equals the JAX bench's.
+``--fleet`` runs the fleet chaos comparison instead (three replicas of the
+engine behind the health-routed :class:`~..serve.router.FleetFrontend`,
+one with a leaking pool; ``dls.fleet/1``), whose ``fleet.*`` values equal
+the JAX bench's for the same reason.
 
-    python -m distributed_llm_scheduler_tpu_torch.eval.serve_bench [--device cpu]
+    python -m distributed_llm_scheduler_tpu_torch.eval.serve_bench [--fleet] [--device cpu]
 """
 
 from __future__ import annotations
@@ -110,6 +113,28 @@ CHUNKED_SCENARIO = {
     "chunk_tokens": 8,
     "prefill_tok_s": 0.02,
     "chunk_ttft_s": 10.0,
+}
+
+
+FLEET_SCHEMA = "dls.fleet/1"
+
+#: the fleet chaos scenario layered on the SCENARIO geometry: N=3
+#: replicas of the serve engine behind the FleetFrontend, offered 1.5x
+#: the single-engine schedule (the fleet should absorb it), with a
+#: ``_LeakyPool`` injected on one replica.  The health-routed leg must
+#: detect the leak (HLT001 on the sick replica's own series), drain,
+#: restart, and still strictly beat health-blind round-robin on goodput
+#: at equal offered load; the no-injection leg must see zero drains.
+FLEET_SCENARIO = {
+    "n_replicas": 3,
+    "sick_replica": "n1",
+    "leak_every": 1,
+    "fleet_rate_rps": 30.0,
+    "fleet_n_requests": 96,
+    "fleet_deadline_s": 10.0,
+    "fleet_warmup_s": 0.25,
+    "fleet_sample_every_s": 0.05,
+    "fleet_probation_s": 0.5,
 }
 
 
@@ -642,6 +667,282 @@ def chunked_gate_failures(ck: Dict[str, Any]) -> List[str]:
     return failures
 
 
+def run_fleet_leg(
+    arrivals: Sequence[Any],
+    policy: Any,
+    time_model: Any,
+    sc: Dict[str, Any],
+    *,
+    routing: str,
+    detectors: Optional[List[Any]],
+    leak: bool,
+    engines: Optional[Dict[str, Any]] = None,
+    device: Any = "cuda",
+) -> Dict[str, Any]:
+    """One :class:`~..serve.router.FleetFrontend` run over a fresh
+    registry of ``n_replicas`` engines; returns the fleet report with
+    the run digest attached.
+
+    ``engines`` (test/CLI warm seam) maps replica id -> an
+    already-warmed engine; the factory ``rebind_obs``-es each one
+    onto the registry's per-replica clock + prefixed metrics, so the
+    leg is indistinguishable from a cold build.  ``leak=True`` injects
+    the ``_LeakyPool`` on ``sc["sick_replica"]`` AFTER registration
+    (the rebind would otherwise swap it back out).  ``device`` is where
+    engines built here run."""
+    from ..serve.registry import EngineRegistry
+    from ..serve.router import FleetFrontend
+    from ..serve.soak import inject_page_leak
+
+    rids = [f"n{i}" for i in range(sc["n_replicas"])]
+
+    def factory(rid: str, *, clock: Any, metrics: Any):
+        if engines is not None:
+            eng = engines[rid]
+            eng.rebind_obs(clock=clock, metrics=metrics)
+            return eng
+        eng, _pool = build_serve_engine(
+            slots=sc["slots"], page_size=sc["page_size"],
+            n_pages=sc["n_pages"], pages_per_seq=sc["pages_per_seq"],
+            seg_steps=sc["seg_steps"], clock=clock, metrics=metrics,
+            device=device,
+        )
+        return eng
+
+    reg = EngineRegistry(factory)
+    for rid in rids:
+        reg.add(rid)
+    if leak:
+        inject_page_leak(
+            reg.get(sc["sick_replica"]).engine,
+            every=sc["leak_every"],
+        )
+    fleet = FleetFrontend(
+        reg, arrivals, policy,
+        admission="slo", preemption=True, time_model=time_model,
+        routing=routing, detectors=detectors,
+        warmup_s=sc["fleet_warmup_s"],
+        sample_every_s=sc["fleet_sample_every_s"],
+        probation_s=sc["fleet_probation_s"],
+    )
+    leg = fleet.run(deadline=sc["fleet_deadline_s"])
+    leg["digest"] = fleet.digest()
+    return leg
+
+
+def measure_fleet(
+    seed: int = 7,
+    scenario: Optional[Dict[str, Any]] = None,
+    engines: Optional[Dict[str, Any]] = None,
+    device: Any = "cuda",
+) -> Dict[str, Any]:
+    """The fleet chaos comparison (``dls.fleet/1`` artifact):
+
+    * ``rr_blind`` — health-blind round-robin over N=3 with the leak
+      injected: the baseline that keeps feeding the sick replica;
+    * ``health`` — occupancy-scored routing + the HLT001 battery on the
+      same schedule and injection: must drain + restart the sick
+      replica and strictly beat ``rr_blind`` on goodput;
+    * a same-seed repeat of ``health`` (digest gate);
+    * ``healthy`` — scored routing + detectors with NO injection: the
+      false-positive guard (zero drains, zero restarts, zero leaks).
+
+    ``engines`` (test seam) maps ``n0..n{N-1}`` to warmed engines of
+    SCENARIO geometry; every leg re-registers them through
+    ``rebind_obs``, so no leg sees another's state; without them each
+    leg builds its replicas on ``device``."""
+    from ..obs.fleet import fleet_detectors
+    from ..obs.slo import SLOPolicy
+    from ..serve.frontend import ServiceTimeModel
+    from ..serve.loadgen import poisson_arrivals, schedule_digest
+
+    sc = dict(SCENARIO, **FLEET_SCENARIO, **(scenario or {}))
+    arrivals = poisson_arrivals(
+        sc["fleet_rate_rps"], sc["fleet_n_requests"], seed,
+        prompt_lens=sc["prompt_lens"],
+        max_new_tokens=sc["max_new_tokens"],
+        priorities=sc["priorities"],
+        priority_weights=sc["priority_weights"],
+    )
+    policy = SLOPolicy(
+        ttft_s=sc["ttft_s"], window_s=sc["window_s"],
+        percentile=sc["percentile"],
+    )
+    tm = ServiceTimeModel(
+        wave_s=sc["wave_s"], segment_s=sc["segment_s"],
+        idle_s=sc["idle_s"],
+    )
+    common = dict(engines=engines, device=device)
+    rr = run_fleet_leg(arrivals, policy, tm, sc, routing="round_robin",
+                       detectors=None, leak=True, **common)
+    health = run_fleet_leg(arrivals, policy, tm, sc, routing="score",
+                           detectors=fleet_detectors(), leak=True,
+                           **common)
+    repeat = run_fleet_leg(arrivals, policy, tm, sc, routing="score",
+                           detectors=fleet_detectors(), leak=True,
+                           **common)
+    healthy = run_fleet_leg(arrivals, policy, tm, sc, routing="score",
+                            detectors=fleet_detectors(), leak=False,
+                            **common)
+    deterministic = health["digest"] == repeat["digest"]
+    return {
+        "schema": FLEET_SCHEMA,
+        "seed": seed,
+        "scenario": {
+            k: (list(v) if isinstance(v, tuple) else v)
+            for k, v in sc.items()
+        },
+        "offered_load": {
+            "rate_rps": sc["fleet_rate_rps"],
+            "n_requests": sc["fleet_n_requests"],
+            "arrival_span_s": arrivals[-1].t,
+            "schedule_digest": schedule_digest(arrivals),
+        },
+        "policy": policy.to_json(),
+        "time_model": tm.to_json(),
+        "legs": {
+            "rr_blind": rr, "health": health, "healthy": healthy,
+        },
+        "deterministic": deterministic,
+        "fleet_health": health["fleet_health"],
+        # the regression-gated fleet metric family (eval/regress.py)
+        "fleet.goodput_tok_s": health["goodput_tok_s"],
+        "fleet.goodput_gain_vs_rr": (
+            health["goodput_tok_s"] / rr["goodput_tok_s"]
+            if rr["goodput_tok_s"] else None
+        ),
+        "fleet.drains": health["drains"],
+        "fleet.restarts": health["restarts"],
+        "fleet.migrations": health["migrations"],
+        "fleet.pages_leaked": (
+            health["pages_leaked"] + healthy["pages_leaked"]
+        ),
+        "fleet.healthy_drains": healthy["drains"] + healthy["restarts"],
+        "fleet.deterministic": deterministic,
+    }
+
+
+def fleet_gate_failures(art: Dict[str, Any]) -> List[str]:
+    """The r20 fleet gates: health-driven routing must strictly beat
+    health-blind round-robin on goodput with the same sick replica at
+    equal offered load; failover must actually fire (>=1 drain, exactly
+    1 restart, HLT001 named in the breach history) yet the fleet must
+    END healthy (no current breach — self-healing worked); survivors
+    end with zero leaked pages; the no-injection leg must see zero
+    drains/restarts/leaks; same-seed repeat digest-identical."""
+    failures: List[str] = []
+    rr = art["legs"]["rr_blind"]
+    health = art["legs"]["health"]
+    healthy = art["legs"]["healthy"]
+    if not health["goodput_tok_s"] > rr["goodput_tok_s"]:
+        failures.append(
+            f"health-routed goodput {health['goodput_tok_s']:.1f} tok/s "
+            f"not strictly above round-robin {rr['goodput_tok_s']:.1f}"
+        )
+    if health["drains"] < 1:
+        failures.append("health leg never drained the sick replica")
+    if health["restarts"] != 1:
+        failures.append(
+            f"health leg restarted {health['restarts']} time(s), "
+            f"want exactly 1"
+        )
+    fh = art["fleet_health"]
+    if fh.get("exceeds"):
+        failures.append(
+            "fleet ends unhealthy (current breach) despite failover"
+        )
+    if not any(
+        ev.get("event") == "breach" and "HLT001" in ev.get("detail", "")
+        for ev in fh.get("history", [])
+    ):
+        failures.append("breach history never names HLT001")
+    if health["pages_leaked"]:
+        failures.append(
+            f"health leg ends with {health['pages_leaked']} leaked "
+            f"page(s) on surviving replicas"
+        )
+    if healthy["pages_leaked"]:
+        failures.append(
+            f"healthy leg leaked {healthy['pages_leaked']} page(s)"
+        )
+    if healthy["drains"] or healthy["restarts"]:
+        failures.append(
+            f"healthy leg drained {healthy['drains']} / restarted "
+            f"{healthy['restarts']} (false positive)"
+        )
+    if not art["deterministic"]:
+        failures.append(
+            "fleet same-seed repeat diverged (digest mismatch)"
+        )
+    return failures
+
+
+_FLEET_LEG_REQUIRED = (
+    "n_replicas", "routing", "admission", "detectors", "n_requests",
+    "completed", "shed", "migrations", "drains", "restarts",
+    "tokens_total", "tokens_good", "makespan_s", "goodput_tok_s",
+    "throughput_tok_s", "pages_leaked", "replicas", "fleet_health",
+    "fleet_series", "requests", "digest",
+)
+_FLEET_TOP_REQUIRED = (
+    "schema", "seed", "scenario", "offered_load", "policy",
+    "time_model", "legs", "deterministic", "fleet_health",
+    "fleet.goodput_tok_s", "fleet.goodput_gain_vs_rr", "fleet.drains",
+    "fleet.restarts", "fleet.migrations", "fleet.pages_leaked",
+    "fleet.healthy_drains", "fleet.deterministic",
+)
+
+
+def validate_fleet_artifact(art: Any) -> List[str]:
+    """Structural check of a ``dls.fleet/1`` artifact; returns
+    human-readable problems (empty list == valid)."""
+    from ..obs.fleet import validate_fleet_health
+
+    errs: List[str] = []
+    if not isinstance(art, dict):
+        return [f"artifact is {type(art).__name__}, not dict"]
+    if art.get("schema") != FLEET_SCHEMA:
+        errs.append(
+            f"schema is {art.get('schema')!r}, want {FLEET_SCHEMA!r}"
+        )
+    for f in _FLEET_TOP_REQUIRED:
+        if f not in art:
+            errs.append(f"missing top-level field {f!r}")
+    legs = art.get("legs")
+    if not isinstance(legs, dict):
+        return errs + ["legs block missing or not a dict"]
+    for name in ("rr_blind", "health", "healthy"):
+        leg = legs.get(name)
+        if not isinstance(leg, dict):
+            errs.append(f"legs.{name} missing or not a dict")
+            continue
+        for f in _FLEET_LEG_REQUIRED:
+            if f not in leg:
+                errs.append(f"legs.{name} missing {f!r}")
+        if isinstance(leg.get("fleet_health"), dict):
+            errs.extend(
+                f"legs.{name}.fleet_health: {e}"
+                for e in validate_fleet_health(leg["fleet_health"])[:3]
+            )
+        reqs = leg.get("requests")
+        if not isinstance(reqs, list) or not reqs:
+            errs.append(f"legs.{name}.requests missing or empty")
+    if isinstance(art.get("fleet_health"), dict):
+        errs.extend(
+            f"fleet_health: {e}"
+            for e in validate_fleet_health(art["fleet_health"])[:5]
+        )
+    elif "fleet_health" in art:
+        errs.append("fleet_health is not a dict")
+    for f in ("fleet.goodput_tok_s", "fleet.goodput_gain_vs_rr"):
+        if f in art and not isinstance(art.get(f), (int, float)):
+            errs.append(f"{f} is not numeric")
+    if ("fleet.deterministic" in art
+            and not isinstance(art["fleet.deterministic"], bool)):
+        errs.append("fleet.deterministic is not a bool")
+    return errs
+
+
 def gate_failures(art: Dict[str, Any]) -> List[str]:
     """The acceptance gates, as human-readable failure strings."""
     failures: List[str] = []
@@ -876,6 +1177,50 @@ def validate_serve_artifact(art: Any) -> List[str]:
     return errs
 
 
+def _main_fleet(args: Any, overrides: Optional[Dict[str, Any]]) -> int:
+    """The ``--fleet`` CLI leg: run, print (rows/series stripped),
+    optionally write the full ``dls.fleet/1`` artifact, gate."""
+    import json
+    import sys
+
+    art = measure_fleet(seed=args.seed, scenario=overrides,
+                        device=args.device)
+
+    def _strip_leg(leg: Dict[str, Any]) -> Dict[str, Any]:
+        return {
+            k: v for k, v in leg.items()
+            if k not in ("requests", "fleet_series", "replicas")
+        }
+
+    shown = {k: v for k, v in art.items() if k != "legs"}
+    shown["legs"] = {
+        name: _strip_leg(leg) for name, leg in art["legs"].items()
+    }
+    print(json.dumps(shown, indent=1, sort_keys=True))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(art, f, indent=1, sort_keys=True)
+    failures = fleet_gate_failures(art)
+    for f_ in failures:
+        print(f"FLEET GATE FAIL: {f_}", file=sys.stderr)
+    if failures:
+        return 1
+    health = art["legs"]["health"]
+    rr = art["legs"]["rr_blind"]
+    print(
+        f"FLEET GATES PASS: {health['goodput_tok_s']:.0f} tok/s goodput "
+        f"(health-routed) vs {rr['goodput_tok_s']:.0f} (round-robin) "
+        f"over {health['n_replicas']} replicas at "
+        f"{art['scenario']['fleet_rate_rps']:.0f} req/s offered, "
+        f"{health['drains']} drain / {health['restarts']} restart / "
+        f"{health['migrations']} migration(s) on "
+        f"{art['scenario']['sick_replica']}, 0 pages leaked, "
+        "deterministic",
+        file=sys.stderr,
+    )
+    return 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     import argparse
     import json
@@ -896,15 +1241,24 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="skip the shared-prefix leg pair")
     ap.add_argument("--no-chunked", action="store_true",
                     help="skip the mixed-long-prompt chunked leg pair")
+    ap.add_argument("--fleet", action="store_true",
+                    help="run the N-replica fleet chaos bench instead "
+                         "(dls.fleet/1 artifact, fleet gates)")
     ap.add_argument("--device", default="cuda",
-                    help="where the engine runs (default: the card)")
+                    help="where the engines run (default: the card)")
     args = ap.parse_args(argv)
 
     overrides: Dict[str, Any] = {}
     if args.rate is not None:
-        overrides["rate_rps"] = args.rate
+        overrides["rate_rps" if not args.fleet else "fleet_rate_rps"] = (
+            args.rate
+        )
     if args.n_requests is not None:
-        overrides["n_requests"] = args.n_requests
+        overrides[
+            "n_requests" if not args.fleet else "fleet_n_requests"
+        ] = args.n_requests
+    if args.fleet:
+        return _main_fleet(args, overrides or None)
     art = measure_serving(seed=args.seed, scenario=overrides or None,
                           prefix=not args.no_prefix,
                           chunked=not args.no_chunked, device=args.device)

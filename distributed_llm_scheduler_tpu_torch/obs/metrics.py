@@ -177,4 +177,90 @@ class MetricsRegistry:
         return out
 
 
-__all__ = ["SCHEMA", "Counter", "Gauge", "Histogram", "MetricsRegistry"]
+def validate_snapshot(snap: Any) -> List[str]:
+    """Structural check of a ``snapshot()`` dict; returns human-readable
+    problems (empty list == valid)."""
+    errs: List[str] = []
+    if not isinstance(snap, dict):
+        return [f"snapshot is {type(snap).__name__}, not dict"]
+    if snap.get("schema") != SCHEMA:
+        errs.append(f"schema is {snap.get('schema')!r}, want {SCHEMA!r}")
+    # optional replica label (per-replica registries in a fleet); when
+    # present it must be a non-empty string
+    if "replica" in snap and (
+        not isinstance(snap["replica"], str) or not snap["replica"]
+    ):
+        errs.append(
+            f"replica is {snap['replica']!r}, want a non-empty string"
+        )
+    for family, fields in (
+        ("counters", ("value", "unit")),
+        ("gauges", ("value", "max", "unit")),
+        ("histograms", ("count", "sum", "min", "max", "mean", "p50",
+                        "p95", "p99", "unit")),
+    ):
+        block = snap.get(family)
+        if not isinstance(block, dict):
+            errs.append(f"{family} block missing or not a dict")
+            continue
+        for name, row in block.items():
+            if not isinstance(row, dict):
+                errs.append(f"{family}.{name} is not a dict")
+                continue
+            for f in fields:
+                if f not in row:
+                    errs.append(f"{family}.{name} missing {f!r}")
+    return errs
+
+
+def _num_delta(a: Any, b: Any) -> Optional[float]:
+    if isinstance(a, (int, float)) and isinstance(b, (int, float)):
+        return b - a
+    return None
+
+
+def diff_snapshots(a: Any, b: Any) -> Dict[str, Any]:
+    """Structured diff of two ``dls.metrics/1`` snapshots (the ``metrics
+    diff`` CLI): counter/gauge value deltas, histogram count and
+    p50/p95/p99 quantile shifts, plus the names present on only one
+    side.
+    Both inputs must validate — raises ``ValueError`` listing the first
+    problems otherwise (schema mismatch included)."""
+    for tag, snap in (("a", a), ("b", b)):
+        errs = validate_snapshot(snap)
+        if errs:
+            raise ValueError(
+                f"snapshot {tag} invalid: " + "; ".join(errs[:5])
+            )
+
+    out: Dict[str, Any] = {"schema": "dls.metrics-diff/1"}
+    # replica labels ride along so a cross-replica diff names its sides
+    if "replica" in a or "replica" in b:
+        out["replica_a"] = a.get("replica")
+        out["replica_b"] = b.get("replica")
+    for family, keys in (
+        ("counters", ("value",)),
+        ("gauges", ("value", "max")),
+        ("histograms", ("count", "sum", "mean", "p50", "p95", "p99")),
+    ):
+        ba, bb = a[family], b[family]
+        rows: Dict[str, Any] = {}
+        for name in sorted(set(ba) | set(bb)):
+            ra, rb = ba.get(name), bb.get(name)
+            if ra is None or rb is None:
+                rows[name] = {"only_in": "b" if ra is None else "a"}
+                continue
+            row: Dict[str, Any] = {}
+            for k in keys:
+                row[f"{k}_a"] = ra.get(k)
+                row[f"{k}_b"] = rb.get(k)
+                row[f"{k}_delta"] = _num_delta(ra.get(k), rb.get(k))
+            rows[name] = row
+        out[family] = rows
+    return out
+
+
+__all__ = [
+    "SCHEMA", "Counter", "Gauge", "Histogram", "MetricsRegistry",
+    "diff_snapshots", "validate_snapshot",
+]

@@ -1282,3 +1282,93 @@ def test_frontend_virtual_clock_leg_on_the_card_equals_the_cpu(cuda, admission):
             arrivals, policy, admission, admission == "slo", tm, engine=eng)
     assert legs["cuda"]["digest"] == legs["cpu"]["digest"]
     assert legs["cuda"]["pages_leaked"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(segments=True), dict(compiled=True)],
+                         ids=["segments", "compiled"])
+def test_traced_captured_rung_windows_come_from_cuda_events(cuda, kw):
+    """On a captured rung each node's span is the replay's window on the
+    card (CUDA events on the host clock): inside the ``execute`` span,
+    starting after its host replay call began, one per segment (or one
+    ``program`` span per node); the output is bit-equal to the untraced
+    run and the attribution tiles its makespan."""
+    from distributed_llm_scheduler_tpu_torch.obs import Tracer
+    from distributed_llm_scheduler_tpu_torch.obs.export import (
+        chrome_events, validate_trace)
+
+    backend, graph, sched, params, ids = _ladder_setup(cuda, "heft", 4)
+    off = backend.execute(graph, sched, params, ids, **kw).output.clone()
+    tr = Tracer()
+    rep = backend.execute(graph, sched, params, ids, trace=tr, reps=2, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(rep.output, off)
+    ex = next(e for e in tr.events if e["name"] == "execute")
+    replays = [e for e in tr.events if e["name"] == "replay"]
+    nodes = set(sched.placement.values())
+    dev = [e for e in tr.events if e["type"] == "span"
+           and e["track"] in nodes]
+    want = "program" if "compiled" in kw else "launch"
+    assert dev and {e["cat"] for e in dev} == {want}
+    first_replay = min(e["t0"] for e in replays)
+    for e in dev:
+        assert ex["t0"] <= e["t0"] <= e["t1"] <= ex["t1"]
+        assert e["t0"] >= first_replay
+    if "segments" in kw:
+        assert len(dev) == len(replays) == 2 * rep.n_dispatches
+    assert validate_trace({"traceEvents": chrome_events(tr)}) == []
+    att = rep.attribution
+    assert att is not None and att["critical_path"]
+    assert abs(sum(att["breakdown_s"].values()) - att["makespan_s"]) < 1e-9
+
+
+@pytest.mark.cuda
+def test_memprof_reconciles_the_allocator_peak(cuda):
+    """On a card the memory profile carries the allocator's peak
+    (``allocated_bytes.all.peak``) as the platform source, beside the
+    model-derived one, for every node of the card."""
+    from distributed_llm_scheduler_tpu_torch.obs import MemoryProfiler
+
+    backend, graph, sched, params, ids = _ladder_setup(cuda, "heft", 4)
+    mem = MemoryProfiler()
+    rep = backend.execute(graph, sched, params, ids, memprof=mem)
+    peak = torch.cuda.memory_stats(cuda)["allocated_bytes.all.peak"]
+    assert mem.verify() == []
+    for node, entry in rep.memory["devices"].items():
+        assert entry["source"] == "platform", node
+        assert entry["platform_peak_bytes"] == peak
+        assert entry["platform_peak_bytes"] >= entry["peak_bytes"] > 0
+
+
+@pytest.mark.cuda
+def test_fleet_restart_gives_back_pages_and_device_memory(cuda):
+    """Three replicas of the serve engine share the card; a restart
+    through ``rebind_obs`` returns the replica's pages and its device
+    memory: ``memory_allocated`` comes back to its level before."""
+    from distributed_llm_scheduler_tpu_torch.eval import serve_bench as SB
+    from distributed_llm_scheduler_tpu_torch.serve import (
+        EngineRegistry, VirtualClock, prompt_token_ids)
+
+    engines = {rid: SB.build_serve_engine(clock=VirtualClock(), device=cuda)[0]
+               for rid in ("n0", "n1", "n2")}
+
+    def factory(rid, *, clock=None, metrics=None):
+        engines[rid].rebind_obs(clock=clock, metrics=metrics)
+        return engines[rid]
+
+    reg = EngineRegistry(factory)
+    for rid in engines:
+        reg.add(rid)
+    eng = reg.get("n1").engine
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(cuda)
+    vocab = int(eng.config.vocab_size)
+    for i in range(3):
+        eng.submit(f"r{i}", prompt_token_ids(f"r{i}", 8, vocab, 0), 12)
+    eng.step_segment()
+    assert eng.pool.used_pages > 0
+    eng.begin_drain()
+    reg.restart("n1")
+    torch.cuda.synchronize()
+    assert eng.pool.used_pages == 0 and not eng.draining
+    assert torch.cuda.memory_allocated(cuda) == before

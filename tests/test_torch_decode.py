@@ -344,10 +344,19 @@ def test_unported_engine_features_raise(weights):
         return backend.paged_decode_engine(
             td.graph, sched, td.config, tw, pool, slots=4, pages_per_seq=8, **kw)
 
-    # the tracer, memprof and flight hooks are still not ported: refused
-    for hook in ("trace", "memprof", "flight"):
-        with pytest.raises(NotImplementedError):
-            make(**{hook: object()})
+    # the tracer, memprof and flight hooks are ported: each is wired, the
+    # flight ring teed beside the tracer and a waterfall recorder riding it
+    from distributed_llm_scheduler_tpu_torch.obs import (
+        FlightRecorder, MemoryProfiler, Tracer)
+
+    tr, mp, fl = Tracer(), MemoryProfiler(), FlightRecorder()
+    eng = make(trace=tr, memprof=mp, flight=fl)
+    assert eng.tracer.primary is tr and eng.tracer.mirror is fl.tracer
+    assert eng.memprof is mp and eng.flight is fl
+    assert eng.reqtrace is not None and eng.reqlog in eng._reqlogs
+    bare = make()
+    assert bare.tracer is None and bare.reqtrace is None
+    assert bare.memprof is None and bare.flight is None
     # sharing, chunked prefill, an impl name, preempt and drain are ported;
     # the impl must be the graph's (its layer tasks choose the path)
     eng = make(P.PagePool(n_pages=64, page_size=16, sharing=True),

@@ -318,8 +318,9 @@ def test_submit_raises_while_draining(engines):
 
 def test_rebind_obs_gives_a_fresh_engine(engines):
     """``rebind_obs`` wires a new clock, metrics and ownership log and
-    wipes run state: the next run equals a reset engine's; the tracer,
-    memprof and flight hooks stay refused."""
+    wipes run state: the next run equals a reset engine's; a tracer,
+    memory profiler and flight recorder are wired the same way, and a
+    rebind without them unwires them."""
     _, teng = engines["whole"]
     reqs = workload("whole")[:4]
     plain = drive(teng, reqs)
@@ -333,7 +334,13 @@ def test_rebind_obs_gives_a_fresh_engine(engines):
         np.testing.assert_array_equal(got[rid], plain[rid])
     assert metrics.counter("decode.requests_completed").value == len(reqs)
     assert len(log) > 0
-    for hook in ("tracer", "memprof", "flight"):
-        with pytest.raises(NotImplementedError):
-            teng.rebind_obs(**{hook: object()})
+    from distributed_llm_scheduler_tpu_torch.obs import (
+        FlightRecorder, MemoryProfiler, Tracer)
+
+    tr, mp, fl = Tracer(), MemoryProfiler(), FlightRecorder()
+    teng.rebind_obs(tracer=tr, memprof=mp, flight=fl)
+    assert teng.tracer.primary is tr and teng.tracer.mirror is fl.tracer
+    assert teng.memprof is mp and teng.reqtrace is not None
     teng.rebind_obs(clock=TClock())
+    assert teng.tracer is None and teng.memprof is None
+    assert teng.reqtrace is None and teng.flight is None
