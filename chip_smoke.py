@@ -84,16 +84,20 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    greedy x1 per task (planned) and the fused forward (3 windows of 6
    runs each), the segmented and compiled legs (the same, their
    launches counted as phase 7 counts them), the pre-flight memory pass,
-   the link measured on the card, and every ported policy placed on 8
-   nodes and replayed; its JSON line is printed (``BENCH_LINE``), and
+   the link measured on the card, and all 10 policies (``search`` at
+   budget 120, as the JAX bench) placed on 8 nodes and replayed, each
+   policy's replayed makespan and scheduling wall printed, refine's and
+   search's static pre-filter reading ``on`` in both runs; its JSON line
+   (``BENCH_LINE``, metric ``..._best_of_10_policies_cuda``) is printed, and
    each leg must launch the flash and LayerNorm kernels once per
    attention and layer norm of each forward it runs (the pre-flight once
    per distinct task), the oracle must hold, every policy but round-robin
    must complete and the MFUs and the compiled leg's host wall must be
    measured; the first run measures the calibration afresh and saves it,
    and a second run (one rep a measured leg, the same link) replays the
-   saved file: ``cache_hit`` true and ``value`` and ``vs_baseline`` equal
-   to the first run's (``BENCH_REPLAY_LINE``);
+   saved file: ``cache_hit`` true, and the best policy, ``value``,
+   ``vs_baseline`` and every policy's ``placement_digest`` equal to the
+   first run's (``BENCH_REPLAY_LINE``);
 9. serve path: GPT-2 small bf16 at full width through the paged decode
    DAG (8 slots, page size 16, 257 pages, capacity 512), placed by
    ``greedy`` and served by ``DeviceBackend.paged_decode_engine`` in
@@ -178,7 +182,27 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     replicas on the card: the eight ``fleet.*`` values and the fleet
     health history equal ``FLEET_r20.json``'s, the gates pass, and the
     card's allocated memory is back at its level after the restarts.
-    Each leg's launches are counted; the numbers as ``DOCTOR_LINE``.
+    Each leg's launches are counted; the numbers as ``DOCTOR_LINE``;
+17. searched placements: a. phase 8's ``refine`` and ``search`` (budget
+    120, seed 0) placements of the flagship, made from the card's saved
+    calibration (their static pre-filter must read ``on``), beside its
+    ``heft`` x8: each one's eventsim makespan and
+    replay under that calibration and link (the replay equal to the
+    bench's), then executed on 8 nodes of the card planned and compiled
+    (one CUDA graph, a stream per node), launches counted as phase 7
+    counts them (96 flash and 200 LayerNorm per forward), outputs within
+    the fused forward's band and compiled bit-equal to planned.  b. the
+    pre-execution gate: a schedule with a task on two nodes and a graph
+    with a cycle are each refused with ``AnalysisError`` by ``execute``
+    (planned and compiled), ``CompiledSchedule.build`` and
+    ``paged_decode_engine``, every launch count still 0; with
+    ``DLS_SKIP_ANALYSIS=1`` a schedule the gate refuses (an unknown,
+    empty node list) runs, bit-equal to the clean one; the gate's host
+    time on the flagship.  c. ``analyze()`` over heft x8's schedule with
+    the bf16 params and the input as meta tensors: equal, diagnostic for
+    diagnostic, to the same call on 8 CPU nodes of the same budgets, every
+    task's output typechecked, no kernel launched.  The numbers as
+    ``SEARCH_LINE``.
 
 The last lines are one JSON object of per-kernel numbers (``launches`` is
 the count of the kernel's main path, ``launches_by_path`` each counted
@@ -212,6 +236,7 @@ from __future__ import annotations
 
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -1476,13 +1501,31 @@ def run_ladder_path(torch, P, dev) -> dict:
     return launches
 
 
-def run_bench_path(torch, P, dev) -> dict:
+def static_filters_on(label: str, result) -> dict:
+    """refine's and search's ``stats["static_filter"]`` from a bench
+    result: both must read ``on`` (an analyzer that raised turns the
+    pre-filter off and changes the walk and the placements)."""
+    got = {n: (result.policy_stats or {}).get(n, {}).get("static_filter")
+           for n in ("refine", "search")}
+    log(f"  {label}: static pre-filter " + ", ".join(
+        f"{n} {v}" for n, v in got.items()))
+    if any(v != "on" for v in got.values()):
+        raise AssertionError(f"{label}: static pre-filter {got}")
+    return got
+
+
+def run_bench_path(torch, P, dev) -> tuple:
     """The port's north-star bench (``eval/bench.run("small")``) on the card:
     calibration, the per-task and fused legs, the pre-flight, the replay of
-    every ported policy.  Prints its JSON line and each leg's launches;
-    fails unless the oracle holds, every policy but round-robin completes,
-    the MFU was measured and each leg launched the kernels as many times as
-    its forwards need.  Returns each leg's launch counts."""
+    all 10 policies (``search`` at budget 120).  Prints its JSON line, each
+    policy's replayed makespan and scheduling wall, and each leg's
+    launches; fails unless the oracle holds, every policy but round-robin
+    completes, the MFU was measured, each leg launched the kernels as many
+    times as its forwards need, refine's and search's static pre-filter
+    ran in both runs, and a second run from the saved
+    calibration gives the first run's best policy, ``value``,
+    ``vs_baseline`` and every policy's placement digest.  Returns each
+    leg's launch counts and the second run's result."""
     from distributed_llm_scheduler_tpu_torch.eval import bench
     from distributed_llm_scheduler_tpu_torch.ops import attention as A
     from distributed_llm_scheduler_tpu_torch.ops import kernels
@@ -1522,6 +1565,15 @@ def run_bench_path(torch, P, dev) -> dict:
     total = {k: kernels.launches.get(k, 0) for k in per_dag}
     line = result.to_json()
     print("BENCH_LINE " + json.dumps(line), flush=True)
+    if result.n_policies != 10 or "best_of_10" not in line["metric"]:
+        raise AssertionError(f"bench ranked {result.n_policies} policies: "
+                             f"{line['metric']}")
+    static_filters_on("bench", result)
+    for name, (makespan, completion) in sorted(result.policies.items()):
+        log(f"  bench policy {name:10s}: replayed {makespan * 1e3:.4f} ms, "
+            f"completion {completion:.3f}, scheduled in "
+            f"{result.policy_sched_s[name]:.3f} s, digest "
+            f"{result.placement_digests[name][:12]}")
     legs = result.launches
     log(f"  bench in {time.perf_counter() - t0:.1f} s; launches per leg: "
         + json.dumps(legs))
@@ -1570,21 +1622,27 @@ def run_bench_path(torch, P, dev) -> dict:
     again = bench.run("small", dev, reps=1, link=result.link_model)
     line2 = again.to_json()
     print("BENCH_REPLAY_LINE " + json.dumps(line2), flush=True)
+    static_filters_on("bench from the saved calibration", again)
     same = (again.cache_hit is True and result.cache_hit is False
             and line2["value"] == line["value"]
             and line2["vs_baseline"] == line["vs_baseline"]
-            and again.best_makespan_s == result.best_makespan_s)
+            and again.best_makespan_s == result.best_makespan_s
+            and again.best_policy == result.best_policy
+            and again.placement_digests == result.placement_digests)
     log(f"  bench from the saved calibration in {time.perf_counter() - t0:.1f} "
         f"s: cache_hit {again.cache_hit} (first run {result.cache_hit}), age "
         f"{again.calibration_age_days} days, value {line2['value']} ms (first "
         f"run {line['value']}), vs_baseline {line2['vs_baseline']} (first run "
-        f"{line['vs_baseline']}), best {again.best_policy}; per-task "
+        f"{line['vs_baseline']}), best {again.best_policy} (first run "
+        f"{result.best_policy}), placement digests of all "
+        f"{len(again.placement_digests)} policies equal "
+        f"{again.placement_digests == result.placement_digests}; per-task "
         f"{line2['spread']['pt_makespan']['median_ms']} ms measured live "
         f"-> {'ok' if same else 'FAIL'}")
     if not same:
         raise AssertionError("bench: the saved calibration did not replay "
                              "the first run's headline")
-    return legs
+    return legs, again
 
 
 # parameter-streaming phase: GPT-2 small under mru on one node capped at
@@ -2984,6 +3042,317 @@ def run_doctor_path(torch, P, A, dev, served) -> tuple:
     return out, launches
 
 
+# searched placements on the card (phase 17): the bench's refine and search
+# placements of the flagship beside its heft x8, each executed planned and
+# compiled; then the pre-execution gate and analyze() on the card
+SEARCHED = ("refine", "search", "heft")
+GATE_TIMED = 20
+
+
+def with_cycle(P, graph):
+    """Copies of ``graph``'s tasks with its first task waiting on its last:
+    a dependency cycle, left unfrozen (freezing it raises)."""
+    import dataclasses
+
+    order = graph.topo_order
+    tasks = [dataclasses.replace(t, dependencies=list(t.dependencies))
+             for t in graph.tasks()]
+    next(t for t in tasks if t.task_id == order[0]).dependencies.append(
+        order[-1])
+    return P.TaskGraph(tasks, name=graph.name)
+
+
+def edited(P, sched, **per_node):
+    """``sched`` with node lists replaced or added (a corrupted copy)."""
+    lists = {n: list(ts) for n, ts in sched.per_node.items()}
+    lists.update(per_node)
+    return P.Schedule(policy=sched.policy + "-edited", per_node=lists,
+                      assignment_order=list(sched.assignment_order),
+                      completed=set(sched.completed))
+
+
+def run_searched_path(torch, P, A, N, dev, bench_result) -> tuple:
+    """Part a: the bench's refine and search (budget 120, seed 0)
+    placements of the flagship on 8 nodes, made from the card's saved
+    calibration, beside its heft x8.  Each placement's eventsim makespan
+    and replay (which must equal the bench's) under that calibration and
+    the bench's link, then its measured makespan planned and compiled (one
+    CUDA graph, a stream per node), launches counted as phase 7 counts
+    them: the outputs meet the fused forward and compiled equals planned
+    bit for bit.  Returns (SEARCH_LINE's object, launches per run, the
+    state parts b and c reuse)."""
+    from distributed_llm_scheduler_tpu_torch.eval import bench
+    from distributed_llm_scheduler_tpu_torch.ops import kernels
+    from distributed_llm_scheduler_tpu_torch.utils.costmodel import (
+        calibration_path,
+        load_cached,
+    )
+    from distributed_llm_scheduler_tpu_torch.utils.hbm import (
+        preflight_task_memory,
+    )
+
+    cfg = P.GPT2Config.small(dtype=torch.bfloat16)
+    dag = P.build_gpt2_dag(cfg, **FLAGSHIP)
+    graph = P.fuse_linear_chains(dag.graph)
+    params = dag.init_params(seed=0, device=dev)
+    ids = dag.make_inputs(seed=1, device=dev)
+    cm = load_cached(calibration_path(bench.CACHE_DIR, graph.name, "cuda"),
+                     graph)
+    if cm is None:
+        raise AssertionError("searched: the bench saved no calibration")
+    cm.apply(graph)
+    # the replay charges a transfer by its producer's output size, which
+    # the bench's pre-flight sets (a fused chain's activation footprint is
+    # its widest member's); shapes alone give it: with the input on the
+    # CPU the pre-flight propagates meta tensors and launches nothing
+    preflight_task_memory(graph, params, ids.cpu())
+    link = bench_result.link_model
+    model = P.Cluster([P.DeviceState(f"core_{i}", bench_result.node_hbm_gb)
+                       for i in range(bench.REPLAY_NODES)])
+    speeds = {d.node_id: d.compute_speed for d in model}
+    sim = P.SimulatedBackend(fidelity="full", link=link,
+                             dispatch_s=cm.dispatch_s)
+    cluster = P.Cluster.from_torch_devices([dev] * bench.REPLAY_NODES)
+    backend = P.DeviceBackend(cluster)
+    mb = FLAGSHIP["microbatches"]
+    per_forward = {A.KERNEL: mb * cfg.n_layer,
+                   N.LN_KERNEL: mb * (2 * cfg.n_layer + 1)}
+    fused = dag.reference_forward(params, ids).cpu()
+    filters = static_filters_on("searched placements", bench_result)
+    out, launches = {}, {}
+    for name in SEARCHED:
+        sched = bench_result.schedules[name]
+        digest = P.placement_digest(sched.placement)
+        if digest != bench_result.placement_digests[name]:
+            raise AssertionError(f"searched {name}: digest {digest}")
+        _order, ev, _nf = P.simulate_placement(
+            graph, sched.placement, speeds, link, model.slice_ids())
+        replay = sim.execute(graph, model, sched, dag_type="gpt2_small")
+        if replay.makespan != bench_result.policies[name][0]:
+            raise AssertionError(
+                f"searched {name}: replay {replay.makespan} != the bench's "
+                f"{bench_result.policies[name][0]}")
+        row = dict(eventsim_ms=ev * 1e3, replay_ms=replay.makespan * 1e3,
+                   nodes_used=sum(1 for ts in sched.per_node.values() if ts),
+                   sched_s=bench_result.policy_sched_s[name],
+                   digest=digest, static_filter=filters.get(name))
+        outs = {}
+        for rung, kw in (("planned", {}), ("compiled", dict(compiled=True))):
+            label = f"{name} x8 {rung}"
+            kernels.reset_launches()
+            rep = backend.execute(graph, sched, params, ids, reps=REPS, **kw)
+            torch.cuda.synchronize()
+            no_routes(label)
+            eager = {k: kernels.launches[k] for k in per_forward}
+            replayed = {k: kernels.replayed.get(k, 0) for k in per_forward}
+            outs[rung] = rep.output.cpu()
+            if kw:
+                captured = {k: rep.captured_launches.get(k, 0)
+                            for k in per_forward}
+                if (captured != per_forward
+                        or eager != times(captured, 2)
+                        or replayed != times(captured, 1 + REPS)):
+                    raise AssertionError(
+                        f"{label}: captured {captured}, eager {eager}, "
+                        f"replayed {replayed}")
+                launches[label] = replayed
+            else:
+                if eager != times(per_forward, 1 + REPS):
+                    raise AssertionError(f"{label}: launches {eager}")
+                launches[label] = eager
+            ok, viol, allowed, rel = oracle_close(fused, outs[rung])
+            finite = bool(torch.isfinite(outs[rung]).all())
+            if not (ok and finite):
+                raise AssertionError(f"{label}: oracle {ok} ({viol} outside "
+                                     f"the band), finite {finite}")
+            row[f"{rung}_ms"] = rep.makespan_s * 1e3
+            row[f"{rung}_rel_fro"] = rel
+            del rep
+        row["bit_equal"] = torch.equal(outs["planned"], outs["compiled"])
+        if not row["bit_equal"]:
+            raise AssertionError(f"searched {name}: compiled != planned")
+        out[name] = row
+        log(f"  {name} x8 ({row['nodes_used']} nodes used, scheduled in "
+            f"{row['sched_s']:.3f} s): eventsim {row['eventsim_ms']:.4f} ms, "
+            f"replayed {row['replay_ms']:.4f} ms, measured planned "
+            f"{row['planned_ms']:.3f} ms and compiled {row['compiled_ms']:.3f} "
+            f"ms (mean of {REPS}), per forward {per_forward[A.KERNEL]} flash "
+            f"and {per_forward[N.LN_KERNEL]} layer_norm launches, compiled "
+            f"bit-equal to planned, rel Frobenius {row['planned_rel_fro']:.3e} "
+            f"vs fused")
+    for name in ("refine", "search"):
+        gain = {k: out["heft"][k] / out[name][k] for k in (
+            "eventsim_ms", "replay_ms", "planned_ms", "compiled_ms")}
+        out[name]["vs_heft"] = gain
+        log(f"  {name} vs heft x8 (heft / {name}): " + ", ".join(
+            f"{k[:-3]} {v:.4f}" for k, v in gain.items()))
+    state = dict(graph=graph, dag=dag, cluster=cluster, backend=backend,
+                 params=params, ids=ids, model=model,
+                 schedules=bench_result.schedules, planned=outs["planned"])
+    return out, launches, state
+
+
+def refused(label: str, run) -> str:
+    """``run()`` must raise ``AnalysisError``; returns its codes."""
+    from distributed_llm_scheduler_tpu_torch.analysis import AnalysisError
+
+    try:
+        run()
+    except AnalysisError as e:
+        return ",".join(sorted({d.code for d in e.report.errors}))
+    raise AssertionError(f"gate: {label} was not refused")
+
+
+def run_gate_path(torch, P, dev, st) -> dict:
+    """Part b: a schedule with a task placed on two nodes and a graph with
+    a cycle, each refused with ``AnalysisError`` by ``execute`` (planned
+    and compiled), ``CompiledSchedule.build`` and ``paged_decode_engine``
+    with every launch count still 0; ``DLS_SKIP_ANALYSIS=1`` turns the gate
+    off (an unknown, empty node list, refused with the gate on, then runs
+    bit-equal to the clean placement); the gate's host time on the
+    flagship."""
+    import os
+
+    from distributed_llm_scheduler_tpu_torch import analysis as PA
+    from distributed_llm_scheduler_tpu_torch.backends.compiled_schedule import (
+        CompiledSchedule,
+    )
+    from distributed_llm_scheduler_tpu_torch.models.kv_pages import PagePool
+    from distributed_llm_scheduler_tpu_torch.ops import kernels
+
+    graph, cluster, backend = st["graph"], st["cluster"], st["backend"]
+    params, ids = st["params"], st["ids"]
+    sched = st["schedules"]["refine"]
+    first = sched.assignment_order[0]
+    home = sched.placement[first]
+    other = next(n for n in sched.per_node if n != home)
+    twice = edited(P, sched, **{other: [first] + sched.per_node[other]})
+    cyclic = with_cycle(P, graph)
+    cfg = P.GPT2Config.small(dtype=torch.bfloat16)
+    paged = P.build_paged_decode_dag(cfg, **SERVE_GEOM)
+    two = P.Cluster.from_torch_devices([dev] * 2)
+    p_sched = P.get_scheduler("greedy").schedule(paged.graph, two)
+    p_home = next(n for n, ts in p_sched.per_node.items() if ts)
+    p_other = next(n for n in ("core_0", "core_1") if n != p_home)
+    p_twice = edited(P, p_sched, **{p_other: [p_sched.per_node[p_home][0]]})
+    pool = PagePool(SERVE_GEOM["n_pages"])
+    engine = dict(slots=SERVE_GEOM["slots"],
+                  pages_per_seq=SERVE_GEOM["pages_per_seq"])
+    cases = {}
+    kernels.reset_launches()
+    for defect, (g, s, pg, ps) in {
+        "task on two nodes": (graph, twice, paged.graph, p_twice),
+        "graph with a cycle": (cyclic, sched, with_cycle(P, paged.graph),
+                               p_sched),
+    }.items():
+        cases[defect] = {
+            "execute planned": refused(defect, lambda: backend.execute(
+                g, s, params, ids)),
+            "execute compiled": refused(defect, lambda: backend.execute(
+                g, s, params, ids, compiled=True)),
+            "CompiledSchedule.build": refused(
+                defect, lambda: CompiledSchedule.build(backend, g, s, {}, ids)),
+            "paged_decode_engine": refused(
+                defect, lambda: P.DeviceBackend(two).paged_decode_engine(
+                    pg, ps, cfg, {}, pool, **engine)),
+        }
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in kernels.launches.items() if v}
+    counts.update({f"replayed {k}": v for k, v in kernels.replayed.items() if v})
+    log(f"  refused, with every launch count 0 after ({counts or 'none'}): "
+        + "; ".join(f"{d}: " + ", ".join(f"{e} {c}" for e, c in r.items())
+                    for d, r in cases.items()))
+    if counts:
+        raise AssertionError(f"gate: refused runs launched {counts}")
+    bogus = edited(P, sched, bogus=[])
+    cases["unknown node, gate on"] = refused("unknown node", lambda:
+                                             backend.execute(graph, bogus,
+                                                             params, ids))
+    os.environ[PA.SKIP_ENV] = "1"
+    try:
+        off = backend.execute(graph, bogus, params, ids).output.cpu()
+    finally:
+        del os.environ[PA.SKIP_ENV]
+    skip_ok = torch.equal(off, st["planned"])
+    log(f"  {PA.SKIP_ENV}=1: the unknown-node schedule the gate refuses "
+        f"({cases['unknown node, gate on']}) runs, bit-equal to the clean "
+        f"placement {skip_ok}")
+    if not skip_ok:
+        raise AssertionError("gate: the skipped run's output differs")
+    gate_ms, analyze_ms = [], []
+    for _ in range(GATE_TIMED):
+        t0 = time.perf_counter()
+        PA.pre_execution_gate(graph, cluster, sched, backend="device")
+        gate_ms.append((time.perf_counter() - t0) * 1e3)
+    for _ in range(3):
+        t0 = time.perf_counter()
+        PA.analyze(graph, cluster, sched)
+        analyze_ms.append((time.perf_counter() - t0) * 1e3)
+    host = dict(gate_ms=statistics.median(gate_ms),
+                gate_min_ms=min(gate_ms),
+                analyze_ms=statistics.median(analyze_ms))
+    log(f"  gate host time on the {len(graph)}-task flagship: median "
+        f"{host['gate_ms']:.3f} ms (min {host['gate_min_ms']:.3f}) over "
+        f"{GATE_TIMED} calls; analyze() {host['analyze_ms']:.3f} ms")
+    return dict(refusals=cases, skip_bit_equal=skip_ok, **host)
+
+
+def run_analyze_path(torch, P, st) -> dict:
+    """Part c: ``analyze()`` over heft x8's flagship schedule on the card's
+    8 nodes, the bf16 params and the input as meta tensors: diagnostic for
+    diagnostic the call over the same schedule on 8 CPU nodes of the same
+    budgets, every task's output typechecked, and no kernel launched."""
+    from distributed_llm_scheduler_tpu_torch import analysis as PA
+    from distributed_llm_scheduler_tpu_torch.analysis import typecheck_pass
+    from distributed_llm_scheduler_tpu_torch.ops import kernels
+
+    graph, dag, cluster = st["graph"], st["dag"], st["cluster"]
+    sched = st["schedules"]["heft"]
+    cpu = torch.device("cpu")
+    on_cpu = P.Cluster([P.DeviceState(d.node_id, d.total_memory,
+                                      torch_device=cpu) for d in cluster])
+    kw = dict(params=dag.param_specs, graph_input=dag.input_spec)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    card = PA.analyze(graph, cluster, sched, **kw)
+    secs = time.perf_counter() - t0
+    host = PA.analyze(graph, on_cpu, sched, **kw)
+    avals, _ = typecheck_pass.propagate_schedule_avals(graph, **kw)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in kernels.launches.items() if v}
+
+    def fields(rep):
+        return [(d.code, int(d.severity), d.task, d.node, d.param, d.message)
+                for d in rep.diagnostics]
+
+    same = fields(card) == fields(host)
+    typed = sum(1 for v in avals.values() if v is not None)
+    codes = {}
+    for d in card.diagnostics:
+        codes[d.code] = codes.get(d.code, 0) + 1
+    log(f"  analyze() over heft x8 with meta bf16 params in {secs:.2f} s: "
+        f"{len(card.diagnostics)} diagnostics {codes}, exit code "
+        f"{card.exit_code}; equal to the CPU call {same}; {typed} of "
+        f"{len(graph)} task outputs typechecked; launches {launched or 0}")
+    if not same or typed != len(graph) or launched or card.has("TYP001"):
+        raise AssertionError(f"analyze: equal {same}, typed {typed}, "
+                             f"launched {launched}")
+    return dict(seconds=secs, diagnostics=codes, exit_code=card.exit_code,
+                equal_to_cpu=same, typed=typed)
+
+
+def run_search_phase(torch, P, A, N, dev, bench_result) -> tuple:
+    """Phase 17, parts a-c; returns (``SEARCH_LINE``'s object, each run's
+    launch counts)."""
+    log("  a. the bench's refine and search placements executed beside heft")
+    placed, launches, st = run_searched_path(torch, P, A, N, dev, bench_result)
+    log("  b. the pre-execution gate on the card")
+    gate = run_gate_path(torch, P, dev, st)
+    log("  c. analyze() over heft x8 with meta params")
+    analyzed = run_analyze_path(torch, P, st)
+    return dict(placements=placed, gate=gate, analyze=analyzed), launches
+
+
 def paged_timing(root: Path) -> int:
     """``python3 chip_smoke.py --paged-timing [ROOT]``: the single-token
     paged kernel of the package under ROOT (default: this checkout) alone,
@@ -3194,7 +3563,7 @@ def main() -> int:
     t_all = time.perf_counter()
     dev = torch.device("cuda", 0)
     smi = nvidia_smi_line()
-    log(f"[1/16] device: {torch.cuda.get_device_name(0)} ({smi}); torch "
+    log(f"[1/17] device: {torch.cuda.get_device_name(0)} ({smi}); torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3202,7 +3571,7 @@ def main() -> int:
 
     sources = (A.KERNEL, A.PAGED_SOURCE, N.SOURCE)
     secs = kernels.build(*sources)
-    log(f"[2/16] built {', '.join(f'{n}.cu' for n in sources)} with "
+    log(f"[2/17] built {', '.join(f'{n}.cu' for n in sources)} with "
         f"{kernels.nvcc_path()} for sm_90a in {secs:.1f} s (in parallel)")
     log_ptxas(kernels.build_logs.get(A.KERNEL, ""))
     log_ptxas(kernels.build_logs.get(A.PAGED_SOURCE, ""),
@@ -3214,60 +3583,60 @@ def main() -> int:
                     if "paged_ragged_tc" in k]
     norm_ptxas = log_norm_ptxas(kernels.build_logs.get(N.SOURCE, ""))
 
-    log("[3/16] flash kernel check against its plain version")
+    log("[3/17] flash kernel check against its plain version")
     attn = check_attention_kernel(
         torch, A, dev, P.LlamaConfig.llama3_8b(dtype=torch.bfloat16))
 
-    log("[4/16] paged kernel check against the plain versions")
+    log("[4/17] paged kernel check against the plain versions")
     paged = check_paged_kernels(torch, A, DB, dev)
     ragged_n = run_ragged_op_path(torch, A, DB, dev)
 
-    log("[5/16] LayerNorm and RMSNorm kernel check against the plain versions")
+    log("[5/17] LayerNorm and RMSNorm kernel check against the plain versions")
     norms = check_norm_kernels(torch, N, dev)
 
     def phase_done():  # free the phase's tensors before the next one
         gc.collect()
         torch.cuda.empty_cache()
 
-    log("[6/16] flagship forward path: GPT-2 small bf16 DAG on the card")
+    log("[6/17] flagship forward path: GPT-2 small bf16 DAG on the card")
     gpt2_n = run_main_path(torch, P, dev)
     phase_done()
 
-    log("[7/16] execution ladder: the flagship per task, planned, coalesced, "
+    log("[7/17] execution ladder: the flagship per task, planned, coalesced, "
         "segmented and compiled")
     ladder_n = run_ladder_path(torch, P, dev)
     phase_done()
 
-    log("[8/16] north-star bench: GPT-2 small bf16, 8 policies replayed")
-    bench_n = run_bench_path(torch, P, dev)
+    log("[8/17] north-star bench: GPT-2 small bf16, 10 policies replayed")
+    bench_n, bench_result = run_bench_path(torch, P, dev)
     phase_done()
 
-    log("[9/16] serve path: GPT-2 small bf16 through the paged decode engine")
+    log("[9/17] serve path: GPT-2 small bf16 through the paged decode engine")
     serve_launches, serve_ragged, serve_ln, serve_tr, served = run_serve_path(
         torch, P, A, dev)
     phase_done()
 
-    log("[10/16] Llama path: Llama-3 8B bf16 DAG, pipeline stages, on the card")
+    log("[10/17] Llama path: Llama-3 8B bf16 DAG, pipeline stages, on the card")
     llama_n = run_llama_path(torch, P, dev)
     phase_done()
 
-    log("[11/16] f32 leg: GPT-2 placed on the card vs fused on the CPU")
+    log("[11/17] f32 leg: GPT-2 placed on the card vs fused on the CPU")
     run_f32_leg(torch, P, dev)
 
-    log("[12/16] f32 serve leg: the engine on the card vs on the CPU")
+    log("[12/17] f32 serve leg: the engine on the card vs on the CPU")
     run_f32_serve_leg(torch, P, dev)
     phase_done()
 
-    log("[13/16] f32 Llama leg: placed on the card vs fused on the CPU")
+    log("[13/17] f32 Llama leg: placed on the card vs fused on the CPU")
     run_llama_f32_leg(torch, P, dev)
     phase_done()
 
-    log("[14/16] parameter streaming: GPT-2 medium and the flagship under "
+    log("[14/17] parameter streaming: GPT-2 medium and the flagship under "
         "budgets below their params")
     stream_n = run_stream_path(torch, P, dev)
     phase_done()
 
-    log("[15/16] online serving: the serve bench on the card, then the "
+    log("[15/17] online serving: the serve bench on the card, then the "
         "frontend over GPT-2 small bf16 on a real clock")
     t15 = time.perf_counter()
     bench_on_card = run_serve_bench_on_card(torch, dev)
@@ -3277,7 +3646,7 @@ def main() -> int:
     log(f"  phase 15 in {time.perf_counter() - t15:.1f} s")
     phase_done()
 
-    log("[16/16] run doctor: the flagship and the engine traced, the soak "
+    log("[16/17] run doctor: the flagship and the engine traced, the soak "
         "doctor and the health-routed fleet")
     t16 = time.perf_counter()
     doctor, doctor_n = run_doctor_path(torch, P, A, dev, served)
@@ -3286,6 +3655,17 @@ def main() -> int:
     print("DOCTOR_LINE " + json.dumps(doctor), flush=True)
     log(f"  phase 16 in {doctor['seconds']:.1f} s")
     del served
+    phase_done()
+
+    log("[17/17] searched placements: the bench's refine and search "
+        "placements on the card, the pre-execution gate and analyze()")
+    t17 = time.perf_counter()
+    searched, search_n = run_search_phase(torch, P, A, N, dev, bench_result)
+    searched["seconds"] = time.perf_counter() - t17
+    searched["card"] = smi
+    print("SEARCH_LINE " + json.dumps(searched), flush=True)
+    log(f"  phase 17 in {searched['seconds']:.1f} s")
+    del bench_result
     phase_done()
 
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
@@ -3299,7 +3679,8 @@ def main() -> int:
     tpu = "distributed_llm_scheduler_tpu/ops/attention.py:"
     tpu_norms = "distributed_llm_scheduler_tpu/ops/norms.py:"
     runs = (("gpt2", gpt2_n), ("ladder", ladder_n), ("bench", bench_n),
-            ("llama", llama_n), ("stream", stream_n), ("run", doctor_n))
+            ("llama", llama_n), ("stream", stream_n), ("run", doctor_n),
+            ("searched", search_n))
     line = {"kernels": [
         {"name": A.KERNEL, "route": "cuda", "source": csrc + "flash_attention.cu",
          "replaces": tpu + "152",

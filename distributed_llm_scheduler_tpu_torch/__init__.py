@@ -11,7 +11,7 @@ paged decode step is built as a task DAG, placed, and served by a
 continuous-batching engine whose attention runs in hand-written CUDA
 paged-attention kernels; the north-star bench (``eval/bench.py``)
 calibrates the GPT-2 flagship on the card, executes it, and replays every
-ported policy's placement against round-robin.  Module
+policy's placement against round-robin.  Module
 paths and public names follow the JAX package, which stays the reference
 this package is held against; this package imports neither JAX nor it.
 """
@@ -38,6 +38,8 @@ from .sched.base import BaseScheduler
 from .sched.heft import HEFTScheduler
 from .sched.pack import GroupPackScheduler
 from .sched.pipeline import PipelineStageScheduler
+from .sched.refine import RefinedPackScheduler
+from .sched.search import SearchScheduler, placement_digest
 from .sched.eventsim import (
     PlacementTimeline,
     dependency_aware_order,
@@ -104,6 +106,9 @@ __all__ = [
     "HEFTScheduler",
     "GroupPackScheduler",
     "PipelineStageScheduler",
+    "RefinedPackScheduler",
+    "SearchScheduler",
+    "placement_digest",
     "PlacementTimeline",
     "dependency_aware_order",
     "simulate_placement",

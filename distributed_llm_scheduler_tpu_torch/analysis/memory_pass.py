@@ -55,9 +55,9 @@ def node_memory_slice(
     """MEM001/MEM002/MEM003 for one node.
 
     Residency accumulates independently per node, so the diagnostics for
-    ``nid`` depend only on the tasks placed there — the property the JAX
-    package's incremental engine (``analysis/incremental.py``, not ported
-    yet) relies on to recompute exactly two node slices after a move.  :func:`analyze_memory`
+    ``nid`` depend only on the tasks placed there — the property the
+    incremental engine (:mod:`.incremental`) relies on to recompute
+    exactly two node slices after a ``move_task``.  :func:`analyze_memory`
     is the union of these slices plus the schedule-independent MEM004.
     """
     rep = AnalysisReport()

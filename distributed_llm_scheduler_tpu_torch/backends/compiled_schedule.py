@@ -42,7 +42,7 @@ import torch
 
 from ..core.graph import TaskGraph
 from ..core.schedule import Schedule
-from ..sched.linearize import ProgramIR, linearize
+from ..sched.linearize import ProgramIR
 from .device import CapturedProgram, _array_bytes
 from .dispatch_plan import DispatchPlan
 
@@ -94,22 +94,61 @@ class CompiledSchedule:
             if device.type == "cuda" else None
         )
 
-    @classmethod
-    def build(cls, backend, graph: TaskGraph, schedule: Schedule,
-              placed: Dict[Tuple[str, str], Any], graph_input: Any
-              ) -> "CompiledSchedule":
-        """Lower ``schedule`` over ``backend``'s cluster (cached per graph,
-        IR, params and input shape).  Raises
-        :class:`..sched.linearize.OrderingDeadlock` when the per-node
-        orders admit no global order, and ``ValueError`` when the placed
-        nodes span more than one device."""
+    @staticmethod
+    def lower(backend, graph: TaskGraph, schedule: Schedule,
+              pre_analysis: bool = True, pre_report: Any = None
+              ) -> Tuple[ProgramIR, Optional[torch.device]]:
+        """The gate, then the lowering of ``schedule`` to its IR; returns
+        the IR and the one device its nodes are bound to.
+
+        With the gate on (``pre_analysis`` and no ``DLS_SKIP_ANALYSIS``)
+        the schedule's corruption is refused first, before ``freeze()``
+        (which would raise on a cycle) and before anything is placed;
+        ``pre_report`` is a fresh ``analyze()`` report for this schedule
+        that lets the gate skip its base passes.  Then the per-node orders
+        are linearized: no global order is :class:`..analysis.
+        AnalysisError` COL002, gate or not (there is no program to build),
+        and with the gate on a divergent or malformed exchange order
+        (COL001/COL004) is refused too.  Raises ``ValueError`` when the
+        placed nodes span more than one device."""
+        from ..analysis import (
+            AnalysisError,
+            analyze_schedule_lowerability,
+            gate_enabled,
+            pre_execution_gate,
+        )
+
+        gate = pre_analysis and gate_enabled()
+        if gate:
+            pre_execution_gate(graph, backend.cluster, schedule,
+                               backend="device", precomputed=pre_report)
         graph.freeze()
-        ir = linearize(graph, schedule,
-                       device_order=[d.node_id for d in backend.cluster])
+        rep, ir = analyze_schedule_lowerability(
+            graph, schedule,
+            device_order=[d.node_id for d in backend.cluster])
+        if ir is None:
+            raise AnalysisError(rep)  # COL002: unlowerable, gate or not
+        if gate:
+            rep.raise_if_errors()  # COL001/COL004: the exchange order
         if not ir.order:
             raise ValueError(
                 "schedule places no executable tasks; nothing to lower")
-        device = one_device(backend, ir.devices)
+        return ir, one_device(backend, ir.devices)
+
+    @classmethod
+    def build(cls, backend, graph: TaskGraph, schedule: Schedule,
+              placed: Dict[Tuple[str, str], Any], graph_input: Any,
+              pre_analysis: bool = True, pre_report: Any = None,
+              lowered: Optional[Tuple[ProgramIR, Optional[torch.device]]]
+              = None) -> "CompiledSchedule":
+        """Lower ``schedule`` over ``backend``'s cluster (cached per graph,
+        IR, params and input shape).  ``lowered`` is :meth:`lower`'s result
+        when the caller lowered already (``execute`` does, before it places
+        anything); else :meth:`lower` runs here.  A new program's
+        donation metadata is checked by the donation pass when the gate
+        is on."""
+        ir, device = lowered or cls.lower(
+            backend, graph, schedule, pre_analysis, pre_report)
         key = (
             ir.signature(),
             tuple(sorted((k, v.data_ptr()) for k, v in placed.items())),
@@ -119,8 +158,28 @@ class CompiledSchedule:
         prog = cache.get(key)
         if prog is None:
             prog = cls(backend, graph, schedule, ir, placed, device)
+            from ..analysis import analyze_donation, gate_enabled
+
+            if pre_analysis and gate_enabled():
+                analyze_donation(prog).raise_if_errors()
             cache[key] = prog
         return prog
+
+    def donation_summary(self) -> Dict[str, Any]:
+        """Static donation metadata for ``analysis/donation_pass``, in the
+        shape of the reference's: the program's arguments are the params
+        (position 0, read in place at their placed addresses, shared by
+        every replay) and the graph input (position 1, copied into the
+        graph's static buffer).  The captured program donates neither: the
+        values it lets die are the inner plan's, which
+        :meth:`.dispatch_plan.DispatchPlan.donation_table` reports and its
+        build checks."""
+        return {
+            "path": "captured" if self._program is not None else "eager",
+            "param_argnums": (0,),
+            "input_argnums": (1,),
+            "donated_argnums": (),
+        }
 
     @property
     def launches(self) -> Dict[str, int]:

@@ -414,7 +414,7 @@ class DeviceBackend:
     card's k-th :func:`node_stream`, which every backend shares).
     """
 
-    def __init__(self, cluster: Cluster):
+    def __init__(self, cluster: Cluster, pre_analysis: bool = True):
         missing = [d.node_id for d in cluster if d.torch_device is None]
         if missing:
             raise ValueError(
@@ -422,6 +422,9 @@ class DeviceBackend:
                 "build the cluster with Cluster.from_torch_devices()"
             )
         self.cluster = cluster
+        # opt-out static pre-execution gate (see analysis/):
+        # pre_analysis=False per instance, DLS_SKIP_ANALYSIS=1 globally
+        self.pre_analysis = pre_analysis
         self.devices = list(dict.fromkeys(d.torch_device for d in cluster))
         self.cuda_devices = [d for d in self.devices if d.type == "cuda"]
         self._streams: Optional[Dict[str, Any]] = None
@@ -1415,8 +1418,18 @@ class DeviceBackend:
         ``ops.attention.PAGED_IMPLS``), when given, must be the impl the
         DAG's layer tasks were built with (they choose the path; the engine
         reports it), else ValueError; ``chunk_tokens`` turns on chunked
-        prefill.  (The JAX package first runs its static
-        pre-execution analysis gate here; that gate is not ported.)"""
+        prefill.
+
+        Runs the same static pre-execution gate as :meth:`execute` first
+        (the DEC0xx decode-loop pass checks cache/page-table placement
+        coherence), so a schedule that would mis-place the paged cache is
+        refused at build time, not discovered as garbage tokens."""
+        if self.pre_analysis:
+            from ..analysis import pre_execution_gate
+
+            pre_execution_gate(
+                graph, self.cluster, schedule, backend="device"
+            )
         from ..ops.attention import PAGED_IMPLS
         from .decode_loop import PagedDecodeEngine
 
@@ -1458,6 +1471,7 @@ class DeviceBackend:
         trace: Any = None,
         metrics: Any = None,
         memprof: Any = None,
+        pre_report: Any = None,
     ) -> DeviceReport:
         """Place params, warm up, run ``reps`` times, measure.
 
@@ -1541,11 +1555,21 @@ class DeviceBackend:
         ``memory`` with the allocator's peak
         (``torch.cuda.max_memory_allocated``) reconciled in on a card.
 
+        Before anything is placed, the static pre-execution gate
+        (:func:`..analysis.pre_execution_gate`) refuses a schedule that
+        would corrupt the run, with :class:`..analysis.AnalysisError`;
+        the compiled rung gates inside :meth:`.compiled_schedule.
+        CompiledSchedule.lower`, where the lowered program's exchange
+        order joins the checks.  ``pre_report``: a report
+        ``analysis.analyze()`` just produced for this exact schedule, which
+        lets the gate skip its base passes (used only when its signature
+        matches).  ``DeviceBackend(pre_analysis=False)`` or
+        ``DLS_SKIP_ANALYSIS=1`` turns the gate off.
+
         Left out against the reference: ``fence_rtt`` (CUDA events time
-        the device, so there is no readback fence to net out), ``donate``
-        (the planned path releases each value after its last consumer
-        instead) and ``pre_report`` (it feeds the pre-execution analysis
-        gate, whose ``analyze()`` is not ported yet).
+        the device, so there is no readback fence to net out) and
+        ``donate`` (the planned path releases each value after its last
+        consumer instead).
         """
         if segments and profile:
             raise ValueError(
@@ -1612,6 +1636,20 @@ class DeviceBackend:
                 "stream_params runs must start cold: a later rep would "
                 "measure a warm param cache; use reps=1"
             )
+        lowered = None
+        if compiled:
+            # the gate and the lowering, before anything is placed
+            from .compiled_schedule import CompiledSchedule
+
+            lowered = CompiledSchedule.lower(self, graph, schedule,
+                                             self.pre_analysis, pre_report)
+        elif self.pre_analysis:
+            from ..analysis import pre_execution_gate
+
+            pre_execution_gate(
+                graph, self.cluster, schedule, backend="device",
+                precomputed=pre_report,
+            )
         graph.freeze()
         no_fn = [t.task_id for t in graph if t.fn is None]
         if no_fn:
@@ -1624,10 +1662,6 @@ class DeviceBackend:
             raise ValueError(f"params missing for placement: {missing[:5]}")
 
         nodes = sorted(set(schedule.placement.values()))
-        if compiled:
-            from .compiled_schedule import one_device
-
-            one_device(self, nodes)
         # explicit trace=/metrics= win, else the DLS_TRACE ambient pair,
         # else None: every instrumented path below records nothing then
         from ..obs import ambient_metrics, ambient_tracer
@@ -1679,7 +1713,8 @@ class DeviceBackend:
 
             t_ph = time.perf_counter() if tracer is not None else 0.0
             prog = CompiledSchedule.build(
-                self, graph, schedule, placed, graph_input)
+                self, graph, schedule, placed, graph_input,
+                pre_analysis=self.pre_analysis, lowered=lowered)
             if tracer is not None:
                 tracer.complete(
                     "program_build", t_ph, time.perf_counter(),

@@ -461,31 +461,50 @@ class DispatchPlan:
         keep_list = tuple(
             (t, slot_of[t]) for exports in exports_of for t in exports
         ) if keep_outputs else ()
-        return cls(
+        plan = cls(
             steps, n_slots, ext_slots,
             tuple(
                 (n, dev_of[n], s) for n, s in sorted(input_slot.items())
             ),
             final_slot, keep_list, transfer_edges, coalesce, tid_of_slot,
         )
+        # release self-check (analysis/donation_pass): re-derives, from
+        # the exported metadata alone, that every value the plan drops at
+        # a step is read by nothing after it, as the reference checks its
+        # donations; part of the pre-execution gate
+        if (any(st.release for st in steps)
+                and getattr(backend, "pre_analysis", True)):
+            from ..analysis import analyze_donation, gate_enabled
+
+            if gate_enabled():
+                analyze_donation(plan).raise_if_errors()
+        return plan
 
     # -- analysis metadata -------------------------------------------------
-    def release_table(self) -> Dict[str, Any]:
-        """Static release metadata, the counterpart of the reference's
-        ``donation_table``: per step the slots it reads and writes and the
-        slots dropped after it (with their producer task ids), plus the
-        values never released (final output, keep list, ext values,
-        staged inputs).  Pure data: names and slot indices only."""
+    def donation_table(self) -> Dict[str, Any]:
+        """Static lifetime metadata of what this plan really drops, in the
+        shape the reference's ``donation_table`` gives and
+        ``analysis/donation_pass`` reads: per step the distinct slots it
+        reads (``arg_slots``), those it pulls from another node
+        (``xfer_slots``), writes (``out_slots``) and drops after its launch
+        (``donate_slots``: ``release``), plus the values the caller reads
+        or owns after the run (final output, keep list, ext values) and
+        the staged inputs (``input_slots``, never dropped).  A value is
+        dropped after the launch that reads it last, so one value bound at
+        two positions of that launch is no hazard: ``arg_slots`` lists each
+        slot once.  The port reads no node's last value at the end of a run
+        (its streams join), so there are no ``fence_slots``.  Pure data:
+        names and slot indices only."""
         return {
             "steps": tuple(
                 {
                     "tids": st.tids,
                     "node_id": st.node_id,
-                    "arg_slots": st.arg_slots,
+                    "arg_slots": tuple(dict.fromkeys(st.arg_slots)),
+                    "xfer_slots": tuple(dict.fromkeys(
+                        st.arg_slots[p] for p in st.xfer_pos)),
+                    "donate_slots": st.release,
                     "out_slots": st.out_slots,
-                    "release_slots": st.release,
-                    "release_tids": tuple(
-                        self.tid_of_slot[s] for s in st.release),
                 }
                 for st in self.steps
             ),

@@ -1,8 +1,8 @@
 """Simulated execution backend (CPU-runnable cost-model replay).
 
 PyTorch port of ``distributed_llm_scheduler_tpu.backends.sim``: the same
-replay, without the JAX package's static pre-execution analysis gate
-(the analysis layer is not ported yet).
+replay, behind the same static pre-execution gate
+(:func:`..analysis.pre_execution_gate`).
 
 Replays a :class:`Schedule` against a cost model and produces per-task
 timings plus the reference's metric set.  Two fidelity modes:
@@ -26,7 +26,7 @@ reference does, so hit-rate numbers are comparable across modes.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Set
+from typing import Any, Dict, Optional, Set
 
 from ..core.cluster import Cluster
 from ..core.graph import TaskGraph
@@ -192,7 +192,8 @@ class SimulatedBackend:
                  prefetch_params: bool = True, host_slots: Optional[int] = None,
                  dispatch_s: float = 0.0,
                  host_synchronous_transfers: bool = False,
-                 host_serial_loads: bool = False):
+                 host_serial_loads: bool = False,
+                 pre_analysis: bool = True):
         if fidelity not in ("full", "reference"):
             raise ValueError(
                 f"fidelity must be 'full' or 'reference', got {fidelity!r}"
@@ -248,6 +249,9 @@ class SimulatedBackend:
             )
         else:
             self.link = link or LinkModel()
+        # opt-out static pre-execution gate (see analysis/):
+        # pre_analysis=False per instance, DLS_SKIP_ANALYSIS=1 globally
+        self.pre_analysis = pre_analysis
 
     def execute(
         self,
@@ -256,7 +260,18 @@ class SimulatedBackend:
         schedule: Schedule,
         dag_type: str = "unknown",
         memory_regime: float = 1.0,
+        pre_report: Any = None,
     ) -> ExecutionReport:
+        if self.pre_analysis:
+            # pre_report: a fresh ``analysis.analyze()`` report for this
+            # exact schedule lets the gate skip duplicate base passes
+            # (signature-checked inside pre_execution_gate)
+            from ..analysis import pre_execution_gate
+
+            pre_execution_gate(
+                graph, cluster, schedule, backend="sim",
+                precomputed=pre_report,
+            )
         placement = schedule.placement
         speeds = {d.node_id: d.compute_speed for d in cluster}
 

@@ -26,7 +26,8 @@ The counterpart of the JAX package's ``bench.py`` (``main`` and
    runs with the median quoted, each held against the fused output, and
    the compiled leg's host wall per run taken from 3 single-run windows;
 5. measure each task's device-memory footprint (``preflight_task_memory``);
-6. place the DAG with every ported policy on an 8-node cluster model of
+6. place the DAG with each of the 10 policies (``search`` at the JAX
+   bench's reduced budget of 120 evaluations) on an 8-node cluster model of
    this card (each node's budget is the card's memory less what was
    already taken when the bench started), replay each placement under the
    full-fidelity cost model with the link measured on this card, and
@@ -35,7 +36,8 @@ The counterpart of the JAX package's ``bench.py`` (``main`` and
    per-node peak, and the single-card replay beside the measured makespan;
    the winner's placement is replayed again under each calibration
    window's times, so the line shows how far the calibration alone moves
-   ``value``.
+   ``value``.  Each policy's entry in the line also carries its
+   scheduling wall and its ``placement_digest``.
 
 The measured legs (steps 3-5) run live on every run.  Prints ONE JSON
 line (``BenchResult.to_json``) on stdout; progress goes to stderr.  Nothing falls back: a failed build, launch, calibration, capture,
@@ -66,6 +68,7 @@ from ..frontend.gpt2_dag import build_gpt2_dag
 from ..models.gpt2 import GPT2Config
 from ..ops import kernels
 from ..sched.policies import ALL_SCHEDULERS, get_scheduler
+from ..sched.search import placement_digest
 from ..utils.costmodel import (
     CostModel,
     cache_age_days,
@@ -111,6 +114,14 @@ WINDOWS = 3
 CAL_WINDOWS = 3
 CAL_REPEATS = 3
 REPLAY_NODES = 8
+# the annealed search's eval budget in the policy loop, the JAX bench's
+# (bench.py:554): its full-budget margin is the search bench's to show
+SEARCH_BUDGET = 120
+
+
+def policy_kwargs(name: str) -> Dict[str, Any]:
+    """The constructor arguments the policy loop gives ``name``."""
+    return {"budget": SEARCH_BUDGET} if name == "search" else {}
 # the port's budget for a CPU node (core/cluster.py), where no card
 # memory can be read
 CPU_NODE_GB = 16.0
@@ -378,14 +389,21 @@ def run(
     log(f"single-card replay {singlechip_replay_s * 1e3:.3f} ms vs measured "
         f"{pt_makespan * 1e3:.3f} ms")
 
-    makespans, schedules = {}, {}
+    makespans, schedules, sched_s, digests, stats = {}, {}, {}, {}, {}
     for name in sorted(ALL_SCHEDULERS):
-        s = get_scheduler(name, link=link).schedule(graph, cluster)
+        t0 = time.perf_counter()
+        policy = get_scheduler(name, link=link, **policy_kwargs(name))
+        s = policy.schedule(graph, cluster)
+        sched_s[name] = time.perf_counter() - t0
+        if getattr(policy, "stats", None):
+            stats[name] = dict(policy.stats)
         r = sim.execute(graph, cluster, s, dag_type=dag_type)
         makespans[name] = (r.makespan, r.completed_tasks / r.num_tasks)
         schedules[name] = s
+        digests[name] = placement_digest(s.placement)
         log(f"{name:10s} makespan {r.makespan * 1e3:.3f} ms, completion "
-            f"{makespans[name][1]:.3f}")
+            f"{makespans[name][1]:.3f}, scheduled in {sched_s[name]:.3f} s"
+            + (f", stats {stats[name]}" if name in stats else ""))
     best_name, best, rr = pick_best(makespans)
     if makespans["roundrobin"][1] < 1.0:
         log("round-robin did not complete; its makespan is a lower bound")
@@ -447,6 +465,10 @@ def run(
         device=smi,
         node_hbm_gb=node_hbm_gb,
         policies=makespans,
+        policy_sched_s=sched_s,
+        placement_digests=digests,
+        policy_stats=stats,
+        schedules=schedules,
         mfu_fused=mfu_fused,
         preflight_max_gb=preflight_max_gb,
         launches=launches,

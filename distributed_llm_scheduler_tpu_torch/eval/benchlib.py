@@ -242,9 +242,15 @@ class BenchResult:
     reduced from (``calibration_runs``; None for an injected or saved
     one), whether the calibration was a saved one (``cache_hit``; None
     for an injected one) and, for a saved one, its age in days
-    (``calibration_age_days``).  ``link_model`` is the link the replay
-    used (not printed: ``link`` names its provenance), so a caller can
-    replay again under the same link."""
+    (``calibration_age_days``).  Each policy's entry also carries its
+    scheduling wall (``policy_sched_s``, host seconds), the digest of
+    its placement (``placement_digests``) and, for a policy that keeps
+    them (refine, search), its ``stats`` (``policy_stats``: evals and
+    whether the static pre-filter ran, ``static_filter``).  ``link_model``
+    is the link the replay used (not printed: ``link`` names its
+    provenance), so a caller can replay again under the same link;
+    ``schedules`` are the policies' schedules (not printed), so a caller
+    can execute them."""
 
     n_policies: int
     platform_suffix: str
@@ -296,7 +302,11 @@ class BenchResult:
     calibration_runs: Optional[int] = None
     cache_hit: Optional[bool] = None
     calibration_age_days: Optional[float] = None
+    policy_sched_s: Optional[Dict[str, float]] = None
+    placement_digests: Optional[Dict[str, str]] = None
+    policy_stats: Optional[Dict[str, Dict[str, object]]] = None
     link_model: Optional[Any] = None
+    schedules: Optional[Dict[str, Any]] = None
 
     @property
     def metric(self) -> str:
@@ -386,6 +396,13 @@ class BenchResult:
                        "completion": round(c, 4)}
                 for name, (m, c) in sorted(self.policies.items())
             }
+            for name, entry in out["policies"].items():
+                if self.policy_sched_s is not None:
+                    entry["sched_s"] = round(self.policy_sched_s[name], 4)
+                if self.placement_digests is not None:
+                    entry["digest"] = self.placement_digests[name]
+                if self.policy_stats and name in self.policy_stats:
+                    entry["stats"] = self.policy_stats[name]
         if self.mfu_fused is not None:
             out["mfu_fused"] = round(self.mfu_fused, 4)
         if self.calibrated_task_s is not None:

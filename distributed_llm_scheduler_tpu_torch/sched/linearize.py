@@ -144,6 +144,27 @@ class ProgramIR:
     order: Tuple[str, ...]
     phases: Tuple[Phase, ...]
 
+    @property
+    def device_index(self) -> Dict[str, int]:
+        return {d: i for i, d in enumerate(self.devices)}
+
+    def collective_sequence(
+        self,
+    ) -> List[Tuple[str, Tuple[Tuple[int, int], ...], str]]:
+        """The ordered exchanges the lowered program issues, as
+        ``(primitive, perm, value_id)`` tuples (``primitive`` is
+        ``"exchange"``, ``perm`` the ``((src_index, dst_index),)`` pair
+        over :attr:`devices`).  Every node walks the same phase boundaries
+        in the same order, so one sequence is every node's."""
+        dix = self.device_index
+        seq = []
+        for ph in self.phases:
+            for ex in ph.exchanges:
+                seq.append(
+                    ("exchange", ((dix[ex.src], dix[ex.dst]),), ex.tid)
+                )
+        return seq
+
     def signature(self) -> Tuple:
         """Hashable structural identity: equal signatures lower to the
         same program (deterministic-lowering contract)."""

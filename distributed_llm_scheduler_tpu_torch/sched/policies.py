@@ -1,4 +1,4 @@
-"""The policy registry: the reference's four policies plus three new ones.
+"""The policy registry: the reference's four policies plus six new ones.
 
 PyTorch port of ``distributed_llm_scheduler_tpu.sched.policies``; the
 policies are framework-free copies and must give equal schedules.
@@ -283,10 +283,9 @@ class MRUScheduler(BaseScheduler):
 from .heft import HEFTScheduler  # noqa: E402  (avoids a circular import)
 from .pack import GroupPackScheduler  # noqa: E402
 from .pipeline import PipelineStageScheduler  # noqa: E402
+from .refine import RefinedPackScheduler  # noqa: E402
+from .search import SearchScheduler  # noqa: E402
 
-# The port's registry holds the ported policies only: 8 of the JAX
-# registry's 10 (refine and search, and the native engine, are still to be
-# ported).
 ALL_SCHEDULERS = {
     cls.name: cls
     for cls in (
@@ -298,21 +297,44 @@ ALL_SCHEDULERS = {
         HEFTScheduler,
         PipelineStageScheduler,
         GroupPackScheduler,
+        RefinedPackScheduler,
+        SearchScheduler,
     )
 }
 
 
-def get_scheduler(name: str, link=None) -> BaseScheduler:
-    """Policy by name.  ``link`` hands link-aware policies (any whose
-    constructor takes a ``link=`` keyword) the same cost model the replay
-    charges."""
+def get_scheduler(name: str, link=None, **kwargs) -> BaseScheduler:
+    """Policy by name.
+
+    ``link`` hands link-aware policies (any whose constructor takes a
+    ``link=`` keyword) the same cost model the replay charges.  Extra
+    ``kwargs`` (e.g. ``budget``/``seed`` for the search tier) are
+    forwarded only to policies whose constructor declares them, so one
+    call site can configure the whole registry uniformly.
+
+    The JAX package's C++ engine (``"native:<policy>"`` names, and the
+    ``DLS_NATIVE=1`` upgrade) is not ported yet: asking for it raises
+    rather than run the Python policy in its place.
+    """
     import inspect
 
+    from ..utils.env import env_str
+
+    if name.startswith("native:") or env_str("DLS_NATIVE") == "1":
+        raise NotImplementedError(
+            f"scheduler {name!r}: the native C++ engine (native:<policy>, "
+            "DLS_NATIVE=1) is not ported to PyTorch yet; it is the next "
+            "slice (ROADMAP.md A.8)"
+        )
     if name not in ALL_SCHEDULERS:
         raise ValueError(
             f"unknown scheduler {name!r}; available: {sorted(ALL_SCHEDULERS)}"
         )
     cls = ALL_SCHEDULERS[name]
-    if link is not None and "link" in inspect.signature(cls.__init__).parameters:
-        return cls(link=link)
-    return cls()
+    params = inspect.signature(cls.__init__).parameters
+    accepted = {
+        k: v for k, v in kwargs.items() if k in params and v is not None
+    }
+    if link is not None and "link" in params:
+        accepted["link"] = link
+    return cls(**accepted)

@@ -22,6 +22,7 @@ import torch
 import distributed_llm_scheduler_tpu as J
 import distributed_llm_scheduler_tpu_torch as P
 from distributed_llm_scheduler_tpu.eval import benchlib as JB
+from distributed_llm_scheduler_tpu.sched import search as JS
 from distributed_llm_scheduler_tpu.frontend.gpt2_dag import (
     build_gpt2_dag as jax_build,
 )
@@ -77,27 +78,44 @@ def jax_replay(ran):
     sim = J.SimulatedBackend(fidelity="full", link=link, dispatch_s=DISPATCH_S)
     cluster = J.Cluster([J.DeviceState(f"core_{i}", gb) for i in range(8)])
     single = sim.execute(jg, one, sched_one, dag_type="gpt2_tiny").makespan
-    makespans, schedules = {}, {}
+    makespans, schedules, stats = {}, {}, {}
     for name in sorted(P.ALL_SCHEDULERS):
-        s = J.get_scheduler(name, link=link).schedule(jg, cluster)
+        policy = J.get_scheduler(name, link=link, **bench.policy_kwargs(name))
+        s = policy.schedule(jg, cluster)
         r = sim.execute(jg, cluster, s, dag_type="gpt2_tiny")
         makespans[name] = (r.makespan, r.completed_tasks / r.num_tasks)
         schedules[name] = s
+        if getattr(policy, "stats", None):
+            stats[name] = dict(policy.stats)
     best_name, best, rr = JB.pick_best(makespans)
     sens = JB.ici_sensitivity(jg, cluster, schedules, link,
                               dispatch_s=DISPATCH_S, dag_type="gpt2_tiny")
     v = J.validate_schedule(jg, cluster, schedules[best_name])
     return dict(single=single, makespans=makespans, best=(best_name, best, rr),
-                sens=sens, peaks=v.peak_no_evict_gb)
+                sens=sens, peaks=v.peak_no_evict_gb, schedules=schedules,
+                stats=stats)
 
 
 def test_policies_replay_equal_to_jax(ran, jax_replay):
     result, _ = ran
     assert result.policies == jax_replay["makespans"]
     assert sorted(result.policies) == sorted(P.ALL_SCHEDULERS)
-    assert len(result.policies) == result.n_policies == 8
+    assert len(result.policies) == result.n_policies == 10
+    # each policy's placement digest, as the JAX package's placement gives it
+    assert result.placement_digests == {
+        n: JS.placement_digest(s.placement)
+        for n, s in jax_replay["schedules"].items()}
     # the injected costs make the policies disagree, so the pick is real
     assert len({m for m, _ in result.policies.values()}) > 1
+    # refine and search keep their stats (search's are the JAX package's,
+    # refine's the port's own), and each says its static pre-filter ran
+    assert sorted(result.policy_stats) == ["refine", "search"]
+    assert sorted(jax_replay["stats"]) == ["search"]
+    for name, got in result.policy_stats.items():
+        assert got["static_filter"] == "on", name
+    assert {k: v for k, v in result.policy_stats["search"].items()
+            if k != "static_filter"} == jax_replay["stats"]["search"]
+    assert 0 < result.policy_stats["refine"]["evals"] <= 400
 
 
 def test_best_policy_and_vs_baseline_equal_jax(ran, jax_replay):
@@ -133,7 +151,7 @@ def test_placed_output_meets_the_oracle(ran):
 def test_json_line(ran):
     result, secs = ran
     line = json.loads(json.dumps(result.to_json()))
-    assert line["metric"] == "gpt2t_fwd_dag_makespan_best_of_8_policies_cpu"
+    assert line["metric"] == "gpt2t_fwd_dag_makespan_best_of_10_policies_cpu"
     assert line["unit"] == "ms" and line["modeled"] is True
     assert line["fallback"] is True and line["device"] == "cpu"
     assert line["node_hbm_gb"] == bench.CPU_NODE_GB
@@ -150,6 +168,17 @@ def test_json_line(ran):
                 "compiled_dispatch_overhead_ms"):
         assert line[key] > 0, key
     assert line["link"] == "injected"
+    # each policy's entry: its replay, scheduling wall and placement digest,
+    # and the stats of the policies that keep them
+    for name, entry in line["policies"].items():
+        stats = {"stats"} if name in ("refine", "search") else set()
+        assert set(entry) == {"makespan_ms", "completion", "sched_s",
+                              "digest"} | stats, name
+        assert entry["digest"] == result.placement_digests[name]
+        assert entry["sched_s"] >= 0
+        if stats:
+            assert entry["stats"] == result.policy_stats[name]
+            assert entry["stats"]["static_filter"] == "on"
     assert set(line["spread"]) == {"quotes", "pt_makespan", "fused_scalar",
                                    "fused_forward", "segmented", "compiled",
                                    "value", "calibrated_task_sum"}

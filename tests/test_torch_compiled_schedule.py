@@ -30,7 +30,7 @@ from distributed_llm_scheduler_tpu.models.gpt2 import GPT2Config as JaxConfig
 from distributed_llm_scheduler_tpu_torch.backends.compiled_schedule import (
     CompiledSchedule,
 )
-from distributed_llm_scheduler_tpu_torch.sched.linearize import OrderingDeadlock
+from distributed_llm_scheduler_tpu_torch.analysis import AnalysisError
 
 CPU = torch.device("cpu")
 RTOL = ATOL = 2e-4
@@ -142,8 +142,6 @@ def test_stream_params_is_refused(tiny):
     """A streamed schedule that must evict is refused by the stream-safety
     pass with its diagnosis (one that fits runs compiled:
     ``test_torch_stream_pass.py``)."""
-    from distributed_llm_scheduler_tpu_torch.analysis import AnalysisError
-
     tc, ts = placed(tiny, "greedy", 1)
     tc.devices[0].total_memory = 0.3 * tiny["tg"].total_param_gb()
     with pytest.raises(AnalysisError) as e:
@@ -177,8 +175,12 @@ def test_an_ordering_cycle_is_refused():
                    assignment_order=["c", "d", "a", "b"])
     c = P.Cluster([P.DeviceState(n, 1.0, torch_device=CPU)
                    for n in ("n0", "n1")])
-    with pytest.raises(OrderingDeadlock):
+    with pytest.raises(AnalysisError) as e:
         P.DeviceBackend(c).execute(g, s, {}, torch.zeros(2), compiled=True)
+    # COL002, as the JAX compiled path refuses it, naming the stalled heads
+    (d,) = e.value.report.by_code("COL002")
+    assert d.data["heads"] == {"n0": {"head": "c", "waits_on": ["b"]},
+                               "n1": {"head": "d", "waits_on": ["a"]}}
     # the interpreted rungs fall back to topological order and run
     rep = P.DeviceBackend(c).execute(g, s, {}, torch.zeros(2))
     assert rep.n_dispatches == 4

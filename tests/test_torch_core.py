@@ -110,8 +110,8 @@ def _graphs(kind):
 
 def test_registry_holds_the_ported_policies():
     assert POLICIES == ["critical", "dfs", "greedy", "heft", "mru", "pack",
-                        "pipeline", "roundrobin"]
-    assert set(POLICIES) <= set(J.ALL_SCHEDULERS)
+                        "pipeline", "refine", "roundrobin", "search"]
+    assert POLICIES == sorted(J.ALL_SCHEDULERS)
 
 
 @pytest.mark.parametrize("cluster", sorted(_CLUSTERS))

@@ -141,7 +141,8 @@ def _jax_best(secs, node_gb):
     cluster = J.Cluster([J.DeviceState(f"core_{i}", node_gb) for i in range(8)])
     makespans = {}
     for name in sorted(P.ALL_SCHEDULERS):
-        s = J.get_scheduler(name, link=link).schedule(jg, cluster)
+        s = J.get_scheduler(name, link=link,
+                            **bench.policy_kwargs(name)).schedule(jg, cluster)
         r = sim.execute(jg, cluster, s, dag_type="gpt2_tiny")
         makespans[name] = (r.makespan, r.completed_tasks / r.num_tasks)
     return JB.pick_best(makespans)

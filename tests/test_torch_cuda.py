@@ -1372,3 +1372,141 @@ def test_fleet_restart_gives_back_pages_and_device_memory(cuda):
     torch.cuda.synchronize()
     assert eng.pool.used_pages == 0 and not eng.draining
     assert torch.cuda.memory_allocated(cuda) == before
+
+
+def _cyclic(graph):
+    """Copies of ``graph``'s tasks with its first task waiting on its last
+    (left unfrozen: freezing it raises)."""
+    import dataclasses
+
+    import distributed_llm_scheduler_tpu_torch as P
+
+    order = graph.topo_order
+    tasks = [dataclasses.replace(t, dependencies=list(t.dependencies))
+             for t in graph.tasks()]
+    next(t for t in tasks if t.task_id == order[0]).dependencies.append(
+        order[-1])
+    return P.TaskGraph(tasks, name=graph.name)
+
+
+def _with_lists(sched, **per_node):
+    import distributed_llm_scheduler_tpu_torch as P
+
+    lists = {n: list(ts) for n, ts in sched.per_node.items()}
+    lists.update(per_node)
+    return P.Schedule(policy="edited", per_node=lists,
+                      assignment_order=list(sched.assignment_order),
+                      completed=set(sched.completed))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("defect", ["task on two nodes", "cycle"])
+def test_the_gate_refuses_on_the_card_before_any_launch(cuda, defect):
+    """``execute`` (planned and compiled), ``CompiledSchedule.build`` and
+    ``paged_decode_engine`` refuse a corrupt schedule or graph on the card
+    with ``AnalysisError``, and no kernel launches."""
+    import distributed_llm_scheduler_tpu_torch as P
+    from distributed_llm_scheduler_tpu_torch.analysis import AnalysisError
+    from distributed_llm_scheduler_tpu_torch.backends.compiled_schedule import (
+        CompiledSchedule,
+    )
+
+    backend, graph, sched, params, ids = _ladder_setup(cuda, "heft", 4)
+    cfg = P.GPT2Config.tiny(dtype=torch.bfloat16)
+    paged = P.build_paged_decode_dag(cfg, slots=2, page_size=4, n_pages=16,
+                                     pages_per_seq=4)
+    two = P.Cluster.from_torch_devices([cuda] * 2)
+    p_sched = P.get_scheduler("greedy").schedule(paged.graph, two)
+    p_home = next(n for n, ts in p_sched.per_node.items() if ts)
+    if defect == "cycle":
+        graph, p_graph = _cyclic(graph), _cyclic(paged.graph)
+    else:
+        first = sched.assignment_order[0]
+        other = next(n for n in sched.per_node if n != sched.placement[first])
+        sched = _with_lists(sched, **{other: [first] + sched.per_node[other]})
+        p_other = next(n for n in ("core_0", "core_1") if n != p_home)
+        p_graph = paged.graph
+        p_sched = _with_lists(
+            p_sched, **{p_other: [p_sched.per_node[p_home][0]]})
+    kernels.reset_launches()
+    runs = (
+        lambda: backend.execute(graph, sched, params, ids),
+        lambda: backend.execute(graph, sched, params, ids, compiled=True),
+        lambda: CompiledSchedule.build(backend, graph, sched, {}, ids),
+        lambda: P.DeviceBackend(two).paged_decode_engine(
+            p_graph, p_sched, cfg, {}, P.PagePool(16), slots=2,
+            pages_per_seq=4),
+    )
+    want = "DAG001" if defect == "cycle" else "SCH003"
+    for run in runs:
+        with pytest.raises(AnalysisError) as e:
+            run()
+        assert e.value.report.has(want)
+    torch.cuda.synchronize()
+    assert not any(kernels.launches.values())
+    assert not any(kernels.replayed.values())
+
+
+@pytest.mark.cuda
+def test_skip_analysis_turns_the_gate_off_on_the_card(cuda, monkeypatch):
+    from distributed_llm_scheduler_tpu_torch.analysis import AnalysisError
+
+    backend, graph, sched, params, ids = _ladder_setup(cuda, "heft", 4)
+    clean = backend.execute(graph, sched, params, ids).output.clone()
+    bogus = _with_lists(sched, bogus=[])
+    with pytest.raises(AnalysisError):
+        backend.execute(graph, bogus, params, ids)
+    monkeypatch.setenv("DLS_SKIP_ANALYSIS", "1")
+    assert torch.equal(backend.execute(graph, bogus, params, ids).output,
+                       clean)
+
+
+@pytest.mark.cuda
+def test_analyze_on_the_card_equals_the_cpu(cuda):
+    """``analyze()`` over a schedule on nodes of the card, bf16 params as
+    meta tensors: equal, diagnostic for diagnostic, to the call on CPU
+    nodes of the same budgets, and no kernel launches."""
+    import distributed_llm_scheduler_tpu_torch as P
+    from distributed_llm_scheduler_tpu_torch.analysis import analyze
+
+    dag = P.build_gpt2_dag(P.GPT2Config.tiny(dtype=torch.bfloat16), batch=4,
+                           seq_len=32, microbatches=2, vocab_shards=4)
+    graph = P.fuse_linear_chains(dag.graph)
+    card = P.Cluster.from_torch_devices([cuda] * 4)
+    host = P.Cluster([P.DeviceState(d.node_id, d.total_memory,
+                                    torch_device=torch.device("cpu"))
+                      for d in card])
+    sched = P.get_scheduler("heft").schedule(graph, card)
+    kw = dict(params=dag.param_specs, graph_input=dag.input_spec)
+    kernels.reset_launches()
+    a, b = analyze(graph, card, sched, **kw), analyze(graph, host, sched, **kw)
+    torch.cuda.synchronize()
+    assert [(d.code, d.message) for d in a.diagnostics] == [
+        (d.code, d.message) for d in b.diagnostics]
+    assert a.ok and not any(kernels.launches.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy,kw", [("refine", dict(max_evals=60)),
+                                       ("search", dict(budget=40))])
+def test_searched_placements_run_on_the_card(cuda, policy, kw):
+    """The searches' placements execute planned and compiled on 4 nodes of
+    the card: compiled bit-equal to planned, within the bf16 band of the
+    fused forward (the bench's ``oracle_close``)."""
+    import distributed_llm_scheduler_tpu_torch as P
+
+    dag = P.build_gpt2_dag(P.GPT2Config.tiny(dtype=torch.bfloat16), batch=4,
+                           seq_len=32, microbatches=2, vocab_shards=4)
+    graph = P.fuse_linear_chains(dag.graph)
+    cluster = P.Cluster.from_torch_devices([cuda] * 4)
+    sched = P.get_scheduler(policy, seed=0, **kw).schedule(graph, cluster)
+    assert not sched.failed
+    params, ids = dag.init_params(device=cuda), dag.make_inputs(device=cuda)
+    backend = P.DeviceBackend(cluster)
+    planned = backend.execute(graph, sched, params, ids).output.clone()
+    compiled = backend.execute(graph, sched, params, ids, compiled=True)
+    assert torch.equal(compiled.output, planned)
+    from distributed_llm_scheduler_tpu_torch.eval.benchlib import oracle_close
+
+    assert oracle_close(dag.reference_forward(params, ids), planned,
+                        "bfloat16")

@@ -139,9 +139,9 @@ def test_release_covers_every_jax_donation(pair):
     # donates a dying value only to a consumer on its own device
     if pair["policy"] == "heft":
         assert donated, "the JAX plan donates nothing: the test is vacuous"
-    table = tplan.release_table()
-    released = {(st["tids"], t) for st in table["steps"]
-                for t in st["release_tids"]}
+    table = tplan.donation_table()
+    released = {(st["tids"], tplan.tid_of_slot[s]) for st in table["steps"]
+                for s in st["donate_slots"]}
     assert set(donated) <= released
 
 
@@ -149,20 +149,51 @@ def test_release_covers_every_jax_donation(pair):
                          ids=["plain", "coalesce"])
 def test_release_never_drops_a_value_still_needed(pair, kw):
     _, tplan = plans(pair, **kw)
-    table = tplan.release_table()
+    table = tplan.donation_table()
     protected = ({table["final_slot"]} | {s for _k, s in table["ext_slots"]}
                  | {s for _n, s in table["input_slots"]})
     steps = table["steps"]
     gone = set()
     for i, st in enumerate(steps):
         assert not set(st["arg_slots"]) & gone, i
-        for s in st["release_slots"]:
+        for s in st["donate_slots"]:
             assert s not in protected
             assert all(s not in later["arg_slots"] for later in steps[i + 1:])
-        gone |= set(st["release_slots"])
+        gone |= set(st["donate_slots"])
     # every exported value but the final output is released
     outs = {s for st in steps for s in st["out_slots"]}
     assert gone == outs - {table["final_slot"]}
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(coalesce=True)],
+                         ids=["plain", "coalesce"])
+def test_a_release_of_a_value_still_read_is_refused(pair, kw):
+    """The donation pass reads what the plan drops: the plan's own releases
+    pass, and a value moved to be dropped at the step that writes it is
+    refused at every later read (DON003 where the read is a transfer from
+    another node, DON001 else)."""
+    from distributed_llm_scheduler_tpu_torch.analysis import analyze_donation
+
+    _, tplan = plans(pair, **kw)
+    assert analyze_donation(tplan).diagnostics == []
+    producer = {s: i for i, st in enumerate(tplan.steps) for s in st.out_slots}
+    gi, s = next((i, s) for i, st in enumerate(tplan.steps)
+                 for s in st.release if producer[s] != i)
+    pi = producer[s]
+    readers = [i for i, st in enumerate(tplan.steps)
+               if i > pi and s in st.arg_slots]
+    assert readers and readers[-1] == gi
+    tplan.steps[gi].release = tuple(x for x in tplan.steps[gi].release
+                                    if x != s)
+    tplan.steps[pi].release += (s,)
+    rep = analyze_donation(tplan)
+    want = ["DON003" if s in {tplan.steps[i].arg_slots[p]
+                              for p in tplan.steps[i].xfer_pos}
+            and tplan.steps[i].node_id != tplan.steps[pi].node_id
+            else "DON001" for i in readers]
+    assert [d.code for d in rep.diagnostics] == want
+    assert [d.data["reader"] for d in rep.diagnostics] == readers
+    assert not rep.ok
 
 
 @pytest.fixture(scope="module")
@@ -235,7 +266,7 @@ def test_ext_outputs_seed_a_remainder_as_jax(pair, planned):
 
 def test_plan_is_deterministic(pair):
     a, b = plans(pair, coalesce=True)[1], plans(pair, coalesce=True)[1]
-    assert a.release_table() == b.release_table()
+    assert a.donation_table() == b.donation_table()
     assert layout(a) == layout(b)
 
 
