@@ -204,6 +204,24 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     task's output typechecked, no kernel launched.  The numbers as
     ``SEARCH_LINE``.
 
+18. BASELINE.json configs #5 and #4.  a. the GPT-2 small f32 training
+    step (43 tasks): ``eval/train_bench.measure_train_dag`` on the card
+    (its oracle true, 10 policies replayed, every launch of the bench
+    counted), then the step on one node and placed by ``mru`` and ``heft``
+    on 4 nodes of the card at 0.55x the step's footprint, planned and
+    compiled, each within ``tests/test_train_dag.py``'s tolerances of the
+    single-node step (which outputs are bit-equal is printed), 24 flash
+    and 49 LayerNorm launches per step; the step's profile (the norm
+    backward's share of its device time), the allocator's peak beside the
+    pre-flight's, and both kernels timed at the step's shapes
+    (``TRAIN_LINE``).  b. Mixtral-8x7B at full width, depth cut to 4
+    layers, bf16, batch 2, seq 512 (63 tasks): dense and routed (capacity
+    factor 2.0), placed by ``mru``, ``greedy`` and ``heft`` on 8 nodes at
+    0.3x the params each (experts on at least 2 nodes), planned and
+    compiled, each against the fused forward under phase 10's rule, the
+    tokens whose top-2 experts differ from the fused path's counted (0),
+    4 flash and 9 RMSNorm launches per forward (``MOE_LINE``).
+
 The last lines are one JSON object of per-kernel numbers (``launches`` is
 the count of the kernel's main path, ``launches_by_path`` each counted
 run's own; for a captured run, the launches its graphs' replays made,
@@ -3353,6 +3371,486 @@ def run_search_phase(torch, P, A, N, dev, bench_result) -> tuple:
     return dict(placements=placed, gate=gate, analyze=analyzed), launches
 
 
+# the two BASELINE.json configurations of phase 18.  a: config #5, the
+# GPT-2 small f32 training step (43 tasks) through the train bench, then
+# placed on TRAIN_NODES nodes of the card at TRAIN_PRESSURE x the step's
+# footprint on one node (the bench's budget), planned and compiled.  b:
+# config #4, Mixtral-8x7B at full width, its depth cut from 32 to
+# MOE_LAYERS layers (11.3 GiB of bf16 params: 8 nodes at 0.3x them each,
+# plus the activations and the fused oracle's, fit one card's 80 GB), on
+# MOE_NODES nodes at MOE_NODE_FRAC x the params each, dense and routed
+TRAIN_BUILD = dict(batch=8, seq_len=512)
+TRAIN_TASKS = 43
+TRAIN_NODES = 4
+TRAIN_PRESSURE = 0.55
+TRAIN_POLICIES = ("mru", "heft")
+# a placed step against the single-node step: tests/test_train_dag.py's
+STEP_LOSS_RTOL, STEP_RTOL, STEP_ATOL = 1e-5, 2e-4, 2e-5
+MOE_LAYERS = 4
+MOE_BUILD = dict(batch=2, seq_len=512)
+MOE_TASKS = 63
+MOE_NODES = 8
+MOE_NODE_FRAC = 0.3
+MOE_CAPACITY = 2.0
+MOE_POLICIES = ("mru", "greedy", "heft")
+
+
+def counted_compiled(label: str, per_run: dict, run) -> tuple:
+    """A compiled run (``execute(compiled=True, reps=REPS)``) counted: its
+    wrappers count in the warm-up and the capture (2x ``per_run``), its
+    graph must hold ``per_run``, and its replays (the first run and REPS
+    more) launch ``per_run`` each, counted at each replay.  Returns (the
+    report, the replays' launches)."""
+    from distributed_llm_scheduler_tpu_torch.ops import kernels
+
+    rep, _ = counted(label, times(per_run, 2), run)
+    if {k: rep.captured_launches.get(k, 0) for k in per_run} != per_run:
+        raise AssertionError(f"{label}: captured {rep.captured_launches}")
+    replayed = {k: kernels.replayed.get(k, 0) for k in per_run}
+    if replayed != times(per_run, 1 + REPS):
+        raise AssertionError(f"{label}: replays launched {replayed}")
+    return rep, replayed
+
+
+def train_launches(L: int) -> tuple:
+    """(per step, per fused oracle step) launches of the training step of
+    an L-layer GPT-2: each ``layer_{i}_fwd`` runs one flash and two
+    LayerNorms, each rematerializing ``layer_{i}_bwd`` the same again,
+    ``head_bwd`` the final LayerNorm (the backwards recompute through the
+    plain versions and launch nothing); the fused oracle's forward runs
+    each once."""
+    per_step = {"flash_attention": 2 * L, "layer_norm": 4 * L + 1,
+                "layer_norm.register": 4 * L + 1}
+    per_ref = {"flash_attention": L, "layer_norm": 2 * L + 1,
+               "layer_norm.register": 2 * L + 1}
+    return per_step, per_ref
+
+
+def step_numbers(got, want) -> dict:
+    """A placed step against the single-node one: within the tolerances
+    or not, and what is bit-equal (the loss, and how many params)."""
+    import torch
+
+    from distributed_llm_scheduler_tpu_torch.eval.train_bench import step_matches
+
+    equal = sum(bool(torch.equal(got["params"][k], w))
+                for k, w in want["params"].items())
+    worst = max(float((got["params"][k] - w).abs().max())
+                for k, w in want["params"].items())
+    return dict(ok=step_matches(got, want, STEP_LOSS_RTOL, STEP_RTOL, STEP_ATOL),
+                loss_bit_equal=bool(torch.equal(got["loss"], want["loss"])),
+                params_bit_equal=equal, params=len(want["params"]),
+                max_abs_param_diff=worst)
+
+
+def cloned(out):
+    """A step output copied out of a captured program's own tensors."""
+    return {"loss": out["loss"].clone(),
+            "params": {k: v.clone() for k, v in out["params"].items()}}
+
+
+def device_time_of(prof, names) -> float:
+    """Device ms under the autograd nodes whose key contains one of
+    ``names`` (their evaluate_function events, each node's kernels
+    counted once)."""
+    total = 0.0
+    for e in prof.key_averages():
+        if e.key.startswith("autograd::engine::evaluate_function: ") and any(
+                n in e.key for n in names):
+            us = getattr(e, "device_time_total", None)
+            if us is None:
+                us = getattr(e, "cuda_time_total", 0.0)
+            total += us
+    return total / 1e3
+
+
+def step_trace(torch, run) -> dict:
+    """One step under torch.profiler: the kernels' device ms in all, the
+    norm backward's (the ``_NormFunction`` nodes' recompute) and the flash
+    backward's, each with its share; None where the trace shows no device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    kernel_ms = sum(
+        getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
+        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+    ) / 1e3
+    if kernel_ms <= 0:
+        log("  step trace: no device time in the trace (not measured)")
+        return dict(kernel_ms=None, norm_backward_ms=None,
+                    norm_backward_share=None)
+    norm_ms = device_time_of(prof, ("_NormFunctionBackward",))
+    flash_ms = device_time_of(prof, ("_FlashAttentionBackward",))
+    out = dict(kernel_ms=kernel_ms, norm_backward_ms=norm_ms,
+               norm_backward_share=norm_ms / kernel_ms,
+               flash_backward_ms=flash_ms,
+               flash_backward_share=flash_ms / kernel_ms)
+    log(f"  step trace: kernels {kernel_ms:.3f} ms of device time per step; "
+        f"the norm backward's recompute {norm_ms:.3f} ms "
+        f"({out['norm_backward_share']:.4f}), the flash backward's "
+        f"{flash_ms:.3f} ms ({out['flash_backward_share']:.4f})")
+    return out
+
+
+def time_train_kernels(torch, A, N, dev) -> dict:
+    """The two kernels at the training step's shapes (f32): flash at
+    (8, 12, 512, 64) and LayerNorm at (8, 512, 768), each against its plain
+    version with its time, bound and library call; and the norm
+    backward (recompute through the plain version) against autograd of
+    ``F.layer_norm``, issued back to back between CUDA events."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(18)
+    B, T = TRAIN_BUILD["batch"], TRAIN_BUILD["seq_len"]
+    shape = (B, 12, T, 64)
+    q, k, v = attention_inputs(torch, rng, dev, shape, "float32", "heads", None)
+    got = A.flash_attention(q, k, v, causal=True)
+    err = (got - A.reference_mha(q, k, v, causal=True)).abs().max().item()
+    if not err < KERNEL_TOL["float32"]:
+        raise AssertionError(f"flash at the training shape: {err}")
+    ms, ms_b2b = time_attention(
+        torch, lambda *a: A.flash_attention(*a, causal=True), (q, k, v), 50)
+    bound_ms, bound_by = attention_bound_ms(shape, "float32", True)
+    flash = dict(
+        shape=list(shape), dtype="float32", max_abs_err=err, ms=ms,
+        ms_back_to_back=ms_b2b,
+        plain_ms=graph_ms(torch, lambda *a: A.reference_mha(*a, causal=True),
+                          [(q, k, v)] * 5),
+        library_ms=time_attention(torch, lambda *a: F.scaled_dot_product_attention(
+            *a, is_causal=True), (q, k, v), 50)[0],
+        bound_ms=bound_ms, bound_by=bound_by)
+    x, g, b = norm_inputs(torch, rng, dev, (B, T, 768), "float32")
+    err = (N.layer_norm_kernel(x, g, b) - N.reference_layer_norm(x, g, b)
+           ).abs().max().item()
+    if not err < KERNEL_TOL["float32"]:
+        raise AssertionError(f"LayerNorm at the training shape: {err}")
+    ln = dict(time_norm(torch, N, "ln", (x, g, b), rng, dev), dtype="float32",
+              max_abs_err=err)
+    dy = torch.randn_like(x)
+
+    def library_backward():
+        xs = [t.detach().requires_grad_() for t in (x, g, b)]
+        out = F.layer_norm(xs[0], (768,), xs[1], xs[2], 1e-5)
+        return torch.autograd.grad(out, xs, dy)
+
+    ln["backward_ms"] = cuda_ms(
+        lambda: N.norm_backward(N.LN_KERNEL, x, (g, b), dy), 20)
+    ln["backward_library_ms"] = cuda_ms(library_backward, 20)
+    log(f"  flash {shape} f32: kernel {flash['ms']:.5f} ms, plain "
+        f"{flash['plain_ms']:.5f}, SDPA {flash['library_ms']:.5f}, bound "
+        f"{bound_ms:.5f} ms ({bound_by}); LayerNorm {(B, T, 768)} f32: "
+        f"kernel {ln['ms']:.5f} ms, plain {ln['plain_ms']:.5f}, F.layer_norm "
+        f"{ln['library_ms']:.5f}, bound {ln['bound_ms']:.5f} ms; its backward "
+        f"by recompute {ln['backward_ms']:.5f} ms against autograd of "
+        f"F.layer_norm {ln['backward_library_ms']:.5f} ms (back to back)")
+    return dict(flash=flash, layer_norm=ln)
+
+
+def run_train_path(torch, P, A, N, dev, cfg=None) -> tuple:
+    """Phase 18 a: the training step through ``measure_train_dag`` (its
+    launches counted over the whole bench), then on one node and placed
+    by ``mru`` and ``heft`` on TRAIN_NODES nodes of the card, planned
+    (per step, counted) and compiled (warm-up and capture counted, the
+    replays' launches counted at each replay), each against the
+    single-node step.  Returns (TRAIN_LINE's dict, counted launches)."""
+    import tempfile
+
+    from distributed_llm_scheduler_tpu_torch.eval import train_bench as TB
+    from distributed_llm_scheduler_tpu_torch.utils.hbm import preflight_task_memory
+
+    cfg = cfg or P.GPT2Config.small()
+    per_step, per_ref = train_launches(cfg.n_layer)
+    launches = {}
+    # a fresh calibration (1 warm-up + 3 profile steps) in a directory of
+    # its own: the anchor (warm-up + 1), the oracle, 4 timed steps
+    bench_steps = 2 + 4 + 4
+    with tempfile.TemporaryDirectory() as td:
+        t0 = time.perf_counter()
+        bench, launches["train bench"] = counted(
+            "train bench",
+            {k: n * bench_steps + per_ref[k] for k, n in per_step.items()},
+            lambda: TB.measure_train_dag(config=cfg, device=dev, cache_dir=td,
+                                         log=log, **TRAIN_BUILD))
+        bench_s = time.perf_counter() - t0
+    print("TRAIN_BENCH_LINE " + json.dumps(bench), flush=True)
+    missing = [p for p, r in bench["policies"].items()
+               if not (r["makespan_ms"] > 0 and 0 < r["completion"] <= 1)]
+    if (not bench["oracle_ok"] or len(bench["policies"]) != 10 or missing
+            or bench["platform"] != "cuda"):
+        raise AssertionError(f"train bench: oracle {bench['oracle_ok']}, "
+                             f"{len(bench['policies'])} policies, {missing}")
+    log(f"  train bench in {bench_s:.1f} s: executed step "
+        f"{bench['executed_step_ms']} ms, best {bench['best_policy']} "
+        f"{bench['best_makespan_ms']} ms, vs_roundrobin {bench['vs_roundrobin']}")
+
+    dag = P.build_gpt2_train_dag(cfg, **TRAIN_BUILD)
+    graph = dag.graph
+    if cfg == P.GPT2Config.small() and len(graph) != TRAIN_TASKS:
+        raise AssertionError(f"train DAG has {len(graph)} tasks")
+    params = dag.init_params(seed=0, device=dev)
+    inputs = dag.make_inputs(device=dev)
+    one = P.Cluster.from_torch_devices([dev])
+    sched_one = P.get_scheduler("greedy").schedule(graph, one)
+    be1 = P.DeviceBackend(one)
+    step_ms = {}
+    rep1, launches["greedy x1"] = counted(
+        "greedy x1", times(per_step, 1 + REPS),
+        lambda: be1.execute(graph, sched_one, params, inputs, reps=REPS))
+    want = rep1.output
+    step_ms["greedy x1 planned"] = rep1.makespan_s * 1e3
+    held = rep1.held_hbm_bytes.get(str(dev), 0)
+    alloc_peak_gb = (rep1.peak_hbm_bytes.get(str(dev), 0) - held) / 1024**3
+    trace = step_trace(torch, lambda: be1.execute(
+        graph, sched_one, params, inputs, warmup=False))
+    v1 = P.validate_schedule(graph, one, sched_one)
+    budget = max(v1.peak_no_evict_gb.values()) * TRAIN_PRESSURE
+    cluster = P.Cluster.from_torch_devices([dev] * TRAIN_NODES, hbm_cap_gb=budget)
+    log(f"  single-node step {step_ms['greedy x1 planned']:.3f} ms; "
+        f"{TRAIN_NODES} nodes of {budget:.4f} GB ({TRAIN_PRESSURE} x the "
+        f"step's {max(v1.peak_no_evict_gb.values()):.4f} GB on one node)")
+    placed = {}
+    for pol in TRAIN_POLICIES:
+        s = P.get_scheduler(pol).schedule(graph, cluster)
+        used = sum(1 for lst in s.per_node.values() if lst)
+        if s.failed or used < 2:
+            raise AssertionError(f"train {pol}: failed {sorted(s.failed)[:3]}, "
+                                 f"{used} node(s)")
+        be = P.DeviceBackend(cluster)
+        label = f"{pol} x{TRAIN_NODES}"
+        rep, launches[label] = counted(
+            label, times(per_step, 1 + REPS),
+            lambda: be.execute(graph, s, params, inputs, reps=REPS))
+        if rep.transfer_edges <= 0:
+            raise AssertionError(f"{label}: the step did not spread")
+        nums = step_numbers(rep.output, want)
+        step_ms[f"{label} planned"] = rep.makespan_s * 1e3
+        label_c = f"{label} compiled"
+        rep_c, launches[label_c] = counted_compiled(
+            label_c, per_step, lambda: be.execute(
+                graph, s, params, inputs, compiled=True, reps=REPS))
+        nums_c = step_numbers(cloned(rep_c.output), want)
+        step_ms[label_c] = rep_c.makespan_s * 1e3
+        placed[pol] = dict(nodes=used, transfer_edges=rep.transfer_edges,
+                           planned=nums, compiled=nums_c,
+                           compiled_exchanges=rep_c.transfer_edges)
+        log(f"  {label}: {used} nodes, {rep.transfer_edges} transfer edges; "
+            f"planned {step_ms[label + ' planned']:.3f} ms, compiled "
+            f"{step_ms[label_c]:.3f} ms; vs the single-node step: planned "
+            f"{nums}, compiled {nums_c}")
+        if not (nums["ok"] and nums_c["ok"]):
+            raise AssertionError(f"{label}: step off the single-node step")
+        del be, rep, rep_c
+    fp = preflight_task_memory(graph, params, inputs)
+    vpf = P.validate_schedule(graph, one, sched_one)
+    # the card's footprints (the CPU has no allocator peak: none)
+    pre = dict(max_task_gb=max(fp.values(), default=None),
+               modeled_peak_gb=max(vpf.peak_no_evict_gb.values()))
+    log(f"  allocator peak of the single-node step {alloc_peak_gb:.4f} GiB "
+        f"beyond what was held; pre-flight: largest task {pre['max_task_gb']} "
+        f"GiB, modeled no-evict peak {pre['modeled_peak_gb']:.4f} GiB")
+    line = dict(bench=bench, bench_seconds=bench_s, step_ms=step_ms,
+                launches_per_step=per_step, placed=placed,
+                allocator_peak_gb=alloc_peak_gb, preflight=pre, trace=trace,
+                kernels=time_train_kernels(torch, A, N, dev))
+    return line, launches
+
+
+def fused_routing(torch, mixtral, params, ids, cfg, routed: bool) -> list:
+    """The fused forward's top-k expert set of every token in every layer
+    (sorted ids, (N, top_k) per layer), from its own ffn_norm outputs."""
+    from distributed_llm_scheduler_tpu_torch.models import llama
+
+    keys = mixtral._layer_keys(cfg)
+    sets = []
+    with torch.no_grad():
+        x = llama.embedding(ids, params["tok_emb"])
+        for i in range(cfg.n_layers):
+            bp = {k: params[f"l{i}_{k}"] for k in keys}
+            h = mixtral.rms_norm(x, bp["attn_norm_g"], cfg.rms_eps)
+            x = x + mixtral.gqa_attention(
+                h, bp["wq"], bp["wk"], bp["wv"], bp["wo"], cfg.n_heads,
+                cfg.n_kv_heads, cfg.rope_theta)
+            h = mixtral.rms_norm(x, bp["ffn_norm_g"], cfg.rms_eps)
+            logits = (h.reshape(-1, cfg.d_model) @ bp["router"]).float()
+            sets.append(mixtral.topk_stable(logits, cfg.top_k)[1].sort(-1).values)
+            x = x + (mixtral.moe_routed(bp, h, cfg, MOE_CAPACITY) if routed
+                     else mixtral._moe(bp, h, cfg))
+    return sets
+
+
+def dag_routing(torch, outputs, cfg, routed: bool) -> tuple:
+    """(per-layer sorted top-k expert sets, dropped slots) from the router
+    tasks' outputs of one DAG run."""
+    sets, dropped = [], 0
+    for i in range(cfg.n_layers):
+        r = outputs[f"layer_{i}_router"]
+        if routed:
+            sets.append(r["flat_e"].long().reshape(-1, cfg.top_k).sort(-1).values)
+            dropped += int((~r["keep"]).sum())
+        else:
+            w = r.reshape(-1, cfg.n_experts).float()
+            sets.append(w.topk(cfg.top_k, dim=-1).indices.sort(-1).values)
+    return sets, dropped
+
+
+def time_moe_kernels(torch, A, N, dev, cfg) -> dict:
+    """Flash through ``gqa_mha`` and RMSNorm at the Mixtral tasks' shapes
+    (bf16), against their plain versions, with times, bounds and library
+    calls."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(19)
+    B, T = MOE_BUILD["batch"], MOE_BUILD["seq_len"]
+    shape = (B, cfg.n_heads, T, cfg.head_dim)
+    q, k, v = attention_inputs(torch, rng, dev, shape, "bfloat16", "gqa",
+                               cfg.n_kv_heads)
+    group = cfg.n_heads // cfg.n_kv_heads
+    kr, vr = k.repeat_interleave(group, 1), v.repeat_interleave(group, 1)
+    got = A.gqa_mha(q, k, v, causal=True)
+    err = (got.float() - A.reference_mha(q, kr, vr, causal=True).float()
+           ).abs().max().item()
+    if not err < KERNEL_TOL["bfloat16"]:
+        raise AssertionError(f"flash at the Mixtral shape: {err}")
+    ms, ms_b2b = time_attention(torch, A.gqa_mha, (q, k, v), 100)
+    bound_ms, bound_by = attention_bound_ms(shape, "bfloat16", True,
+                                            cfg.n_kv_heads)
+    flash = dict(
+        shape=list(shape), kv_heads=cfg.n_kv_heads, dtype="bfloat16",
+        max_abs_err=err, ms=ms, ms_back_to_back=ms_b2b,
+        plain_ms=graph_ms(torch, A.reference_mha, [(q, kr, vr)] * 10),
+        library_ms=time_attention(torch, lambda *a: F.scaled_dot_product_attention(
+            *a, is_causal=True, enable_gqa=True), (q, k, v), 100)[0],
+        bound_ms=bound_ms, bound_by=bound_by)
+    x, g, _ = norm_inputs(torch, rng, dev, (B, T, cfg.d_model), "bfloat16")
+    err = (N.rms_norm_kernel(x, g).float() - N.reference_rms_norm(x, g).float()
+           ).abs().max().item()
+    if not err < KERNEL_TOL["bfloat16"]:
+        raise AssertionError(f"RMSNorm at the Mixtral shape: {err}")
+    rms = dict(time_norm(torch, N, "rms", (x, g), rng, dev), dtype="bfloat16",
+               max_abs_err=err)
+    log(f"  gqa_mha {shape} bf16, {cfg.n_kv_heads} KV heads: kernel "
+        f"{ms:.5f} ms, plain {flash['plain_ms']:.5f}, SDPA "
+        f"{flash['library_ms']:.5f}, bound {bound_ms:.5f} ms ({bound_by}); "
+        f"RMSNorm {(B, T, cfg.d_model)} bf16: kernel {rms['ms']:.5f} ms, plain "
+        f"{rms['plain_ms']:.5f}, F.rms_norm {rms['library_ms']:.5f}, bound "
+        f"{rms['bound_ms']:.5f} ms")
+    return dict(flash=flash, rms_norm=rms)
+
+
+def run_moe_path(torch, P, A, N, dev, cfg=None) -> tuple:
+    """Phase 18 b: the Mixtral DAG, dense and routed, placed by mru, greedy
+    and heft on MOE_NODES nodes of the card at MOE_NODE_FRAC x the params
+    each, planned (with every task's output kept: the routing) and
+    compiled, against the fused forward; the tokens whose top-k sets
+    differ from the fused path's are counted and must be 0.  Returns
+    (MOE_LINE's dict, counted launches)."""
+    from distributed_llm_scheduler_tpu_torch.models import mixtral
+
+    cfg = cfg or P.MixtralConfig.mixtral_8x7b(n_layers=MOE_LAYERS,
+                                              dtype=torch.bfloat16)
+    L = cfg.n_layers
+    per_forward = {"flash_attention": L, "rms_norm": 2 * L + 1,
+                   "rms_norm.register": 2 * L + 1}
+    t0 = time.perf_counter()
+    params = mixtral.init_params_torch(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    log(f"  Mixtral-8x7B widths at {L} layers: {mixtral.num_params(cfg) / 1e9:.3f} "
+        f"B params drawn on the card from torch seed 0 in "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated(dev) / 1024**3:.3f} GiB allocated")
+    launches, line = {}, dict(makespan_ms={}, peak_gib={}, dropped_slots={},
+                              routing_differs={}, oracle={}, homes={})
+    for routed in (False, True):
+        mode = "routed" if routed else "dense"
+        dag = P.build_moe_dag(cfg, routed=routed, capacity_factor=MOE_CAPACITY,
+                              **MOE_BUILD)
+        graph = dag.graph
+        if cfg.d_model == 4096 and (len(graph) != MOE_TASKS or not graph.name
+                                    .startswith(f"mixtral_{L}l_d4096_e8")):
+            raise AssertionError(f"{graph.name}: {len(graph)} tasks")
+        ids = dag.make_inputs(seed=1, device=dev)
+        fused, launches[f"{mode} fused"] = counted(
+            f"{mode} fused", per_forward,
+            lambda: dag.reference_forward(params, ids))
+        want_sets = fused_routing(torch, mixtral, params, ids, cfg, routed)
+        cap = MOE_NODE_FRAC * graph.total_param_gb()
+        cluster = P.Cluster.from_torch_devices([dev] * MOE_NODES, hbm_cap_gb=cap)
+        for pol in MOE_POLICIES:
+            s = P.get_scheduler(pol).schedule(graph, cluster)
+            homes = {n for n, lst in s.per_node.items()
+                     if any("_expert_" in t for t in lst)}
+            if s.failed or len(homes) < 2:
+                raise AssertionError(f"{mode} {pol}: failed "
+                                     f"{sorted(s.failed)[:3]}, experts on {homes}")
+            be = P.DeviceBackend(cluster)
+            label = f"{mode} {pol} x{MOE_NODES}"
+            rep, launches[label] = counted(
+                label, times(per_forward, 2), lambda: be.execute(
+                    graph, s, params, ids, keep_outputs=True))
+            got_sets, dropped = dag_routing(torch, rep.task_outputs, cfg, routed)
+            differ = sum(int((a != b).any(-1).sum())
+                         for a, b in zip(got_sets, want_sets))
+            results = {"planned": (rep, rep.output)}
+            label_c = f"{label} compiled"
+            rep_c, launches[label_c] = counted_compiled(
+                label_c, per_forward, lambda: be.execute(
+                    graph, s, params, ids, compiled=True, reps=REPS))
+            results["compiled"] = (rep_c, rep_c.output)
+            for rung, (r, out) in results.items():
+                ok, viol, allowed, rel = oracle_close(fused, out)
+                finite = bool(torch.isfinite(out).all())
+                key = f"{label} {rung}"
+                line["makespan_ms"][key] = r.makespan_s * 1e3
+                line["peak_gib"][key] = (sum(r.peak_hbm_bytes.values())
+                                         - sum(r.held_hbm_bytes.values())) / 1024**3
+                line["oracle"][key] = dict(ok=ok and finite, violations=viol,
+                                           rel_fro=rel)
+                log(f"  {key}: makespan {r.makespan_s * 1e3:.3f} ms, "
+                    f"{r.transfer_edges} transfer edges, peak "
+                    f"{line['peak_gib'][key]:.3f} GiB beyond what was held; vs "
+                    f"fused: {viol} outside the {BAND:g} band (allowed "
+                    f"{allowed}), rel Frobenius {rel:.3e}, finite={finite}")
+                if not (ok and finite):
+                    raise AssertionError(f"{key}: output fails the oracle")
+            line["dropped_slots"][label] = dropped
+            line["routing_differs"][label] = differ
+            line["homes"][label] = len(homes)
+            log(f"  {label}: experts on {len(homes)} nodes, {differ} token "
+                f"routings differ from the fused path's, {dropped} slots dropped")
+            if differ:
+                raise AssertionError(f"{label}: {differ} token routings differ")
+            del be, rep, rep_c, results
+        del fused, dag, graph
+    line["launches_per_forward"] = per_forward
+    line["kernels"] = time_moe_kernels(torch, A, N, dev, cfg)
+    del params
+    return line, launches
+
+
+def run_baseline_configs(torch, P, A, N, dev) -> tuple:
+    """Phase 18: a, then b; prints TRAIN_LINE and MOE_LINE."""
+    t0 = time.perf_counter()
+    log("  a. config #5: the GPT-2 small f32 training step")
+    train, train_n = run_train_path(torch, P, A, N, dev)
+    train["seconds"] = time.perf_counter() - t0
+    print("TRAIN_LINE " + json.dumps(dict(train, bench=None)), flush=True)
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    log("  b. config #4: Mixtral-8x7B at full width, 4 layers, bf16")
+    moe, moe_n = run_moe_path(torch, P, A, N, dev)
+    moe["seconds"] = time.perf_counter() - t1
+    print("MOE_LINE " + json.dumps(moe), flush=True)
+    return train, train_n, moe, moe_n
+
+
 def paged_timing(root: Path) -> int:
     """``python3 chip_smoke.py --paged-timing [ROOT]``: the single-token
     paged kernel of the package under ROOT (default: this checkout) alone,
@@ -3563,7 +4061,7 @@ def main() -> int:
     t_all = time.perf_counter()
     dev = torch.device("cuda", 0)
     smi = nvidia_smi_line()
-    log(f"[1/17] device: {torch.cuda.get_device_name(0)} ({smi}); torch "
+    log(f"[1/18] device: {torch.cuda.get_device_name(0)} ({smi}); torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3571,7 +4069,7 @@ def main() -> int:
 
     sources = (A.KERNEL, A.PAGED_SOURCE, N.SOURCE)
     secs = kernels.build(*sources)
-    log(f"[2/17] built {', '.join(f'{n}.cu' for n in sources)} with "
+    log(f"[2/18] built {', '.join(f'{n}.cu' for n in sources)} with "
         f"{kernels.nvcc_path()} for sm_90a in {secs:.1f} s (in parallel)")
     log_ptxas(kernels.build_logs.get(A.KERNEL, ""))
     log_ptxas(kernels.build_logs.get(A.PAGED_SOURCE, ""),
@@ -3583,60 +4081,60 @@ def main() -> int:
                     if "paged_ragged_tc" in k]
     norm_ptxas = log_norm_ptxas(kernels.build_logs.get(N.SOURCE, ""))
 
-    log("[3/17] flash kernel check against its plain version")
+    log("[3/18] flash kernel check against its plain version")
     attn = check_attention_kernel(
         torch, A, dev, P.LlamaConfig.llama3_8b(dtype=torch.bfloat16))
 
-    log("[4/17] paged kernel check against the plain versions")
+    log("[4/18] paged kernel check against the plain versions")
     paged = check_paged_kernels(torch, A, DB, dev)
     ragged_n = run_ragged_op_path(torch, A, DB, dev)
 
-    log("[5/17] LayerNorm and RMSNorm kernel check against the plain versions")
+    log("[5/18] LayerNorm and RMSNorm kernel check against the plain versions")
     norms = check_norm_kernels(torch, N, dev)
 
     def phase_done():  # free the phase's tensors before the next one
         gc.collect()
         torch.cuda.empty_cache()
 
-    log("[6/17] flagship forward path: GPT-2 small bf16 DAG on the card")
+    log("[6/18] flagship forward path: GPT-2 small bf16 DAG on the card")
     gpt2_n = run_main_path(torch, P, dev)
     phase_done()
 
-    log("[7/17] execution ladder: the flagship per task, planned, coalesced, "
+    log("[7/18] execution ladder: the flagship per task, planned, coalesced, "
         "segmented and compiled")
     ladder_n = run_ladder_path(torch, P, dev)
     phase_done()
 
-    log("[8/17] north-star bench: GPT-2 small bf16, 10 policies replayed")
+    log("[8/18] north-star bench: GPT-2 small bf16, 10 policies replayed")
     bench_n, bench_result = run_bench_path(torch, P, dev)
     phase_done()
 
-    log("[9/17] serve path: GPT-2 small bf16 through the paged decode engine")
+    log("[9/18] serve path: GPT-2 small bf16 through the paged decode engine")
     serve_launches, serve_ragged, serve_ln, serve_tr, served = run_serve_path(
         torch, P, A, dev)
     phase_done()
 
-    log("[10/17] Llama path: Llama-3 8B bf16 DAG, pipeline stages, on the card")
+    log("[10/18] Llama path: Llama-3 8B bf16 DAG, pipeline stages, on the card")
     llama_n = run_llama_path(torch, P, dev)
     phase_done()
 
-    log("[11/17] f32 leg: GPT-2 placed on the card vs fused on the CPU")
+    log("[11/18] f32 leg: GPT-2 placed on the card vs fused on the CPU")
     run_f32_leg(torch, P, dev)
 
-    log("[12/17] f32 serve leg: the engine on the card vs on the CPU")
+    log("[12/18] f32 serve leg: the engine on the card vs on the CPU")
     run_f32_serve_leg(torch, P, dev)
     phase_done()
 
-    log("[13/17] f32 Llama leg: placed on the card vs fused on the CPU")
+    log("[13/18] f32 Llama leg: placed on the card vs fused on the CPU")
     run_llama_f32_leg(torch, P, dev)
     phase_done()
 
-    log("[14/17] parameter streaming: GPT-2 medium and the flagship under "
+    log("[14/18] parameter streaming: GPT-2 medium and the flagship under "
         "budgets below their params")
     stream_n = run_stream_path(torch, P, dev)
     phase_done()
 
-    log("[15/17] online serving: the serve bench on the card, then the "
+    log("[15/18] online serving: the serve bench on the card, then the "
         "frontend over GPT-2 small bf16 on a real clock")
     t15 = time.perf_counter()
     bench_on_card = run_serve_bench_on_card(torch, dev)
@@ -3646,7 +4144,7 @@ def main() -> int:
     log(f"  phase 15 in {time.perf_counter() - t15:.1f} s")
     phase_done()
 
-    log("[16/17] run doctor: the flagship and the engine traced, the soak "
+    log("[16/18] run doctor: the flagship and the engine traced, the soak "
         "doctor and the health-routed fleet")
     t16 = time.perf_counter()
     doctor, doctor_n = run_doctor_path(torch, P, A, dev, served)
@@ -3657,7 +4155,7 @@ def main() -> int:
     del served
     phase_done()
 
-    log("[17/17] searched placements: the bench's refine and search "
+    log("[17/18] searched placements: the bench's refine and search "
         "placements on the card, the pre-execution gate and analyze()")
     t17 = time.perf_counter()
     searched, search_n = run_search_phase(torch, P, A, N, dev, bench_result)
@@ -3666,6 +4164,13 @@ def main() -> int:
     print("SEARCH_LINE " + json.dumps(searched), flush=True)
     log(f"  phase 17 in {searched['seconds']:.1f} s")
     del bench_result
+    phase_done()
+
+    log("[18/18] BASELINE.json configs #5 and #4: the GPT-2 training step "
+        "and the Mixtral-8x7B MoE forward")
+    t18 = time.perf_counter()
+    train, train_n, moe, moe_n = run_baseline_configs(torch, P, A, N, dev)
+    log(f"  phase 18 in {time.perf_counter() - t18:.1f} s")
     phase_done()
 
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
@@ -3685,7 +4190,13 @@ def main() -> int:
         {"name": A.KERNEL, "route": "cuda", "source": csrc + "flash_attention.cu",
          "replaces": tpu + "152",
          "launches": gpt2_n["greedy x1"][A.KERNEL],
-         "launches_by_path": by_path(A.KERNEL, runs), **attn},
+         "launches_by_path": by_path(A.KERNEL, runs), **attn,
+         "train": {"launches_per_step": train["launches_per_step"][A.KERNEL],
+                   "launches_by_run": {k: n[A.KERNEL] for k, n in train_n.items()},
+                   "at_train_shape": train["kernels"]["flash"]},
+         "moe": {"launches_per_forward": moe["launches_per_forward"][A.KERNEL],
+                 "launches_by_run": {k: n[A.KERNEL] for k, n in moe_n.items()},
+                 "at_moe_shape": moe["kernels"]["flash"]}},
         {"name": A.PAGED_KERNEL, "route": "cuda",
          "source": csrc + "paged_attention.cu", "replaces": tpu + "411",
          "launches": serve_launches["serve run 1"],
@@ -3708,12 +4219,19 @@ def main() -> int:
          "launches_by_path": {**by_path(N.LN_KERNEL, runs),
                               **{f"gpt2 {k}": v for k, v in serve_ln.items()},
                               **{k: n[N.LN_KERNEL] for k, n in online_n.items()}},
-         **norms[N.LN_KERNEL]},
+         **norms[N.LN_KERNEL],
+         "train": {"launches_per_step": train["launches_per_step"][N.LN_KERNEL],
+                   "launches_by_run": {k: n[N.LN_KERNEL] for k, n in train_n.items()},
+                   "at_train_shape": train["kernels"]["layer_norm"],
+                   "norm_backward_share": train["trace"]["norm_backward_share"]}},
         {"name": N.RMS_KERNEL, "route": "cuda", "source": csrc + "norms.cu",
          "replaces": tpu_norms + "76",
          "launches": llama_n["pipeline x8"][N.RMS_KERNEL],
          "launches_by_path": by_path(N.RMS_KERNEL, runs),
-         **norms[N.RMS_KERNEL], "ptxas": norm_ptxas},
+         **norms[N.RMS_KERNEL], "ptxas": norm_ptxas,
+         "moe": {"launches_per_forward": moe["launches_per_forward"][N.RMS_KERNEL],
+                 "launches_by_run": {k: n[N.RMS_KERNEL] for k, n in moe_n.items()},
+                 "at_moe_shape": moe["kernels"]["rms_norm"]}},
     ]}
     print(json.dumps(line), flush=True)
     print(smi, flush=True)

@@ -57,8 +57,11 @@ from .sched.policies import (
 )
 from .models.gpt2 import GPT2Config, params_from_numpy
 from .models.llama import LlamaConfig
-from .frontend.gpt2_dag import ModelDAG, build_gpt2_dag
+from .models.mixtral import MixtralConfig
+from .frontend.gpt2_dag import ModelDAG, build_gpt2_dag, execute_dag_locally
 from .frontend.llama_dag import build_llama_dag
+from .frontend.moe_dag import build_moe_dag
+from .frontend.train_dag import TrainDAG, build_gpt2_train_dag
 from .frontend.decode_dag import PagedDecodeDAG, build_paged_decode_dag
 from .models.kv_pages import TRASH_PAGE, PagePool, pages_needed
 from .obs.metrics import MetricsRegistry
@@ -123,9 +126,14 @@ __all__ = [
     "GPT2Config",
     "params_from_numpy",
     "LlamaConfig",
+    "MixtralConfig",
     "ModelDAG",
     "build_gpt2_dag",
+    "execute_dag_locally",
     "build_llama_dag",
+    "build_moe_dag",
+    "TrainDAG",
+    "build_gpt2_train_dag",
     "PagedDecodeDAG",
     "build_paged_decode_dag",
     "TRASH_PAGE",

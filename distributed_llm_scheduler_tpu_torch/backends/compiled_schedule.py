@@ -39,6 +39,7 @@ import time
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils._pytree import tree_leaves
 
 from ..core.graph import TaskGraph
 from ..core.schedule import Schedule
@@ -152,7 +153,7 @@ class CompiledSchedule:
         key = (
             ir.signature(),
             tuple(sorted((k, v.data_ptr()) for k, v in placed.items())),
-            tuple(graph_input.shape), graph_input.dtype,
+            tuple((tuple(t.shape), t.dtype) for t in tree_leaves(graph_input)),
         )
         cache = backend._prog_cache.setdefault(graph, {})
         prog = cache.get(key)
@@ -251,7 +252,7 @@ class CompiledSchedule:
             metrics.counter("compiled.launches").inc(calls)
             metrics.counter("compiled.exchanges").inc(self.transfer_edges)
         if mem is not None:
-            in_bytes = graph_input.numel() * graph_input.element_size()
+            in_bytes = _array_bytes(graph_input)
             for node in self.ir.devices:
                 pb = (slab_bytes or {}).get(node, 0)
                 if pb:

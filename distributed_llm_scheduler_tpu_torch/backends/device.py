@@ -65,6 +65,7 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils._pytree import tree_leaves, tree_map_only
 
 from ..core.cluster import Cluster
 from ..core.graph import TaskGraph
@@ -200,6 +201,14 @@ def _array_bytes(x: Any) -> int:
     if isinstance(x, (list, tuple)):
         return sum(_array_bytes(v) for v in x)
     return 0
+
+
+def _tree_to(x: Any, dev: torch.device, non_blocking: bool = False) -> Any:
+    """A value on ``dev``: a tensor, or a dict/list/tuple nest of them (the
+    training DAG's ``{"ids", "targets"}`` input and dict outputs); a
+    tensor already there is kept, not copied."""
+    return tree_map_only(
+        torch.Tensor, lambda t: t.to(dev, non_blocking=non_blocking), x)
 
 
 class DeviceClock:
@@ -376,7 +385,8 @@ class CapturedProgram:
         else:
             for k, buf in self.static_in.items():
                 if k not in fixed:
-                    buf.copy_(ext[k], non_blocking=True)
+                    for dst, src in zip(tree_leaves(buf), tree_leaves(ext[k])):
+                        dst.copy_(src, non_blocking=True)
                 elif ext[k] is not buf:
                     raise RuntimeError(
                         f"captured program: input {k!r} was read in place "
@@ -390,8 +400,9 @@ class CapturedProgram:
         stream = self.stream or torch.cuda.current_stream()
         with torch.no_grad():
             self.fn(params, ext)  # warm-up
-        self.static_in = {k: v if k in fixed else v.clone()
-                          for k, v in ext.items()}
+        self.static_in = {
+            k: v if k in fixed else tree_map_only(torch.Tensor, torch.clone, v)
+            for k, v in ext.items()}
         graph = torch.cuda.CUDAGraph()
         before = dict(kernels.launches)
         with torch.no_grad(), torch.cuda.graph(graph, pool=self.pool,
@@ -1062,7 +1073,7 @@ class DeviceBackend:
         graph: TaskGraph,
         schedule: Schedule,
         placed: Dict[Tuple[str, str], torch.Tensor],
-        graph_input: torch.Tensor,
+        graph_input: Any,
         order: List[str],
         clocks: Dict[Any, Any],
         profile: bool = False,
@@ -1138,14 +1149,13 @@ class DeviceBackend:
                             # cross-node edge: an event wait on one card,
                             # a copy between cards
                             transfer_edges += 1
-                            nb = _nbytes(x)
+                            nb = _array_bytes(x)
                             transfer_bytes += nb
                             ev = events.get(d)
                             if ev is not None and (s, d) not in waited:
                                 s.wait_event(ev)
                                 waited.add((s, d))
-                            if x.device != dev:
-                                x = x.to(dev, non_blocking=True)
+                            x = _tree_to(x, dev, non_blocking=True)
                             if tracer is not None:
                                 flow_srcs.append((d, nb))
                             if metrics is not None:
@@ -1161,10 +1171,10 @@ class DeviceBackend:
                 else:
                     inp = input_on.get(node_id)
                     if inp is None:
-                        inp = graph_input.to(dev)
+                        inp = _tree_to(graph_input, dev)
                         input_on[node_id] = inp
                         if mem is not None:
-                            mem.alloc(node_id, "input", _nbytes(graph_input),
+                            mem.alloc(node_id, "input", _array_bytes(graph_input),
                                       "activations")
                     args = [inp]
 
@@ -1231,7 +1241,7 @@ class DeviceBackend:
         graph: TaskGraph,
         schedule: Schedule,
         placed: Dict[Tuple[str, str], torch.Tensor],
-        graph_input: torch.Tensor,
+        graph_input: Any,
         segments: List[Segment],
         seg_fns: List[Any],
         clocks: Dict[Any, Any],
@@ -1299,14 +1309,13 @@ class DeviceBackend:
                             x = outputs[d]
                             if placement.get(d) != node:
                                 transfer_edges += 1
-                                nb = _nbytes(x)
+                                nb = _array_bytes(x)
                                 transfer_bytes += nb
                                 ev = events.get(d)
                                 if ev is not None and ev not in waited:
                                     s.wait_event(ev)
                                     waited.add(ev)
-                                if x.device != dev:
-                                    x = x.to(dev, non_blocking=True)
+                                x = _tree_to(x, dev, non_blocking=True)
                                 if tracer is not None:
                                     flow_srcs.append((d, nb))
                                 if metrics is not None:
@@ -1325,9 +1334,9 @@ class DeviceBackend:
                 else:
                     union = {g: placed[(g, node)] for g in union_names}
                 if needs_input:
-                    ext["__input__"] = graph_input.to(dev)
+                    ext["__input__"] = _tree_to(graph_input, dev)
                     if mem is not None:
-                        mem.alloc(node, "input", _nbytes(graph_input),
+                        mem.alloc(node, "input", _array_bytes(graph_input),
                                   "activations")
                 captured = isinstance(fn, CapturedProgram)
                 if captured and dclock is not None:
@@ -1456,7 +1465,7 @@ class DeviceBackend:
         graph: TaskGraph,
         schedule: Schedule,
         params: Dict[str, torch.Tensor],
-        graph_input: torch.Tensor,
+        graph_input: Any,
         profile: bool = False,
         warmup: bool = True,
         segments: bool = False,

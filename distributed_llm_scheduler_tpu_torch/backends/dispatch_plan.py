@@ -46,8 +46,9 @@ from operator import itemgetter
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
+from torch.utils._pytree import tree_leaves
 
-from .device import StreamSwitch, _args_of, _nbytes, _array_bytes
+from .device import StreamSwitch, _args_of, _array_bytes, _tree_to
 from .rebatch import extract_steps
 
 
@@ -555,9 +556,9 @@ class DispatchPlan:
             t0 = time.perf_counter()
             for _n, dev, s in self.input_slots:
                 sw.to(_n)
-                vals[s] = graph_input.to(dev)
+                vals[s] = _tree_to(graph_input, dev)
                 if mem is not None:
-                    mem.alloc(_n, "input", _nbytes(vals[s]), "activations")
+                    mem.alloc(_n, "input", _array_bytes(vals[s]), "activations")
             if tracer is not None and self.input_slots:
                 tracer.complete(
                     "stage_input", t0, time.perf_counter(), track="host",
@@ -573,19 +574,20 @@ class DispatchPlan:
                 if step.xfer_bytes is None:
                     step.xfer_bytes = 0
                     for p in step.xfer_pos:
-                        n = _nbytes(args[p])
+                        n = _array_bytes(args[p])
                         step.xfer_bytes += n
                         self.xfer_nbytes[
                             self.tid_of_slot[step.arg_slots[p]]] = n
                 if step.copy_pos or step.use_pos:
                     args = list(args)
                     for p in step.copy_pos:
-                        args[p] = args[p].to(step.dev, non_blocking=True)
+                        args[p] = _tree_to(args[p], step.dev, non_blocking=True)
                     for p in step.use_pos:
-                        args[p].record_stream(stream)
+                        for t in tree_leaves(args[p]):
+                            t.record_stream(stream)
                 tbytes += step.xfer_bytes
                 if step.xfer_pos and (metrics is not None or mem is not None):
-                    per_edge = [_nbytes(args[p]) for p in step.xfer_src_pos]
+                    per_edge = [_array_bytes(args[p]) for p in step.xfer_src_pos]
                     if metrics is not None:
                         for ui, src_node in enumerate(step.xfer_src_nodes):
                             metrics.counter(

@@ -372,3 +372,26 @@ def build_gpt2_dag(
         model=gpt2,
         derive_params=derive_params,
     )
+
+
+def execute_dag_locally(dag: ModelDAG, params: Dict[str, Any], graph_input: Any
+                        ) -> Any:
+    """Run the DAG task by task in topological order on the tensors' own
+    device, under ``torch.no_grad()`` as the backends run it (a training
+    task enables grad inside itself).
+
+    The single-device correctness oracle: must match
+    ``dag.reference_forward`` up to float reassociation.  Backends replace
+    this with placed, timed execution."""
+    outputs: Dict[str, Any] = {}
+    with torch.no_grad():
+        for tid in dag.graph.topo_order:
+            task = dag.graph[tid]
+            pd = {loc: params[glob] for loc, glob in task.param_items()}
+            args = (
+                [outputs[d] for d in (task.arg_tasks or task.dependencies)]
+                if task.dependencies
+                else [graph_input]
+            )
+            outputs[tid] = task.fn(pd, *args)
+    return outputs[dag.graph.topo_order[-1]]

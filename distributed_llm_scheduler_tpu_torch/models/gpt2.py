@@ -15,7 +15,9 @@ and LayerNorm through :func:`..ops.norms.layer_norm` (the CUDA LayerNorm
 kernel on a GPU); the other products stay ``torch.matmul``.
 :func:`forward_cached` runs the same layers over a dense KV cache
 (:mod:`.decode`), the prefill of the paged decode engine and its per-slot
-oracle.
+oracle.  :func:`loss_fn` is the training half: the same layers with
+gradients flowing, optionally rematerialized per block or scanned over
+stacked layer params.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from typing import Any, Dict, Mapping, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ..ops.attention import mha as _fused_mha
 # LayerNorm with f32 statistics, output in x's dtype: the CUDA kernel on a
@@ -216,15 +219,85 @@ def transformer_block(block_params: Dict[str, Any], x, config: GPT2Config):
     return residual_add(x, h)
 
 
-@torch.no_grad()
-def forward(params: Dict[str, Any], input_ids, config: GPT2Config):
-    """Full forward pass composing exactly the per-op functions above."""
+def _select_block(remat: bool):
+    """The layer function both forwards iterate: checkpointed (its
+    activations recomputed in the backward, ``jax.checkpoint``'s trade)
+    or plain."""
+    if not remat:
+        return transformer_block
+
+    def block(block_params, x, config):
+        return torch.utils.checkpoint.checkpoint(
+            transformer_block, block_params, x, config, use_reentrant=False)
+
+    return block
+
+
+def _head(x, params: Dict[str, Any], config: GPT2Config):
+    """Shared epilogue: final LN + weight-tied output projection."""
+    x = layer_norm(x, params["ln_f_g"], params["ln_f_b"], config.ln_eps)
+    return output_projection(x, params["wte"])
+
+
+def _forward(params: Dict[str, Any], input_ids, config: GPT2Config,
+             remat: bool = False):
+    """The forward with gradients flowing (the body of :func:`forward`)."""
+    block = _select_block(remat)
     x = embedding(input_ids, params["wte"], params["wpe"])
     for i in range(config.n_layer):
         p = f"h{i}_"
-        x = transformer_block({k: params[p + k] for k in _BLOCK_KEYS}, x, config)
-    x = layer_norm(x, params["ln_f_g"], params["ln_f_b"], config.ln_eps)
-    return output_projection(x, params["wte"])
+        x = block({k: params[p + k] for k in _BLOCK_KEYS}, x, config)
+    return _head(x, params, config)
+
+
+@torch.no_grad()
+def forward(params: Dict[str, Any], input_ids, config: GPT2Config):
+    """Full forward pass composing exactly the per-op functions above."""
+    return _forward(params, input_ids, config)
+
+
+# -- scanned forward (stacked layers) and the loss -----------------------------
+
+def stack_layer_params(params: Dict[str, Any], config: GPT2Config
+                       ) -> Dict[str, Any]:
+    """Per-layer ``h{i}_*`` tensors -> stacked ``layers_*`` with a leading
+    layer dim (plus the non-layer params unchanged): the scanned-forward
+    layout, numbers identical to the flat layout."""
+    out = {k: v for k, v in params.items() if not k.startswith("h")}
+    for key in _BLOCK_KEYS:
+        out["layers_" + key] = torch.stack(
+            [params[f"h{i}_{key}"] for i in range(config.n_layer)])
+    return out
+
+
+def forward_scan(params: Dict[str, Any], input_ids, config: GPT2Config,
+                 remat: bool = False):
+    """Forward over stacked layer params (:func:`stack_layer_params`): one
+    block applied along the stacked leading axis, the JAX package's
+    ``lax.scan``.  Gradients flow; same block math and order as
+    :func:`forward`."""
+    block = _select_block(remat)
+    stacked = {k: params["layers_" + k] for k in _BLOCK_KEYS}
+    x = embedding(input_ids, params["wte"], params["wpe"])
+    for i in range(stacked[_BLOCK_KEYS[0]].shape[0]):
+        x = block({k: v[i] for k, v in stacked.items()}, x, config)
+    return _head(x, params, config)
+
+
+def nll_loss(logits, targets):
+    """Mean next-token cross-entropy in float32."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(-1, targets.long()[..., None])[..., 0].mean()
+
+
+def loss_fn(params: Dict[str, Any], input_ids, targets, config: GPT2Config,
+            remat: bool = False, scan: bool = False):
+    """Next-token cross-entropy (the training-step DAG's oracle).  Not
+    under ``no_grad``: gradients flow to every param that requires them.
+    ``scan=True`` expects stacked-layer params (:func:`stack_layer_params`)
+    and runs the scanned forward."""
+    fwd = forward_scan if scan else _forward
+    return nll_loss(fwd(params, input_ids, config, remat=remat), targets)
 
 
 # -- KV-cache decoding (models/decode.py drives this) --------------------------

@@ -27,9 +27,13 @@ alignment.  ``kernels.launches`` keeps one count per function
 (``layer_norm.register``, ``layer_norm.streaming``, ...), so a run can
 show which kernel its path took.
 
-The kernels have no backward, as the JAX package's Pallas kernels have no
-autodiff rule: a CUDA call with grad enabled on an input that requires
-grad raises rather than return an output that drops the gradient.
+A call that needs a gradient (grad enabled and an input requiring it)
+goes through :class:`_NormFunction`: its forward is the same kernel
+launch, and its backward recomputes the norm through the plain version
+and differentiates that, as the flash path's backward does
+(:func:`..ops.attention.flash_attention_backward`).  The JAX package's
+Pallas norms have no autodiff rule; its GPT-2 trains through the plain
+XLA norm, whose gradients these equal.
 """
 
 from __future__ import annotations
@@ -166,10 +170,11 @@ def _rows(x, weights):
 
 def _launch(kernel: str, x, weights, eps: float):
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *weights)):
-        raise RuntimeError(
-            f"{kernel}: the CUDA kernel has no backward (nor has the JAX "
-            f"package's Pallas kernel); call it under torch.no_grad() or on "
-            f"tensors that do not require grad")
+        return _NormFunction.apply(kernel, eps, x, *weights)
+    return _launch_forward(kernel, x, weights, eps)
+
+
+def _launch_forward(kernel: str, x, weights, eps: float):
     x2, row_stride = _rows(x, weights)
     rows, D = x2.shape
     ws = [w.reshape(-1).contiguous() for w in weights]
@@ -194,6 +199,37 @@ def _launch(kernel: str, x, weights, eps: float):
     return out.reshape(x.shape)
 
 
+_PLAIN = {LN_KERNEL: reference_layer_norm, RMS_KERNEL: reference_rms_norm}
+
+
+def norm_backward(kernel: str, x, weights, grad_out, eps: float = 1e-5):
+    """Gradients of norm ``kernel`` at ``(x, *weights)`` for the cotangent
+    ``grad_out``: the norm recomputed through its plain version and
+    differentiated (nothing but the inputs is kept between forward and
+    backward).  One gradient per input, in the input's dtype."""
+    with torch.enable_grad():
+        xs = [t.detach().requires_grad_() for t in (x, *weights)]
+        out = _PLAIN[kernel](*xs, eps)
+        return torch.autograd.grad(out, xs, grad_out)
+
+
+class _NormFunction(torch.autograd.Function):
+    """A norm kernel's launch as the forward, :func:`norm_backward` as the
+    backward; saves the inputs only."""
+
+    @staticmethod
+    def forward(ctx, kernel, eps, x, *weights):
+        ctx.save_for_backward(x, *weights)
+        ctx.kernel, ctx.eps = kernel, eps
+        return _launch_forward(kernel, x, weights, eps)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        x, *weights = ctx.saved_tensors
+        grads = norm_backward(ctx.kernel, x, weights, grad_out, ctx.eps)
+        return (None, None, *grads)
+
+
 def empty_kernel(blocks: int, device) -> None:
     """Launch csrc/norms.cu's kernel with no work on ``blocks`` blocks of
     THREADS on ``device``'s current stream.  Its time in a CUDA graph is
@@ -210,18 +246,18 @@ def empty_kernel(blocks: int, device) -> None:
 def layer_norm_kernel(x, g, b, eps: float = 1e-5):
     """Launch the CUDA LayerNorm kernel (the variant :func:`norm_plan`
     picks) on CUDA tensors; see :func:`reference_layer_norm` for the
-    function it computes.  Raises when the call does not qualify, when
-    grad is enabled and an input requires grad, or when the launch
-    fails."""
+    function it computes.  A call that needs a gradient is differentiable
+    (:class:`_NormFunction`).  Raises when the call does not qualify or
+    when the launch fails."""
     return _launch(LN_KERNEL, x, (g, b), eps)
 
 
 def rms_norm_kernel(x, g, eps: float = 1e-5):
     """Launch the CUDA RMSNorm kernel (the variant :func:`norm_plan`
     picks) on CUDA tensors; see :func:`reference_rms_norm` for the
-    function it computes.  Raises when the call does not qualify, when
-    grad is enabled and an input requires grad, or when the launch
-    fails."""
+    function it computes.  A call that needs a gradient is differentiable
+    (:class:`_NormFunction`).  Raises when the call does not qualify or
+    when the launch fails."""
     return _launch(RMS_KERNEL, x, (g,), eps)
 
 

@@ -323,8 +323,7 @@ def get_scheduler(name: str, link=None, **kwargs) -> BaseScheduler:
     if name.startswith("native:") or env_str("DLS_NATIVE") == "1":
         raise NotImplementedError(
             f"scheduler {name!r}: the native C++ engine (native:<policy>, "
-            "DLS_NATIVE=1) is not ported to PyTorch yet; it is the next "
-            "slice (ROADMAP.md A.8)"
+            "DLS_NATIVE=1) is not ported to PyTorch yet (ROADMAP.md A.8)"
         )
     if name not in ALL_SCHEDULERS:
         raise ValueError(

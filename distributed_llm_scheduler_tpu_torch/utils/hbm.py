@@ -39,8 +39,11 @@ def _nbytes(x: Any) -> int:
     return sum(t.numel() * t.element_size() for t in _leaves(x))
 
 
-def _meta(x: torch.Tensor) -> torch.Tensor:
-    return torch.empty(x.shape, dtype=x.dtype, device="meta")
+def _meta(x: Any) -> Any:
+    """``x`` (a tensor or a dict/list/tuple nest of them) on meta."""
+    if isinstance(x, torch.Tensor):
+        return torch.empty(x.shape, dtype=x.dtype, device="meta")
+    return _zeros(x, torch.device("meta"))
 
 
 def _zeros(spec: Any, device: torch.device) -> Any:
@@ -77,12 +80,15 @@ def _measure_on_card(fn, pd, args, device) -> int:
 def preflight_task_memory(
     graph: TaskGraph,
     params: Dict[str, torch.Tensor],
-    graph_input: torch.Tensor,
+    graph_input: Any,
 ) -> Dict[str, float]:
     """Set each task's ``out_bytes`` from its output shapes, and on a card
     raise its ``memory_required`` to what one run of it takes there.
 
-    Runs on ``graph_input``'s device.  On CUDA, each distinct (fn, input
+    Runs on the device of ``graph_input`` (a tensor, or a dict of them
+    such as the training DAG's ``{"ids", "targets"}``).  A training task's
+    footprint includes the activations its backward saves: it
+    differentiates inside the call.  On CUDA, each distinct (fn, input
     shapes and dtypes) runs once on the card, on the real params and
     zero-filled activations of the right shapes (the graph input itself
     for a root task), after ``torch.cuda.reset_peak_memory_stats``; its
@@ -97,7 +103,7 @@ def preflight_task_memory(
     """
     if all(t.fn is None for t in graph):
         return {}
-    device = graph_input.device
+    device = _leaves(graph_input)[0].device
     on_card = device.type == "cuda"
     out_specs: Dict[str, Any] = {}
     footprint_gb: Dict[str, float] = {}

@@ -710,17 +710,29 @@ def test_norm_kernel_variants(cuda, case):
 
 @pytest.mark.cuda
 def test_norm_kernels_refuse_grad(cuda):
+    """A norm call that needs a gradient launches the kernel for its
+    forward (no plain forward on a card) and differentiates through the
+    recompute: its grads equal autograd of the plain version; a call with
+    no grad launches the same kernel and keeps no graph."""
+    torch.manual_seed(0)
     x = torch.randn(4, 768, device=cuda, requires_grad=True)
-    g, b = torch.ones(768, device=cuda), torch.zeros(768, device=cuda)
-    before = kernels.launches[N.LN_KERNEL]
-    with pytest.raises(RuntimeError, match="no backward"):
-        N.layer_norm(x, g, b)
-    with pytest.raises(RuntimeError, match="no backward"):
-        N.rms_norm(x.detach(), g.clone().requires_grad_())
-    assert kernels.launches[N.LN_KERNEL] == before
-    with torch.no_grad():
-        out = N.layer_norm(x, g, b)
-    assert out.grad_fn is None and kernels.launches[N.LN_KERNEL] == before + 1
+    g = (1 + 0.1 * torch.randn(768, device=cuda)).requires_grad_()
+    b = (0.1 * torch.randn(768, device=cuda)).requires_grad_()
+    dy = torch.randn(4, 768, device=cuda)
+    for name, fn, plain, ws in (
+            (N.LN_KERNEL, N.layer_norm, N.reference_layer_norm, (g, b)),
+            (N.RMS_KERNEL, N.rms_norm, N.reference_rms_norm, (g,))):
+        before = kernels.launches[name]
+        out = fn(x, *ws)
+        assert kernels.launches[name] == before + 1 and out.grad_fn is not None
+        got = torch.autograd.grad(out, (x, *ws), dy)
+        want = torch.autograd.grad(plain(x, *ws), (x, *ws), dy)
+        assert kernels.launches[name] == before + 1  # the backward recomputes
+        for a, w in zip(got, want):
+            torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-4)
+        with torch.no_grad():
+            out = fn(x, *ws)
+        assert out.grad_fn is None and kernels.launches[name] == before + 2
 
 
 # -- the flash path's backward ----------------------------------------------------
@@ -1510,3 +1522,108 @@ def test_searched_placements_run_on_the_card(cuda, policy, kw):
 
     assert oracle_close(dag.reference_forward(params, ids), planned,
                         "bfloat16")
+
+
+# -- the training step and the Mixtral DAG (BASELINE.json configs #5, #4) ----------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_norm_backward_on_the_card_equals_autograd_of_the_plain_version(cuda, dtype):
+    """Both norms at a training shape: the kernel's forward, the backward
+    by recompute; gradients equal autograd of the plain version (the same
+    recompute, so bit for bit in f32 and bf16)."""
+    torch.manual_seed(1)
+    x = torch.randn(2, 64, 768, device=cuda, dtype=dtype, requires_grad=True)
+    g = (1 + 0.1 * torch.randn(768, device=cuda, dtype=dtype)).requires_grad_()
+    b = (0.1 * torch.randn(768, device=cuda, dtype=dtype)).requires_grad_()
+    dy = torch.randn_like(x)
+    for name, fn, plain, ws in (
+            (N.LN_KERNEL, N.layer_norm, N.reference_layer_norm, (g, b)),
+            (N.RMS_KERNEL, N.rms_norm, N.reference_rms_norm, (g,))):
+        before = kernels.launches[name]
+        got = torch.autograd.grad(fn(x, *ws), (x, *ws), dy)
+        want = torch.autograd.grad(plain(x, *ws), (x, *ws), dy)
+        assert kernels.launches[name] == before + 1
+        for a, w in zip(got, want):
+            assert a.dtype == w.dtype and torch.equal(a, w)
+
+
+def _train_step_pair(cuda):
+    import distributed_llm_scheduler_tpu_torch as P
+
+    dag = P.build_gpt2_train_dag(P.GPT2Config.tiny(), batch=2, seq_len=16, lr=1e-2)
+    params = dag.init_params(seed=0, device=cuda)
+    inputs = dag.make_inputs(device=cuda)
+    return P, dag, params, inputs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{}, dict(segments=True), dict(compiled=True)],
+                         ids=["planned", "segments", "compiled"])
+def test_train_dag_on_two_nodes_of_the_card(cuda, kw):
+    """The tiny training step placed by mru on 2 nodes of the card, on the
+    planned rung and the captured ones (autograd inside the captured
+    tasks): within the JAX test's tolerances of the fused oracle step, 2
+    flash and 4 LayerNorm launches per layer and 1 more per step (a
+    captured rung: at its warm-up and capture, and its graphs' replays
+    counted at each replay).  A segment of tasks that launch nothing
+    (``batch``, ``step_out``) captures an empty graph."""
+    P, dag, params, inputs = _train_step_pair(cuda)
+    want = dag.reference_forward(params, inputs)
+    # each node at 0.55x the step's footprint on one node (the train bench's
+    # pressure), so the step must spread
+    one = P.Cluster.from_torch_devices([cuda])
+    s1 = P.get_scheduler("greedy").schedule(dag.graph, one)
+    step = max(P.validate_schedule(dag.graph, one, s1).peak_no_evict_gb.values())
+    cluster = P.Cluster.from_torch_devices([cuda] * 2, hbm_cap_gb=0.55 * step)
+    s = P.get_scheduler("mru").schedule(dag.graph, cluster)
+    assert not s.failed and len({n for n in s.placement.values()}) == 2
+    L = dag.config.n_layer
+    per_step = {A.KERNEL: 2 * L, N.LN_KERNEL: 4 * L + 1}
+    kernels.reset_launches()
+    rep = P.DeviceBackend(cluster).execute(dag.graph, s, params, inputs, **kw)
+    torch.cuda.synchronize()
+    assert rep.transfer_edges > 0
+    got = {k: kernels.launches[k] for k in per_step}
+    assert got == {k: 2 * n for k, n in per_step.items()}  # warm-up + run
+    if kw:  # captured: the warm-up run and the run replay the graphs
+        assert {k: kernels.replayed[k] for k in per_step} == {
+            k: 2 * n for k, n in per_step.items()}
+    torch.testing.assert_close(rep.output["loss"], want["loss"],
+                               rtol=1e-5, atol=0)
+    for k, w in want["params"].items():
+        torch.testing.assert_close(rep.output["params"][k], w,
+                                   rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_routed_mixtral_dag_on_the_card(cuda):
+    """The tiny routed Mixtral DAG (bf16, 2 microbatches, drops) placed by
+    mru on 4 nodes of the card, planned and compiled: 1 flash and 2
+    RMSNorm launches per layer and microbatch plus the final norms,
+    outputs equal to the per-microbatch routed oracle under the bf16
+    rule."""
+    import distributed_llm_scheduler_tpu_torch as P
+
+    cfg = P.MixtralConfig.tiny(dtype=torch.bfloat16)
+    dag = P.build_moe_dag(cfg, batch=4, seq_len=16, microbatches=2, routed=True,
+                          capacity_factor=0.75)
+    params = dag.init_params(seed=0, device=cuda)
+    ids = dag.make_inputs(seed=1, device=cuda)
+    want = dag.reference_forward(params, ids).float()
+    total = dag.graph.total_param_gb()
+    cluster = P.Cluster.from_torch_devices([cuda] * 4, hbm_cap_gb=total * 0.45)
+    s = P.get_scheduler("mru").schedule(dag.graph, cluster)
+    assert not s.failed
+    L, mb = cfg.n_layers, 2
+    per_forward = {A.KERNEL: L * mb, N.RMS_KERNEL: (2 * L + 1) * mb}
+    for kw in ({}, dict(compiled=True)):
+        kernels.reset_launches()
+        rep = P.DeviceBackend(cluster).execute(dag.graph, s, params, ids, **kw)
+        torch.cuda.synchronize()
+        assert {k: kernels.launches[k] for k in per_forward} == {
+            k: 2 * n for k, n in per_forward.items()}, kw
+        got = rep.output.float()
+        assert torch.isfinite(got).all()
+        diff = (got - want).abs()
+        assert int((diff > 5e-2 + 5e-2 * want.abs()).sum()) <= 1, kw

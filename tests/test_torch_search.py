@@ -135,7 +135,7 @@ def test_registry_and_knobs():
 
 
 def test_native_engine_is_refused(monkeypatch):
-    with pytest.raises(NotImplementedError, match="next slice"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A\.8\)$"):
         P.get_scheduler("native:heft")
     monkeypatch.setenv("DLS_NATIVE", "1")
     with pytest.raises(NotImplementedError, match="DLS_NATIVE"):
