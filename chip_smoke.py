@@ -221,6 +221,32 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     compiled, each against the fused forward under phase 10's rule, the
     tokens whose top-2 experts differ from the fused path's counted (0),
     4 flash and 9 RMSNorm launches per forward (``MOE_LINE``).
+19. decoding.  a. Llama-3 8B bf16 at full width and depth, weights drawn
+    on the card: the decode bench's ``measure_decode`` at the JAX bench's
+    defaults (batch 8, prompt 512, 64 new tokens), with 65 RMSNorm
+    launches per forward_cached call (all on the register kernel, none on
+    copies, no flash launch), tok/s, ms per step and the roofline's
+    ``bound_utilization``; then a generation whose step logits at 8 of
+    the generated positions are held against the fused forward over the
+    sequence so far (the JAX package's ``oracle_close``): in f32 on the
+    same weights, which must hold, and in bf16, reported (a randomly drawn
+    Llama-3 8B carries a rounding difference between the two orders of
+    the math to percents over its 32 layers).  b. The same with the
+    int8 KV cache: its bytes at most 0.75 of the bf16 cache's, tok/s and
+    token agreement with a.  c. ``measure_decode_dag`` under ``heft`` on
+    one node (34-task step: per task, segmented, host-driven and looped
+    legs, ``oracle_ok``, two graph classes); one step under ``heft`` on
+    8 nodes of the card, bit-equal to one node's; the segmented and
+    compiled rungs captured at step 1 and replayed at step 3, after the
+    cache slabs were updated in place, bit-equal to the per-task step.
+    d. Mixtral-8x7B widths at 4 layers, bf16, batch 2: ``generate`` and
+    the decode DAG give equal greedy tokens.  e. GPT-2 small bf16 through
+    the bench's other legs at their defaults: ``measure_decode`` with its
+    int8-weight and int8-cache legs, ``decode_attribution``,
+    ``measure_paged_decode`` and ``measure_paged_kernel`` (GPT-2 tiny f32:
+    tokens exact, parity, 0 pages leaked).  Then both norm kernels at the
+    decode paths' shapes, checked and timed as phase 5 times them
+    (``DECODE_LINE``).
 
 The last lines are one JSON object of per-kernel numbers (``launches`` is
 the count of the kernel's main path, ``launches_by_path`` each counted
@@ -875,6 +901,56 @@ def log_norm_time(name: str, t: dict) -> None:
         f"{t['bytes'] / 1e6:.4f} MB, {t['flops'] / 1e6:.3f} MFLOP)")
 
 
+def check_norm_case(torch, N, dev, rng, kind, shape, dname, offset, pad,
+                    variant) -> tuple:
+    """One norm kernel against its plain version on one case (see
+    ``NORM_CASES``); the case must also take ``variant``.  Returns (the
+    kernel's args, max_abs_err against the plain version)."""
+    from distributed_llm_scheduler_tpu_torch.ops import kernels
+
+    kernel, plain, _ = norm_fns(torch, N)
+    cpu = torch.device("cpu")
+    x, g, b = norm_inputs(torch, rng, dev, shape, dname, offset, pad)
+    args = (x, g, b) if kind == "ln" else (x, g)
+    name = N.LN_KERNEL if kind == "ln" else N.RMS_KERNEL
+    before = {v: kernels.launches[f"{name}.{v}"]
+              for v in (N.REGISTER, N.STREAMING)}
+    got = kernel[kind](*args)
+    torch.cuda.synchronize()
+    ran = [v for v, n in before.items()
+           if kernels.launches[f"{name}.{v}"] == n + 1]
+    plan = norm_plan_of(N, args)
+    # offset rows: the plain version on the card takes the mean as
+    # sum * (1/D), one rounding off these rows' exact mean (an ulp of
+    # 1e4 is ~1e-3); on the CPU it divides, exactly, as the kernel does
+    where = cpu if offset else dev
+    want = plain[kind](*(t.to(where) for t in args)).to(dev)
+    want32 = plain[kind](*(t.to(where).float() for t in args)).to(dev)
+    err = (got.float() - want.float()).abs().max().item()
+    diff32 = (got.float() - want32).abs()
+    if dname == "bfloat16":
+        out32 = int((diff32 > BF16_ROUNDOFF * want32.abs() + F32_SLACK).sum())
+        rule32 = f"{out32} elements beyond 2^-8*|x|+{F32_SLACK:g}"
+    else:
+        out32 = 0 if diff32.max().item() < KERNEL_TOL[dname] else 1
+        rule32 = f"tol {KERNEL_TOL[dname]:g}"
+    finite = bool(torch.isfinite(got).all())
+    ok = (finite and err < KERNEL_TOL[dname] and out32 == 0
+          and got.shape == x.shape and got.dtype == x.dtype
+          and ran == [variant])
+    shape_ = (f" {plan.threads_per_row}x{plan.vecs_per_thread}"
+              if plan.vecs_per_thread else "")
+    log(f"  {name} {shape} {dname}{' offset 1e4' if offset else ''}"
+        f"{f' strided (pad {pad})' if pad else ''}: {'/'.join(ran)}"
+        f"{shape_} (expected {variant}), max_abs_err {err:.3e} "
+        f"vs plain{' (CPU)' if offset else ''} (tol {KERNEL_TOL[dname]:g}), "
+        f"{diff32.max().item():.3e} vs plain in f32 ({rule32}) -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name} disagrees at {shape} {dname}")
+    return args, err
+
+
 def check_norm_kernels(torch, N, dev) -> dict:
     """Both norm kernels against their plain versions on NORM_CASES: the
     main paths' shapes, then f32, 77 rows, D = 100 and 128, strided rows,
@@ -885,51 +961,11 @@ def check_norm_kernels(torch, N, dev) -> dict:
     ``at_serve_shape``)."""
     import numpy as np
 
-    from distributed_llm_scheduler_tpu_torch.ops import kernels
-
-    kernel, plain, _ = norm_fns(torch, N)
-    cpu = torch.device("cpu")
     rng = np.random.default_rng(3)
     timed_args = {}
     for kind, shape, dname, offset, pad, variant in NORM_CASES:
-        x, g, b = norm_inputs(torch, rng, dev, shape, dname, offset, pad)
-        args = (x, g, b) if kind == "ln" else (x, g)
-        name = N.LN_KERNEL if kind == "ln" else N.RMS_KERNEL
-        before = {v: kernels.launches[f"{name}.{v}"]
-                  for v in (N.REGISTER, N.STREAMING)}
-        got = kernel[kind](*args)
-        torch.cuda.synchronize()
-        ran = [v for v, n in before.items()
-               if kernels.launches[f"{name}.{v}"] == n + 1]
-        plan = norm_plan_of(N, args)
-        # offset rows: the plain version on the card takes the mean as
-        # sum * (1/D), one rounding off these rows' exact mean (an ulp of
-        # 1e4 is ~1e-3); on the CPU it divides, exactly, as the kernel does
-        where = cpu if offset else dev
-        want = plain[kind](*(t.to(where) for t in args)).to(dev)
-        want32 = plain[kind](*(t.to(where).float() for t in args)).to(dev)
-        err = (got.float() - want.float()).abs().max().item()
-        diff32 = (got.float() - want32).abs()
-        if dname == "bfloat16":
-            out32 = int((diff32 > BF16_ROUNDOFF * want32.abs() + F32_SLACK).sum())
-            rule32 = f"{out32} elements beyond 2^-8*|x|+{F32_SLACK:g}"
-        else:
-            out32 = 0 if diff32.max().item() < KERNEL_TOL[dname] else 1
-            rule32 = f"tol {KERNEL_TOL[dname]:g}"
-        finite = bool(torch.isfinite(got).all())
-        ok = (finite and err < KERNEL_TOL[dname] and out32 == 0
-              and got.shape == x.shape and got.dtype == x.dtype
-              and ran == [variant])
-        shape_ = (f" {plan.threads_per_row}x{plan.vecs_per_thread}"
-                  if plan.vecs_per_thread else "")
-        log(f"  {name} {shape} {dname}{' offset 1e4' if offset else ''}"
-            f"{f' strided (pad {pad})' if pad else ''}: {'/'.join(ran)}"
-            f"{shape_} (expected {variant}), max_abs_err {err:.3e} "
-            f"vs plain{' (CPU)' if offset else ''} (tol {KERNEL_TOL[dname]:g}), "
-            f"{diff32.max().item():.3e} vs plain in f32 ({rule32}) -> "
-            f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"{name} disagrees at {shape} {dname}")
+        args, err = check_norm_case(torch, N, dev, rng, kind, shape, dname,
+                                    offset, pad, variant)
         if (kind, shape) in NORM_TIMED and dname == "bfloat16":
             timed_args[(kind, shape)] = args, err
     out = {}
@@ -3851,6 +3887,522 @@ def run_baseline_configs(torch, P, A, N, dev) -> tuple:
     return train, train_n, moe, moe_n
 
 
+# decoding (phase 19).  a: Llama-3 8B at full width and depth, bf16,
+# through the decode bench's measure_decode at the JAX bench's defaults
+# (batch 8, prompt 512, 64 new tokens), its step logits held against the
+# fused forward at DECODE_CHECKS of the generated positions; b: the same
+# with the int8 KV cache; c: the decode-step DAG through the scheduler
+# (measure_decode_dag under heft on one node), one step under heft on 8
+# nodes of the card, and the captured rungs at the cache state of step 3;
+# d: Mixtral-8x7B widths at phase 18 b's 4-layer cut, generate against the
+# decode DAG; e: GPT-2 small bf16 through the bench's other legs at their
+# defaults (the paged legs' default is GPT-2 tiny f32)
+DECODE = dict(batch=8, prompt_len=512, new_tokens=64)
+DECODE_REPS = 3
+DECODE_CHECKS = 8
+# the bf16 step oracle's limit: the cached step's distance to the f32
+# fused forward over at most this many times the bf16 fused forward's.
+# On an H100 the 8 positions read 1.009-1.282 (1.282 the first step after
+# the prefill, whose attention rounds its scores to bf16 as the
+# reference's does); an f32 attention read 0.986-1.011
+DECODE_BF16_K = 1.5
+DECODE_RUNG_STEPS = 3
+MOE_DECODE = dict(batch=2, prompt_len=512, new_tokens=16)
+# the shapes the decode paths give the norm kernels that phase 5 does not
+# time: a Llama-3 8B decode step's and prefill's RMSNorm, the GPT-2 small
+# prefill's LayerNorm (its decode step's (8, 1, 768) is phase 5's)
+DECODE_NORMS = (("rms", (8, 1, 4096)), ("rms", (8, 512, 4096)),
+                ("ln", (8, 512, 768)))
+
+
+def decode_calls(reps: int, new_tokens: int, lossy: bool = False) -> int:
+    """forward_cached calls of one measure_decode: generate(1) and
+    generate(new_tokens), each warmed up once and run ``reps`` times (one
+    call per generated token), plus, for a lossy leg, the agreement's two
+    generations."""
+    return (reps + 1) * (1 + new_tokens) + (2 * new_tokens if lossy else 0)
+
+
+def decode_oracle(torch, llama, cfg, params, ids, new_tokens: int,
+                  f32=None) -> dict:
+    """Greedy generation through ``forward_cached``; at DECODE_CHECKS
+    evenly spaced generated positions, the cached step's last-position
+    logits against the fused ``forward`` over the sequence so far.  The
+    fused forward is causal, so the sequence-so-far logits are the rows of
+    one forward over every token the generation fed.
+
+    Without ``f32`` (an f32 run) each check is the JAX package's
+    ``oracle_close`` rule at the config's dtype.  With ``f32`` = (config,
+    params), the same weights in f32, each check of this bf16 run is
+    relative: the cached step's relative Frobenius distance to the f32
+    fused forward over the same sequence may be at most DECODE_BF16_K
+    times that of the bf16 fused forward.  A miss raises."""
+    from distributed_llm_scheduler_tpu_torch.eval.benchlib import (
+        oracle_close as bench_close,
+    )
+
+    dname = str(cfg.dtype).removeprefix("torch.")
+    B, T = ids.shape
+    at = sorted({round(i * (new_tokens - 1) / (DECODE_CHECKS - 1))
+                 for i in range(DECODE_CHECKS)})
+    cache = llama.init_cache(cfg, B, T + new_tokens, device=ids.device)
+    seq, got = [ids], {}
+    tok = None
+    for step in range(new_tokens):
+        pos = 0 if step == 0 else T + step - 1
+        x = ids if step == 0 else tok[:, None]
+        logits, cache = llama.forward_cached(params, x, cache, pos, cfg)
+        if step in at:
+            got[step] = logits[:, -1].clone()
+        tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+        if step < new_tokens - 1:
+            seq.append(tok[:, None])
+    del cache, logits
+    rows = [T - 1 + step for step in got]
+    seq = torch.cat(seq, dim=1)
+    fused = llama.forward(params, seq, cfg)[:, rows].clone()
+    ref = (None if f32 is None
+           else llama.forward(f32[1], seq, f32[0])[:, rows].clone())
+    checks = []
+    for j, (step, g) in enumerate(got.items()):
+        want = fused[:, j]
+        _, viol, allowed, rel = oracle_close(want, g)
+        c = dict(position=T + step,
+                 max_abs=(want.float() - g.float()).abs().max().item(),
+                 bf16_rule_violations=viol, allowed=allowed, rel_fro=rel)
+        if ref is None:
+            c["ok"] = bench_close(want, g, dname)
+        else:
+            c["rel_fro_cached_vs_f32"] = oracle_close(ref[:, j], g)[3]
+            c["rel_fro_fused_vs_f32"] = oracle_close(ref[:, j], want)[3]
+            c["ratio"] = c["rel_fro_cached_vs_f32"] / c["rel_fro_fused_vs_f32"]
+            c["ok"] = c["ratio"] <= DECODE_BF16_K
+        checks.append(c)
+    del fused, ref
+    out = dict(dtype=dname, positions=[c["position"] for c in checks],
+               ok=all(c["ok"] for c in checks),
+               worst_rel_fro=max(c["rel_fro"] for c in checks),
+               worst_max_abs=max(c["max_abs"] for c in checks),
+               checks=checks)
+    if f32 is None:
+        log(f"  {dname} oracle: {len(checks)} generated positions "
+            f"{out['positions']} against the fused forward over the sequence "
+            f"so far: {sum(c['ok'] for c in checks)} within the {dname} rule, "
+            f"worst rel_fro {out['worst_rel_fro']:.3e}, worst max abs "
+            f"{out['worst_max_abs']:.3e}")
+    else:
+        out["k"] = DECODE_BF16_K
+        out["worst_ratio"] = max(c["ratio"] for c in checks)
+        log(f"  {dname} oracle: {len(checks)} generated positions "
+            f"{out['positions']}, each against the f32 fused forward over the "
+            f"same sequence: the cached step at rel_fro "
+            f"{[round(c['rel_fro_cached_vs_f32'], 5) for c in checks]}, the "
+            f"{dname} fused forward at "
+            f"{[round(c['rel_fro_fused_vs_f32'], 5) for c in checks]}; "
+            f"ratios {[round(c['ratio'], 4) for c in checks]} (limit "
+            f"{DECODE_BF16_K}); cached against the {dname} fused forward: "
+            f"worst rel_fro {out['worst_rel_fro']:.3e}, worst max abs "
+            f"{out['worst_max_abs']:.3e}")
+    if not out["ok"]:
+        raise AssertionError(f"{dname} decode steps miss the fused forward: "
+                             f"{[c for c in checks if not c['ok']]}")
+    return out
+
+
+def log_decode(label: str, r: dict) -> None:
+    roof = (f", bound {r['step_bound_ms']:.3f} ms/step "
+            f"({r['bytes_per_step'] / 1e9:.3f} GB: params "
+            f"{r['param_bytes'] / 1e9:.3f}, cache {r['kv_cache_bytes'] / 1e9:.3f}"
+            f" at {r['hbm_gbps_assumed']:.0f} GB/s), bound_utilization "
+            f"{r['bound_utilization']:.4f}" if "step_bound_ms" in r else "")
+    log(f"  {label}: {r['decode_tok_s']:.1f} tok/s, "
+        f"{r['ms_per_token_step']:.4f} ms per token step, wall "
+        f"{r['wall_s']:.4f} s, prefill + one {r['prefill_plus_one_s']:.4f} s"
+        f"{roof}")
+
+
+def decode_step_rungs(torch, P, N, cfg, params, dev) -> dict:
+    """The Llama-3 8B decode-step DAG at the bench's batch and prompt: a
+    prefill on one node, then DECODE_RUNG_STEPS single-token steps per task
+    under ``heft`` on one node, each folded into the cache slabs in place.
+    At step 1 the same step runs per task under ``heft`` on 8 nodes of the
+    card (logits bit-equal to one node's) and on the segmented and compiled
+    rungs (each captured there); at step 3 those two replay, reading the
+    slabs where they were captured, and their logits must equal the per-
+    task step's: an update that made new tensors would leave them reading
+    the state of step 1."""
+    from distributed_llm_scheduler_tpu_torch.eval import decode_bench as DB
+    from distributed_llm_scheduler_tpu_torch.ops import kernels
+
+    B, T = DECODE["batch"], DECODE["prompt_len"]
+    max_len = T + DECODE_RUNG_STEPS + 1
+    per_fwd = 2 * cfg.n_layers + 1
+    one = P.Cluster.from_torch_devices([dev])
+    eight = P.Cluster.from_torch_devices([dev] * 8)
+    be1, be8 = P.DeviceBackend(one), P.DeviceBackend(eight)
+    pdag = P.build_decode_dag_any(cfg, batch=B, step_len=T, max_len=max_len)
+    ddag = P.build_decode_dag_any(cfg, batch=B, step_len=1, max_len=max_len)
+    heft = P.get_scheduler("heft")
+    s1, s8 = heft.schedule(ddag.graph, one), heft.schedule(ddag.graph, eight)
+    nodes8 = len(set(s8.placement.values()))
+    params_c = pdag.derive_params(params)
+    rep = be1.execute(pdag.graph, heft.schedule(pdag.graph, one), params_c,
+                      P.decode_inputs(DB.prompt_ids(cfg, B, T, dev), 0),
+                      keep_outputs=True, planned=False)
+    P.apply_cache_updates(params_c, rep.task_outputs, cfg, 0)
+    tok = torch.argmax(rep.output[:, -1, :], dim=-1).to(torch.int32)[:, None]
+    del rep
+    out = dict(nodes_heft_x8=nodes8)
+    rms = {N.RMS_KERNEL: per_fwd, f"{N.RMS_KERNEL}.register": per_fwd}
+    launches = {}
+
+    def programs():  # captured programs the backend holds for the step
+        return (sum(map(len, be1._seg_cache.values()))
+                + sum(map(len, be1._prog_cache.values())))
+
+    for step in range(1, DECODE_RUNG_STEPS + 1):
+        pos = T + step - 1
+        inp = P.decode_inputs(tok, pos, max_len=max_len)
+        pt, _ = counted(f"decode step {step} per task (heft x1)", rms,
+                        lambda: be1.execute(ddag.graph, s1, params_c, inp,
+                                            keep_outputs=True, planned=False,
+                                            warmup=False))
+        if step == 1:
+            x8, launches["decode step heft x8"] = counted(
+                "decode step per task (heft x8)", rms,
+                lambda: be8.execute(ddag.graph, s8, params_c, inp,
+                                    planned=False, warmup=False))
+            out["heft_x8_bit_equal"] = bool(torch.equal(x8.output, pt.output))
+            out["heft_x8_ms"] = x8.makespan_s * 1e3
+            if not out["heft_x8_bit_equal"]:
+                d = (x8.output.float() - pt.output.float()).abs().max().item()
+                raise AssertionError(
+                    f"decode step on {nodes8} nodes differs from one node's "
+                    f"(max abs {d:.3e})")
+            del x8
+        if step in (1, DECODE_RUNG_STEPS):
+            for rung in ("segments", "compiled"):
+                kernels.reset_launches()
+                # captured at step 1 (its warm-up), replayed once after
+                got = be1.execute(ddag.graph, s1, params_c, inp,
+                                  warmup=step == 1,
+                                  **{rung: True}).output.clone()
+                no_routes(f"decode step {step} {rung}")
+                replayed = kernels.replayed.get(N.RMS_KERNEL, 0)
+                if step == 1:
+                    captured = programs()
+                else:
+                    eager = kernels.launches.get(N.RMS_KERNEL, 0)
+                    launches[f"decode step {rung} replay"] = {
+                        N.RMS_KERNEL: replayed}
+                    # a replay of the step-1 capture: nothing launched
+                    # eagerly and no new program, which a params dict
+                    # holding new slab tensors would have made
+                    if replayed != per_fwd or eager or programs() != captured:
+                        raise AssertionError(
+                            f"{rung} at step {step}: replayed {replayed} "
+                            f"RMSNorm (want {per_fwd}), launched {eager} "
+                            f"eagerly (want 0), holds {programs()} captured "
+                            f"programs (want {captured})")
+                    equal = bool(torch.equal(got, pt.output))
+                    d = (got.float() - pt.output.float()).abs().max().item()
+                    out[f"{rung}_bit_equal_at_step_{step}"] = equal
+                    log(f"  decode step {step}, {rung} rung (captured at step "
+                        f"1, slabs updated in place since): replay launched "
+                        f"{replayed} RMSNorm, 0 eagerly, {captured} captured "
+                        f"programs before and after; logits "
+                        f"{'bit-equal to' if equal else 'DIFFER from'} the per-"
+                        f"task step's (max abs {d:.3e})")
+                    if not equal:
+                        raise AssertionError(
+                            f"{rung} rung read stale cache slabs at step {step}")
+        P.apply_cache_updates(params_c, pt.task_outputs, cfg, pos)
+        tok = torch.argmax(pt.output[:, -1, :], dim=-1).to(torch.int32)[:, None]
+        del pt
+    log(f"  heft x8: the step on {nodes8} nodes of the card, logits bit-equal "
+        f"to one node's ({out['heft_x8_ms']:.3f} ms)")
+    # what the layer tasks' out-of-place slab copies (the step's rows
+    # written into a copy of each K and V slab) cost per step
+    from distributed_llm_scheduler_tpu_torch.frontend.decode_dag import (
+        _with_step_rows,
+    )
+
+    H, hd = cfg.n_kv_heads, cfg.head_dim
+    new = torch.zeros((B, H, 1, hd), dtype=cfg.dtype, device=dev)
+    pos_t = torch.full((), T + DECODE_RUNG_STEPS, dtype=torch.int32, device=dev)
+    slabs = [(params_c[f"cache_{kind}_{i}"], new, pos_t)
+             for i in range(cfg.n_layers) for kind in ("k", "v")]
+    out["slab_copy_ms"] = graph_ms(torch, _with_step_rows, slabs) * len(slabs)
+    out["slab_copy_bound_ms"] = (2 * sum(s.nbytes for s, _, _ in slabs)
+                                 / PEAK_BYTES_PER_S * 1e3)
+    log(f"  the layer tasks' slab copies: {len(slabs)} per step, "
+        f"{out['slab_copy_ms']:.4f} ms (bound {out['slab_copy_bound_ms']:.4f} "
+        f"ms: each slab read and its copy written once)")
+    del params_c, slabs
+    return out, launches
+
+
+def moe_decode(torch, P, N, dev) -> tuple:
+    """Mixtral-8x7B widths at phase 18 b's depth cut, bf16: ``generate``
+    against the backbone decode DAG (prefill, then single-token steps under
+    ``heft`` on one node, folded in place); greedy tokens must be equal."""
+    from distributed_llm_scheduler_tpu_torch.eval import decode_bench as DB
+    from distributed_llm_scheduler_tpu_torch.models import mixtral
+
+    cfg = P.MixtralConfig.mixtral_8x7b(n_layers=MOE_LAYERS, dtype=torch.bfloat16)
+    B, T, new = (MOE_DECODE[k] for k in ("batch", "prompt_len", "new_tokens"))
+    params = mixtral.init_params_torch(cfg, seed=0, device=dev)
+    ids = DB.prompt_ids(cfg, B, T, dev)
+    per_fwd = 2 * cfg.n_layers + 1
+    rms = {N.RMS_KERNEL: per_fwd * new, f"{N.RMS_KERNEL}.register": per_fwd * new}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want, n_gen = counted("mixtral generate", rms, lambda: mixtral.generate(
+        params, ids, cfg, max_new_tokens=new))
+    want = want[:, T:].cpu()
+    gen_s = time.perf_counter() - t0
+    one = P.Cluster.from_torch_devices([dev])
+    be = P.DeviceBackend(one)
+    heft = P.get_scheduler("heft")
+    max_len = T + new
+    pdag = P.build_decode_dag_any(cfg, batch=B, step_len=T, max_len=max_len)
+    ddag = P.build_decode_dag_any(cfg, batch=B, step_len=1, max_len=max_len)
+    ps, ds = heft.schedule(pdag.graph, one), heft.schedule(ddag.graph, one)
+    params_c = pdag.derive_params(params)
+
+    def dag_generate():
+        rep = be.execute(pdag.graph, ps, params_c, P.decode_inputs(ids, 0),
+                         keep_outputs=True, warmup=False)
+        P.apply_cache_updates(params_c, rep.task_outputs, cfg, 0)
+        tok = torch.argmax(rep.output[:, -1, :], dim=-1).to(torch.int32)
+        toks = [tok]
+        for s in range(1, new):
+            pos = T + s - 1
+            rep = be.execute(ddag.graph, ds, params_c,
+                             P.decode_inputs(tok[:, None], pos, max_len=max_len),
+                             keep_outputs=True, warmup=False)
+            P.apply_cache_updates(params_c, rep.task_outputs, cfg, pos)
+            tok = torch.argmax(rep.output[:, -1, :], dim=-1).to(torch.int32)
+            toks.append(tok)
+        return torch.stack(toks, dim=1).cpu()
+
+    t0 = time.perf_counter()
+    got, n_dag = counted("mixtral decode DAG", rms, dag_generate)
+    dag_s = time.perf_counter() - t0
+    equal = bool(torch.equal(got, want))
+    log(f"  Mixtral {cfg.n_layers} layers bf16, batch {B}, prompt {T}, {new} "
+        f"new tokens: generate {gen_s:.3f} s, decode DAG ({len(ddag.graph)} "
+        f"tasks per step, heft x1) {dag_s:.3f} s; greedy tokens "
+        f"{'equal' if equal else 'DIFFER'}")
+    if not equal:
+        raise AssertionError(f"Mixtral decode DAG tokens {got.tolist()} != "
+                             f"generate's {want.tolist()}")
+    del params, params_c
+    return (dict(n_layers=cfg.n_layers, batch=B, prompt_len=T, new_tokens=new,
+                 generate_s=gen_s, dag_s=dag_s, n_tasks_step=len(ddag.graph),
+                 tokens_equal=equal),
+            {"mixtral generate": n_gen, "mixtral decode DAG": n_dag})
+
+
+def gpt2_decode_legs(torch, P, A, N, dev) -> tuple:
+    """Phase 19 e: the decode bench's GPT-2 legs at their defaults."""
+    from distributed_llm_scheduler_tpu_torch.eval import decode_bench as DB
+    from distributed_llm_scheduler_tpu_torch.ops import kernels
+
+    cfg = P.GPT2Config.small(dtype=torch.bfloat16)
+    per_fwd = 2 * cfg.n_layer + 1  # ln1 and ln2 per layer, ln_f
+    calls = decode_calls(DECODE_REPS, DECODE["new_tokens"])
+    ln = {N.LN_KERNEL: per_fwd * calls, f"{N.LN_KERNEL}.register": per_fwd * calls}
+    out, launches = {}, {}
+    out["decode"], launches["gpt2 decode"] = counted(
+        "gpt2 decode", ln, lambda: DB.measure_decode(cfg, reps=DECODE_REPS,
+                                                     device=dev, **DECODE))
+    log_decode("GPT-2 small bf16 generate", out["decode"])
+    for label, kw in (("int8", dict(quantize=True, kv_int8=True)),
+                      ("kv_int8", dict(kv_int8=True))):
+        calls_q = decode_calls(DECODE_REPS, DECODE["new_tokens"], lossy=True)
+        # the int8-weight leg also runs two fused forwards (its flip rate)
+        n_ln = per_fwd * (calls_q + (2 if label == "int8" else 0))
+        r, launches[f"gpt2 decode {label}"] = counted(
+            f"gpt2 decode {label}",
+            {N.LN_KERNEL: n_ln, f"{N.LN_KERNEL}.register": n_ln},
+            lambda: DB.measure_decode(cfg, reps=DECODE_REPS, device=dev,
+                                      **DECODE, **kw))
+        out[label] = r
+        log_decode(f"GPT-2 small {label}", r)
+        log(f"    token agreement {r['token_agreement']}, first token "
+            f"{r['first_token_agreement']}"
+            + (f", argmax flip rate {r['argmax_flip_rate']}, logit rmse "
+               f"{r['logit_rmse']}" if "argmax_flip_rate" in r else ""))
+    out["attribution"] = DB.decode_attribution(cfg, device=dev)
+    a = out["attribution"]
+    log(f"  attribution: step {a['step_ms']} ms (bound "
+        f"{a.get('step_bound_ms')}), forward in place "
+        f"{a['forward_donated_ms']} ms, on a cloned cache "
+        f"{a['forward_undonated_ms']} ms, head {a['head_ms']} ms (bound "
+        f"{a['head_bound_ms']}), attention {a['attn_ms']} ms (bound "
+        f"{a['attn_bound_ms']}), argmax {a['sample_ms']} ms, loop overhead "
+        f"{a['loop_overhead_ms']} ms")
+    kernels.reset_launches()
+    p = DB.measure_paged_decode(device=dev)
+    n_paged = kernels.launches[A.PAGED_KERNEL]
+    launches["paged decode"] = {A.PAGED_KERNEL: n_paged}
+    log(f"  paged decode (GPT-2 tiny f32): paged {p['paged_tok_s']:.1f} tok/s "
+        f"against dense {p['dense_tok_s']:.1f} ({p['speedup']}x), tokens "
+        f"exact {p['tokens_exact']}, {p['pages_leaked']} pages leaked, "
+        f"{n_paged} paged-kernel launches")
+    if not p["tokens_exact"] or p["pages_leaked"] or not n_paged:
+        raise AssertionError("paged decode leg failed")
+    out["paged"] = {k: v for k, v in p.items()
+                    if k not in ("metrics", "requests", "slo")}
+    kernels.reset_launches()
+    k = DB.measure_paged_kernel(device=dev)
+    leg = {A.PAGED_KERNEL: kernels.launches[A.PAGED_KERNEL],
+           A.PAGED_RAGGED_KERNEL: kernels.launches[A.PAGED_RAGGED_KERNEL]}
+    launches["paged kernel leg"] = leg
+    failures = DB.kernel_gate_failures(k)
+    log(f"  paged kernel leg (GPT-2 tiny f32): kernel {k['kernel_tok_s']:.1f} "
+        f"tok/s against the plain gather {k['gather_tok_s']:.1f} "
+        f"({k.get('kernel_vs_gather_speedup')}x), tokens exact "
+        f"{k['tokens_exact']}, parity {k['parity_ok']}, ragged parity "
+        f"{k['ragged_parity_ok']}, leaked {k['pages_leaked_gather']} / "
+        f"{k['pages_leaked_kernel']}; {leg[A.PAGED_KERNEL]} paged and "
+        f"{leg[A.PAGED_RAGGED_KERNEL]} ragged launches")
+    if failures or not leg[A.PAGED_KERNEL]:
+        raise AssertionError(f"paged kernel leg failed: {failures}")
+    out["paged_kernel"] = k
+    return out, launches
+
+
+def run_decode_path(torch, P, A, N, dev) -> tuple:
+    """Phase 19: a-e, then the norm kernels at the decode paths' shapes.
+    Returns (DECODE_LINE's dict, {run: launches}, the norm timings)."""
+    import numpy as np
+
+    from distributed_llm_scheduler_tpu_torch.eval import decode_bench as DB
+    from distributed_llm_scheduler_tpu_torch.models import decode, llama
+
+    line, launches = {"card": nvidia_smi_line()}, {}
+    cfg = P.LlamaConfig.llama3_8b(dtype=torch.bfloat16)
+    per_fwd = 2 * cfg.n_layers + 1
+    t0 = time.perf_counter()
+    params = llama.init_params_torch(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    log(f"  a. Llama-3 8B bf16, weights drawn on the card from torch seed 0 "
+        f"({time.perf_counter() - t0:.1f} s); batch {DECODE['batch']}, prompt "
+        f"{DECODE['prompt_len']}, {DECODE['new_tokens']} new tokens, "
+        f"{per_fwd} RMSNorm per forward")
+
+    def rms(n):
+        return {N.RMS_KERNEL: per_fwd * n, f"{N.RMS_KERNEL}.register": per_fwd * n,
+                A.KERNEL: 0}
+
+    calls = decode_calls(DECODE_REPS, DECODE["new_tokens"])
+    a, launches["llama decode"] = counted(
+        "llama decode", rms(calls), lambda: DB.measure_decode(
+            cfg, reps=DECODE_REPS, device=dev, params=params, **DECODE))
+    log_decode("Llama-3 8B generate", a)
+    log(f"    {per_fwd} RMSNorm per step, all on the register kernel; no "
+        f"call on copies")
+    ids = DB.prompt_ids(cfg, DECODE["batch"], DECODE["prompt_len"], dev)
+    # in bf16 a randomly drawn Llama-3 8B carries any rounding difference
+    # between two orders of the same math (the cached step against the
+    # flash forward) to percents over its 32 layers, so the bf16 steps are
+    # held against the same weights in f32: no further from the f32 fused
+    # forward than DECODE_BF16_K times the bf16 fused forward; the f32
+    # steps meet the f32 fused forward under the JAX package's rule
+    cfg32 = P.LlamaConfig.llama3_8b(dtype=torch.float32)
+    params32 = llama.init_params_torch(cfg32, seed=0, device=dev)
+    a["oracle_bf16"] = decode_oracle(torch, llama, cfg, params, ids,
+                                     DECODE["new_tokens"], f32=(cfg32, params32))
+    a["oracle"] = decode_oracle(torch, llama, cfg32, params32, ids,
+                                DECODE["new_tokens"])
+    del params32
+    gc_cuda(torch)
+    line["llama"] = a
+
+    log("  b. Llama-3 8B with the int8 KV cache")
+    calls_b = decode_calls(DECODE_REPS, DECODE["new_tokens"], lossy=True)
+    b, launches["llama decode kv_int8"] = counted(
+        "llama decode kv_int8", rms(calls_b), lambda: DB.measure_decode(
+            cfg, reps=DECODE_REPS, device=dev, params=params, kv_int8=True,
+            **DECODE))
+    M = DECODE["prompt_len"] + DECODE["new_tokens"]
+    dense = llama.init_cache(cfg, DECODE["batch"], M, device=dev)
+    q8 = decode.quantize_cache(dense)
+    b["cache_bytes"] = sum(v.nbytes for v in q8.values())
+    b["cache_bytes_ratio"] = b["cache_bytes"] / sum(v.nbytes for v in dense.values())
+    del dense, q8
+    log_decode("Llama-3 8B generate, int8 KV cache", b)
+    log(f"    cache {b['cache_bytes'] / 1e9:.4f} GB, {b['cache_bytes_ratio']:.4f}"
+        f" of the bf16 cache's; token agreement with leg a "
+        f"{b['token_agreement']}, first token {b['first_token_agreement']}")
+    if b["cache_bytes_ratio"] > 0.75:
+        raise AssertionError("the int8 cache is not under 0.75 of the bf16 one")
+    line["llama_kv_int8"] = b
+
+    log("  c. the Llama-3 8B decode-step DAG through the scheduler")
+    from distributed_llm_scheduler_tpu_torch.ops import kernels
+
+    kernels.reset_launches()
+    c = DB.measure_decode_dag(cfg, policy="heft", device=dev, params=params)
+    no_routes("llama decode DAG bench")
+    n_rms = kernels.launches[N.RMS_KERNEL]
+    launches["llama decode DAG bench"] = {N.RMS_KERNEL: n_rms}
+    if kernels.launches[f"{N.RMS_KERNEL}.register"] != n_rms or not n_rms:
+        raise AssertionError("decode DAG bench: RMSNorm off the register kernel")
+    lp = c["looped"]
+    log(f"  decode DAG ({c['n_tasks_decode_step']} tasks, heft x1): per task "
+        f"{c['step_ms_per_task']} ms/step, segmented {c['step_ms_segmented']} "
+        f"ms/step (bound utilization {c.get('segmented_bound_utilization')}), "
+        f"host-driven {c['tok_s_end_to_end']} tok/s (host round trip "
+        f"{c['host_rtt_ms']} ms), looped x{lp['steps_per_dispatch']} "
+        f"{lp['ms_per_token']} ms/token ({lp['tok_s']} tok/s, agreement with "
+        f"generate {lp['token_agreement_vs_whole_program']}), int8 weights "
+        f"{lp['int8_weights']['ms_per_token']} ms/token; oracle "
+        f"{c['oracle_ok']}, token agreement {c['token_agreement']}, "
+        f"{c['graph_classes_compiled']} graph classes; {n_rms} RMSNorm "
+        f"launches")
+    if not (c["oracle_ok"] and c["graph_classes_compiled"] == 2
+            and c["n_tasks_decode_step"] == cfg.n_layers + 2):
+        raise AssertionError(f"decode DAG bench failed: {c}")
+    c["rungs"], rung_n = decode_step_rungs(torch, P, N, cfg, params, dev)
+    launches.update(rung_n)
+    line["llama_dag"] = c
+    del params
+    gc_cuda(torch)
+
+    log("  d. Mixtral-8x7B widths, 4 layers: generate against the decode DAG")
+    line["mixtral"], moe_n = moe_decode(torch, P, N, dev)
+    launches.update(moe_n)
+    gc_cuda(torch)
+
+    log("  e. GPT-2 small bf16 through the bench's other legs")
+    line["gpt2"], gpt2_n = gpt2_decode_legs(torch, P, A, N, dev)
+    launches.update(gpt2_n)
+    gc_cuda(torch)
+
+    log("  norm kernels at the decode paths' shapes")
+    rng = np.random.default_rng(5)
+    norms = {}
+    for kind, shape in DECODE_NORMS:
+        name = N.LN_KERNEL if kind == "ln" else N.RMS_KERNEL
+        args, err = check_norm_case(torch, N, dev, rng, kind, shape,
+                                    "bfloat16", False, 0, N.REGISTER)
+        t = dict(max_abs_err=err, **time_norm(torch, N, kind, args, rng, dev))
+        log_norm_time(name, t)
+        norms.setdefault(name, []).append(t)
+    line["norms"] = norms
+    return line, launches, norms
+
+
+def gc_cuda(torch) -> None:
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def paged_timing(root: Path) -> int:
     """``python3 chip_smoke.py --paged-timing [ROOT]``: the single-token
     paged kernel of the package under ROOT (default: this checkout) alone,
@@ -4061,7 +4613,7 @@ def main() -> int:
     t_all = time.perf_counter()
     dev = torch.device("cuda", 0)
     smi = nvidia_smi_line()
-    log(f"[1/18] device: {torch.cuda.get_device_name(0)} ({smi}); torch "
+    log(f"[1/19] device: {torch.cuda.get_device_name(0)} ({smi}); torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4069,7 +4621,7 @@ def main() -> int:
 
     sources = (A.KERNEL, A.PAGED_SOURCE, N.SOURCE)
     secs = kernels.build(*sources)
-    log(f"[2/18] built {', '.join(f'{n}.cu' for n in sources)} with "
+    log(f"[2/19] built {', '.join(f'{n}.cu' for n in sources)} with "
         f"{kernels.nvcc_path()} for sm_90a in {secs:.1f} s (in parallel)")
     log_ptxas(kernels.build_logs.get(A.KERNEL, ""))
     log_ptxas(kernels.build_logs.get(A.PAGED_SOURCE, ""),
@@ -4081,60 +4633,60 @@ def main() -> int:
                     if "paged_ragged_tc" in k]
     norm_ptxas = log_norm_ptxas(kernels.build_logs.get(N.SOURCE, ""))
 
-    log("[3/18] flash kernel check against its plain version")
+    log("[3/19] flash kernel check against its plain version")
     attn = check_attention_kernel(
         torch, A, dev, P.LlamaConfig.llama3_8b(dtype=torch.bfloat16))
 
-    log("[4/18] paged kernel check against the plain versions")
+    log("[4/19] paged kernel check against the plain versions")
     paged = check_paged_kernels(torch, A, DB, dev)
     ragged_n = run_ragged_op_path(torch, A, DB, dev)
 
-    log("[5/18] LayerNorm and RMSNorm kernel check against the plain versions")
+    log("[5/19] LayerNorm and RMSNorm kernel check against the plain versions")
     norms = check_norm_kernels(torch, N, dev)
 
     def phase_done():  # free the phase's tensors before the next one
         gc.collect()
         torch.cuda.empty_cache()
 
-    log("[6/18] flagship forward path: GPT-2 small bf16 DAG on the card")
+    log("[6/19] flagship forward path: GPT-2 small bf16 DAG on the card")
     gpt2_n = run_main_path(torch, P, dev)
     phase_done()
 
-    log("[7/18] execution ladder: the flagship per task, planned, coalesced, "
+    log("[7/19] execution ladder: the flagship per task, planned, coalesced, "
         "segmented and compiled")
     ladder_n = run_ladder_path(torch, P, dev)
     phase_done()
 
-    log("[8/18] north-star bench: GPT-2 small bf16, 10 policies replayed")
+    log("[8/19] north-star bench: GPT-2 small bf16, 10 policies replayed")
     bench_n, bench_result = run_bench_path(torch, P, dev)
     phase_done()
 
-    log("[9/18] serve path: GPT-2 small bf16 through the paged decode engine")
+    log("[9/19] serve path: GPT-2 small bf16 through the paged decode engine")
     serve_launches, serve_ragged, serve_ln, serve_tr, served = run_serve_path(
         torch, P, A, dev)
     phase_done()
 
-    log("[10/18] Llama path: Llama-3 8B bf16 DAG, pipeline stages, on the card")
+    log("[10/19] Llama path: Llama-3 8B bf16 DAG, pipeline stages, on the card")
     llama_n = run_llama_path(torch, P, dev)
     phase_done()
 
-    log("[11/18] f32 leg: GPT-2 placed on the card vs fused on the CPU")
+    log("[11/19] f32 leg: GPT-2 placed on the card vs fused on the CPU")
     run_f32_leg(torch, P, dev)
 
-    log("[12/18] f32 serve leg: the engine on the card vs on the CPU")
+    log("[12/19] f32 serve leg: the engine on the card vs on the CPU")
     run_f32_serve_leg(torch, P, dev)
     phase_done()
 
-    log("[13/18] f32 Llama leg: placed on the card vs fused on the CPU")
+    log("[13/19] f32 Llama leg: placed on the card vs fused on the CPU")
     run_llama_f32_leg(torch, P, dev)
     phase_done()
 
-    log("[14/18] parameter streaming: GPT-2 medium and the flagship under "
+    log("[14/19] parameter streaming: GPT-2 medium and the flagship under "
         "budgets below their params")
     stream_n = run_stream_path(torch, P, dev)
     phase_done()
 
-    log("[15/18] online serving: the serve bench on the card, then the "
+    log("[15/19] online serving: the serve bench on the card, then the "
         "frontend over GPT-2 small bf16 on a real clock")
     t15 = time.perf_counter()
     bench_on_card = run_serve_bench_on_card(torch, dev)
@@ -4144,7 +4696,7 @@ def main() -> int:
     log(f"  phase 15 in {time.perf_counter() - t15:.1f} s")
     phase_done()
 
-    log("[16/18] run doctor: the flagship and the engine traced, the soak "
+    log("[16/19] run doctor: the flagship and the engine traced, the soak "
         "doctor and the health-routed fleet")
     t16 = time.perf_counter()
     doctor, doctor_n = run_doctor_path(torch, P, A, dev, served)
@@ -4155,7 +4707,7 @@ def main() -> int:
     del served
     phase_done()
 
-    log("[17/18] searched placements: the bench's refine and search "
+    log("[17/19] searched placements: the bench's refine and search "
         "placements on the card, the pre-execution gate and analyze()")
     t17 = time.perf_counter()
     searched, search_n = run_search_phase(torch, P, A, N, dev, bench_result)
@@ -4166,11 +4718,20 @@ def main() -> int:
     del bench_result
     phase_done()
 
-    log("[18/18] BASELINE.json configs #5 and #4: the GPT-2 training step "
+    log("[18/19] BASELINE.json configs #5 and #4: the GPT-2 training step "
         "and the Mixtral-8x7B MoE forward")
     t18 = time.perf_counter()
     train, train_n, moe, moe_n = run_baseline_configs(torch, P, A, N, dev)
     log(f"  phase 18 in {time.perf_counter() - t18:.1f} s")
+    phase_done()
+
+    log("[19/19] decoding: Llama-3 8B and Mixtral through generate and the "
+        "decode-step DAG, GPT-2 small through the decode bench")
+    t19 = time.perf_counter()
+    decoded, decode_n, decode_norms = run_decode_path(torch, P, A, N, dev)
+    decoded["seconds"] = time.perf_counter() - t19
+    print("DECODE_LINE " + json.dumps(decoded), flush=True)
+    log(f"  phase 19 in {decoded['seconds']:.1f} s")
     phase_done()
 
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
@@ -4185,7 +4746,7 @@ def main() -> int:
     tpu_norms = "distributed_llm_scheduler_tpu/ops/norms.py:"
     runs = (("gpt2", gpt2_n), ("ladder", ladder_n), ("bench", bench_n),
             ("llama", llama_n), ("stream", stream_n), ("run", doctor_n),
-            ("searched", search_n))
+            ("searched", search_n), ("decode", decode_n))
     line = {"kernels": [
         {"name": A.KERNEL, "route": "cuda", "source": csrc + "flash_attention.cu",
          "replaces": tpu + "152",
@@ -4203,13 +4764,16 @@ def main() -> int:
          "launches_by_path": {**serve_launches, **{
              k: n[A.PAGED_KERNEL] for k, n in online_n.items()}, **{
              k: n[A.PAGED_KERNEL] for k, n in doctor_n.items()
-             if A.PAGED_KERNEL in n}},
+             if A.PAGED_KERNEL in n}, **by_path(A.PAGED_KERNEL, (
+                 ("decode", decode_n),))},
          **paged[A.PAGED_KERNEL], "serve_trace": serve_tr},
         {"name": A.PAGED_RAGGED_KERNEL, "route": "cuda",
          "source": csrc + "paged_attention.cu", "replaces": tpu + "547",
          "launches": ragged_n[A.PAGED_RAGGED_KERNEL],
          "launches_by_path": {"ragged op path": ragged_n[A.PAGED_RAGGED_KERNEL],
-                              **serve_ragged},
+                              **serve_ragged,
+                              **by_path(A.PAGED_RAGGED_KERNEL,
+                                        (("decode", decode_n),))},
          "launches_by_variant": {k.split(".")[1]: v for k, v in ragged_n.items()
                                  if "." in k},
          "ptxas": ragged_ptxas, **paged[A.PAGED_RAGGED_KERNEL]},
@@ -4223,7 +4787,10 @@ def main() -> int:
          "train": {"launches_per_step": train["launches_per_step"][N.LN_KERNEL],
                    "launches_by_run": {k: n[N.LN_KERNEL] for k, n in train_n.items()},
                    "at_train_shape": train["kernels"]["layer_norm"],
-                   "norm_backward_share": train["trace"]["norm_backward_share"]}},
+                   "norm_backward_share": train["trace"]["norm_backward_share"]},
+         "decode": {"launches_per_forward": decode_n["gpt2 decode"][N.LN_KERNEL]
+                    // decode_calls(DECODE_REPS, DECODE["new_tokens"]),
+                    "at_decode_shapes": decode_norms.get(N.LN_KERNEL, [])}},
         {"name": N.RMS_KERNEL, "route": "cuda", "source": csrc + "norms.cu",
          "replaces": tpu_norms + "76",
          "launches": llama_n["pipeline x8"][N.RMS_KERNEL],
@@ -4231,7 +4798,10 @@ def main() -> int:
          **norms[N.RMS_KERNEL], "ptxas": norm_ptxas,
          "moe": {"launches_per_forward": moe["launches_per_forward"][N.RMS_KERNEL],
                  "launches_by_run": {k: n[N.RMS_KERNEL] for k, n in moe_n.items()},
-                 "at_moe_shape": moe["kernels"]["rms_norm"]}},
+                 "at_moe_shape": moe["kernels"]["rms_norm"]},
+         "decode": {"launches_per_llama_step":
+                    decode_n["decode step heft x8"][N.RMS_KERNEL],
+                    "at_decode_shapes": decode_norms.get(N.RMS_KERNEL, [])}},
     ]}
     print(json.dumps(line), flush=True)
     print(smi, flush=True)

@@ -31,8 +31,10 @@ from .backends.sim import LinkModel, SimulatedBackend, TieredLinkModel
 from .backends.device import DeviceBackend, DeviceReport
 from .backends.decode_loop import (
     PagedDecodeEngine,
+    build_decode_loop,
     build_paged_decode_loop,
     compose_paged_step_fn,
+    compose_step_fn,
 )
 from .sched.base import BaseScheduler
 from .sched.heft import HEFTScheduler
@@ -62,7 +64,14 @@ from .frontend.gpt2_dag import ModelDAG, build_gpt2_dag, execute_dag_locally
 from .frontend.llama_dag import build_llama_dag
 from .frontend.moe_dag import build_moe_dag
 from .frontend.train_dag import TrainDAG, build_gpt2_train_dag
-from .frontend.decode_dag import PagedDecodeDAG, build_paged_decode_dag
+from .frontend.decode_dag import (
+    DecodeDAG,
+    PagedDecodeDAG,
+    apply_cache_updates,
+    build_decode_dag_any,
+    build_paged_decode_dag,
+    decode_inputs,
+)
 from .models.kv_pages import TRASH_PAGE, PagePool, pages_needed
 from .obs.metrics import MetricsRegistry
 from .ops.attention import (
@@ -103,8 +112,10 @@ __all__ = [
     "DeviceBackend",
     "DeviceReport",
     "PagedDecodeEngine",
+    "build_decode_loop",
     "build_paged_decode_loop",
     "compose_paged_step_fn",
+    "compose_step_fn",
     "BaseScheduler",
     "HEFTScheduler",
     "GroupPackScheduler",
@@ -134,7 +145,11 @@ __all__ = [
     "build_moe_dag",
     "TrainDAG",
     "build_gpt2_train_dag",
+    "DecodeDAG",
     "PagedDecodeDAG",
+    "apply_cache_updates",
+    "build_decode_dag_any",
+    "decode_inputs",
     "build_paged_decode_dag",
     "TRASH_PAGE",
     "PagePool",

@@ -1,19 +1,23 @@
-"""Continuous-batching paged decode over a scheduled decode-step DAG.
+"""Multi-step decode over a scheduled decode-step DAG: the dense K-step
+loop and continuous-batching paged serving.
 
-PyTorch port of the paged path of ``distributed_llm_scheduler_tpu.
-backends.decode_loop``.  The placed paged decode-step DAG
-(``frontend/decode_dag.build_paged_decode_dag``) is composed, in the
-schedule's order, into one step function; ``build_paged_decode_loop``
-iterates it K times per segment; :class:`PagedDecodeEngine` admits and
-retires variable-length requests between segments.
+PyTorch port of ``distributed_llm_scheduler_tpu.backends.decode_loop``.
+A placed decode-step DAG is composed, in the schedule's order, into one
+step function.  Dense (``frontend/decode_dag.build_decode_dag_any``, all
+three families): :func:`compose_step_fn` and :func:`build_decode_loop`,
+which iterates it K times per call with each layer's new K/V rows written
+into its cache slab in place.  Paged (``build_paged_decode_dag``):
+:func:`compose_paged_step_fn`, ``build_paged_decode_loop`` and
+:class:`PagedDecodeEngine`, which admits and retires variable-length
+requests between segments.
 
-Where JAX jits one ``lax.scan`` program per segment with the pools
-donated, here a segment is a Python loop of eager steps on the current
-stream of one card: the slot state is copied to the device once per
-segment, the K steps run on device tensors (argmax on the device, tokens
-stacked on the device, no host read inside the loop), the pools are
-written in place, and the one device-to-host copy is the segment's
-tokens.
+Where JAX jits one ``lax.scan`` program per call with the caches donated,
+here a call is a Python loop of eager steps on the current stream of one
+card: the K steps run on device tensors (argmax on the device, the
+position a device scalar, tokens stacked on the device, no host read
+inside the loop), the caches are written in place, and the caller's one
+device-to-host copy is the tokens.  Capturing either loop in a CUDA graph
+is still to come.
 
 Single-node placements only, as in the JAX package: a multi-node
 placement needs per-step host-mediated transfers, which is the per-task
@@ -29,7 +33,7 @@ import torch
 
 from ..core.graph import TaskGraph
 from ..core.schedule import Schedule
-from ..frontend.decode_dag import cache_dims
+from ..frontend.decode_dag import apply_cache_updates, cache_dims, decode_inputs
 
 
 def _placed_order(graph: TaskGraph, schedule: Schedule) -> list:
@@ -57,6 +61,92 @@ def _placed_order(graph: TaskGraph, schedule: Schedule) -> list:
     return order
 
 
+def _run_tasks(graph: TaskGraph, order: list, inputs: Dict[str, Any],
+               param_of: Callable[[str], Any]) -> Dict[str, Any]:
+    """Run the placed tasks in ``order``, params resolved through each
+    task's alias table by ``param_of(global_name)``; every task's output."""
+    outs: Dict[str, Any] = {}
+    for tid in order:
+        task = graph[tid]
+        p = {loc: param_of(glob)
+             for loc, glob in (task.param_alias or {}).items()}
+        if task.dependencies:
+            args = [outs[d] for d in (task.arg_tasks or task.dependencies)]
+        else:
+            args = [inputs]
+        outs[tid] = task.fn(p, *args)
+    return outs
+
+
+def compose_step_fn(
+    graph: TaskGraph,
+    schedule: Schedule,
+    config: Any,
+) -> Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]:
+    """Compose the placed dense decode-step DAG into one step function.
+
+    Tasks run in the schedule's order (re-linearized topologically), params
+    resolve through each task's alias table, and after the tasks
+    :func:`apply_cache_updates` writes each layer's ``k_new``/``v_new``
+    into its cache slab at ``pos``, in place, as after a placed run.
+
+    Returns ``step(weights, caches, ids, pos) -> (logits, caches)``, with
+    ``pos`` a 0-d int32 tensor on the card (or an int)."""
+    order = _placed_order(graph, schedule)
+    sink = [tid for tid in order if not graph.dependents(tid)][0]
+
+    def step(weights, caches, ids, pos):
+        outs = _run_tasks(
+            graph, order, decode_inputs(ids, pos),
+            lambda glob: caches[glob] if glob in caches else weights[glob])
+        apply_cache_updates(caches, outs, config, pos)
+        return outs[sink], caches
+
+    return step
+
+
+def build_decode_loop(
+    graph: TaskGraph,
+    schedule: Schedule,
+    config: Any,
+    steps: int,
+) -> Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]:
+    """Greedily decode ``steps`` tokens through the scheduled step DAG.
+
+    ``run(weights, caches, ids, pos) -> (tokens, caches)``: ``ids`` the
+    (B, 1) current token, ``pos`` its cache position (an int or a 0-d
+    tensor), ``tokens`` the (B, steps) int32 greedy continuation on the
+    device, ``caches`` the same slabs, written in place.  The caller
+    chains calls by feeding ``tokens[:, -1:]`` and ``pos + steps`` back
+    in.  Greedy argmax runs on the logits' own dtype, as the whole-model
+    generation's."""
+    step = compose_step_fn(graph, schedule, config)
+
+    @torch.no_grad()
+    def run(weights, caches, ids, pos):
+        ids = ids.to(torch.int32)
+        if not isinstance(pos, torch.Tensor):
+            pos = torch.full((), int(pos), dtype=torch.int32, device=ids.device)
+        toks = []
+        for _ in range(steps):
+            logits, caches = step(weights, caches, ids, pos)
+            ids = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
+            toks.append(ids[:, 0])
+            pos = pos + 1
+        return torch.stack(toks, dim=1), caches
+
+    return run
+
+
+def split_cache_params(
+    params: Dict[str, Any],
+) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """(weights, caches) views of a decode-DAG param dict."""
+    weights = {k: v for k, v in params.items() if not k.startswith("cache_")}
+    caches = {k: v for k, v in params.items() if k.startswith("cache_")}
+    return weights, caches
+
+
 def compose_paged_step_fn(
     graph: TaskGraph,
     schedule: Schedule,
@@ -81,23 +171,13 @@ def compose_paged_step_fn(
     n_layers, _, _ = cache_dims(config)
 
     def step(weights, pools, page_table, ids, lengths, active):
-        inputs = {"ids": ids, "lengths": lengths}
-        outs: Dict[str, Any] = {}
-        for tid in order:
-            task = graph[tid]
-            p = {}
-            for loc, glob in (task.param_alias or {}).items():
-                if glob == "page_table":
-                    p[loc] = page_table
-                elif glob in pools:
-                    p[loc] = pools[glob]
-                else:
-                    p[loc] = weights[glob]
-            if task.dependencies:
-                args = [outs[d] for d in (task.arg_tasks or task.dependencies)]
-            else:
-                args = [inputs]
-            outs[tid] = task.fn(p, *args)
+        def param_of(glob):
+            if glob == "page_table":
+                return page_table
+            return pools[glob] if glob in pools else weights[glob]
+
+        outs = _run_tasks(graph, order, {"ids": ids, "lengths": lengths},
+                          param_of)
         pid, slot = token_slots(
             page_table, lengths, active, pools["cache_k_0"].shape[1])
         for i in range(n_layers):

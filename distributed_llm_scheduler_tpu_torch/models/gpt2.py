@@ -318,16 +318,18 @@ def forward_cached(params: Dict[str, Any], input_ids, cache, pos_start,
     [pos_start, pos_start + T), reading and writing the KV cache in place.
 
     One code path serves prefill (T = prompt length, pos_start = 0) and
-    decode (T = 1).  Matches :func:`forward` when the cache holds the full
-    history.  Returns ``(logits, cache)``."""
+    decode (T = 1).  ``pos_start`` is an int or a 0-d tensor
+    (:mod:`.decode`).  Matches :func:`forward` when the cache holds the
+    full history.  Returns ``(logits, cache)``."""
     from . import decode
 
     B, T = input_ids.shape
-    pos = int(pos_start)
+    pos = pos_start
     nh, hd = config.n_head, config.head_dim
     scale = 1.0 / math.sqrt(hd)
 
-    x = params["wte"][input_ids] + params["wpe"][pos:pos + T]
+    rows = decode.positions(pos, T, params["wpe"].device)
+    x = params["wte"][input_ids] + params["wpe"].index_select(0, rows)
     for i in range(config.n_layer):
         p = f"h{i}_"
         ln1 = layer_norm(x, params[p + "ln1_g"], params[p + "ln1_b"], config.ln_eps)

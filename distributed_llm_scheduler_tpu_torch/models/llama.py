@@ -1,7 +1,7 @@
 """Llama-3 in plain PyTorch: the second model family.
 
-PyTorch port of the forward half of ``distributed_llm_scheduler_tpu.
-models.llama``.  Same design as :mod:`.gpt2`: a flat ``Dict[str, Tensor]``
+PyTorch port of ``distributed_llm_scheduler_tpu.models.llama``
+(the training loss excepted).  Same design as :mod:`.gpt2`: a flat ``Dict[str, Tensor]``
 of params whose names are the DAG frontend's ``params_needed`` vocabulary
 (``tok_emb, l{i}_attn_norm_g, l{i}_wq/wk/wv/wo, l{i}_ffn_norm_g,
 l{i}_w_gate/w_up/w_down, final_norm_g, lm_head``), so the JAX package's
@@ -13,6 +13,10 @@ SwiGLU FFN, untied LM head.
 Every per-op function is a plain tensor function the DAG frontend
 (``frontend/llama_dag.py``) wraps as a task fn, and :func:`forward`
 composes them: the fused baseline and the oracle for placed execution.
+The decode half: the stacked-layer layout (:func:`stack_layers`,
+:func:`forward_scan`) and KV-cache decoding (:func:`init_cache`,
+:func:`attention_cached`, :func:`forward_cached`, :func:`generate`, driven
+by :mod:`.decode`).
 RMSNorm goes through :func:`..ops.norms.rms_norm` and attention through
 :func:`..ops.attention.gqa_mha`: the CUDA kernels on a GPU, the plain
 versions on the CPU and on meta.  The other products stay
@@ -23,6 +27,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import re
 from typing import Any, Callable, Dict, Tuple
 
 import numpy as np
@@ -247,13 +252,23 @@ def transformer_block(block_params: Dict[str, Any], x, config: LlamaConfig):
 
 @torch.no_grad()
 def backbone_forward(params: Dict[str, Any], input_ids, config: Any,
-                     block_fn: Callable[..., Any], layer_keys: Tuple[str, ...]):
+                     block_fn: Callable[..., Any], layer_keys: Tuple[str, ...],
+                     scan: bool = False):
     """The Llama-backbone forward skeleton: embed -> n_layers x block ->
-    final RMSNorm -> LM head, parameterized by the layer block."""
+    final RMSNorm -> LM head, parameterized by the layer block.
+    ``scan=True`` expects stacked ``layers_*`` params (:func:`stack_layers`)
+    and applies the block along their leading axis (the JAX package's
+    ``lax.scan``), with the same block math and order."""
     x = embedding(input_ids, params["tok_emb"])
-    for i in range(config.n_layers):
-        p = f"l{i}_"
-        x = block_fn({k: params[p + k] for k in layer_keys}, x, config)
+    if scan:
+        stacked = {k: params["layers_" + k] for k in layer_keys}
+        layers = [{k: v[i] for k, v in stacked.items()}
+                  for i in range(stacked[layer_keys[0]].shape[0])]
+    else:
+        layers = [{k: params[f"l{i}_{k}"] for k in layer_keys}
+                  for i in range(config.n_layers)]
+    for bp in layers:
+        x = block_fn(bp, x, config)
     x = rms_norm(x, params["final_norm_g"], config.rms_eps)
     return lm_head(x, params["lm_head"])
 
@@ -262,3 +277,118 @@ def forward(params: Dict[str, Any], input_ids, config: LlamaConfig):
     """Full forward pass composing exactly the per-op functions above."""
     return backbone_forward(params, input_ids, config, transformer_block,
                             _BLOCK_KEYS)
+
+
+_LAYER_PREFIX_RE = re.compile(r"^l\d+_")
+
+
+def stack_layers(params: Dict[str, Any], n_layers: int,
+                 keys: Tuple[str, ...]) -> Dict[str, Any]:
+    """Per-layer ``l{i}_*`` tensors -> stacked ``layers_*`` with a leading
+    layer dim (non-layer params unchanged): the scanned-forward layout,
+    shared by the Llama-backbone families (Mixtral reuses it)."""
+    out = {k: v for k, v in params.items() if not _LAYER_PREFIX_RE.match(k)}
+    for key in keys:
+        out["layers_" + key] = torch.stack(
+            [params[f"l{i}_{key}"] for i in range(n_layers)])
+    return out
+
+
+def stack_layer_params(params: Dict[str, Any], config: LlamaConfig
+                       ) -> Dict[str, Any]:
+    return stack_layers(params, config.n_layers, _BLOCK_KEYS)
+
+
+def forward_scan(params: Dict[str, Any], input_ids, config: LlamaConfig):
+    """Forward over stacked layer params (:func:`stack_layer_params`);
+    equal to :func:`forward`'s numbers."""
+    return backbone_forward(params, input_ids, config, transformer_block,
+                            _BLOCK_KEYS, scan=True)
+
+
+# -- KV-cache decoding (models/decode.py drives this) ---------------------------
+
+def init_cache(config: LlamaConfig, batch: int, max_len: int,
+               device: Any = "cuda"):
+    from . import decode
+
+    return decode.init_cache(
+        config.n_layers, batch, config.n_kv_heads, max_len,
+        config.head_dim, config.dtype, device,
+    )
+
+
+def rope_rows(pos_start, T: int, head_dim: int, theta: float, device: Any):
+    """(cos, sin) of shape (T, head_dim // 2) at the absolute positions
+    ``[pos_start, pos_start + T)``: the rows of :func:`rope_tables` at
+    those positions, computed for them alone.  ``pos_start`` is an int or
+    a 0-d tensor (then nothing is read back to the host)."""
+    from . import decode
+
+    exponents = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                             device=device) / head_dim
+    inv_freq = 1.0 / (theta ** exponents)
+    ang = (decode.positions(pos_start, T, device).to(torch.float32)[:, None]
+           * inv_freq[None, :])
+    return torch.cos(ang), torch.sin(ang)
+
+
+def attention_cached(x, block_params: Dict[str, Any], cache, layer: int,
+                     pos_start, config: Any):
+    """GQA with RoPE at absolute positions [pos_start, pos_start+T), reading
+    and writing the stacked-layer KV cache in place.  Shared with Mixtral
+    (the same Llama-backbone attention)."""
+    from . import decode
+
+    B, T, D = x.shape
+    nh, nkv, hd = config.n_heads, config.n_kv_heads, config.head_dim
+
+    q = (x @ block_params["wq"]).reshape(B, T, nh, hd).transpose(1, 2)
+    k = (x @ block_params["wk"]).reshape(B, T, nkv, hd).transpose(1, 2)
+    v = (x @ block_params["wv"]).reshape(B, T, nkv, hd).transpose(1, 2)
+
+    cos, sin = rope_rows(pos_start, T, hd, config.rope_theta, x.device)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+
+    cache = decode.update_layer_cache(cache, layer, k, v, pos_start)
+    kc, vc, ks, vs = decode.layer_view(cache, layer)
+    out = decode.cached_attention(
+        q, kc, vc, pos_start, 1.0 / math.sqrt(hd), k_scale=ks, v_scale=vs,
+    )
+    out = out.transpose(1, 2).reshape(B, T, D)
+    return out @ block_params["wo"], cache
+
+
+@torch.no_grad()
+def forward_cached(params: Dict[str, Any], input_ids, cache, pos_start,
+                   config: LlamaConfig):
+    """Cached forward over positions [pos_start, pos_start + T); one code
+    path for prefill and decode (cf. :func:`.gpt2.forward_cached`).
+    Returns ``(logits, cache)``."""
+    x = embedding(input_ids, params["tok_emb"])
+    for i in range(config.n_layers):
+        p = f"l{i}_"
+        bp = {k: params[p + k] for k in _BLOCK_KEYS}
+        h = rms_norm(x, bp["attn_norm_g"], config.rms_eps)
+        h, cache = attention_cached(h, bp, cache, i, pos_start, config)
+        x = residual_add(x, h)
+        h = rms_norm(x, bp["ffn_norm_g"], config.rms_eps)
+        g = ffn_gate(h, bp["w_gate"])
+        u = ffn_up(h, bp["w_up"])
+        h = ffn_down(ffn_glu(g, u), bp["w_down"])
+        x = residual_add(x, h)
+    x = rms_norm(x, params["final_norm_g"], config.rms_eps)
+    return lm_head(x, params["lm_head"]), cache
+
+
+def generate(params: Dict[str, Any], prompt_ids, config: LlamaConfig,
+             max_new_tokens: int, **kw):
+    """Autoregressive generation (greedy by default; see
+    :func:`.decode.generate` for temperature, top-k and ``kv_int8``)."""
+    from . import decode
+
+    return decode.generate(
+        forward_cached, init_cache, params, prompt_ids, config,
+        max_new_tokens, **kw,
+    )

@@ -1,8 +1,8 @@
 """Mixtral-style sparse MoE in plain PyTorch: the third model family
 (BASELINE.json config #4: "Mixtral-8x7B MoE DAG, expert nodes as tasks").
 
-PyTorch port of the forward half of ``distributed_llm_scheduler_tpu.
-models.mixtral``.  The architecture is the Llama backbone (RMSNorm, RoPE,
+PyTorch port of ``distributed_llm_scheduler_tpu.models.mixtral``
+(remat and the training loss excepted).  The architecture is the Llama backbone (RMSNorm, RoPE,
 GQA, reused from :mod:`.llama`) with the SwiGLU FFN replaced by a router
 and ``n_experts`` experts under top-k gating.  Params are a flat
 ``Dict[str, Tensor]`` with the Llama names plus ``l{i}_router`` and
@@ -29,9 +29,10 @@ arrival order is a cumulative sum over the flattened ``(token, slot)``
 order, as the reference takes it.  The reference's ``.at[...].add``
 scatters are ``index_put_(..., accumulate=True)`` and ``index_add_``.
 
-Left out against the reference (queued for later slices): the stacked-
-layer scan, remat, the KV-cache decode (``init_cache``, ``forward_cached``,
-``generate``) and ``loss_fn``.
+The decode half (the stacked-layer scan, ``init_cache``,
+``forward_cached`` with the dense MoE, ``generate``) reuses the Llama
+backbone's.  Left out against the reference (queued with ``parallel/``):
+remat and ``loss_fn``.
 """
 
 from __future__ import annotations
@@ -395,3 +396,62 @@ def forward(params: Dict[str, Any], input_ids, config: MixtralConfig,
         block = transformer_block
     return _llama.backbone_forward(params, input_ids, config, block,
                                    _layer_keys(config))
+
+
+def stack_layer_params(params: Dict[str, Any], config: MixtralConfig
+                       ) -> Dict[str, Any]:
+    """The scanned-forward layout via :func:`..llama.stack_layers`;
+    per-expert tensors stack to (n_layers, d, f) per expert key."""
+    return _llama.stack_layers(params, config.n_layers, _layer_keys(config))
+
+
+def forward_scan(params: Dict[str, Any], input_ids, config: MixtralConfig):
+    """Forward over stacked layer params; equal to :func:`forward`'s
+    numbers (dense dispatch)."""
+    return _llama.backbone_forward(params, input_ids, config,
+                                   transformer_block, _layer_keys(config),
+                                   scan=True)
+
+
+# -- KV-cache decoding (models/decode.py drives this) ---------------------------
+
+def init_cache(config: MixtralConfig, batch: int, max_len: int,
+               device: Any = "cuda"):
+    from . import decode
+
+    return decode.init_cache(
+        config.n_layers, batch, config.n_kv_heads, max_len,
+        config.head_dim, config.dtype, device,
+    )
+
+
+@torch.no_grad()
+def forward_cached(params: Dict[str, Any], input_ids, cache, pos_start,
+                   config: MixtralConfig):
+    """Cached forward over positions [pos_start, pos_start + T): the Llama
+    backbone's cached attention and the dense router/experts/combine of
+    :func:`transformer_block`; routing is per token, so a decode step
+    routes each new token as the fused forward would."""
+    keys = _layer_keys(config)
+    x = embedding(input_ids, params["tok_emb"])
+    for i in range(config.n_layers):
+        p = f"l{i}_"
+        bp = {k: params[p + k] for k in keys}
+        h = rms_norm(x, bp["attn_norm_g"], config.rms_eps)
+        h, cache = _llama.attention_cached(h, bp, cache, i, pos_start, config)
+        x = residual_add(x, h)
+        h = rms_norm(x, bp["ffn_norm_g"], config.rms_eps)
+        x = residual_add(x, _moe(bp, h, config))
+    x = rms_norm(x, params["final_norm_g"], config.rms_eps)
+    return lm_head(x, params["lm_head"]), cache
+
+
+def generate(params: Dict[str, Any], prompt_ids, config: MixtralConfig,
+             max_new_tokens: int, **kw):
+    """Autoregressive generation (see :func:`.decode.generate`)."""
+    from . import decode
+
+    return decode.generate(
+        forward_cached, init_cache, params, prompt_ids, config,
+        max_new_tokens, **kw,
+    )

@@ -22,8 +22,8 @@ Only float params with >= ``min_elems`` elements and >= 2 dims quantize;
 norm gains and biases (tiny, precision-critical) keep their dtype.  The
 embedding table quantizes per channel like any matrix.  The arithmetic is
 the JAX package's, in float32 with round-half-to-even, so ``q`` is equal
-to its and the scales agree to the last bit on the CPU.  The scale-folded
-int8 KV cache is not ported (the port's ``models/decode.py`` refuses it).
+to its and the scales agree to the last bit on the CPU.  The int8 KV
+cache lives with the cache itself (``models/decode.quantize_cache``).
 """
 
 from __future__ import annotations
@@ -108,6 +108,17 @@ def quantize_array_grouped(x: torch.Tensor, group: int = 64) -> QParam:
     xg = xf.reshape((n0 // group, group) + tuple(xf.shape[1:]))
     qg = _absmax_quant(xg, (1,))
     return QParam(q=qg.q.reshape(xf.shape), scale=qg.scale)
+
+
+#: per-family embedding tables that ``scheme="grouped"`` quantizes row-wise:
+#: their consumers read ROWS (a gather; GPT-2's tied head contracts over
+#: the last axis).  Llama and Mixtral's untied ``lm_head`` (d, vocab)
+#: takes the grouped path (the JAX package's table).
+ROWWISE_EMBED_KEYS: Dict[str, tuple] = {
+    "gpt2": ("wte", "wpe"),
+    "llama": ("tok_emb",),
+    "mixtral": ("tok_emb",),
+}
 
 
 def dequantize(v: Any, dtype: torch.dtype) -> Any:

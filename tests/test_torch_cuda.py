@@ -1627,3 +1627,104 @@ def test_routed_mixtral_dag_on_the_card(cuda):
         assert torch.isfinite(got).all()
         diff = (got - want).abs()
         assert int((diff > 5e-2 + 5e-2 * want.abs()).sum()) <= 1, kw
+
+
+def _tiny_llama(cuda):
+    from distributed_llm_scheduler_tpu_torch import LlamaConfig, params_from_numpy
+    from distributed_llm_scheduler_tpu_torch.models import llama
+
+    cfg = LlamaConfig.tiny()
+    params = params_from_numpy(llama.init_params_numpy(cfg, 0), cuda)
+    rng = np.random.default_rng(1)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 8),
+                                        dtype=np.int32)).to(cuda)
+    return cfg, params, ids
+
+
+@pytest.mark.cuda
+def test_decode_dag_captured_rungs_read_slabs_updated_in_place(cuda):
+    """A tiny Llama decode-step DAG: the segmented and compiled rungs,
+    captured at the first step, replay two steps later (the cache slabs
+    written in place by apply_cache_updates in between) with logits equal
+    to the per-task step's, launching nothing eagerly and capturing no new
+    program (new slab tensors would have made the backend capture anew)."""
+    import distributed_llm_scheduler_tpu_torch as P
+    from distributed_llm_scheduler_tpu_torch.ops import norms as N
+
+    cfg, params, ids = _tiny_llama(cuda)
+    M = 16
+    cluster = P.Cluster.from_torch_devices([cuda])
+    be = P.DeviceBackend(cluster)
+    pdag = P.build_decode_dag_any(cfg, batch=2, step_len=8, max_len=M)
+    ddag = P.build_decode_dag_any(cfg, batch=2, step_len=1, max_len=M)
+    sched = P.get_scheduler("greedy").schedule(ddag.graph, cluster)
+    pc = pdag.derive_params(params)
+    rep = be.execute(pdag.graph, P.get_scheduler("greedy").schedule(
+        pdag.graph, cluster), pc, P.decode_inputs(ids, 0), keep_outputs=True)
+    P.apply_cache_updates(pc, rep.task_outputs, cfg, 0)
+    tok = rep.output[:, -1].argmax(-1).to(torch.int32)[:, None]
+    for step in range(1, 4):
+        pos = 8 + step - 1
+        inp = P.decode_inputs(tok, pos, max_len=M)
+        pt = be.execute(ddag.graph, sched, pc, inp, keep_outputs=True,
+                        planned=False)
+        if step in (1, 3):
+            for kw in (dict(segments=True, rebatch=False), dict(compiled=True)):
+                kernels.reset_launches()
+                # captured at step 1 (its warm-up), replayed once at step 3
+                got = be.execute(ddag.graph, sched, pc, inp, warmup=step == 1,
+                                 **kw).output.clone()
+                assert torch.equal(got, pt.output), (step, kw)
+                programs = (sum(map(len, be._seg_cache.values()))
+                            + sum(map(len, be._prog_cache.values())))
+                if step == 1:
+                    captured = programs
+                else:
+                    assert kernels.launches.get(N.RMS_KERNEL, 0) == 0, kw
+                    assert kernels.replayed.get(N.RMS_KERNEL, 0) == 2 * cfg.n_layers + 1
+                    assert programs == captured, kw
+        P.apply_cache_updates(pc, pt.task_outputs, cfg, pos)
+        tok = pt.output[:, -1].argmax(-1).to(torch.int32)[:, None]
+
+
+@pytest.mark.cuda
+def test_int8_cache_generate_on_the_card_equals_the_plain_norms(cuda,
+                                                                 monkeypatch):
+    """generate with the int8 KV cache on the card: the RMSNorm kernel's
+    greedy tokens equal those of the same run with the plain RMSNorm."""
+    from distributed_llm_scheduler_tpu_torch.models import llama
+    from distributed_llm_scheduler_tpu_torch.ops import norms as N
+
+    cfg, params, ids = _tiny_llama(cuda)
+    before = kernels.launches[N.RMS_KERNEL]
+    got = llama.generate(params, ids, cfg, max_new_tokens=6, kv_int8=True)
+    assert kernels.launches[N.RMS_KERNEL] == before + 6 * (2 * cfg.n_layers + 1)
+    monkeypatch.setattr(llama, "rms_norm", N.reference_rms_norm)
+    want = llama.generate(params, ids, cfg, max_new_tokens=6, kv_int8=True)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["llama", "mixtral"])
+def test_rms_norm_launches_per_decode_step(cuda, family):
+    """One cached decode step of a Llama-backbone model launches the
+    RMSNorm kernel 2 * n_layers + 1 times, every one on the register
+    variant, and reads nothing back to the host with a tensor position."""
+    from distributed_llm_scheduler_tpu_torch import MixtralConfig, params_from_numpy
+    from distributed_llm_scheduler_tpu_torch.models import llama, mixtral
+    from distributed_llm_scheduler_tpu_torch.ops import norms as N
+
+    mod = llama if family == "llama" else mixtral
+    cfg = (llama.LlamaConfig.tiny() if family == "llama"
+           else MixtralConfig.tiny())
+    params = params_from_numpy(mod.init_params_numpy(cfg, 0), cuda)
+    cache = mod.init_cache(cfg, 2, 16, device=cuda)
+    ids = torch.zeros((2, 8), dtype=torch.int32, device=cuda)
+    mod.forward_cached(params, ids, cache, 0, cfg)
+    kernels.reset_launches()
+    pos = torch.full((), 8, dtype=torch.int32, device=cuda)
+    mod.forward_cached(params, ids[:, :1], cache, pos, cfg)
+    torch.cuda.synchronize()
+    n = 2 * cfg.n_layers + 1
+    assert kernels.launches[N.RMS_KERNEL] == n
+    assert kernels.launches[f"{N.RMS_KERNEL}.register"] == n
