@@ -247,6 +247,28 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     tokens exact, parity, 0 pages leaked).  Then both norm kernels at the
     decode paths' shapes, checked and timed as phase 5 times them
     (``DECODE_LINE``).
+20. the command line on the card: the port's ``__main__.main(argv)``
+    called in this process, stdout captured, every launch count set to 0
+    just before each command and read just after.  a. ``execute --model
+    gpt2`` (GPT-2 small f32 at full width, the README's quickstart, on
+    the cards a prefix of ``--num-nodes 8`` binds) with its defaults,
+    with ``--segments`` and with ``--profile --trace``: every task
+    completed, ``n_devices`` the cards bound, the flash and LayerNorm
+    launches the DAG's attention and layer-norm tasks times the forwards
+    the command ran (a captured run: twice its graphs' kernels eagerly,
+    and its graphs' kernels at each replay), the output within the fused
+    forward's band, the Chrome trace valid under
+    ``obs/export.validate_trace``.  b. ``trace --model gpt2`` and
+    ``metrics --model gpt2``: the execute leg's flash launches as in a,
+    the paged decode leg's single-token paged kernel launched, the
+    Perfetto trace and the metrics snapshot valid.  c. ``generate --model
+    gpt2 --max-new-tokens 32 --weights`` a synthetic checkpoint drawn
+    from a seed, whole-model and ``--task-graph``: equal tokens, at
+    least 8 of them distinct.  d. ``schedule --model llama-8b`` with ``native:heft`` (the
+    C++ engine built here with ``g++``) and ``heft``: equal placement
+    digests and reports.  e. ``python -m distributed_llm_scheduler_tpu_
+    torch execute --model gpt2`` in a subprocess exits 0.  Each command's
+    wall time and makespan (``CLI_LINE``).
 
 The last lines are one JSON object of per-kernel numbers (``launches`` is
 the count of the kernel's main path, ``launches_by_path`` each counted
@@ -278,6 +300,8 @@ does the same for the norm kernels of the package under ROOT at phase
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import statistics
@@ -4396,6 +4420,268 @@ def run_decode_path(torch, P, A, N, dev) -> tuple:
     return line, launches, norms
 
 
+CLI_TOKENS = 32
+CLI_DIR = ROOT / "chip_smoke_out" / "cli"
+# generate's checkpoint: N(0, scale) weights, LayerNorm gains 1 + N(0, 0.1),
+# from this seed.  GPT-2's own init (std 0.02) leaves the tied LM head
+# repeating the last token, which would hide a misplaced cache write
+CLI_WEIGHTS_SEED, CLI_WEIGHTS_SCALE = 7, 0.2
+# the least number of distinct ids the CLI_TOKENS generated must hold
+CLI_MIN_DISTINCT = 8
+
+
+def save_gpt2_checkpoint(torch, config, path: Path) -> Path:
+    """A synthetic HF-layout GPT-2 state dict for ``config``, drawn on the
+    card from ``CLI_WEIGHTS_SEED`` and written with ``torch.save``, as
+    ``generate --weights`` reads it."""
+    from distributed_llm_scheduler_tpu_torch.frontend import pretrained
+    from distributed_llm_scheduler_tpu_torch.models import gpt2
+
+    top = {v: k for k, v in pretrained._TOP_LEVEL.items()}
+    per_layer = {v: k for k, v in pretrained._PER_LAYER.items()}
+    gen = torch.Generator(device="cuda").manual_seed(CLI_WEIGHTS_SEED)
+    sd = {}
+    for name, (shape, _dt) in gpt2.param_shapes(config).items():
+        if name in top:
+            hf = "transformer." + top[name]
+        else:
+            idx, per = name[1:].split("_", 1)
+            hf = f"transformer.h.{idx}.{per_layer[per]}"
+        w = torch.randn(shape, generator=gen, device="cuda")
+        w = 1.0 + 0.1 * w if name.endswith("_g") else CLI_WEIGHTS_SCALE * w
+        sd[hf] = w.cpu()
+    torch.save(sd, str(path))
+    return path
+
+
+@contextlib.contextmanager
+def spied(owner, name: str):
+    """Record every call of ``owner.name`` while open: a list of
+    (args, kwargs, result), the method still doing its work."""
+    orig = getattr(owner, name)
+    calls = []
+
+    def spy(*args, **kwargs):
+        out = orig(*args, **kwargs)
+        calls.append((args, kwargs, out))
+        return out
+
+    setattr(owner, name, spy)
+    try:
+        yield calls
+    finally:
+        setattr(owner, name, orig)
+
+
+def cli_run(torch, main, label: str, argv: list) -> tuple:
+    """One command of the port's CLI in this process: stdout captured,
+    every launch count set to 0 just before and read just after.  Fails
+    unless it exits 0 with no call on copies.  Returns (stdout, {kernel:
+    eager launches}, {kernel: replayed launches}, wall seconds)."""
+    from distributed_llm_scheduler_tpu_torch.ops import kernels
+
+    kernels.reset_launches()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"{label}: `{' '.join(argv)}` exited {rc}")
+    no_routes(label)
+    return (out.getvalue(), dict(kernels.launches), dict(kernels.replayed),
+            wall)
+
+
+def per_forward_of(graph, A, N) -> dict:
+    """The flash and LayerNorm launches one forward of a GPT-2 DAG makes:
+    one per attention task, one per layer-norm task."""
+    return {A.KERNEL: sum(1 for t in graph if t.task_id.endswith("_attention")),
+            N.LN_KERNEL: sum(1 for t in graph if t.task_id.endswith(
+                ("_ln1", "_ln2", "final_ln")))}
+
+
+def cli_execute_checks(torch, P, A, N, label, calls, out, eager, replayed
+                       ) -> dict:
+    """``execute``'s checks on the run the command made (spied): every
+    task completed, ``n_devices`` the cards bound, the launches the DAG's
+    tasks times the forwards run (warm-up and one timed run), the output
+    finite and within the fused forward's band.  Returns the counts."""
+    (backend, graph, sched, params, ids), _kw, rep = calls[-1]
+    summary = json.loads(out[out.index("{"):out.rindex("}") + 1])
+    cards = min(8, torch.cuda.device_count())
+    if len(sched.completed) != len(graph) or sched.failed:
+        raise AssertionError(f"{label}: {len(sched.completed)} of "
+                             f"{len(graph)} tasks completed")
+    if summary["n_devices"] != cards or len(backend.cluster) != cards:
+        raise AssertionError(f"{label}: n_devices {summary['n_devices']}, "
+                             f"{cards} card(s) bound")
+    per_forward = per_forward_of(graph, A, N)
+    got = {k: eager.get(k, 0) for k in per_forward}
+    if rep.captured_launches:
+        captured = {k: rep.captured_launches.get(k, 0) for k in per_forward}
+        rp = {k: replayed.get(k, 0) for k in per_forward}
+        if captured != per_forward or got != times(captured, 2) or \
+                rp != times(captured, 2):
+            raise AssertionError(f"{label}: captured {captured}, eager {got}, "
+                                 f"replayed {rp}; per forward {per_forward}")
+        counts = rp
+    else:
+        if got != times(per_forward, 2):
+            raise AssertionError(f"{label}: launches {got}, per forward "
+                                 f"{per_forward}")
+        counts = got
+    from distributed_llm_scheduler_tpu_torch.models import gpt2
+
+    fused = gpt2.forward(params, ids, P.GPT2Config.small())
+    ok, viol, allowed, rel = oracle_close(fused, rep.output)
+    if not (ok and bool(torch.isfinite(rep.output).all())):
+        raise AssertionError(f"{label}: output off the fused forward ({viol} "
+                             f"outside the band, rel {rel:.3e})")
+    return dict(counts=counts, per_forward=per_forward, rel_fro=rel,
+                tasks=len(graph), makespan_ms=summary["makespan_ms"])
+
+
+def run_cli_path(torch, P, A, N) -> tuple:
+    """Phase 20: the port's command line on the card (see the module
+    docstring).  Returns (CLI_LINE dict, {command: launch counts})."""
+    from distributed_llm_scheduler_tpu_torch.__main__ import main
+    from distributed_llm_scheduler_tpu_torch.obs.export import validate_trace
+    from distributed_llm_scheduler_tpu_torch.obs.metrics import (
+        validate_snapshot,
+    )
+    from distributed_llm_scheduler_tpu_torch.sched.search import (
+        placement_digest,
+    )
+
+    CLI_DIR.mkdir(parents=True, exist_ok=True)
+    line, counts = {"commands": {}}, {}
+
+    def record(label, wall, makespan_ms, **extra):
+        line["commands"][label] = dict(wall_s=wall, makespan_ms=makespan_ms,
+                                       **extra)
+        log(f"  {label}: {wall:.2f} s wall, makespan "
+            f"{makespan_ms if makespan_ms is None else f'{makespan_ms:.3f}'} ms"
+            + "".join(f", {k} {v}" for k, v in extra.items()))
+
+    # a. execute, the README's quickstart
+    trace_path = CLI_DIR / "execute_trace.json"
+    for label, extra in (("execute", []), ("execute --segments", ["--segments"]),
+                         ("execute --profile --trace",
+                          ["--profile", "--trace", str(trace_path)])):
+        with spied(P.DeviceBackend, "execute") as calls:
+            out, eager, replayed, wall = cli_run(
+                torch, main, label, ["execute", "--model", "gpt2", *extra])
+        got = cli_execute_checks(torch, P, A, N, label, calls, out, eager,
+                                 replayed)
+        counts[label] = got["counts"]
+        if "--trace" in extra:
+            errs = validate_trace(str(trace_path))
+            if errs:
+                raise AssertionError(f"{label}: trace invalid: {errs[:3]}")
+        record(label, wall, got["makespan_ms"], tasks=got["tasks"],
+               launches=got["counts"], rel_fro=got["rel_fro"])
+        del calls
+
+    # b. trace and metrics: the execute leg, then the paged decode leg
+    for label, argv in (
+        ("trace", ["trace", "--model", "gpt2", "--out",
+                   str(CLI_DIR / "trace.json")]),
+        ("metrics", ["metrics", "--model", "gpt2"]),
+    ):
+        with spied(P.DeviceBackend, "execute") as calls:
+            out, eager, _, wall = cli_run(torch, main, label, argv)
+        graph, rep = calls[0][0][1], calls[0][2]
+        per_forward = per_forward_of(graph, A, N)
+        if eager.get(A.KERNEL, 0) != 2 * per_forward[A.KERNEL]:
+            raise AssertionError(f"{label}: {eager.get(A.KERNEL)} flash "
+                                 f"launches, per forward {per_forward}")
+        if not eager.get(A.PAGED_KERNEL, 0):
+            raise AssertionError(f"{label}: the decode leg launched no "
+                                 "paged kernel")
+        if label == "trace":
+            errs = validate_trace(str(CLI_DIR / "trace.json"))
+            extra = dict(spans=json.loads(out)["spans"])
+        else:
+            snap = json.loads(out)
+            errs = validate_snapshot(snap)
+            extra = dict(counters=len(snap["counters"]))
+        if errs:
+            raise AssertionError(f"{label}: invalid output: {errs[:3]}")
+        counts[label] = {k: eager.get(k, 0) for k in
+                         (A.KERNEL, A.PAGED_KERNEL, N.LN_KERNEL)}
+        record(label, wall, rep.makespan_s * 1e3, launches=counts[label],
+               **extra)
+        del calls
+
+    # c. generate, whole-model and through the scheduling layer, from one
+    # synthetic checkpoint whose greedy stream does not collapse
+    tokens = {}
+    ckpt = save_gpt2_checkpoint(torch, P.GPT2Config.small(),
+                                CLI_DIR / "gpt2_synthetic.pt")
+    for label, extra in (("generate", []), ("generate --task-graph",
+                                            ["--task-graph"])):
+        out, eager, _, wall = cli_run(
+            torch, main, label, ["generate", "--model", "gpt2", "--weights",
+                                 str(ckpt), "--max-new-tokens",
+                                 str(CLI_TOKENS), *extra])
+        tokens[label] = json.loads(out)["generated_ids"]
+        counts[label] = {k: eager.get(k, 0) for k in (A.KERNEL, N.LN_KERNEL)}
+        record(label, wall, None, launches=counts[label],
+               tokens=len(tokens[label]))
+        # 2 n_layer + 1 layer norms per forward: whole-model, the prefill
+        # and 31 steps; the task graph also warms up its two graph classes
+        forwards = CLI_TOKENS + (2 if extra else 0)
+        n_ln = 2 * P.GPT2Config.small().n_layer + 1
+        if len(tokens[label]) != CLI_TOKENS or \
+                counts[label][N.LN_KERNEL] != n_ln * forwards:
+            raise AssertionError(f"{label}: {len(tokens[label])} tokens, "
+                                 f"launches {counts[label]}, expected "
+                                 f"{n_ln * forwards} layer_norm")
+    ckpt.unlink()
+    if len(set(tokens["generate"])) < CLI_MIN_DISTINCT:
+        raise AssertionError(f"generate: {tokens['generate']} holds fewer "
+                             f"than {CLI_MIN_DISTINCT} distinct ids")
+    if tokens["generate"] != tokens["generate --task-graph"]:
+        raise AssertionError(f"generate: whole-model {tokens['generate']} != "
+                             f"task graph {tokens['generate --task-graph']}")
+    line["generated_ids"] = tokens["generate"]
+
+    # d. schedule llama-8b: the native engine (built here) against heft
+    digests, reports = {}, {}
+    for policy in ("native:heft", "heft"):
+        label = f"schedule {policy}"
+        with spied(P.SimulatedBackend, "execute") as calls:
+            out, _, _, wall = cli_run(torch, main, label, [
+                "schedule", "--model", "llama-8b", "--scheduler", policy])
+        rep = json.loads(out)
+        digests[policy] = placement_digest(calls[0][0][3].placement)
+        reports[policy] = rep
+        record(label, wall, rep["makespan_s"] * 1e3, digest=digests[policy],
+               tasks=rep["graph"]["num_tasks"],
+               scheduling_wall_s=rep["schedule"].pop("scheduling_wall_s"))
+    if digests["native:heft"] != digests["heft"] or \
+            reports["native:heft"] != reports["heft"]:
+        raise AssertionError(f"schedule: native:heft {digests['native:heft']}"
+                             f" != heft {digests['heft']}")
+
+    # e. the module entry point, in a process of its own
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "distributed_llm_scheduler_tpu_torch",
+         "execute", "--model", "gpt2"],
+        cwd=str(ROOT), capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"python -m distributed_llm_scheduler_tpu_torch "
+                             f"execute exited {r.returncode}: {r.stderr[-2000:]}")
+    summary = json.loads(r.stdout)
+    record("python -m ... execute", wall, summary["makespan_ms"],
+           n_devices=summary["n_devices"])
+    return line, counts
+
+
 def gc_cuda(torch) -> None:
     import gc
 
@@ -4613,7 +4899,7 @@ def main() -> int:
     t_all = time.perf_counter()
     dev = torch.device("cuda", 0)
     smi = nvidia_smi_line()
-    log(f"[1/19] device: {torch.cuda.get_device_name(0)} ({smi}); torch "
+    log(f"[1/20] device: {torch.cuda.get_device_name(0)} ({smi}); torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4621,7 +4907,7 @@ def main() -> int:
 
     sources = (A.KERNEL, A.PAGED_SOURCE, N.SOURCE)
     secs = kernels.build(*sources)
-    log(f"[2/19] built {', '.join(f'{n}.cu' for n in sources)} with "
+    log(f"[2/20] built {', '.join(f'{n}.cu' for n in sources)} with "
         f"{kernels.nvcc_path()} for sm_90a in {secs:.1f} s (in parallel)")
     log_ptxas(kernels.build_logs.get(A.KERNEL, ""))
     log_ptxas(kernels.build_logs.get(A.PAGED_SOURCE, ""),
@@ -4633,60 +4919,60 @@ def main() -> int:
                     if "paged_ragged_tc" in k]
     norm_ptxas = log_norm_ptxas(kernels.build_logs.get(N.SOURCE, ""))
 
-    log("[3/19] flash kernel check against its plain version")
+    log("[3/20] flash kernel check against its plain version")
     attn = check_attention_kernel(
         torch, A, dev, P.LlamaConfig.llama3_8b(dtype=torch.bfloat16))
 
-    log("[4/19] paged kernel check against the plain versions")
+    log("[4/20] paged kernel check against the plain versions")
     paged = check_paged_kernels(torch, A, DB, dev)
     ragged_n = run_ragged_op_path(torch, A, DB, dev)
 
-    log("[5/19] LayerNorm and RMSNorm kernel check against the plain versions")
+    log("[5/20] LayerNorm and RMSNorm kernel check against the plain versions")
     norms = check_norm_kernels(torch, N, dev)
 
     def phase_done():  # free the phase's tensors before the next one
         gc.collect()
         torch.cuda.empty_cache()
 
-    log("[6/19] flagship forward path: GPT-2 small bf16 DAG on the card")
+    log("[6/20] flagship forward path: GPT-2 small bf16 DAG on the card")
     gpt2_n = run_main_path(torch, P, dev)
     phase_done()
 
-    log("[7/19] execution ladder: the flagship per task, planned, coalesced, "
+    log("[7/20] execution ladder: the flagship per task, planned, coalesced, "
         "segmented and compiled")
     ladder_n = run_ladder_path(torch, P, dev)
     phase_done()
 
-    log("[8/19] north-star bench: GPT-2 small bf16, 10 policies replayed")
+    log("[8/20] north-star bench: GPT-2 small bf16, 10 policies replayed")
     bench_n, bench_result = run_bench_path(torch, P, dev)
     phase_done()
 
-    log("[9/19] serve path: GPT-2 small bf16 through the paged decode engine")
+    log("[9/20] serve path: GPT-2 small bf16 through the paged decode engine")
     serve_launches, serve_ragged, serve_ln, serve_tr, served = run_serve_path(
         torch, P, A, dev)
     phase_done()
 
-    log("[10/19] Llama path: Llama-3 8B bf16 DAG, pipeline stages, on the card")
+    log("[10/20] Llama path: Llama-3 8B bf16 DAG, pipeline stages, on the card")
     llama_n = run_llama_path(torch, P, dev)
     phase_done()
 
-    log("[11/19] f32 leg: GPT-2 placed on the card vs fused on the CPU")
+    log("[11/20] f32 leg: GPT-2 placed on the card vs fused on the CPU")
     run_f32_leg(torch, P, dev)
 
-    log("[12/19] f32 serve leg: the engine on the card vs on the CPU")
+    log("[12/20] f32 serve leg: the engine on the card vs on the CPU")
     run_f32_serve_leg(torch, P, dev)
     phase_done()
 
-    log("[13/19] f32 Llama leg: placed on the card vs fused on the CPU")
+    log("[13/20] f32 Llama leg: placed on the card vs fused on the CPU")
     run_llama_f32_leg(torch, P, dev)
     phase_done()
 
-    log("[14/19] parameter streaming: GPT-2 medium and the flagship under "
+    log("[14/20] parameter streaming: GPT-2 medium and the flagship under "
         "budgets below their params")
     stream_n = run_stream_path(torch, P, dev)
     phase_done()
 
-    log("[15/19] online serving: the serve bench on the card, then the "
+    log("[15/20] online serving: the serve bench on the card, then the "
         "frontend over GPT-2 small bf16 on a real clock")
     t15 = time.perf_counter()
     bench_on_card = run_serve_bench_on_card(torch, dev)
@@ -4696,7 +4982,7 @@ def main() -> int:
     log(f"  phase 15 in {time.perf_counter() - t15:.1f} s")
     phase_done()
 
-    log("[16/19] run doctor: the flagship and the engine traced, the soak "
+    log("[16/20] run doctor: the flagship and the engine traced, the soak "
         "doctor and the health-routed fleet")
     t16 = time.perf_counter()
     doctor, doctor_n = run_doctor_path(torch, P, A, dev, served)
@@ -4707,7 +4993,7 @@ def main() -> int:
     del served
     phase_done()
 
-    log("[17/19] searched placements: the bench's refine and search "
+    log("[17/20] searched placements: the bench's refine and search "
         "placements on the card, the pre-execution gate and analyze()")
     t17 = time.perf_counter()
     searched, search_n = run_search_phase(torch, P, A, N, dev, bench_result)
@@ -4718,20 +5004,30 @@ def main() -> int:
     del bench_result
     phase_done()
 
-    log("[18/19] BASELINE.json configs #5 and #4: the GPT-2 training step "
+    log("[18/20] BASELINE.json configs #5 and #4: the GPT-2 training step "
         "and the Mixtral-8x7B MoE forward")
     t18 = time.perf_counter()
     train, train_n, moe, moe_n = run_baseline_configs(torch, P, A, N, dev)
     log(f"  phase 18 in {time.perf_counter() - t18:.1f} s")
     phase_done()
 
-    log("[19/19] decoding: Llama-3 8B and Mixtral through generate and the "
+    log("[19/20] decoding: Llama-3 8B and Mixtral through generate and the "
         "decode-step DAG, GPT-2 small through the decode bench")
     t19 = time.perf_counter()
     decoded, decode_n, decode_norms = run_decode_path(torch, P, A, N, dev)
     decoded["seconds"] = time.perf_counter() - t19
     print("DECODE_LINE " + json.dumps(decoded), flush=True)
     log(f"  phase 19 in {decoded['seconds']:.1f} s")
+    phase_done()
+
+    log("[20/20] the command line on the card: execute, trace, metrics, "
+        "generate and schedule through the port's __main__")
+    t20 = time.perf_counter()
+    cli_line, cli_n = run_cli_path(torch, P, A, N)
+    cli_line["seconds"] = time.perf_counter() - t20
+    cli_line["card"] = smi
+    print("CLI_LINE " + json.dumps(cli_line), flush=True)
+    log(f"  phase 20 in {cli_line['seconds']:.1f} s")
     phase_done()
 
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
@@ -4746,7 +5042,7 @@ def main() -> int:
     tpu_norms = "distributed_llm_scheduler_tpu/ops/norms.py:"
     runs = (("gpt2", gpt2_n), ("ladder", ladder_n), ("bench", bench_n),
             ("llama", llama_n), ("stream", stream_n), ("run", doctor_n),
-            ("searched", search_n), ("decode", decode_n))
+            ("searched", search_n), ("decode", decode_n), ("cli", cli_n))
     line = {"kernels": [
         {"name": A.KERNEL, "route": "cuda", "source": csrc + "flash_attention.cu",
          "replaces": tpu + "152",
@@ -4765,7 +5061,7 @@ def main() -> int:
              k: n[A.PAGED_KERNEL] for k, n in online_n.items()}, **{
              k: n[A.PAGED_KERNEL] for k, n in doctor_n.items()
              if A.PAGED_KERNEL in n}, **by_path(A.PAGED_KERNEL, (
-                 ("decode", decode_n),))},
+                 ("decode", decode_n), ("cli", cli_n)))},
          **paged[A.PAGED_KERNEL], "serve_trace": serve_tr},
         {"name": A.PAGED_RAGGED_KERNEL, "route": "cuda",
          "source": csrc + "paged_attention.cu", "replaces": tpu + "547",

@@ -152,6 +152,9 @@ class DeviceReport:
             "compile_s": self.compile_s,
             "n_dispatches": self.n_dispatches,
             "dispatch_overhead_ms": self.dispatch_overhead_s * 1e3,
+            # the dispatch loop by phase: the whole loop only (the JAX
+            # package's planned path also splits staging from launching)
+            "dispatch_phases_ms": {"loop_s": self.dispatch_overhead_s * 1e3},
             "planned": self.planned,
             "compiled": self.compiled,
             "captured_launches": dict(self.captured_launches),
@@ -175,6 +178,11 @@ class DeviceReport:
             **(
                 {"attribution": self.attribution}
                 if self.attribution is not None
+                else {}
+            ),
+            **(
+                {"memory": self.memory}
+                if self.memory is not None
                 else {}
             ),
         }

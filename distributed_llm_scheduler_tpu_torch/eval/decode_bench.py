@@ -40,6 +40,8 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..models.family import init_params
+
 PARITY_TOL = 1e-5
 
 # Peak device-memory rate for the decode roofline, by the card's name as
@@ -274,17 +276,6 @@ def _device_kind(device: torch.device) -> str:
     return device_kind(device)
 
 
-def _model_params(mod: Any, config: Any, device: torch.device):
-    """The family's weights from seed 0: drawn on the device itself where
-    the family has a seeded torch initializer (full-size weights), else
-    from the numpy initializer through the bridge."""
-    init_torch = getattr(mod, "init_params_torch", None)
-    if init_torch is not None:
-        return init_torch(config, 0, device=device)
-    return mod.params_from_numpy(mod.init_params_numpy(config, 0), device,
-                                 config.dtype)
-
-
 def prompt_ids(config: Any, batch: int, prompt_len: int, device: torch.device):
     """(batch, prompt_len) int32 ids in ``[0, vocab)`` from numpy seed 1."""
     rng = np.random.default_rng(1)
@@ -396,7 +387,7 @@ def measure_decode(
     family = family_of(config)
     mod = module_for(family)
     if params is None:
-        params = _model_params(mod, config, device)
+        params = init_params(mod, config, 0, device)
     ids = prompt_ids(config, batch, prompt_len, device)
 
     gen_params: Any = params
@@ -534,7 +525,7 @@ def decode_attribution(
     mod = module_for(family)
     kind = _device_kind(device)
     if params is None:
-        params = _model_params(mod, config, device)
+        params = init_params(mod, config, 0, device)
     cache_len = prompt_len + new_tokens
     n_layer, nkv, hd = cache_dims(config)
     cache = _decode.init_cache(n_layer, batch, nkv, cache_len, hd,
@@ -700,7 +691,7 @@ def measure_decode_dag(
     device = torch.device(device)
     mod = module_for(family_of(config))
     if params is None:
-        params = _model_params(mod, config, device)
+        params = init_params(mod, config, 0, device)
     ids = prompt_ids(config, batch, prompt_len, device)
     max_len = prompt_len + new_tokens
     dtype_name = str(config.dtype).removeprefix("torch.")
@@ -969,7 +960,7 @@ def measure_paged_decode(
     device = torch.device(device)
     mod = module_for(family_of(config))
     capacity = pages_per_seq * page_size
-    params = _model_params(mod, config, device)
+    params = init_params(mod, config, 0, device)
     reqs = _paged_workload(config, n_requests, capacity)
     useful_tokens = sum(g for _, _, g in reqs)
 
@@ -1090,7 +1081,7 @@ def measure_paged_kernel(
     kernel_impl = "kernel" if on_card else "auto"
     mod = module_for(family_of(config))
     capacity = pages_per_seq * page_size
-    params = _model_params(mod, config, device)
+    params = init_params(mod, config, 0, device)
     _n_layers, n_kv_heads, head_dim = cache_dims(config)
     reqs = _paged_workload(config, n_requests, capacity)
     useful_tokens = sum(g for _, _, g in reqs)

@@ -304,31 +304,44 @@ ALL_SCHEDULERS = {
 
 
 def get_scheduler(name: str, link=None, **kwargs) -> BaseScheduler:
-    """Policy by name.
+    """Policy by name.  ``"native:<policy>"`` selects the C++ engine
+    explicitly; ``DLS_NATIVE=1`` upgrades every natively-supported policy
+    (parity-tested: identical schedules, faster wall time).  A failed
+    engine build raises in both cases: the Python policy never runs in
+    the engine's place.
 
     ``link`` hands link-aware policies (any whose constructor takes a
-    ``link=`` keyword) the same cost model the replay charges.  Extra
-    ``kwargs`` (e.g. ``budget``/``seed`` for the search tier) are
+    ``link=`` keyword) the same cost model the replay charges — required
+    for DCN-aware multislice runs.  An explicit ``"native:..."`` request
+    with a tiered link raises (the C ABI is flat-link only); under
+    ``DLS_NATIVE=1`` a tiered link keeps the Python policy, so the tiered
+    costs are honored.
+
+    Extra ``kwargs`` (e.g. ``budget``/``seed`` for the search tier) are
     forwarded only to policies whose constructor declares them, so one
     call site can configure the whole registry uniformly.
-
-    The JAX package's C++ engine (``"native:<policy>"`` names, and the
-    ``DLS_NATIVE=1`` upgrade) is not ported yet: asking for it raises
-    rather than run the Python policy in its place.
     """
     import inspect
 
+    from ..backends.sim import TieredLinkModel
     from ..utils.env import env_str
 
-    if name.startswith("native:") or env_str("DLS_NATIVE") == "1":
-        raise NotImplementedError(
-            f"scheduler {name!r}: the native C++ engine (native:<policy>, "
-            "DLS_NATIVE=1) is not ported to PyTorch yet (ROADMAP.md A.8)"
-        )
+    tiered = isinstance(link, TieredLinkModel)
+    if name.startswith("native:"):
+        from .native import NativeScheduler
+
+        return NativeScheduler(name.split(":", 1)[1], link=link)
     if name not in ALL_SCHEDULERS:
         raise ValueError(
             f"unknown scheduler {name!r}; available: {sorted(ALL_SCHEDULERS)}"
         )
+    if env_str("DLS_NATIVE") == "1" and not tiered:
+        from .. import native as native_mod
+        from .native import NativeScheduler
+
+        if name in native_mod.POLICY_IDS:
+            native_mod.load_engine()  # a failed build raises here
+            return NativeScheduler(name, link=link)
     cls = ALL_SCHEDULERS[name]
     params = inspect.signature(cls.__init__).parameters
     accepted = {
