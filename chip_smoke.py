@@ -101,13 +101,18 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
 9. serve path: GPT-2 small bf16 at full width through the paged decode
    DAG (8 slots, page size 16, 257 pages, capacity 512), placed by
    ``greedy`` and served by ``DeviceBackend.paged_decode_engine`` in
-   8-step segments: 16 requests, one warm-up run, then 3 timed runs, each
-   with the paged kernel's launches counted (12 layers x 8 steps per
-   segment) and the LayerNorm kernel's (25 per decode step and per
-   prefill forward, all on the register kernel), no leaked pages, every
-   request's token count, and a teacher-forced oracle against the fused
-   forward; a traced segment gives device busy time and the paged and
-   norm kernels' own device time;
+   8-step segments, each one replay of a CUDA graph the engine captures
+   at its first segment: 16 requests, one warm-up run, then 3 timed runs,
+   each with the paged kernel's launches that ran counted (12 layers x 8
+   steps per segment, all by replays) and the LayerNorm kernel's (25 per
+   decode step and per prefill forward, all on the register kernel), no
+   leaked pages, every request's token count, and a teacher-forced oracle
+   against the fused forward; an engine with ``capture=False`` serves the
+   same workload: tokens bit-equal, its tok/s, TPOT and segment wall
+   beside the captured engine's; 5 steady captured segments' device
+   windows from CUDA events; a traced segment gives device busy time (so
+   the idle share of the window and of the wall) and the paged and norm
+   kernels' own device time;
 10. Llama path: Llama-3 8B bf16 at full width and depth (batch 8, seq
     512, 8 microbatches, 8 vocab shards, linear chains fused: 1,945
     tasks), weights drawn on the card from a seeded generator,
@@ -177,8 +182,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     banked file's and a CPU run's; an injected page leak trips HLT001 and
     dumps a flight trace that validates; injected compile-class churn
     trips HLT003; then phase 9's engine soaks 8 s (2 s warm-up) on the
-    real clock at half the capacity phase 9 measured: healthy, no leaked
-    page.  d. ``measure_fleet(seed=7)`` over three GPT-2 tiny f32
+    real clock at half the rate it serves the soak's request shapes
+    arriving one per segment: healthy, no leaked page.  d. ``measure_fleet(seed=7)`` over three GPT-2 tiny f32
     replicas on the card: the eight ``fleet.*`` values and the fleet
     health history equal ``FLEET_r20.json``'s, the gates pass, and the
     card's allocated memory is back at its level after the restarts.
@@ -223,10 +228,12 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     4 flash and 9 RMSNorm launches per forward (``MOE_LINE``).
 19. decoding.  a. Llama-3 8B bf16 at full width and depth, weights drawn
     on the card: the decode bench's ``measure_decode`` at the JAX bench's
-    defaults (batch 8, prompt 512, 64 new tokens), with 65 RMSNorm
-    launches per forward_cached call (all on the register kernel, none on
-    copies, no flash launch), tok/s, ms per step and the roofline's
-    ``bound_utilization``; then a generation whose step logits at 8 of
+    defaults (batch 8, prompt 512, 64 new tokens), its decode steps
+    replays of one captured CUDA graph, with 65 RMSNorm launches that ran
+    per forward_cached call (all on the register kernel, none on copies,
+    no flash launch), tok/s, ms per step and the roofline's
+    ``bound_utilization``, and the same generations eager (``capture=
+    False``) beside them, with equal tokens; then a generation whose step logits at 8 of
     the generated positions are held against the fused forward over the
     sequence so far (the JAX package's ``oracle_close``): in f32 on the
     same weights, which must hold, and in bf16, reported (a randomly drawn
@@ -235,7 +242,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     int8 KV cache: its bytes at most 0.75 of the bf16 cache's, tok/s and
     token agreement with a.  c. ``measure_decode_dag`` under ``heft`` on
     one node (34-task step: per task, segmented, host-driven and looped
-    legs, ``oracle_ok``, two graph classes); one step under ``heft`` on
+    legs, the K-step loop captured and eager with equal tokens,
+    ``oracle_ok``, two graph classes); one step under ``heft`` on
     8 nodes of the card, bit-equal to one node's; the segmented and
     compiled rungs captured at step 1 and replayed at step 3, after the
     cache slabs were updated in place, bit-equal to the per-task step.
@@ -266,14 +274,23 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     from a seed, whole-model and ``--task-graph``: equal tokens, at
     least 8 of them distinct.  d. ``schedule --model llama-8b`` with ``native:heft`` (the
     C++ engine built here with ``g++``) and ``heft``: equal placement
-    digests and reports.  e. ``python -m distributed_llm_scheduler_tpu_
-    torch execute --model gpt2`` in a subprocess exits 0.  Each command's
-    wall time and makespan (``CLI_LINE``).
+    digests and reports.  f. the serving commands: ``serve --model gpt2``
+    (a virtual clock, no breach, no leaked page, every request completed),
+    ``slo --model gpt2 --ttft 10`` (a live leg), ``soak --duration 2
+    --warmup 0.5`` (healthy; every value but its clock-stamped series
+    equal to the same command's on the CPU), ``doctor --model gpt2`` and
+    ``doctor --memory --model gpt2``, ``metrics diff`` over the soak's
+    series and ``regress`` of a committed artifact against itself: each
+    exits 0, and each that serves replays the paged kernel.  e. ``python
+    -m distributed_llm_scheduler_tpu_torch execute --model gpt2`` in a
+    subprocess exits 0.  Each command's wall time and makespan
+    (``CLI_LINE``).
 
 The last lines are one JSON object of per-kernel numbers (``launches`` is
 the count of the kernel's main path, ``launches_by_path`` each counted
 run's own; for a captured run, the launches its graphs' replays made,
-counted at each replay), the card's name and power limit as nvidia-smi reports them,
+counted at each replay; for a run that captures the decode loops, the
+launches that ran, eager and by replays), the card's name and power limit as nvidia-smi reports them,
 and ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --paged-timing [ROOT]
@@ -1111,6 +1128,36 @@ def counted(label: str, expected: dict, run):
     if bad:
         raise AssertionError(f"{label}: launch counts {bad} != {expected}")
     return out, got
+
+
+def ran_counts(names) -> dict:
+    """{kernel: launches that ran on the card since the counts were last
+    set to 0}: the eager ones and the replays', not the captures' records
+    (``kernels.ran``)."""
+    from distributed_llm_scheduler_tpu_torch.ops import kernels
+
+    return {k: kernels.ran(k) for k in names}
+
+
+def counted_ran(label: str, expected: dict, run):
+    """:func:`counted` for a path that captures CUDA graphs (greedy
+    ``generate``'s step): each kernel's launches that ran on the card,
+    eager and replayed, must equal its expected number.  Returns (run's
+    result, {kernel: count that ran}, {kernel: of them by replays})."""
+    from distributed_llm_scheduler_tpu_torch.ops import kernels
+
+    kernels.reset_launches()
+    out = run()
+    no_routes(label)
+    got = ran_counts(expected)
+    by_replay = {k: kernels.replayed.get(k, 0) for k in expected}
+    log(f"  {label}: " + ", ".join(
+        f"{k} ran {got[k]} times (expected {n}; {by_replay[k]} by replays)"
+        for k, n in expected.items()))
+    bad = {k: got[k] for k, n in expected.items() if got[k] != n}
+    if bad:
+        raise AssertionError(f"{label}: launch counts {bad} != {expected}")
+    return out, got, by_replay
 
 
 def paged_work(torch, case) -> tuple:
@@ -2123,9 +2170,10 @@ def serve_workload(vocab: int) -> list:
     return reqs
 
 
-def build_engine(P, cfg, dev, geom, seg_steps, seed):
+def build_engine(P, cfg, dev, geom, seg_steps, seed, capture=True):
     """A paged decode engine for ``cfg`` on ``dev``: the paged decode DAG,
-    placed by ``greedy`` on one node, weights from numpy ``seed``."""
+    placed by ``greedy`` on one node, weights from numpy ``seed``; its
+    segments captured as one CUDA graph unless ``capture`` is False."""
     dag = P.build_paged_decode_dag(cfg, **geom)
     cluster = P.Cluster.from_torch_devices([dev])
     sched = P.get_scheduler("greedy").schedule(dag.graph, cluster)
@@ -2137,7 +2185,8 @@ def build_engine(P, cfg, dev, geom, seg_steps, seed):
     pool = P.PagePool(n_pages=geom["n_pages"], page_size=geom["page_size"])
     eng = P.DeviceBackend(cluster).paged_decode_engine(
         dag.graph, sched, cfg, weights, pool, slots=geom["slots"],
-        pages_per_seq=geom["pages_per_seq"], seg_steps=seg_steps)
+        pages_per_seq=geom["pages_per_seq"], seg_steps=seg_steps,
+        capture=capture)
     return dag, eng, weights
 
 
@@ -2145,6 +2194,36 @@ def serve(eng, reqs) -> dict:
     for rid, ids, gen in reqs:
         eng.submit(rid, ids, gen)
     return eng.run()
+
+
+def segment_windows(torch, P, eng, reqs, n: int = 5) -> dict:
+    """The device window of ``n`` steady-state captured segments (the
+    third on, before any slot frees up), each from a CUDA event recorded
+    on the current stream before the segment to one after it
+    (``DeviceClock.mark``): a replay's host span bounds only its launch,
+    so the host wall of ``step_segment`` is read beside it."""
+    from distributed_llm_scheduler_tpu_torch.backends.device import DeviceClock
+
+    eng.reset()
+    for rid, ids, gen in reqs:
+        eng.submit(rid, ids, gen)
+    eng.step_segment()
+    eng.step_segment()
+    torch.cuda.synchronize()
+    dev_ms, host_ms = [], []
+    for _ in range(n):
+        stream = torch.cuda.current_stream()
+        a = DeviceClock.mark(stream)
+        t0 = time.perf_counter()
+        eng.step_segment()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        b = DeviceClock.mark(stream)
+        torch.cuda.synchronize()
+        dev_ms.append(a.elapsed_time(b))
+    eng.run()
+    return dict(segment_device_window_ms=statistics.median(dev_ms),
+                segment_device_windows_ms=dev_ms,
+                segment_host_ms=statistics.median(host_ms))
 
 
 def serve_trace(torch, eng, reqs, seg_wall_s: float) -> None:
@@ -2226,11 +2305,15 @@ def serve_oracle(torch, P, cfg, weights, reqs, results) -> None:
 
 
 def run_serve_path(torch, P, A, dev) -> tuple:
-    """GPT-2 small bf16 served through the paged engine; returns each
-    timed run's launch counts of the single-token and the ragged paged
-    kernel and of the LayerNorm kernel, the trace's numbers, and what the
-    online serving phase reuses: the warmed engine, its weights and
-    config, the median run's useful tok/s and its mean segment wall."""
+    """GPT-2 small bf16 served through the paged engine, its segments one
+    captured CUDA graph (the warm-up run captures it; the timed runs only
+    replay); returns each timed run's launch counts that ran of the
+    single-token and the ragged paged kernel and of the LayerNorm kernel,
+    the trace's numbers, and what the online serving phase reuses: the
+    warmed engine, its weights and config, the median run's useful tok/s
+    and its mean segment wall.  An engine with ``capture=False`` serves
+    the same workload once: its tokens must equal the captured engine's
+    bit for bit."""
     import numpy as np
 
     cfg = P.GPT2Config.small(dtype=torch.bfloat16)
@@ -2262,10 +2345,11 @@ def run_serve_path(torch, P, A, dev) -> tuple:
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t)
         no_routes(label)
-        n_paged = kernels.launches[A.PAGED_KERNEL]
-        n_ragged = kernels.launches[A.PAGED_RAGGED_KERNEL]
-        n_ln = kernels.launches["layer_norm"]
-        n_ln_reg = kernels.launches["layer_norm.register"]
+        n_paged = kernels.ran(A.PAGED_KERNEL)
+        n_ragged = kernels.ran(A.PAGED_RAGGED_KERNEL)
+        n_ln = kernels.ran("layer_norm")
+        n_ln_reg = kernels.ran("layer_norm.register")
+        eager_paged = kernels.launches[A.PAGED_KERNEL]
         snap = eng.metrics.snapshot()
         steps = SERVE_SEG_STEPS * eng.segments_run
         waves = snap["counters"]["decode.admission_waves"]["value"]
@@ -2276,9 +2360,13 @@ def run_serve_path(torch, P, A, dev) -> tuple:
             f"{expected}), {A.PAGED_RAGGED_KERNEL} {n_ragged} times (expected "
             f"0), layer_norm {n_ln} times (expected {2 * cfg.n_layer + 1} x "
             f"({steps} decode steps + {waves} prefill forwards) = {ln_expected}),"
-            f" {n_ln_reg} of them on the register kernel (expected all)")
+            f" {n_ln_reg} of them on the register kernel (expected all); "
+            f"{kernels.replayed[A.PAGED_KERNEL]} paged and "
+            f"{kernels.replayed['layer_norm']} layer_norm launches by "
+            f"replays of the captured segment, {eager_paged} paged eagerly "
+            f"(expected 0)")
         if (n_paged != expected or n_ragged != 0 or n_ln != ln_expected
-                or n_ln_reg != n_ln):
+                or n_ln_reg != n_ln or eager_paged):
             raise AssertionError(f"{label}: kernel launches off")
         paged_n[label], ragged_n[label], ln_n[label] = n_paged, n_ragged, n_ln
         bad = [rid for rid, _, g in reqs if len(results[rid]) != g]
@@ -2303,7 +2391,58 @@ def run_serve_path(torch, P, A, dev) -> tuple:
         f"{h['decode.tpot_s']['p99'] * 1e3:.3f} ms")
     serve_oracle(torch, P, cfg, weights, reqs, results)
     seg_wall = (walls[med] - prefill_s[med]) / segs[med]
+    captured = dict(tok_s=useful / walls[med], wall_s=walls[med],
+                    tpot_p50_ms=h["decode.tpot_s"]["p50"] * 1e3,
+                    tpot_p99_ms=h["decode.tpot_s"]["p99"] * 1e3,
+                    ttft_p50_ms=h["decode.ttft_s"]["p50"] * 1e3,
+                    ttft_p99_ms=h["decode.ttft_s"]["p99"] * 1e3,
+                    segment_wall_ms=seg_wall * 1e3)
+
+    # the same workload through an eager engine of the same weights
+    _, eager_eng, _ = build_engine(P, cfg, dev, SERVE_GEOM, SERVE_SEG_STEPS,
+                                   0, capture=False)
+    serve(eager_eng, reqs)  # warm-up
+    eager_eng.reset(fresh_metrics=True)
+    t = time.perf_counter()
+    eager_res = serve(eager_eng, reqs)
+    torch.cuda.synchronize()
+    e_wall = time.perf_counter() - t
+    eh = eager_eng.metrics.snapshot()["histograms"]
+    e_pf = eh["decode.prefill_s"]["sum"]
+    eager = dict(tok_s=useful / e_wall, wall_s=e_wall,
+                 tpot_p50_ms=eh["decode.tpot_s"]["p50"] * 1e3,
+                 tpot_p99_ms=eh["decode.tpot_s"]["p99"] * 1e3,
+                 segment_wall_ms=(e_wall - e_pf) / eager_eng.segments_run * 1e3)
+    same = [rid for rid, _, _ in reqs
+            if np.array_equal(eager_res[rid], results[rid])]
+    log(f"  eager engine (capture=False), same workload: {e_wall:.4f} s -> "
+        f"{eager['tok_s']:.1f} useful tok/s, TPOT p50 "
+        f"{eager['tpot_p50_ms']:.3f} ms, p99 {eager['tpot_p99_ms']:.3f} ms, "
+        f"segment wall {eager['segment_wall_ms']:.3f} ms; captured "
+        f"{captured['tok_s']:.1f} tok/s, TPOT p50 {captured['tpot_p50_ms']:.3f}"
+        f" ms, p99 {captured['tpot_p99_ms']:.3f} ms, segment wall "
+        f"{captured['segment_wall_ms']:.3f} ms ({eager['segment_wall_ms'] / captured['segment_wall_ms']:.2f}x); "
+        f"tokens equal in {len(same)} of {len(reqs)} requests")
+    if len(same) != len(reqs):
+        raise AssertionError("captured segments' tokens differ from the "
+                             "eager engine's")
+    del eager_eng
+    win = segment_windows(torch, P, eng, reqs)
+    log(f"  captured segment device window (CUDA events): median "
+        f"{win['segment_device_window_ms']:.3f} ms over "
+        f"{len(win['segment_device_windows_ms'])} segments, host wall "
+        f"{win['segment_host_ms']:.3f} ms")
     trace = serve_trace(torch, eng, reqs, seg_wall)
+    busy = trace.get("segment_device_busy_ms")
+    if busy:
+        win["idle_share_of_window"] = 1.0 - busy / win["segment_device_window_ms"]
+        win["idle_share_of_wall"] = 1.0 - busy / (seg_wall * 1e3)
+        log(f"  captured segment: device busy {busy:.3f} ms of a "
+            f"{win['segment_device_window_ms']:.3f} ms device window (idle "
+            f"share {win['idle_share_of_window']:.3f}) and of a "
+            f"{seg_wall * 1e3:.3f} ms mean segment wall (idle share "
+            f"{win['idle_share_of_wall']:.3f})")
+    trace.update(win, captured=captured, eager=eager)
     served = dict(engine=eng, weights=weights, cfg=cfg,
                   tok_s=useful / walls[med], seg_wall_s=seg_wall)
     return paged_n, ragged_n, ln_n, trace, served
@@ -2476,9 +2615,8 @@ def online_leg(torch, A, eng, arrivals, policy, label: str, *, admission="slo",
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     no_routes(label)
-    counts = {k: kernels.launches[k] for k in (
-        A.PAGED_KERNEL, A.PAGED_RAGGED_KERNEL, A.KERNEL, "layer_norm",
-        "layer_norm.register")}
+    counts = ran_counts((A.PAGED_KERNEL, A.PAGED_RAGGED_KERNEL, A.KERNEL,
+                         "layer_norm", "layer_norm.register"))
     c = eng.metrics.counter
     steps = eng.seg_steps * eng.segments_run
     prefills = int(c("decode.admission_waves").value + c("decode.chunk_waves").value)
@@ -2688,7 +2826,8 @@ def run_online_path(torch, P, A, dev, served) -> dict:
 # on four rungs; b, phase 9's engine traced with a flight recorder and
 # request waterfalls; c, the soak doctor (virtual clock on the banked
 # config, the leak and churn injections, a real-clock soak of phase 9's
-# engine at SOAK_LOAD x its measured capacity); d, the health-routed fleet
+# engine at SOAK_LOAD x its measured capacity for the soak's requests); d,
+# the health-routed fleet
 DOCTOR_LEGS = (
     ("greedy x1", 1, "greedy", (("planned", {}),
                                 ("segmented", dict(segments=True)))),
@@ -2697,6 +2836,7 @@ DOCTOR_LEGS = (
 )
 SOAK_LOAD = 0.5
 SOAK_REAL = dict(duration_s=8.0, warmup_s=2.0)
+SOAK_PROBE = 64  # requests of the soak's shapes that measure its capacity
 FLIGHT_DIR = ROOT / "chip_smoke_out" / "flight"
 
 
@@ -2870,8 +3010,8 @@ def run_traced_serving(torch, P, A, dev, served) -> tuple:
     waves = snap["counters"]["decode.admission_waves"]["value"]
     want = {A.PAGED_KERNEL: cfg.n_layer * steps, A.PAGED_RAGGED_KERNEL: 0,
             "layer_norm": (2 * cfg.n_layer + 1) * (steps + waves)}
-    counts = {k: kernels.launches[k] for k in want}
-    if counts != want or kernels.launches["layer_norm.register"] != counts[
+    counts = ran_counts(want)
+    if counts != want or kernels.ran("layer_norm.register") != counts[
             "layer_norm"]:
         raise AssertionError(f"doctor serve: launches {counts} != {want}")
     got = {k: v.copy() for k, v in got.items()}
@@ -2907,8 +3047,8 @@ def run_traced_serving(torch, P, A, dev, served) -> tuple:
         f"({bare_wall:.4f} s bare before, {bare_wall_after:.4f} s after), "
         f"tokens bit-equal; of the traced wall: "
         f"{n_seg} segment spans {seg_s:.4f} s (mean "
-        f"{split['segment_mean_ms']:.3f} ms: the eager step's launches and "
-        f"its token readback), {n_wave} admission waves {wave_s:.4f} s "
+        f"{split['segment_mean_ms']:.3f} ms: the captured segment's replay "
+        f"and its token readback), {n_wave} admission waves {wave_s:.4f} s "
         f"(their prefill spans {pf_s:.4f} s), the rest {rest_s:.4f} s "
         f"({split['rest_per_segment_ms']:.3f} ms a segment: slot bookkeeping "
         f"and the engine loop); {n_events} events, {len(reqs)} "
@@ -2920,8 +3060,8 @@ def run_traced_serving(torch, P, A, dev, served) -> tuple:
 
 
 def soak_launches(A, eng) -> dict:
-    """What one soak's engine must have launched: the paged kernel per
-    layer and decode step, LayerNorm per decode step and prefill call."""
+    """What one soak's engine must have run: the paged kernel per layer
+    and decode step, LayerNorm per decode step and prefill call."""
     c = eng.metrics.counter
     steps = eng.seg_steps * eng.segments_run
     prefills = int(c("decode.admission_waves").value
@@ -2931,6 +3071,10 @@ def soak_launches(A, eng) -> dict:
 
 
 def counted_soak(torch, A, label, eng, run):
+    """One soak, its launches that ran counted: :func:`soak_launches`, plus
+    once more the kernels of the segment graph when the engine captured it
+    in this run (the capture's eager warm-up segment, rerun by the first
+    replay)."""
     from distributed_llm_scheduler_tpu_torch.ops import kernels
 
     kernels.reset_launches()
@@ -2938,10 +3082,33 @@ def counted_soak(torch, A, label, eng, run):
     torch.cuda.synchronize()
     no_routes(label)
     want = soak_launches(A, eng)
-    got = {k: kernels.launches[k] for k in want}
+    want = {k: n + kernels.captured.get(k, 0) for k, n in want.items()}
+    got = ran_counts(want)
     if got != want or not got[A.PAGED_KERNEL]:
         raise AssertionError(f"{label}: launches {got} != {want}")
     return art, got
+
+
+def soak_capacity(torch, eng, arrivals) -> float:
+    """Requests per second phase 9's warmed engine serves on the host's
+    clock when the soak's request shapes arrive one per segment (each
+    admission a wave of one, as sparse Poisson arrivals are): the rate at
+    which it saturates.  With its segments captured, a short request's
+    eager prefill and admission, not the decode, bound it, so phase 9's
+    decode tok/s over the mean new tokens overstates it."""
+    from distributed_llm_scheduler_tpu_torch.serve import prompt_token_ids
+
+    eng.rebind_obs()
+    vocab = int(eng.config.vocab_size)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for a in arrivals:
+        eng.submit(a.rid, prompt_token_ids(a.rid, a.prompt_len, vocab, 0),
+                   a.max_new_tokens)
+        eng.step_segment()
+    eng.run()
+    torch.cuda.synchronize()
+    return len(arrivals) / (time.perf_counter() - t0)
 
 
 def run_soak_path(torch, P, A, dev, served) -> tuple:
@@ -2950,7 +3117,8 @@ def run_soak_path(torch, P, A, dev, served) -> tuple:
     banked file's and a CPU run's; an injected page leak trips HLT001 and
     dumps a flight trace that validates; injected compile-class churn
     trips HLT003; then phase 9's GPT-2 small bf16 engine soaks on the real
-    clock at SOAK_LOAD x the capacity phase 9 measured: healthy, no leak."""
+    clock at SOAK_LOAD x its capacity for the soak's requests
+    (:func:`soak_capacity`): healthy, no leak."""
     from distributed_llm_scheduler_tpu_torch.eval import serve_bench as SB
     from distributed_llm_scheduler_tpu_torch.obs.export import validate_trace
     from distributed_llm_scheduler_tpu_torch.serve import (
@@ -3022,7 +3190,7 @@ def run_soak_path(torch, P, A, dev, served) -> tuple:
                              prompt_lens=SB.SCENARIO["prompt_lens"],
                              max_new_tokens=SB.SCENARIO["max_new_tokens"])
     mean_new = sum(a.max_new_tokens for a in probe) / len(probe)
-    capacity = served["tok_s"] / mean_new
+    capacity = soak_capacity(torch, eng, probe[:SOAK_PROBE])
     rate = SOAK_LOAD * capacity
     real = SoakConfig(rate_rps=rate, real_clock=True,
                       ttft_s=TTFT_SEGMENTS * served["seg_wall_s"],
@@ -3037,8 +3205,10 @@ def run_soak_path(torch, P, A, dev, served) -> tuple:
     slopes = {m: art[m] for m in SLOPE_METRICS.values()}
     log(f"  soak real clock, GPT-2 small bf16: {SOAK_REAL['duration_s']:g} s "
         f"({SOAK_REAL['warmup_s']:g} s warm-up) at {rate:.3f} req/s = "
-        f"{SOAK_LOAD:g} x the {capacity:.3f} req/s phase 9 measured "
-        f"({served['tok_s']:.1f} tok/s over {mean_new:.2f} new tokens), TTFT "
+        f"{SOAK_LOAD:g} x the {capacity:.3f} req/s its requests ran at one "
+        f"arrival a segment (phase 9's {served['tok_s']:.1f} tok/s over "
+        f"{mean_new:.2f} new tokens would say "
+        f"{served['tok_s'] / mean_new:.3f}), TTFT "
         f"target {real.ttft_s * 1e3:.1f} ms; {t_real:.1f} s wall; verdict "
         f"{art['verdict']}; goodput {art['soak.goodput_tok_s']:.1f} tok/s; "
         f"{sv['completed']} of {sv['n_requests']} completed, {sv['shed']} shed, "
@@ -3061,6 +3231,8 @@ def run_fleet_path(torch, A, dev) -> tuple:
     history equal ``FLEET_r20.json``'s, every gate passes, and the card's
     allocated memory is back at its level once the legs' restarts are
     done."""
+    import numpy as np
+
     from distributed_llm_scheduler_tpu_torch.eval import serve_bench as SB
     from distributed_llm_scheduler_tpu_torch.ops import kernels
     from distributed_llm_scheduler_tpu_torch.serve import VirtualClock
@@ -3069,6 +3241,12 @@ def run_fleet_path(torch, A, dev) -> tuple:
     keys = sorted(k for k in banked if k.startswith("fleet."))
     engines = {rid: SB.build_serve_engine(clock=VirtualClock(), device=dev)[0]
                for rid in ("n0", "n1", "n2")}
+    # each engine captures its segment graph once (its static buffers stay
+    # allocated with the engine) before the memory baseline
+    for eng in engines.values():
+        eng.submit("warm", np.ones((1, 8), np.int32), 4)
+        eng.run()
+        eng.reset()
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated(dev)
     kernels.reset_launches()
@@ -3077,8 +3255,7 @@ def run_fleet_path(torch, A, dev) -> tuple:
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     no_routes("fleet")
-    counts = {k: kernels.launches[k] for k in (
-        A.PAGED_KERNEL, A.PAGED_RAGGED_KERNEL, "layer_norm")}
+    counts = ran_counts((A.PAGED_KERNEL, A.PAGED_RAGGED_KERNEL, "layer_norm"))
     for eng in engines.values():
         eng.rebind_obs()
     torch.cuda.synchronize()
@@ -3939,12 +4116,17 @@ DECODE_NORMS = (("rms", (8, 1, 4096)), ("rms", (8, 512, 4096)),
                 ("ln", (8, 512, 768)))
 
 
-def decode_calls(reps: int, new_tokens: int, lossy: bool = False) -> int:
-    """forward_cached calls of one measure_decode: generate(1) and
-    generate(new_tokens), each warmed up once and run ``reps`` times (one
-    call per generated token), plus, for a lossy leg, the agreement's two
-    generations."""
-    return (reps + 1) * (1 + new_tokens) + (2 * new_tokens if lossy else 0)
+def decode_calls(reps: int, new_tokens: int, lossy: bool = False,
+                 eager_leg: bool = False) -> int:
+    """forward_cached calls that run on the card in one measure_decode:
+    generate(1) and generate(new_tokens), each warmed up once and run
+    ``reps`` times (one call per generated token, a captured step's replay
+    included), plus, for a lossy leg, the agreement's two generations, and
+    with ``eager_leg`` the same again eagerly and the two generations that
+    compare the paths' tokens."""
+    one = (reps + 1) * (1 + new_tokens)
+    return (one + (2 * new_tokens if lossy else 0)
+            + (one + 2 * new_tokens if eager_leg else 0))
 
 
 def decode_oracle(torch, llama, cfg, params, ids, new_tokens: int,
@@ -4181,8 +4363,9 @@ def moe_decode(torch, P, N, dev) -> tuple:
     rms = {N.RMS_KERNEL: per_fwd * new, f"{N.RMS_KERNEL}.register": per_fwd * new}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    want, n_gen = counted("mixtral generate", rms, lambda: mixtral.generate(
-        params, ids, cfg, max_new_tokens=new))
+    want, n_gen, _ = counted_ran("mixtral generate", rms,
+                                 lambda: mixtral.generate(
+                                     params, ids, cfg, max_new_tokens=new))
     want = want[:, T:].cpu()
     gen_s = time.perf_counter() - t0
     one = P.Cluster.from_torch_devices([dev])
@@ -4238,7 +4421,7 @@ def gpt2_decode_legs(torch, P, A, N, dev) -> tuple:
     calls = decode_calls(DECODE_REPS, DECODE["new_tokens"])
     ln = {N.LN_KERNEL: per_fwd * calls, f"{N.LN_KERNEL}.register": per_fwd * calls}
     out, launches = {}, {}
-    out["decode"], launches["gpt2 decode"] = counted(
+    out["decode"], launches["gpt2 decode"], _ = counted_ran(
         "gpt2 decode", ln, lambda: DB.measure_decode(cfg, reps=DECODE_REPS,
                                                      device=dev, **DECODE))
     log_decode("GPT-2 small bf16 generate", out["decode"])
@@ -4247,7 +4430,7 @@ def gpt2_decode_legs(torch, P, A, N, dev) -> tuple:
         calls_q = decode_calls(DECODE_REPS, DECODE["new_tokens"], lossy=True)
         # the int8-weight leg also runs two fused forwards (its flip rate)
         n_ln = per_fwd * (calls_q + (2 if label == "int8" else 0))
-        r, launches[f"gpt2 decode {label}"] = counted(
+        r, launches[f"gpt2 decode {label}"], _ = counted_ran(
             f"gpt2 decode {label}",
             {N.LN_KERNEL: n_ln, f"{N.LN_KERNEL}.register": n_ln},
             lambda: DB.measure_decode(cfg, reps=DECODE_REPS, device=dev,
@@ -4269,7 +4452,7 @@ def gpt2_decode_legs(torch, P, A, N, dev) -> tuple:
         f"{a['loop_overhead_ms']} ms")
     kernels.reset_launches()
     p = DB.measure_paged_decode(device=dev)
-    n_paged = kernels.launches[A.PAGED_KERNEL]
+    n_paged = kernels.ran(A.PAGED_KERNEL)
     launches["paged decode"] = {A.PAGED_KERNEL: n_paged}
     log(f"  paged decode (GPT-2 tiny f32): paged {p['paged_tok_s']:.1f} tok/s "
         f"against dense {p['dense_tok_s']:.1f} ({p['speedup']}x), tokens "
@@ -4281,8 +4464,7 @@ def gpt2_decode_legs(torch, P, A, N, dev) -> tuple:
                     if k not in ("metrics", "requests", "slo")}
     kernels.reset_launches()
     k = DB.measure_paged_kernel(device=dev)
-    leg = {A.PAGED_KERNEL: kernels.launches[A.PAGED_KERNEL],
-           A.PAGED_RAGGED_KERNEL: kernels.launches[A.PAGED_RAGGED_KERNEL]}
+    leg = ran_counts((A.PAGED_KERNEL, A.PAGED_RAGGED_KERNEL))
     launches["paged kernel leg"] = leg
     failures = DB.kernel_gate_failures(k)
     log(f"  paged kernel leg (GPT-2 tiny f32): kernel {k['kernel_tok_s']:.1f} "
@@ -4321,11 +4503,23 @@ def run_decode_path(torch, P, A, N, dev) -> tuple:
         return {N.RMS_KERNEL: per_fwd * n, f"{N.RMS_KERNEL}.register": per_fwd * n,
                 A.KERNEL: 0}
 
-    calls = decode_calls(DECODE_REPS, DECODE["new_tokens"])
-    a, launches["llama decode"] = counted(
+    calls = decode_calls(DECODE_REPS, DECODE["new_tokens"], eager_leg=True)
+    a, launches["llama decode"], replays = counted_ran(
         "llama decode", rms(calls), lambda: DB.measure_decode(
-            cfg, reps=DECODE_REPS, device=dev, params=params, **DECODE))
-    log_decode("Llama-3 8B generate", a)
+            cfg, reps=DECODE_REPS, device=dev, params=params, eager_leg=True,
+            **DECODE))
+    a["rms_norm_replayed"] = replays[N.RMS_KERNEL]
+    log_decode("Llama-3 8B generate, captured steps", a)
+    e = a["eager"]
+    log(f"  Llama-3 8B generate, eager steps (capture=False): "
+        f"{e['decode_tok_s']:.1f} tok/s, {e['ms_per_token_step']:.4f} ms per "
+        f"token step, bound_utilization {e.get('bound_utilization', 0):.4f}; "
+        f"captured {a['ms_per_token_step']:.4f} ms "
+        f"({e['ms_per_token_step'] / a['ms_per_token_step']:.2f}x); tokens "
+        f"equal {e['tokens_equal']}")
+    if not e["tokens_equal"]:
+        raise AssertionError("captured generate's tokens differ from the "
+                             "eager path's")
     log(f"    {per_fwd} RMSNorm per step, all on the register kernel; no "
         f"call on copies")
     ids = DB.prompt_ids(cfg, DECODE["batch"], DECODE["prompt_len"], dev)
@@ -4347,7 +4541,7 @@ def run_decode_path(torch, P, A, N, dev) -> tuple:
 
     log("  b. Llama-3 8B with the int8 KV cache")
     calls_b = decode_calls(DECODE_REPS, DECODE["new_tokens"], lossy=True)
-    b, launches["llama decode kv_int8"] = counted(
+    b, launches["llama decode kv_int8"], _ = counted_ran(
         "llama decode kv_int8", rms(calls_b), lambda: DB.measure_decode(
             cfg, reps=DECODE_REPS, device=dev, params=params, kv_int8=True,
             **DECODE))
@@ -4371,11 +4565,19 @@ def run_decode_path(torch, P, A, N, dev) -> tuple:
     kernels.reset_launches()
     c = DB.measure_decode_dag(cfg, policy="heft", device=dev, params=params)
     no_routes("llama decode DAG bench")
-    n_rms = kernels.launches[N.RMS_KERNEL]
+    n_rms = kernels.ran(N.RMS_KERNEL)
     launches["llama decode DAG bench"] = {N.RMS_KERNEL: n_rms}
-    if kernels.launches[f"{N.RMS_KERNEL}.register"] != n_rms or not n_rms:
+    if kernels.ran(f"{N.RMS_KERNEL}.register") != n_rms or not n_rms:
         raise AssertionError("decode DAG bench: RMSNorm off the register kernel")
     lp = c["looped"]
+    el = lp["eager"]
+    log(f"  decode DAG K-step loop x{lp['steps_per_dispatch']}: captured "
+        f"{lp['ms_per_token']} ms/token ({lp['tok_s']} tok/s), eager "
+        f"{el['ms_per_token']} ms/token ({el['tok_s']} tok/s); tokens equal "
+        f"{el['tokens_equal_captured']}")
+    if not el["tokens_equal_captured"]:
+        raise AssertionError("captured K-step loop's tokens differ from the "
+                             "eager loop's")
     log(f"  decode DAG ({c['n_tasks_decode_step']} tasks, heft x1): per task "
         f"{c['step_ms_per_task']} ms/step, segmented {c['step_ms_segmented']} "
         f"ms/step (bound utilization {c.get('segmented_bound_utilization')}), "
@@ -4548,6 +4750,7 @@ def run_cli_path(torch, P, A, N) -> tuple:
     docstring).  Returns (CLI_LINE dict, {command: launch counts})."""
     from distributed_llm_scheduler_tpu_torch.__main__ import main
     from distributed_llm_scheduler_tpu_torch.obs.export import validate_trace
+    from distributed_llm_scheduler_tpu_torch.ops import kernels
     from distributed_llm_scheduler_tpu_torch.obs.metrics import (
         validate_snapshot,
     )
@@ -4597,8 +4800,8 @@ def run_cli_path(torch, P, A, N) -> tuple:
         if eager.get(A.KERNEL, 0) != 2 * per_forward[A.KERNEL]:
             raise AssertionError(f"{label}: {eager.get(A.KERNEL)} flash "
                                  f"launches, per forward {per_forward}")
-        if not eager.get(A.PAGED_KERNEL, 0):
-            raise AssertionError(f"{label}: the decode leg launched no "
+        if not kernels.replayed.get(A.PAGED_KERNEL, 0):
+            raise AssertionError(f"{label}: the decode leg replayed no "
                                  "paged kernel")
         if label == "trace":
             errs = validate_trace(str(CLI_DIR / "trace.json"))
@@ -4609,8 +4812,7 @@ def run_cli_path(torch, P, A, N) -> tuple:
             extra = dict(counters=len(snap["counters"]))
         if errs:
             raise AssertionError(f"{label}: invalid output: {errs[:3]}")
-        counts[label] = {k: eager.get(k, 0) for k in
-                         (A.KERNEL, A.PAGED_KERNEL, N.LN_KERNEL)}
+        counts[label] = ran_counts((A.KERNEL, A.PAGED_KERNEL, N.LN_KERNEL))
         record(label, wall, rep.makespan_s * 1e3, launches=counts[label],
                **extra)
         del calls
@@ -4627,11 +4829,12 @@ def run_cli_path(torch, P, A, N) -> tuple:
                                  str(ckpt), "--max-new-tokens",
                                  str(CLI_TOKENS), *extra])
         tokens[label] = json.loads(out)["generated_ids"]
-        counts[label] = {k: eager.get(k, 0) for k in (A.KERNEL, N.LN_KERNEL)}
+        counts[label] = ran_counts((A.KERNEL, N.LN_KERNEL))
         record(label, wall, None, launches=counts[label],
                tokens=len(tokens[label]))
-        # 2 n_layer + 1 layer norms per forward: whole-model, the prefill
-        # and 31 steps; the task graph also warms up its two graph classes
+        # 2 n_layer + 1 layer norms per forward that ran: whole-model, the
+        # prefill and 31 steps (30 of them replays of the captured step);
+        # the task graph also warms up its two graph classes
         forwards = CLI_TOKENS + (2 if extra else 0)
         n_ln = 2 * P.GPT2Config.small().n_layer + 1
         if len(tokens[label]) != CLI_TOKENS or \
@@ -4666,6 +4869,9 @@ def run_cli_path(torch, P, A, N) -> tuple:
         raise AssertionError(f"schedule: native:heft {digests['native:heft']}"
                              f" != heft {digests['heft']}")
 
+    # f. the serving commands
+    serving_commands(torch, A, N, main, record, counts)
+
     # e. the module entry point, in a process of its own
     t0 = time.perf_counter()
     r = subprocess.run(
@@ -4682,9 +4888,109 @@ def run_cli_path(torch, P, A, N) -> tuple:
     return line, counts
 
 
+def serving_commands(torch, A, N, main, record, counts) -> None:
+    """Phase 20 f: ``serve --model gpt2`` (GPT-2 small f32 on a virtual
+    clock, its segments captured), ``slo`` (a live leg on the card's wall
+    clock), a short ``soak`` (GPT-2 tiny f32, virtual clock; every value
+    but the clock-stamped series equal to the same command's on the CPU),
+    ``doctor`` (the live profiled run, ``--memory``), ``metrics diff``
+    over the soak's series and ``regress`` on a committed artifact: each
+    exits 0, and each that serves replays the paged kernel."""
+    import os
+
+    from distributed_llm_scheduler_tpu_torch.ops import kernels
+
+    def replayed_paged(label):
+        n = kernels.replayed.get(A.PAGED_KERNEL, 0)
+        if not n:
+            raise AssertionError(f"{label}: no replayed paged kernel launch")
+        return n
+
+    out, _, _, wall = cli_run(torch, main, "serve", [
+        "serve", "--model", "gpt2", "--out", str(CLI_DIR / "serve.json")])
+    rep = json.loads(out)
+    counts["serve"] = ran_counts((A.PAGED_KERNEL, N.LN_KERNEL))
+    if rep["breached"] or rep["pages_leaked"] or rep["completed"] != rep[
+            "n_requests"]:
+        raise AssertionError(f"serve: {rep}")
+    record("serve --model gpt2", wall, None, launches=counts["serve"],
+           replayed_paged=replayed_paged("serve"), completed=rep["completed"],
+           goodput_tok_s=rep["goodput_tok_s"], ttft_p99_ms=rep["ttft_p99_ms"])
+
+    out, _, _, wall = cli_run(torch, main, "slo", [
+        "slo", "--model", "gpt2", "--ttft", "10"])
+    rep = json.loads(out)
+    counts["slo"] = ran_counts((A.PAGED_KERNEL, N.LN_KERNEL))
+    record("slo --model gpt2", wall, None, launches=counts["slo"],
+           replayed_paged=replayed_paged("slo"),
+           requests=rep["requests"]["n_requests"]
+           if "n_requests" in rep["requests"] else len(rep["requests"]))
+
+    soak_argv = ["soak", "--duration", "2", "--warmup", "0.5"]
+    card_art, host_art = CLI_DIR / "soak.json", CLI_DIR / "soak_cpu.json"
+    out, _, _, wall = cli_run(torch, main, "soak",
+                              soak_argv + ["--out", str(card_art)])
+    counts["soak"] = ran_counts((A.PAGED_KERNEL, N.LN_KERNEL))
+    n_replayed = replayed_paged("soak")
+    prev = os.environ.get("DLS_PLATFORM")
+    os.environ["DLS_PLATFORM"] = "cpu"
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = main(soak_argv + ["--out", str(host_art)])
+    finally:
+        if prev is None:
+            del os.environ["DLS_PLATFORM"]
+        else:
+            os.environ["DLS_PLATFORM"] = prev
+    card, host = (json.loads(p.read_text()) for p in (card_art, host_art))
+    off = [k for k in card if k not in ("timeseries", "flight_dumps")
+           and card[k] != host[k]]
+    if rc != 0 or off or card["verdict"] != "healthy":
+        raise AssertionError(f"soak: CPU exit {rc}, values off the CPU's "
+                             f"{off}, verdict {card['verdict']}")
+    record("soak (2 s)", wall, None, launches=counts["soak"],
+           replayed_paged=n_replayed, verdict=card["verdict"],
+           goodput_tok_s=card["soak.goodput_tok_s"], equal_to_cpu=True)
+
+    for label, argv in (("doctor", ["doctor", "--model", "gpt2"]),
+                        ("doctor --memory",
+                         ["doctor", "--memory", "--model", "gpt2"])):
+        out, _, _, wall = cli_run(torch, main, label, argv)
+        rep = json.loads(out)
+        counts[label] = ran_counts((A.KERNEL, N.LN_KERNEL))
+        if label == "doctor":
+            extra = dict(critical_path=len(rep["attribution"]["critical_path"]),
+                         drift_tasks=rep["drift"]["n_tasks"],
+                         drift_median_ratio=rep["drift"]["median_ratio"])
+        else:
+            extra = dict(devices=len(rep["memory"]["devices"]),
+                         mem_drift_worst_ratio=rep["mem_drift"]["worst_ratio"])
+        if not counts[label][A.KERNEL]:
+            raise AssertionError(f"{label}: no flash launch")
+        record(label, wall, None, launches=counts[label], **extra)
+
+    out, _, _, wall = cli_run(torch, main, "metrics diff", [
+        "metrics", "diff", str(card_art), "--at", "0", "--vs", "-1"])
+    record("metrics diff", wall, None,
+           gauges=len(json.loads(out).get("gauges", {})))
+    out, _, _, wall = cli_run(torch, main, "regress", [
+        "regress", "--fresh", str(ROOT / "BENCH_MEDIUM_r05.json"),
+        "--baseline", str(ROOT / "BENCH_MEDIUM_r05.json"), "--json"])
+    verdict = json.loads(out)
+    if not verdict["ok"]:
+        raise AssertionError(f"regress: {verdict}")
+    record("regress", wall, None, checks=verdict["n_checks"],
+           regressed=verdict["n_regressed"])
+
+
 def gc_cuda(torch) -> None:
+    """Free what a leg left on the card: the stored decode programs of
+    ``generate`` (their caches and graphs), then unreferenced tensors."""
     import gc
 
+    from distributed_llm_scheduler_tpu_torch.models import decode
+
+    decode.clear_programs()
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4873,8 +5179,6 @@ def norm_timing(root: Path) -> int:
 
 
 def main() -> int:
-    import gc
-
     import torch
 
     if sys.argv[1:2] == ["--paged-timing"]:
@@ -4931,8 +5235,7 @@ def main() -> int:
     norms = check_norm_kernels(torch, N, dev)
 
     def phase_done():  # free the phase's tensors before the next one
-        gc.collect()
-        torch.cuda.empty_cache()
+        gc_cuda(torch)
 
     log("[6/20] flagship forward path: GPT-2 small bf16 DAG on the card")
     gpt2_n = run_main_path(torch, P, dev)
@@ -5021,7 +5324,8 @@ def main() -> int:
     phase_done()
 
     log("[20/20] the command line on the card: execute, trace, metrics, "
-        "generate and schedule through the port's __main__")
+        "generate, schedule and the serving commands through the port's "
+        "__main__")
     t20 = time.perf_counter()
     cli_line, cli_n = run_cli_path(torch, P, A, N)
     cli_line["seconds"] = time.perf_counter() - t20

@@ -1,8 +1,8 @@
 """CLI: ``python -m distributed_llm_scheduler_tpu_torch <command>``.
 
 The PyTorch port of the JAX package's command line, for the commands whose
-code is all ported (the flags, defaults and help texts are the JAX
-package's):
+code is all ported (the flags, defaults, help texts and exit codes are the
+JAX package's):
 
 * ``schedule``  — build a DAG, place it with a policy, report + save
 * ``sweep``     — the full evaluation sweep (CSV + PNG + summary)
@@ -11,10 +11,21 @@ package's):
 * ``generate``  — autoregressive KV-cache decoding (any model family)
 * ``bench``     — the north-star benchmark (one JSON line)
 * ``trace``     — traced execute (+ paged-decode leg) -> Perfetto JSON
-* ``metrics``   — same run, metrics-registry snapshot JSON
+* ``metrics``   — same run, metrics-registry snapshot JSON;
+  ``metrics diff`` — deltas between two snapshots (or two samples of one
+  time series)
+* ``slo``       — sliding-window SLO report + gate over a request log
+* ``serve``     — online serving run on a virtual clock (SLO admission,
+  preemption) over the paged decode engine
+* ``soak``      — duration-bounded serving soak with trend health gating
+* ``doctor``    — run doctor: attribution + cost-model drift of a live
+  run, or ``--trace``, ``--memory``, ``--slo``, ``--soak``, ``--fleet``,
+  ``--serve``, ``--requests``
+* ``regress``   — perf-regression gate between two bench artifacts
 
-Live devices are the CUDA cards; ``DLS_PLATFORM=cpu`` runs on the CPU
-instead (``utils/config.py``).  With no card and no such setting the
+Exit codes of the gating commands: 0 ok, 1 a gate breached, 2 malformed
+input.  Live devices are the CUDA cards; ``DLS_PLATFORM=cpu`` runs on the
+CPU instead (``utils/config.py``).  With no card and no such setting the
 device commands fail with a message: nothing falls back to the CPU.  A
 command that cannot run exits 2 with one line on stderr.
 """
@@ -899,6 +910,935 @@ def cmd_metrics(args) -> int:
     return 0
 
 
+def _slo_live_requests(args, flight):
+    """One small paged continuous-batching leg (gpt2 family, 2 slots) on
+    the first live device, with the flight recorder wired; returns ``(rc,
+    dls.requests/1 snapshot)`` — rc 2 when the configuration cannot
+    run."""
+    from .backends.device import DeviceBackend
+
+    cfg = _config_from(args)
+    if _weights_family(cfg.model) != "gpt2":
+        print("slo: live run needs a gpt2-family model (paged decode)",
+              file=sys.stderr)
+        return 2, None
+    import numpy as np
+
+    from .core.cluster import Cluster
+    from .frontend.decode_dag import build_paged_decode_dag
+    from .models.kv_pages import PagePool
+    from .utils.config import platform_devices
+
+    dev = platform_devices(1)[0]
+    mcfg = cfg.model_config()
+    slots, ps, n_pages, ppseq = 2, 8, 32, 4
+    ddag = build_paged_decode_dag(
+        mcfg, slots=slots, page_size=ps, n_pages=n_pages,
+        pages_per_seq=ppseq,
+    )
+    params = ddag.init_params(device=dev)
+    weights = {k: v for k, v in params.items()
+               if not (k.startswith("cache_") or k == "page_table")}
+    dcluster = Cluster.from_torch_devices([dev])
+    pool = PagePool(n_pages=n_pages, page_size=ps)
+    eng = DeviceBackend(dcluster).paged_decode_engine(
+        ddag.graph, cfg.build_scheduler().schedule(ddag.graph, dcluster),
+        mcfg, weights, pool, slots=slots, pages_per_seq=ppseq, seg_steps=4,
+        flight=flight,
+    )
+    n_req = getattr(args, "n_requests", 4) or 4
+    for i in range(n_req):
+        ids = np.asarray([[1 + (i % 3), 2, 3, 4, 5, 6, 7, 8]], np.int32)
+        eng.submit(f"r{i}", ids, 6)
+    eng.run()
+    return 0, eng.reqlog.snapshot()
+
+
+def cmd_slo(args) -> int:
+    """SLO report + gate over a request log (``--requests``: a
+    ``dls.requests/1`` snapshot, a flight dump, or a decode-bench
+    artifact with a paged leg) or a fresh live paged-decode run.  Exit 0
+    when every window meets the policy, 1 on breach (the worst window
+    and metric are named on stderr), 2 on malformed/empty request logs
+    or an unrunnable configuration."""
+    from .obs import FlightRecorder, SLOPolicy, evaluate_slo
+    from .obs import reqlog as _reqlog
+
+    try:
+        policy = SLOPolicy(
+            ttft_s=args.ttft, tpot_s=args.tpot, e2e_s=args.e2e,
+            window_s=args.window, percentile=args.percentile,
+        )
+    except ValueError as e:
+        print(f"slo: {e} (pass --ttft/--tpot/--e2e)", file=sys.stderr)
+        return 2
+
+    flight = None
+    if args.requests:
+        try:
+            with open(args.requests) as f:
+                obj = json.load(f)
+        except (OSError, ValueError) as e:
+            print(f"slo: unreadable request log {args.requests}: {e}",
+                  file=sys.stderr)
+            return 2
+        if not isinstance(obj, dict):
+            print(f"slo: {args.requests} is not a JSON object",
+                  file=sys.stderr)
+            return 2
+        if obj.get("schema") == _reqlog.SCHEMA:
+            snap = obj
+        elif isinstance(obj.get("request_log"), dict):
+            snap = obj["request_log"]       # a flight-recorder dump
+        elif (isinstance(obj.get("paged"), dict)
+              and isinstance(obj["paged"].get("requests"), dict)):
+            snap = obj["paged"]["requests"]  # a decode-bench artifact
+        else:
+            print(f"slo: no dls.requests/1 block found in {args.requests}",
+                  file=sys.stderr)
+            return 2
+    else:
+        flight = FlightRecorder()
+        rc, snap = _slo_live_requests(args, flight)
+        if rc:
+            return rc
+
+    errs = _reqlog.validate_request_log(snap)
+    if errs:
+        for e in errs[:10]:
+            print(f"slo: {e}", file=sys.stderr)
+        return 2
+    if not snap.get("requests"):
+        print("slo: request log is empty", file=sys.stderr)
+        return 2
+
+    report = evaluate_slo(snap, policy)
+    out = {
+        "requests": _reqlog.summarize_request_log(snap),
+        "slo": report.summary(),
+    }
+    if report.exceeds() and flight is not None and args.flight_dir:
+        from .obs.export import validate_trace
+
+        rec = flight.maybe_dump(args.flight_dir, slo_report=report)
+        out["flight_dump"] = dict(
+            rec, trace_valid=validate_trace(rec["trace"]) == []
+        )
+    print(json.dumps(out, indent=1))
+    if report.exceeds():
+        b = report.worst_breach()
+        print(
+            f"slo: {b['metric']} {b['percentile']}={b['value']:.6g}s "
+            f"exceeds target {b['target']:.6g}s in window {b['window']} "
+            f"[{b['t_start']:.3f}s, {b['t_end']:.3f}s)", file=sys.stderr,
+        )
+        return 1
+    return 0
+
+
+def cmd_serve(args) -> int:
+    """Online serving run: open-loop arrivals (seeded Poisson or a
+    ``dls.arrivals/1`` trace) through the event-loop front-end over the
+    paged decode engine on a virtual clock — SLO-aware admission and
+    priority preemption when ``--admission slo`` (the default).  Exit 0
+    when the run meets the policy, 1 on SLO breach (flight rings dumped
+    to --flight-dir when given), 2 on malformed traces / policies /
+    configurations."""
+    from .obs import FlightRecorder, SLOPolicy
+    from .serve import (
+        ServiceTimeModel,
+        ServingFrontend,
+        VirtualClock,
+        load_trace,
+        poisson_arrivals,
+        save_trace,
+    )
+
+    try:
+        policy = SLOPolicy(
+            ttft_s=args.ttft, tpot_s=args.tpot, e2e_s=args.e2e,
+            window_s=args.window, percentile=args.percentile,
+        )
+    except ValueError as e:
+        print(f"serve: {e} (pass --ttft/--tpot/--e2e)", file=sys.stderr)
+        return 2
+    if args.admission == "slo" and policy.ttft_s is None:
+        print("serve: slo admission needs a --ttft target",
+              file=sys.stderr)
+        return 2
+
+    if args.trace:
+        try:
+            arrivals = load_trace(args.trace)
+        except (OSError, ValueError) as e:
+            print(f"serve: {e}", file=sys.stderr)
+            return 2
+    else:
+        try:
+            arrivals = poisson_arrivals(
+                args.rate, args.n_requests, args.seed,
+                prompt_lens=(8, 16), max_new_tokens=(8, 16),
+                priorities=(0, 1), priority_weights=(0.3, 0.7),
+            )
+        except ValueError as e:
+            print(f"serve: {e}", file=sys.stderr)
+            return 2
+    if args.save_trace:
+        save_trace(arrivals, args.save_trace)
+        print(f"serve: trace -> {args.save_trace}", file=sys.stderr)
+
+    cfg = _config_from(args)
+    if _weights_family(cfg.model) != "gpt2":
+        print("serve: needs a gpt2-family model (paged decode)",
+              file=sys.stderr)
+        return 2
+    slots, ps, n_pages, ppseq = 4, 8, 13, 4
+    too_big = [a.rid for a in arrivals
+               if a.prompt_len + a.max_new_tokens > ppseq * ps]
+    if too_big:
+        print(f"serve: {len(too_big)} arrival(s) exceed the per-request "
+              f"KV capacity of {ppseq * ps} tokens (first: "
+              f"{too_big[0]!r})", file=sys.stderr)
+        return 2
+
+    from .backends.device import DeviceBackend
+    from .core.cluster import Cluster
+    from .frontend.decode_dag import build_paged_decode_dag
+    from .models.kv_pages import PagePool
+    from .utils.config import platform_devices
+
+    dev = platform_devices(1)[0]
+    clock = VirtualClock()
+    flight = FlightRecorder(clock=clock)
+    mcfg = cfg.model_config()
+    ddag = build_paged_decode_dag(
+        mcfg, slots=slots, page_size=ps, n_pages=n_pages,
+        pages_per_seq=ppseq, attention_impl=args.attention_impl,
+    )
+    params = ddag.init_params(device=dev)
+    weights = {k: v for k, v in params.items()
+               if not (k.startswith("cache_") or k == "page_table")}
+    dcluster = Cluster.from_torch_devices([dev])
+    pool = PagePool(n_pages=n_pages, page_size=ps)
+    eng = DeviceBackend(dcluster).paged_decode_engine(
+        ddag.graph, cfg.build_scheduler().schedule(ddag.graph, dcluster),
+        mcfg, weights, pool, slots=slots, pages_per_seq=ppseq,
+        seg_steps=4, clock=clock, flight=flight,
+        attention_impl=args.attention_impl,
+        chunk_tokens=args.chunk_tokens,
+    )
+    fe = ServingFrontend(
+        eng, arrivals, policy, admission=args.admission,
+        preemption=not args.no_preempt,
+        time_model=ServiceTimeModel(),
+    )
+    report = fe.run()
+
+    out = {k: v for k, v in report.items() if k != "requests"}
+    if report["breached"] and args.flight_dir:
+        from .obs.export import validate_trace
+
+        rec = flight.maybe_dump(args.flight_dir,
+                                slo_report=fe.slo_report)
+        out["flight_dump"] = dict(
+            rec, trace_valid=validate_trace(rec["trace"]) == []
+        )
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(report, f, indent=1, sort_keys=True)
+        print(f"serve: report -> {args.out}", file=sys.stderr)
+    print(json.dumps(out, indent=1, sort_keys=True))
+    if report["breached"]:
+        b = fe.slo_report.worst_breach()
+        print(
+            f"serve: {b['metric']} {b['percentile']}={b['value']:.6g}s "
+            f"exceeds target {b['target']:.6g}s in window {b['window']} "
+            f"[{b['t_start']:.3f}s, {b['t_end']:.3f}s)", file=sys.stderr,
+        )
+        return 1
+    return 0
+
+
+def cmd_soak(args) -> int:
+    """Duration-bounded serving soak with health gating: sustained
+    seeded Poisson load over the paged decode engine (virtual time by
+    default; ``--real-clock`` serves wall-clock arrivals), sampled every
+    ``--sample-every`` seconds into the bounded time-series store and
+    gated by the leak/degradation detector battery (HLT001–HLT006)
+    after ``--warmup`` exclusion.  Exit 0 healthy (schema-valid
+    ``dls.soak/1`` artifact), 1 on a detector breach (the worst
+    series+slope named on stderr; flight rings dumped to --flight-dir),
+    2 on a malformed config or artifact.  ``--inject-leak`` /
+    ``--inject-jit-churn`` are the test/CI fault injectors."""
+    from .serve.soak import SoakConfig, run_soak, validate_soak_artifact
+    from .utils.config import platform_devices
+
+    try:
+        cfg = SoakConfig(
+            duration_s=args.duration, sample_every_s=args.sample_every,
+            warmup_s=args.warmup, rate_rps=args.rate, seed=args.seed,
+            admission=args.admission, ttft_s=args.ttft,
+            window_s=args.window, percentile=args.percentile,
+            capacity=args.capacity, real_clock=args.real_clock,
+            attention_impl=args.attention_impl,
+            chunk_tokens=args.chunk_tokens,
+        )
+        cfg.validate()
+        if args.inject_leak is not None and args.inject_leak < 1:
+            raise ValueError(
+                f"--inject-leak must be >= 1, got {args.inject_leak}"
+            )
+    except ValueError as e:
+        print(f"soak: {e}", file=sys.stderr)
+        return 2
+    art = run_soak(
+        cfg, flight_dir=args.flight_dir,
+        inject_leak_every=args.inject_leak,
+        inject_churn=args.inject_jit_churn,
+        device=platform_devices(1)[0],
+    )
+    errs = validate_soak_artifact(art)
+    if errs:
+        for e in errs[:10]:
+            print(f"soak: artifact invalid: {e}", file=sys.stderr)
+        return 2
+    if art["flight_dumps"]:
+        from .obs.export import validate_trace
+
+        for rec in art["flight_dumps"]:
+            rec["trace_valid"] = validate_trace(rec["trace"]) == []
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(art, f, indent=1, sort_keys=True)
+        print(f"soak: artifact -> {args.out}", file=sys.stderr)
+    print(json.dumps(
+        {k: v for k, v in art.items() if k != "timeseries"},
+        indent=1, sort_keys=True,
+    ))
+    if art["verdict"] == "breach":
+        worst = max(
+            (f for f in art["health"]["findings"]
+             if f["severity"] == "error" and f["slope"] is not None),
+            key=lambda f: abs(f["slope"]) / f["threshold"],
+        )
+        print(
+            f"soak: {worst['code']} {worst['detector']}: "
+            f"{worst['series']} slope {worst['slope']:+.6g}/s exceeds "
+            f"{worst['threshold']:g}/s past warmup "
+            f"({art['config']['warmup_s']:g}s)", file=sys.stderr,
+        )
+        return 1
+    steady = art["steady_state"]
+    print(
+        f"soak: healthy — {art['soak.goodput_tok_s']:.1f} tok/s steady "
+        f"state over {steady['span_s']:.2f}s "
+        f"({art['clock']} clock, {art['serving']['completed']} completed, "
+        f"{art['serving']['pages_leaked']} pages leaked)",
+        file=sys.stderr,
+    )
+    return 0
+
+
+def cmd_doctor(args) -> int:
+    """Run doctor: measured critical-path attribution (+ cost-model
+    drift when the run is live).  ``--trace`` diagnoses an exported
+    trace JSON offline; without it, one profiled ``DeviceBackend``
+    execute of the model DAG is attributed directly.  Exit 2 when
+    nothing is attributable, 1 when drift exceeds ``--drift-threshold``,
+    0 otherwise.
+
+    ``--slo`` switches to the SLO doctor: one flight-recorded paged
+    decode leg, the sliding-window report for the ``--slo-*`` targets,
+    exit 1 on breach.
+
+    ``--memory`` switches to the MEMORY doctor: one memprof-instrumented
+    execute (the default planned path — no per-task profile fences
+    needed), printing the per-device memory timelines/watermarks
+    (``memory``) and the measured-vs-predicted peak comparison
+    (``mem_drift``).  Exit 2 when nothing was recorded or the timeline
+    invariant fails, 1 when any device's two-sided drift ratio exceeds
+    ``--mem-drift-threshold``, 0 otherwise.
+
+    ``--requests`` switches to the REQUEST doctor: per-request
+    waterfall latency attribution with exact tiling and ranked
+    aggressor→victim interference pairs, live (bare flag) or offline
+    over a saved serve artifact / flight dump / request log.  Exit 1
+    when a breaching request's dominant wait bucket exceeds
+    ``--dominant-threshold``, 2 malformed.
+
+    ``--fleet`` switches to the FLEET doctor: the per-replica health
+    battery over a live chaos leg (bare flag) or a saved
+    ``dls.fleet/1`` artifact, exit 1 when any replica currently
+    breaches."""
+    from .obs.attribution import attribute_run, attribute_trace
+
+    if getattr(args, "memory", False):
+        return _cmd_doctor_memory(args)
+    if getattr(args, "slo", False):
+        return _cmd_doctor_slo(args)
+    if getattr(args, "soak", None):
+        return _cmd_doctor_soak(args)
+    if getattr(args, "fleet", None):
+        return _cmd_doctor_fleet(args)
+    if getattr(args, "serve", None):
+        return _cmd_doctor_serve(args)
+    if getattr(args, "requests", None):
+        return _cmd_doctor_requests(args)
+    if args.trace:
+        try:
+            att = attribute_trace(args.trace)
+        except (OSError, ValueError) as e:
+            print(f"doctor: unreadable trace {args.trace}: {e}",
+                  file=sys.stderr)
+            return 2
+        if not att.critical_path:
+            print("doctor: trace has no attributable device spans",
+                  file=sys.stderr)
+            return 2
+        print(json.dumps({"attribution": att.summary()}, indent=1))
+        return 0
+
+    from .backends.device import DeviceBackend
+    from .obs.drift import compute_drift
+    from .obs.trace import Tracer
+
+    cfg = _config_from(args)
+    dag = cfg.build_graph()
+    if not hasattr(dag, "graph"):
+        print("doctor needs a model DAG (gpt2* / llama* / mixtral*) or "
+              "an exported trace via --trace", file=sys.stderr)
+        return 2
+    cost_model = None
+    if args.costmodel:
+        from .utils.costmodel import CostModel
+
+        try:
+            cost_model = CostModel.load(args.costmodel)
+        except (OSError, ValueError) as e:
+            print(f"doctor: --costmodel {args.costmodel}: {e}",
+                  file=sys.stderr)
+            return 2
+        # schedule against the predictions being audited, exactly like
+        # a calibrated bench run would
+        cost_model.apply(dag.graph)
+    cluster = cfg.build_cluster_with_devices()
+    dev = cluster.devices[0].torch_device
+    schedule = cfg.build_scheduler().schedule(dag.graph, cluster)
+    tracer = Tracer()
+    DeviceBackend(cluster).execute(
+        dag.graph, schedule, dag.init_params(device=dev),
+        dag.make_inputs(device=dev), profile=True, trace=tracer,
+    )
+    att = attribute_run(tracer)
+    drift = compute_drift(dag.graph, schedule, cost_model)
+    print(json.dumps(
+        {"attribution": att.summary(), "drift": drift.summary()},
+        indent=1,
+    ))
+    if not att.critical_path:
+        print("doctor: run produced no attributable device spans",
+              file=sys.stderr)
+        return 2
+    if drift.exceeds(args.drift_threshold):
+        print(f"doctor: worst per-task drift ratio "
+              f"{drift.worst_ratio():.2f}x exceeds the "
+              f"--drift-threshold {args.drift_threshold:g}x gate",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
+def _cmd_doctor_memory(args) -> int:
+    """The memory half of the doctor (``doctor --memory``)."""
+    from .backends.device import DeviceBackend
+    from .obs import MemoryProfiler, compute_mem_drift
+    from .obs.trace import Tracer
+
+    cfg = _config_from(args)
+    dag = cfg.build_graph()
+    if not hasattr(dag, "graph"):
+        print("doctor --memory needs a model DAG (gpt2* / llama* / "
+              "mixtral*); synthetic graphs have no fns", file=sys.stderr)
+        return 2
+    cluster = cfg.build_cluster_with_devices()
+    dev = cluster.devices[0].torch_device
+    schedule = cfg.build_scheduler().schedule(dag.graph, cluster)
+    tracer = Tracer()
+    mem = MemoryProfiler(tracer=tracer)
+    DeviceBackend(cluster).execute(
+        dag.graph, schedule, dag.init_params(device=dev),
+        dag.make_inputs(device=dev), trace=tracer, memprof=mem,
+    )
+    if not len(mem):
+        print("doctor: run recorded no memory events", file=sys.stderr)
+        return 2
+    errs = mem.verify()
+    if errs:
+        for e in errs[:10]:
+            print(f"doctor: memory timeline invariant: {e}",
+                  file=sys.stderr)
+        return 2
+    drift = compute_mem_drift(dag.graph, cluster, schedule, mem)
+    print(json.dumps(
+        {"memory": mem.summary(), "mem_drift": drift.summary()},
+        indent=1,
+    ))
+    for w in drift.warnings:
+        print(f"doctor: {w}", file=sys.stderr)
+    if drift.exceeds(args.mem_drift_threshold):
+        print(f"doctor: worst per-device memory drift ratio "
+              f"{drift.worst_ratio():.2f}x exceeds the "
+              f"--mem-drift-threshold {args.mem_drift_threshold:g}x gate",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
+def _cmd_doctor_slo(args) -> int:
+    """The SLO half of the doctor (``doctor --slo``)."""
+    from .obs import FlightRecorder, SLOPolicy, evaluate_slo
+    from .obs.reqlog import summarize_request_log
+
+    try:
+        policy = SLOPolicy(
+            ttft_s=args.slo_ttft, tpot_s=args.slo_tpot,
+            e2e_s=args.slo_e2e, window_s=args.slo_window,
+        )
+    except ValueError as e:
+        print(f"doctor --slo: {e} (pass --slo-ttft/--slo-tpot/--slo-e2e)",
+              file=sys.stderr)
+        return 2
+    flight = FlightRecorder()
+    rc, snap = _slo_live_requests(args, flight)
+    if rc:
+        return rc
+    if not snap.get("requests"):
+        print("doctor --slo: run recorded no requests", file=sys.stderr)
+        return 2
+    report = evaluate_slo(snap, policy)
+    print(json.dumps(
+        {"requests": summarize_request_log(snap), "slo": report.summary()},
+        indent=1,
+    ))
+    if report.exceeds():
+        b = report.worst_breach()
+        print(
+            f"doctor: {b['metric']} {b['percentile']}={b['value']:.6g}s "
+            f"exceeds the --slo target {b['target']:.6g}s in window "
+            f"{b['window']}", file=sys.stderr,
+        )
+        return 1
+    return 0
+
+
+def _cmd_doctor_soak(args) -> int:
+    """The soak half of the doctor (``doctor --soak SOAK_JSON``):
+    re-gate a saved ``dls.soak/1`` artifact offline by rebuilding the
+    time-series store from its embedded snapshot and re-running the
+    default detector battery.  Exit 2 malformed, 1 on breach, 0
+    healthy."""
+    from .obs.health import report_from_soak_artifact
+    from .serve.soak import load_soak_artifact
+
+    try:
+        art = load_soak_artifact(args.soak)
+        report = report_from_soak_artifact(art)
+    except (OSError, ValueError) as e:
+        print(f"doctor --soak: {e}", file=sys.stderr)
+        return 2
+    print(json.dumps(
+        {
+            "soak": {
+                "clock": art["clock"],
+                "verdict_recorded": art["verdict"],
+                "steady_state": art["steady_state"],
+                "injection": art.get("injection", {}),
+            },
+            "health": report.to_json(),
+        },
+        indent=1,
+    ))
+    if report.exceeds():
+        w = report.worst_breach()
+        print(
+            f"doctor: {w.code} {w.detector}: {w.series} slope "
+            f"{w.slope:+.6g}/s exceeds {w.threshold:g}/s past warmup "
+            f"({report.warmup_s:g}s)", file=sys.stderr,
+        )
+        return 1
+    return 0
+
+
+def _cmd_doctor_fleet(args) -> int:
+    """The fleet doctor (``doctor --fleet [live|ART_JSON]``): gate a
+    replica fleet on the per-replica health battery.
+
+    ``live`` (the default when the flag is bare) runs the serve-bench
+    fleet chaos leg — N=3 replicas on the lockstep virtual clock, the
+    page leak injected on one, scored routing + the HLT001 battery —
+    and gates the resulting :class:`~.obs.fleet.FleetHealthReport`.  A
+    healed breach (drained, restarted, readmitted) lives in the event
+    history, not the current findings, so a fleet that failed over
+    cleanly exits 0.  A path re-gates a saved ``dls.fleet/1`` artifact
+    (or a bare ``dls.fleet-health/1`` block) offline.  Exit 2
+    malformed, 1 when any replica currently breaches, 0 healthy."""
+    from .obs.fleet import report_from_fleet_artifact
+
+    if args.fleet == "live":
+        from .eval import serve_bench
+        from .obs.fleet import fleet_detectors
+        from .obs.slo import SLOPolicy
+        from .serve.frontend import ServiceTimeModel
+        from .serve.loadgen import poisson_arrivals
+        from .utils.config import platform_devices
+
+        sc = dict(serve_bench.SCENARIO, **serve_bench.FLEET_SCENARIO)
+        arrivals = poisson_arrivals(
+            sc["fleet_rate_rps"], sc["fleet_n_requests"], args.seed or 7,
+            prompt_lens=sc["prompt_lens"],
+            max_new_tokens=sc["max_new_tokens"],
+            priorities=sc["priorities"],
+            priority_weights=sc["priority_weights"],
+        )
+        policy = SLOPolicy(
+            ttft_s=sc["ttft_s"], window_s=sc["window_s"],
+            percentile=sc["percentile"],
+        )
+        tm = ServiceTimeModel(
+            wave_s=sc["wave_s"], segment_s=sc["segment_s"],
+            idle_s=sc["idle_s"],
+        )
+        leg = serve_bench.run_fleet_leg(
+            arrivals, policy, tm, sc, routing="score",
+            detectors=fleet_detectors(), leak=True,
+            device=platform_devices(1)[0],
+        )
+        obj = {"fleet_health": leg["fleet_health"]}
+        context = {
+            "mode": "live",
+            "goodput_tok_s": leg["goodput_tok_s"],
+            "drains": leg["drains"],
+            "restarts": leg["restarts"],
+            "migrations": leg["migrations"],
+            "pages_leaked": leg["pages_leaked"],
+        }
+    else:
+        try:
+            with open(args.fleet) as f:
+                obj = json.load(f)
+        except (OSError, ValueError) as e:
+            print(f"doctor --fleet: {e}", file=sys.stderr)
+            return 2
+        context = {"mode": "offline", "path": args.fleet}
+        if isinstance(obj, dict):
+            context["schema"] = obj.get("schema")
+    try:
+        report = report_from_fleet_artifact(obj)
+    except ValueError as e:
+        print(f"doctor --fleet: {e}", file=sys.stderr)
+        return 2
+    print(json.dumps(
+        {"fleet": context, "fleet_health": report.to_json()},
+        indent=1,
+    ))
+    if report.exceeds():
+        rid, w = report.worst_breach() or report.breaches()[0]
+        print(
+            f"doctor: replica {rid}: {w.code} {w.detector}: {w.series} "
+            f"slope {w.slope:+.6g}/s exceeds {w.threshold:g}/s",
+            file=sys.stderr,
+        )
+        return 1
+    n = len(report.replicas)
+    print(
+        f"fleet: healthy — {n} replicas, {report.drains()} drains, "
+        f"{report.restarts()} restarts on record", file=sys.stderr,
+    )
+    return 0
+
+
+def _cmd_doctor_serve(args) -> int:
+    """The serving-safety half of the doctor (``doctor --serve
+    ART_JSON``): re-gate a committed ``dls.serve/1`` or ``dls.soak/1``
+    artifact offline through the page-lifetime and request-lifecycle
+    passes — leaked-page gauges become PGL001 errors, embedded
+    ownership-event streams are replayed page by page, and per-request
+    rows are protocol-checked.  Exit 2 malformed/unknown schema, 1 when
+    any pass errors, 0 clean — mirroring ``doctor --soak``."""
+    from .analysis import analyze_serve_artifact
+    from .eval.serve_bench import validate_serve_artifact
+    from .serve.soak import validate_soak_artifact
+
+    try:
+        with open(args.serve) as f:
+            art = json.load(f)
+    except (OSError, ValueError) as e:
+        print(f"doctor --serve: {e}", file=sys.stderr)
+        return 2
+    schema = art.get("schema") if isinstance(art, dict) else None
+    if schema == "dls.serve/1":
+        problems = validate_serve_artifact(art)
+    elif schema == "dls.soak/1":
+        problems = validate_soak_artifact(art)
+    else:
+        print(f"doctor --serve: unknown artifact schema {schema!r} "
+              "(want dls.serve/1 or dls.soak/1)", file=sys.stderr)
+        return 2
+    if problems:
+        for p in problems:
+            print(f"doctor --serve: {p}", file=sys.stderr)
+        return 2
+    try:
+        rep = analyze_serve_artifact(art).dedupe()
+    except ValueError as e:
+        print(f"doctor --serve: {e}", file=sys.stderr)
+        return 2
+    print(json.dumps(
+        {
+            "serve": {
+                "schema": schema,
+                "seed": art.get("seed"),
+                "clock": art.get("clock"),
+            },
+            "lint": rep.to_json(),
+        },
+        indent=1,
+    ))
+    if rep.errors:
+        d = rep.errors[0]
+        print(f"doctor: {d.code}: {d.message}", file=sys.stderr)
+        return 1
+    return 0
+
+
+def _cmd_doctor_requests(args) -> int:
+    """The request doctor (``doctor --requests [live|ART_JSON]``):
+    per-request waterfall attribution — each request's e2e decomposed
+    into the eight interference buckets (exact tiling to 1e-9) with the
+    ranked aggressor→victim pairs.
+
+    ``live`` (the default when the flag is bare) serves the serve-bench
+    overload scenario on a virtual clock with the waterfall recorder
+    wired, so the attribution runs span-exact.  A path re-gates a saved
+    artifact offline: a ``dls.serve/1`` artifact (each leg's rows), a
+    flight-recorder dump (its ``request_log``; pass the matching
+    ``flight_trace.json`` via ``--requests-trace`` to upgrade rows-only
+    to span attribution), or a bare ``dls.requests/1`` snapshot.  Exit 2
+    malformed/empty, 1 when a breaching request's dominant wait bucket
+    exceeds ``--dominant-threshold``, 0 otherwise."""
+    from .obs.interference import attribute_requests, events_from_perfetto
+
+    events = None
+    if getattr(args, "requests_trace", None):
+        try:
+            with open(args.requests_trace) as f:
+                events = events_from_perfetto(json.load(f))
+        except (OSError, ValueError) as e:
+            print(f"doctor --requests-trace: {e}", file=sys.stderr)
+            return 2
+    ttft_target = getattr(args, "slo_ttft", None)
+    threshold = getattr(args, "dominant_threshold", 0.5)
+
+    legs = {}
+    if args.requests == "live":
+        from .eval import serve_bench
+        from .obs.slo import SLOPolicy
+        from .obs.trace import Tracer
+        from .serve.frontend import (
+            ServiceTimeModel,
+            ServingFrontend,
+            VirtualClock,
+        )
+        from .serve.loadgen import poisson_arrivals
+        from .utils.config import platform_devices
+
+        sc = serve_bench.SCENARIO
+        clock = VirtualClock()
+        eng, _pool = serve_bench.build_serve_engine(
+            slots=sc["slots"], page_size=sc["page_size"],
+            n_pages=sc["n_pages"], pages_per_seq=sc["pages_per_seq"],
+            seg_steps=sc["seg_steps"], clock=clock,
+            device=platform_devices(1)[0],
+        )
+        eng.rebind_obs(clock=clock, tracer=Tracer(clock=clock))
+        arrivals = poisson_arrivals(
+            sc["rate_rps"], sc["n_requests"], args.seed or 7,
+            prompt_lens=sc["prompt_lens"],
+            max_new_tokens=sc["max_new_tokens"],
+            priorities=sc["priorities"],
+            priority_weights=sc["priority_weights"],
+        )
+        policy = SLOPolicy(
+            ttft_s=sc["ttft_s"], window_s=sc["window_s"],
+            percentile=sc["percentile"],
+        )
+        tm = ServiceTimeModel(
+            wave_s=sc["wave_s"], segment_s=sc["segment_s"],
+            idle_s=sc["idle_s"],
+        )
+        fe = ServingFrontend(
+            eng, arrivals, policy, admission="slo", preemption=True,
+            time_model=tm,
+        )
+        rep = fe.run()
+        if ttft_target is None:
+            ttft_target = sc["ttft_s"]
+        legs["live"] = (rep["requests"], list(eng.tracer.events))
+    else:
+        try:
+            with open(args.requests) as f:
+                obj = json.load(f)
+        except (OSError, ValueError) as e:
+            print(f"doctor --requests: {e}", file=sys.stderr)
+            return 2
+        if not isinstance(obj, dict):
+            print(f"doctor --requests: {args.requests} is not a JSON "
+                  "object", file=sys.stderr)
+            return 2
+        schema = obj.get("schema")
+        if schema == "dls.serve/1":
+            if ttft_target is None:
+                ttft_target = (obj.get("policy") or {}).get("ttft_s")
+            for name, leg in (obj.get("legs") or {}).items():
+                rows = leg.get("requests")
+                if rows:
+                    legs[name] = (rows, events)
+        elif isinstance(obj.get("request_log"), dict):
+            legs["flight"] = (
+                obj["request_log"].get("requests") or [], events
+            )
+        elif schema == "dls.requests/1":
+            legs["requests"] = (obj.get("requests") or [], events)
+        else:
+            print(f"doctor --requests: no request rows in "
+                  f"{args.requests} (want dls.serve/1, a flight dump, "
+                  "or dls.requests/1)", file=sys.stderr)
+            return 2
+    reports = {
+        name: attribute_requests(
+            rows, events=evs, ttft_target_s=ttft_target,
+            threshold=threshold,
+        )
+        for name, (rows, evs) in legs.items()
+    }
+    print(json.dumps(
+        {"interference": {
+            name: r.summary() for name, r in reports.items()
+        }},
+        indent=1, sort_keys=True,
+    ))
+    if not any(r.n_attributed for r in reports.values()):
+        print("doctor --requests: no attributable requests "
+              "(every row lacks a terminal timestamp)", file=sys.stderr)
+        return 2
+    for name, r in sorted(reports.items()):
+        if r.exceeds():
+            f0 = r.findings[0]
+            agg = f0.get("top_aggressor")
+            print(
+                f"doctor: [{name}] request {f0['rid']} breached "
+                f"ttft {f0['ttft_s']:.6g}s > {ttft_target:.6g}s with "
+                f"{f0['dominant']} = {f0['dominant_frac']:.0%} of e2e"
+                + (f" (top aggressor: {agg})" if agg else ""),
+                file=sys.stderr,
+            )
+            return 1
+    return 0
+
+
+def cmd_metrics_diff(args) -> int:
+    """``metrics diff A B``: counter/gauge deltas and histogram quantile
+    shifts between two ``dls.metrics/1`` snapshots — or, with
+    ``--at I --vs J``, between two sample indices of ONE
+    ``dls.timeseries/1`` file (a ``dls.soak/1`` artifact's embedded
+    series also works), so start-of-soak vs end-of-soak diffs need no
+    hand-edited JSON.  Exit 2 on an unreadable file, schema mismatch, or
+    an index no series can satisfy."""
+    from .obs.metrics import diff_snapshots
+
+    if args.at is not None or args.vs is not None:
+        if args.at is None or args.vs is None:
+            print("metrics diff: --at and --vs go together",
+                  file=sys.stderr)
+            return 2
+        if args.snapshot_b is not None:
+            print("metrics diff: --at/--vs index ONE timeseries file, "
+                  "not two snapshots", file=sys.stderr)
+            return 2
+        from .obs.timeseries import snapshot_at
+
+        try:
+            with open(args.snapshot_a) as f:
+                obj = json.load(f)
+        except (OSError, ValueError) as e:
+            print(f"metrics diff: unreadable timeseries "
+                  f"{args.snapshot_a}: {e}", file=sys.stderr)
+            return 2
+        if isinstance(obj, dict) and "timeseries" in obj:
+            obj = obj["timeseries"]     # a dls.soak/1 artifact
+        try:
+            snaps = [snapshot_at(obj, args.at), snapshot_at(obj, args.vs)]
+        except ValueError as e:
+            print(f"metrics diff: {e}", file=sys.stderr)
+            return 2
+        if not snaps[0]["gauges"] or not snaps[1]["gauges"]:
+            which = args.at if not snaps[0]["gauges"] else args.vs
+            print(f"metrics diff: no series holds sample index {which}",
+                  file=sys.stderr)
+            return 2
+    else:
+        if args.snapshot_b is None:
+            print("metrics diff: need two snapshot files (or --at/--vs "
+                  "over one timeseries)", file=sys.stderr)
+            return 2
+        snaps = []
+        for path in (args.snapshot_a, args.snapshot_b):
+            try:
+                with open(path) as f:
+                    snaps.append(json.load(f))
+            except (OSError, ValueError) as e:
+                print(f"metrics diff: unreadable snapshot {path}: {e}",
+                      file=sys.stderr)
+                return 2
+    try:
+        diff = diff_snapshots(*snaps)
+    except ValueError as e:
+        print(f"metrics diff: {e}", file=sys.stderr)
+        return 2
+    print(json.dumps(diff, indent=1))
+    return 0
+
+
+def cmd_regress(args) -> int:
+    """Compare a fresh bench artifact against a committed baseline;
+    exit with the verdict (non-zero on any regressed/missing metric)."""
+    from .eval.regress import compare_artifacts, parse_tolerances
+
+    try:
+        tolerances = parse_tolerances(args.tolerance or [])
+    except ValueError as e:
+        print(f"regress: {e}", file=sys.stderr)
+        return 2
+    metrics = None
+    if args.metrics:
+        metrics = [m.strip() for m in args.metrics.split(",") if m.strip()]
+    try:
+        verdict = compare_artifacts(
+            args.fresh, args.baseline,
+            tolerances=tolerances, metrics=metrics,
+            default_tolerance=args.default_tolerance,
+        )
+    except (OSError, ValueError) as e:
+        print(f"regress: {e}", file=sys.stderr)
+        return 2
+    if args.json:
+        print(json.dumps(verdict.to_json(), indent=1))
+    else:
+        print(verdict.render())
+    return verdict.exit_code
+
+
+
 def cmd_bench(args) -> int:
     """The port's own north-star bench (``eval/bench.py``), on the card."""
     from .eval import bench
@@ -1058,6 +1998,286 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--skip-decode", action="store_true", dest="skip_decode",
                    help="skip the paged decode leg")
     p.set_defaults(fn=cmd_metrics)
+    msub = p.add_subparsers(dest="metrics_cmd")
+    pd = msub.add_parser(
+        "diff",
+        help="diff two dls.metrics/1 snapshot files: counter/gauge "
+             "deltas + histogram p50/p95 shifts (exit 2 on schema "
+             "mismatch); or with --at/--vs, diff two sample indices of "
+             "one dls.timeseries/1 file (dls.soak/1 artifacts work too)",
+    )
+    pd.add_argument("snapshot_a",
+                    help="before snapshot JSON (with --at/--vs: the "
+                         "timeseries or soak-artifact JSON)")
+    pd.add_argument("snapshot_b", nargs="?", default=None,
+                    help="after snapshot JSON (omit with --at/--vs)")
+    pd.add_argument("--at", type=int, default=None, metavar="INDEX",
+                    help="'before' sample index into each series "
+                         "(Python-style; negatives count from the end)")
+    pd.add_argument("--vs", type=int, default=None, metavar="INDEX",
+                    help="'after' sample index into each series")
+    pd.set_defaults(fn=cmd_metrics_diff)
+
+    p = sub.add_parser(
+        "slo",
+        help="sliding-window SLO report + gate (exit 1 on breach) over "
+             "a request log or a fresh flight-recorded paged-decode run",
+    )
+    _add_common(p)
+    p.add_argument("--requests", default=None, metavar="PATH",
+                   help="offline mode: evaluate this dls.requests/1 "
+                        "snapshot (also accepts a flight-recorder dump "
+                        "or a decode-bench artifact with a paged leg) "
+                        "instead of running live")
+    p.add_argument("--ttft", type=float, default=None, metavar="SECONDS",
+                   help="per-window TTFT target at --percentile")
+    p.add_argument("--tpot", type=float, default=None, metavar="SECONDS",
+                   help="per-window TPOT (inter-token) target")
+    p.add_argument("--e2e", type=float, default=None, metavar="SECONDS",
+                   help="per-window end-to-end latency target")
+    p.add_argument("--window", type=float, default=1.0, metavar="SECONDS",
+                   help="sliding wall-clock window size (default 1.0)")
+    p.add_argument("--percentile", default="p95",
+                   choices=("p50", "p95", "p99"),
+                   help="which per-window quantile gates (default p95)")
+    p.add_argument("--n-requests", type=int, default=4, dest="n_requests",
+                   help="live mode: requests to submit over the 2-slot "
+                        "engine (default 4)")
+    p.add_argument("--flight-dir", default=None, dest="flight_dir",
+                   metavar="DIR",
+                   help="live mode: on breach, dump the flight-recorder "
+                        "rings (Perfetto trace + request log) here")
+    p.set_defaults(fn=cmd_slo)
+
+    p = sub.add_parser(
+        "serve",
+        help="online serving run on a virtual clock: open-loop arrivals "
+             "through the SLO-aware front-end over the paged decode "
+             "engine (exit 1 on SLO breach, 2 on malformed input)",
+    )
+    _add_common(p)
+    p.add_argument("--rate", type=float, default=40.0, metavar="RPS",
+                   help="offered load for the seeded Poisson generator "
+                        "(default 40.0 req/s; ignored with --trace)")
+    p.add_argument("--requests", type=int, default=32, dest="n_requests",
+                   help="number of arrivals to generate (default 32; "
+                        "ignored with --trace)")
+    p.add_argument("--trace", default=None, metavar="PATH",
+                   help="replay this dls.arrivals/1 trace instead of "
+                        "generating arrivals (malformed -> exit 2)")
+    p.add_argument("--save-trace", default=None, dest="save_trace",
+                   metavar="PATH",
+                   help="write the arrival schedule as a dls.arrivals/1 "
+                        "trace for exact replay")
+    p.add_argument("--admission", default="slo", choices=("slo", "fifo"),
+                   help="admission policy: slo (shed/defer low tiers on "
+                        "TTFT-window breach; default) or fifo admit-all")
+    p.add_argument("--no-preempt", action="store_true", dest="no_preempt",
+                   help="disable priority preemption (slo admission only)")
+    p.add_argument("--ttft", type=float, default=2.0, metavar="SECONDS",
+                   help="per-window TTFT target at --percentile "
+                        "(default 2.0)")
+    p.add_argument("--tpot", type=float, default=None, metavar="SECONDS",
+                   help="per-window TPOT (inter-token) target")
+    p.add_argument("--e2e", type=float, default=None, metavar="SECONDS",
+                   help="per-window end-to-end latency target")
+    p.add_argument("--window", type=float, default=0.5, metavar="SECONDS",
+                   help="sliding virtual-time window size (default 0.5)")
+    p.add_argument("--percentile", default="p95",
+                   choices=("p50", "p95", "p99"),
+                   help="which per-window quantile gates (default p95)")
+    p.add_argument("--flight-dir", default=None, dest="flight_dir",
+                   metavar="DIR",
+                   help="on breach, dump the flight-recorder rings "
+                        "(Perfetto trace + request log) here")
+    p.add_argument("--out", default=None, metavar="PATH",
+                   help="write the full serving report (including "
+                        "per-request rows) here")
+    p.add_argument("--attention-impl", default=None, dest="attention_impl",
+                   choices=("auto", "kernel", "plain"),
+                   help="paged attention implementation baked into the "
+                        "engine (default: op-level auto — the CUDA paged "
+                        "kernel on a card, the plain PyTorch version on "
+                        "the CPU)")
+    p.add_argument("--chunk-tokens", type=int, default=None,
+                   dest="chunk_tokens", metavar="N",
+                   help="chunked prefill: prompts longer than N tokens "
+                        "admit with first-chunk pages only and prefill "
+                        "N tokens per segment fused into the decode "
+                        "waves (default: whole-prompt admission; "
+                        "greedy tokens are bitwise identical either "
+                        "way)")
+    p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser(
+        "soak",
+        help="duration-bounded serving soak with bounded time-series "
+             "telemetry and trend health gating (exit 1 on "
+             "leak/degradation breach, 2 on malformed input)",
+    )
+    _add_common(p)
+    p.add_argument("--duration", type=float, default=4.0, metavar="SECONDS",
+                   help="soak length in clock seconds (default 4.0)")
+    p.add_argument("--sample-every", type=float, default=0.1,
+                   dest="sample_every", metavar="SECONDS",
+                   help="telemetry sampling cadence (default 0.1)")
+    p.add_argument("--warmup", type=float, default=1.0, metavar="SECONDS",
+                   help="prefix excluded from every trend (default 1.0)")
+    p.add_argument("--rate", type=float, default=12.0, metavar="RPS",
+                   help="sustained offered load for the seeded Poisson "
+                        "generator (default 12.0 req/s)")
+    p.add_argument("--admission", default="slo", choices=("slo", "fifo"),
+                   help="front-end admission policy (default slo)")
+    p.add_argument("--ttft", type=float, default=0.3, metavar="SECONDS",
+                   help="admission TTFT target at --percentile "
+                        "(default 0.3)")
+    p.add_argument("--window", type=float, default=0.2, metavar="SECONDS",
+                   help="admission sliding-window size (default 0.2)")
+    p.add_argument("--percentile", default="p95",
+                   choices=("p50", "p95", "p99"),
+                   help="which per-window quantile gates admission "
+                        "(default p95)")
+    p.add_argument("--capacity", type=int, default=512,
+                   help="per-series ring capacity; overflow decimates "
+                        "2:1 (default 512)")
+    p.add_argument("--real-clock", action="store_true", dest="real_clock",
+                   help="run against the wall clock (monotonic time, "
+                        "real idle sleeps) instead of the virtual clock")
+    p.add_argument("--flight-dir", default=None, dest="flight_dir",
+                   metavar="DIR",
+                   help="on the first health breach, dump the flight-"
+                        "recorder rings (Perfetto trace + request log) "
+                        "here while the anomaly is still in them")
+    p.add_argument("--out", default=None, metavar="PATH",
+                   help="write the full dls.soak/1 artifact (including "
+                        "the timeseries snapshot) here")
+    p.add_argument("--inject-leak", type=int, default=None,
+                   dest="inject_leak", metavar="N",
+                   help="testing: withhold one page from every Nth "
+                        "free() — must trip HLT001")
+    p.add_argument("--inject-jit-churn", action="store_true",
+                   dest="inject_jit_churn",
+                   help="testing: plant a fresh prefill compile-cache "
+                        "entry every segment — must trip HLT003")
+    p.add_argument("--attention-impl", default=None, dest="attention_impl",
+                   choices=("auto", "kernel", "plain"),
+                   help="paged attention implementation baked into the "
+                        "engine (default: op-level auto)")
+    p.add_argument("--chunk-tokens", type=int, default=None,
+                   dest="chunk_tokens", metavar="N",
+                   help="chunked prefill chunk size for the soak engine "
+                        "(default: whole-prompt admission)")
+    p.set_defaults(fn=cmd_soak)
+
+    p = sub.add_parser(
+        "doctor",
+        help="explain a run: measured critical-path attribution "
+             "(compute/transfer/dispatch/idle) + cost-model drift",
+    )
+    _add_common(p)
+    p.add_argument("--trace", default=None, metavar="TRACE_JSON",
+                   help="diagnose an exported trace JSON offline instead "
+                        "of running a profiled execute")
+    p.add_argument("--costmodel", default=None, metavar="PATH",
+                   help="calibrated CostModel JSON (utils/costmodel "
+                        "cache entry) to audit; defaults to the graph's "
+                        "analytic compute_time estimates")
+    p.add_argument("--drift-threshold", type=float, default=None,
+                   dest="drift_threshold", metavar="RATIO",
+                   help="exit 1 when any task's two-sided predicted-vs-"
+                        "measured ratio max(r, 1/r) exceeds RATIO "
+                        "(default: report only, never gate)")
+    p.add_argument("--memory", action="store_true",
+                   help="memory doctor: measured per-device memory "
+                        "timelines, watermark attribution, and "
+                        "measured-vs-predicted peak drift instead of the "
+                        "time doctor")
+    p.add_argument("--mem-drift-threshold", type=float, default=None,
+                   dest="mem_drift_threshold", metavar="RATIO",
+                   help="with --memory: exit 1 when any device's "
+                        "two-sided measured-vs-predicted peak ratio "
+                        "max(r, 1/r) exceeds RATIO (default: report "
+                        "only, never gate)")
+    p.add_argument("--slo", action="store_true",
+                   help="SLO doctor: one flight-recorded paged decode "
+                        "leg, sliding-window report for the --slo-* "
+                        "targets, exit 1 on breach")
+    p.add_argument("--slo-ttft", type=float, default=None, dest="slo_ttft",
+                   metavar="SECONDS", help="with --slo: TTFT target")
+    p.add_argument("--slo-tpot", type=float, default=None, dest="slo_tpot",
+                   metavar="SECONDS", help="with --slo: TPOT target")
+    p.add_argument("--slo-e2e", type=float, default=None, dest="slo_e2e",
+                   metavar="SECONDS", help="with --slo: e2e target")
+    p.add_argument("--slo-window", type=float, default=1.0,
+                   dest="slo_window", metavar="SECONDS",
+                   help="with --slo: window size (default 1.0)")
+    p.add_argument("--soak", default=None, metavar="SOAK_JSON",
+                   help="soak doctor: re-gate a saved dls.soak/1 "
+                        "artifact offline — rebuild its timeseries and "
+                        "re-run the leak/degradation detector battery "
+                        "(exit 1 on breach, 2 malformed)")
+    p.add_argument("--fleet", nargs="?", const="live", default=None,
+                   metavar="FLEET_JSON",
+                   help="fleet doctor: gate the per-replica health "
+                        "battery — bare flag runs the fleet chaos leg "
+                        "live (leak injected, drain/restart must heal "
+                        "it); a path re-gates a saved dls.fleet/1 "
+                        "artifact or dls.fleet-health/1 block offline "
+                        "(exit 1 when any replica currently breaches, "
+                        "2 malformed)")
+    p.add_argument("--serve", default=None, metavar="ART_JSON",
+                   help="serving-safety doctor: re-gate a committed "
+                        "dls.serve/1 or dls.soak/1 artifact offline "
+                        "through the page-lifetime (PGL00x) and "
+                        "request-lifecycle (LCY00x) passes (exit 1 on "
+                        "findings, 2 malformed)")
+    p.add_argument("--requests", nargs="?", const="live", default=None,
+                   metavar="ART_JSON",
+                   help="request doctor: per-request waterfall latency "
+                        "attribution (exact bucket tiling + ranked "
+                        "aggressor→victim pairs) — bare flag runs the "
+                        "serve-bench scenario live with the waterfall "
+                        "recorder; a path re-gates a dls.serve/1 "
+                        "artifact, flight dump, or dls.requests/1 "
+                        "snapshot offline (exit 1 when a breaching "
+                        "request is wait-dominated, 2 malformed)")
+    p.add_argument("--requests-trace", default=None, dest="requests_trace",
+                   metavar="TRACE_JSON",
+                   help="with --requests FLIGHT_DUMP: the matching "
+                        "flight_trace.json, upgrading rows-only "
+                        "attribution to span-exact")
+    p.add_argument("--dominant-threshold", type=float, default=0.5,
+                   dest="dominant_threshold", metavar="FRAC",
+                   help="with --requests: exit 1 when a breaching "
+                        "request's dominant wait bucket exceeds this "
+                        "fraction of its e2e (default 0.5)")
+    p.set_defaults(fn=cmd_doctor)
+
+    p = sub.add_parser(
+        "regress",
+        help="perf-regression gate: fresh bench artifact vs committed "
+             "baseline with per-metric tolerances (non-zero on regression)",
+    )
+    p.add_argument("--fresh", required=True,
+                   help="freshly measured bench artifact JSON")
+    p.add_argument("--baseline", required=True,
+                   help="committed baseline artifact (e.g. "
+                        "BENCH_MEDIUM_r05.json)")
+    p.add_argument("--tolerance", action="append", default=None,
+                   metavar="METRIC=FRAC",
+                   help="per-metric relative tolerance (repeatable), "
+                        "e.g. --tolerance value=0.25")
+    p.add_argument("--default-tolerance", type=float, default=0.10,
+                   dest="default_tolerance",
+                   help="tolerance for metrics without an explicit "
+                        "--tolerance (default 0.10)")
+    p.add_argument("--metrics", default=None,
+                   help="comma-separated metric names to check (default: "
+                        "the quality set present in the baseline)")
+    p.add_argument("--json", action="store_true",
+                   help="print the structured verdict instead of the "
+                        "table")
+    p.set_defaults(fn=cmd_regress)
     return ap
 
 

@@ -12,12 +12,17 @@ into its cache slab in place.  Paged (``build_paged_decode_dag``):
 requests between segments.
 
 Where JAX jits one ``lax.scan`` program per call with the caches donated,
-here a call is a Python loop of eager steps on the current stream of one
-card: the K steps run on device tensors (argmax on the device, the
-position a device scalar, tokens stacked on the device, no host read
-inside the loop), the caches are written in place, and the caller's one
-device-to-host copy is the tokens.  Capturing either loop in a CUDA graph
-is still to come.
+here each loop is one CUDA graph on a card, captured at its first call and
+replayed after (``backends.device.CapturedProgram``): the dense K-step loop
+per (batch, K) and the caches it is given, the paged segment once per
+engine.  The caches and pools are the graphs' fixed inputs, read and
+written in place at the addresses they were captured with; the steps run
+on device tensors (argmax on the device, the position a device scalar,
+tokens stacked on the device, no host read inside the loop), and the
+caller's one device-to-host copy is the tokens.  On the CPU (and on meta
+tensors) the same bodies run eagerly.  A capture or replay error raises:
+nothing falls back to eager execution; ``capture=False`` asks for the
+eager loop on a card.
 
 Single-node placements only, as in the JAX package: a multi-node
 placement needs per-step host-mediated transfers, which is the per-task
@@ -105,11 +110,16 @@ def compose_step_fn(
     return step
 
 
+# captured K-step programs one dense loop keeps, least recently used first
+LOOP_PROGRAMS = 2
+
+
 def build_decode_loop(
     graph: TaskGraph,
     schedule: Schedule,
     config: Any,
     steps: int,
+    capture: bool = True,
 ) -> Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]:
     """Greedily decode ``steps`` tokens through the scheduled step DAG.
 
@@ -119,21 +129,48 @@ def build_decode_loop(
     device, ``caches`` the same slabs, written in place.  The caller
     chains calls by feeding ``tokens[:, -1:]`` and ``pos + steps`` back
     in.  Greedy argmax runs on the logits' own dtype, as the whole-model
-    generation's."""
+    generation's.
+
+    On a card the K steps are one CUDA graph, captured at the first call
+    for a batch size, the weights' addresses and the ``caches`` dict (the
+    graph's fixed input, read and written in place; the run keeps the
+    last ``LOOP_PROGRAMS`` such graphs) and replayed with ``ids`` and
+    ``pos`` copied in; ``tokens`` is a copy of the graph's output.  The
+    first call runs the loop eagerly once (the warm-up) and then replays
+    it: the replay rewrites the same rows, so its tokens are the warm-up's.
+    ``capture=False`` runs the loop eagerly on a card too."""
+    from .device import CapturedProgram, address_key, capture_stream
+
     step = compose_step_fn(graph, schedule, config)
 
-    @torch.no_grad()
-    def run(weights, caches, ids, pos):
-        ids = ids.to(torch.int32)
-        if not isinstance(pos, torch.Tensor):
-            pos = torch.full((), int(pos), dtype=torch.int32, device=ids.device)
+    def body(weights, ext):
+        ids, pos, caches = ext["ids"], ext["pos"], ext["caches"]
         toks = []
         for _ in range(steps):
             logits, caches = step(weights, caches, ids, pos)
             ids = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
             toks.append(ids[:, 0])
             pos = pos + 1
-        return torch.stack(toks, dim=1), caches
+        return torch.stack(toks, dim=1)
+
+    programs: Dict[tuple, Any] = {}
+
+    @torch.no_grad()
+    def run(weights, caches, ids, pos):
+        ids = ids.to(torch.int32)
+        if not isinstance(pos, torch.Tensor):
+            pos = torch.full((), int(pos), dtype=torch.int32, device=ids.device)
+        ext = {"ids": ids, "pos": pos, "caches": caches}
+        if ids.device.type != "cuda" or not capture:
+            return body(weights, ext), caches
+        key = (tuple(ids.shape), ids.device, address_key(weights), id(caches))
+        prog = programs.pop(key, None) or CapturedProgram(
+            body, stream=capture_stream(ids.device))
+        programs[key] = prog  # the most recent last
+        while len(programs) > LOOP_PROGRAMS:
+            programs.pop(next(iter(programs)))
+        toks = prog(weights, ext, fixed=frozenset({"caches"}))
+        return toks.clone(), caches
 
     return run
 
@@ -283,6 +320,7 @@ class PagedDecodeEngine:
         attention_impl: Optional[str] = None,
         chunk_tokens: Optional[int] = None,
         device: Any = None,
+        capture: bool = True,
     ):
         self.config = config
         self.device = torch.device(
@@ -320,6 +358,13 @@ class PagedDecodeEngine:
         self._seg = build_paged_decode_loop(
             graph, schedule, config, seg_steps, weights=self.weights
         )
+        # the segment's CUDA graph (made at the first segment on a card,
+        # kept across reset(), as the JAX package keeps its jitted
+        # programs), its pools the graph's fixed input; capture=False runs
+        # the segment eagerly on a card too
+        self.capture = capture
+        self._captured_seg = None
+        self.pools = None
         self._new_state()
         # bytes of one physical page over every pool: page_size rows x
         # (Hkv, hd) x k+v x n_layers, the memory profiler's kv page size
@@ -387,14 +432,20 @@ class PagedDecodeEngine:
             self.reqtrace.reset()
 
     def _new_state(self) -> None:
-        """Zeroed pools and empty slot, queue and request state."""
+        """Zeroed pools and empty slot, queue and request state.  The pools
+        are allocated once and zeroed in place after, so the captured
+        segment reads them where it was captured."""
         from ..models.kv_pages import TRASH_PAGE, init_paged_kv
 
-        _, n_kv, hd = cache_dims(self.config)
-        self.pools = init_paged_kv(
-            self.n_layers, self.pool.n_pages, self.pool.page_size, n_kv, hd,
-            self.config.dtype, self.device,
-        )
+        if self.pools is None:
+            _, n_kv, hd = cache_dims(self.config)
+            self.pools = init_paged_kv(
+                self.n_layers, self.pool.n_pages, self.pool.page_size, n_kv,
+                hd, self.config.dtype, self.device,
+            )
+        else:
+            for p in self.pools.values():
+                p.zero_()
         self.page_table = np.full(
             (self.slots, self.pages_per_seq), TRASH_PAGE, np.int32
         )
@@ -451,7 +502,7 @@ class PagedDecodeEngine:
                 if self.memprof is not None:
                     self.memprof.free(
                         self._mem_node, f"kv:{self._slot_req[s]}")
-        # the KV arrays are rebuilt: a retained prefix intern entry would
+        # the KV arrays are zeroed: a retained prefix intern entry would
         # point at zeroed pages, and a warm cache would make same-seed
         # repeat runs diverge (a fault-injecting wrapper may lack it)
         drop = getattr(self.pool, "drop_cached", None)
@@ -1373,14 +1424,15 @@ class PagedDecodeEngine:
         self._ensure_exclusive()
         dev = self.device
         t_sg0 = self._clock()
-        toks, self.pools = self._seg(
-            self.pools,
+        toks = self._run_segment(
             torch.from_numpy(self.page_table).to(dev),
             torch.from_numpy(self.lengths).to(dev),
             torch.from_numpy(self.cur_tok).to(dev),
             torch.from_numpy(self.remaining).to(dev),
         )
-        toks = toks.cpu().numpy()  # the one readback per segment
+        # the one readback per segment: a host copy (on a card the tokens
+        # are the graph's own tensor, rewritten by its next replay)
+        toks = toks.cpu().numpy()
         # every token this segment delivered became host-visible here: the
         # readback waited for the segment's work, so the host span bounds
         # the device's
@@ -1433,6 +1485,30 @@ class PagedDecodeEngine:
         self._emit_queue_depth()
         self._emit_jit_cache_size()
         return delivered
+
+    def _run_segment(self, page_table, lengths, cur_tok, remaining):
+        """One K-step segment over the pools: eagerly off the card (or with
+        ``capture=False``), else the engine's captured graph, with the slot
+        state copied into its static buffers.  Returns the (S, K) tokens."""
+        if self.device.type != "cuda" or not self.capture:
+            toks, _ = self._seg(
+                self.pools, page_table, lengths, cur_tok, remaining)
+            return toks
+        if self._captured_seg is None:
+            from .device import CapturedProgram, capture_stream
+
+            seg = self._seg
+            self._captured_seg = CapturedProgram(
+                lambda _params, e: seg(e["pools"], e["page_table"],
+                                       e["lengths"], e["cur_tok"],
+                                       e["remaining"]),
+                stream=capture_stream(self.device))
+        toks, _ = self._captured_seg(
+            {}, {"pools": self.pools, "page_table": page_table,
+                 "lengths": lengths, "cur_tok": cur_tok,
+                 "remaining": remaining},
+            fixed=frozenset({"pools"}))
+        return toks
 
     def run(self) -> Dict[Any, Any]:
         """Drain the queue and all active slots; returns {rid: np.int32

@@ -315,6 +315,23 @@ def node_stream(device: torch.device, k: int):
     return s
 
 
+_CAPTURE_STREAMS: Dict[Any, Any] = {}
+
+
+def capture_stream(device: torch.device):
+    """The card's stream for capturing the decode loops' CUDA graphs, made
+    once per process (a stream per engine would keep a cuBLAS workspace
+    per engine for the life of the process, as :func:`node_stream` says).
+    A graph captured here replays on whatever stream is current."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    s = _CAPTURE_STREAMS.get(device)
+    if s is None:
+        s = _CAPTURE_STREAMS[device] = torch.cuda.Stream(device=device)
+    return s
+
+
 _COPY_STREAMS: Dict[Any, Any] = {}
 
 
@@ -372,8 +389,8 @@ class CapturedProgram:
     pool must replay in the order they were captured and never at once.
     The outputs are the graph's own tensors: they hold until the program
     replays again.  ``launches`` is
-    the kernel launches the capture recorded, by kernel name; each replay
-    adds them to ``kernels.replayed``.  A capture error (a task that reads
+    the kernel launches the capture recorded, by kernel name (also added
+    to ``kernels.captured``); each replay adds them to ``kernels.replayed``.  A capture error (a task that reads
     to the host, a launch the graph cannot hold) raises; nothing falls
     back to eager execution."""
 
@@ -400,8 +417,7 @@ class CapturedProgram:
                         f"captured program: input {k!r} was read in place "
                         "at capture and is another tensor now")
         self.graph.replay()
-        for k, v in self.launches.items():
-            kernels.replayed[k] = kernels.replayed.get(k, 0) + v
+        _count_replay(self.launches)
         return self.static_out
 
     def _capture(self, params, ext, fixed) -> None:
@@ -416,11 +432,71 @@ class CapturedProgram:
         with torch.no_grad(), torch.cuda.graph(graph, pool=self.pool,
                                                stream=stream):
             self.static_out = self.fn(params, self.static_in)
-        self.launches = {
-            k: v - before.get(k, 0) for k, v in kernels.launches.items()
-            if v != before.get(k, 0)
-        }
+        self.launches = _recorded_since(before)
         self.graph = graph
+
+
+def _recorded_since(before: Dict[str, int]) -> Dict[str, int]:
+    """The launches a capture recorded since ``before`` (a copy of
+    ``kernels.launches``), by kernel; added to ``kernels.captured``."""
+    rec = {k: v - before.get(k, 0) for k, v in kernels.launches.items()
+           if v != before.get(k, 0)}
+    for k, v in rec.items():
+        kernels.captured[k] = kernels.captured.get(k, 0) + v
+    return rec
+
+
+def _count_replay(launches: Dict[str, int]) -> None:
+    """One replay of a graph that holds ``launches``: into
+    ``kernels.replayed``."""
+    for k, v in launches.items():
+        kernels.replayed[k] = kernels.replayed.get(k, 0) + v
+
+
+class CapturedStep:
+    """``body()`` over state it reads and advances in place (a decode step
+    that writes its cache, token and position at fixed addresses),
+    captured once into a CUDA graph: the sibling of
+    :class:`CapturedProgram` with nothing to copy in.
+
+    The first call runs ``body`` eagerly on the current stream (that call's
+    step; every kernel built and loaded), then captures it on the card's
+    :func:`capture_stream` into a private memory pool: capture records and
+    runs nothing, so the state stays as the eager step left it.  Every later call replays the
+    graph on the current stream and adds the captured launches to
+    ``kernels.replayed``.  A capture error raises; nothing falls back to
+    eager execution."""
+
+    def __init__(self, body, device: torch.device):
+        self.body = body
+        self.device = device
+        self.graph = None
+        self.launches: Dict[str, int] = {}
+
+    def __call__(self) -> None:
+        if self.graph is not None:
+            self.graph.replay()
+            _count_replay(self.launches)
+            return
+        with torch.no_grad():
+            self.body()
+        graph = torch.cuda.CUDAGraph()
+        before = dict(kernels.launches)
+        with torch.no_grad(), torch.cuda.graph(
+                graph, stream=capture_stream(self.device)):
+            self.body()
+        self.launches = _recorded_since(before)
+        self.graph = graph
+
+
+def address_key(tree: Any) -> tuple:
+    """(address, shape, stride, dtype) of every tensor leaf of ``tree``, in
+    order: what a captured graph reads its inputs by.  Two trees with the
+    same key are the same memory for a graph, whichever tensor objects
+    hold it."""
+    return tuple(
+        (t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
+        for t in tree_leaves(tree) if isinstance(t, torch.Tensor))
 
 
 class DeviceBackend:
@@ -1426,6 +1502,7 @@ class DeviceBackend:
         flight: Any = None,
         attention_impl: Optional[str] = None,
         chunk_tokens: Optional[int] = None,
+        capture: bool = True,
     ):
         """Continuous-batching paged decode engine over a SCHEDULED paged
         decode-step DAG (``frontend.build_paged_decode_dag``), running on
@@ -1435,7 +1512,9 @@ class DeviceBackend:
         ``ops.attention.PAGED_IMPLS``), when given, must be the impl the
         DAG's layer tasks were built with (they choose the path; the engine
         reports it), else ValueError; ``chunk_tokens`` turns on chunked
-        prefill.
+        prefill.  On a card each K-step segment replays one CUDA graph
+        captured at the engine's first segment; ``capture=False`` keeps it
+        eager.
 
         Runs the same static pre-execution gate as :meth:`execute` first
         (the DEC0xx decode-loop pass checks cache/page-table placement
@@ -1465,7 +1544,7 @@ class DeviceBackend:
             slots=slots, pages_per_seq=pages_per_seq, seg_steps=seg_steps,
             tracer=trace, metrics=metrics, clock=clock, memprof=memprof,
             flight=flight, attention_impl=attention_impl,
-            chunk_tokens=chunk_tokens, device=device,
+            chunk_tokens=chunk_tokens, device=device, capture=capture,
         )
 
     def execute(

@@ -359,6 +359,7 @@ def measure_decode(
     kv_int8: bool = False,
     device: Any = "cuda",
     params: Optional[Dict[str, torch.Tensor]] = None,
+    eager_leg: bool = False,
 ) -> Dict[str, Any]:
     """Greedy-generation throughput of ``models/decode.generate``.
 
@@ -373,7 +374,12 @@ def measure_decode(
     ``token_agreement`` and ``first_token_agreement`` with the
     unquantized generation, and a quantized one its ``argmax_flip_rate``
     and ``logit_rmse`` over one full-prompt forward; the roofline fields
-    count the quantized bytes.  Keys: the JAX bench's, plus ``device``."""
+    count the quantized bytes.  On a card the decode steps replay one
+    captured CUDA graph; ``eager_leg=True`` also times ``generate(...,
+    capture=False)`` the same way and reports it under ``eager`` (its step
+    time, tok/s, bound utilization, and whether its tokens equal the
+    captured path's).  Keys: the JAX bench's, plus ``device`` and
+    ``eager``."""
     from ..models import decode as decode_mod
     from ..models.family import family_of, module_for
 
@@ -402,13 +408,14 @@ def measure_decode(
         q_param_bytes = _param_bytes(gen_params)
         fwd_q = _dequant_forward(family, config.dtype)
 
-        def generate(p, n):
+        def generate(p, n, capture=True):
             return decode_mod.generate(fwd_q, mod.init_cache, p, ids, config,
-                                       max_new_tokens=n, kv_int8=kv_int8)
+                                       max_new_tokens=n, kv_int8=kv_int8,
+                                       capture=capture)
     else:
-        def generate(p, n):
+        def generate(p, n, capture=True):
             return mod.generate(p, ids, config, max_new_tokens=n,
-                                kv_int8=kv_int8)
+                                kv_int8=kv_int8, capture=capture)
 
     if lossy:
         # generated once up front: the lossy leg's warm-up and the tokens
@@ -416,13 +423,22 @@ def measure_decode(
         got = generate(gen_params, new_tokens)
         ref = mod.generate(params, ids, config, max_new_tokens=new_tokens)
 
-    def timed(n: int) -> float:
-        generate(gen_params, n)  # warm-up
-        return _amortized(lambda: generate(gen_params, n), reps, device)
+    def timed(n: int, capture: bool = True) -> float:
+        generate(gen_params, n, capture)  # warm-up (and capture)
+        return _amortized(lambda: generate(gen_params, n, capture), reps,
+                          device)
 
     wall_1 = timed(1)  # prefill + one step
     wall_s = timed(new_tokens)
     step_s = max((wall_s - wall_1) / (new_tokens - 1), 1e-9)
+    eager = None
+    if eager_leg:
+        e1, en = timed(1, False), timed(new_tokens, False)
+        e_step = max((en - e1) / (new_tokens - 1), 1e-9)
+        same = torch.equal(generate(gen_params, new_tokens),
+                           generate(gen_params, new_tokens, False))
+        eager = {"wall_s": en, "ms_per_token_step": e_step * 1e3,
+                 "decode_tok_s": batch / e_step, "tokens_equal": bool(same)}
     out: Dict[str, Any] = {
         "batch": float(batch),
         "prompt_len": float(prompt_len),
@@ -433,6 +449,8 @@ def measure_decode(
         "ms_per_token_step": step_s * 1e3,
         "device": _device_kind(device),
     }
+    if eager is not None:
+        out["eager"] = eager
     if lossy:
         g, r = got[:, prompt_len:], ref[:, prompt_len:]
         out["token_agreement"] = round(float((g == r).float().mean()), 4)
@@ -476,6 +494,9 @@ def measure_decode(
             roof["bound_tok_s"] = round(batch / step_bound_s, 4)
         out.update(roof)
         out["bound_utilization"] = (batch / step_s) / roof["bound_tok_s"]
+        if eager is not None:
+            eager["bound_utilization"] = (
+                eager["decode_tok_s"] / roof["bound_tok_s"])
     return out
 
 
@@ -657,8 +678,10 @@ def measure_decode_dag(
       step dispatches the DAG, reads the batch's argmax tokens back, folds
       the cache updates in place and builds the next inputs;
     * ``looped``: :func:`...backends.decode_loop.build_decode_loop`'s
-      K-step windows (one token readback per K), and the same window on
-      int8 weights (``quantize_dag``, channel scales, cache slabs kept).
+      K-step windows (one token readback per K; on a card each window one
+      replay of the captured loop, with the eager loop's window beside it
+      under ``eager``), and the same window on int8 weights
+      (``quantize_dag``, channel scales, cache slabs kept).
 
     Oracle: the host-driven generation is TEACHER-FORCED on the whole-
     model ``generate`` stream, and every step's logits must meet the
@@ -807,13 +830,18 @@ def measure_decode_dag(
     tok_mid = toks1[:, -1:]
 
     def timed_window(run_loop, w):
-        c = {k: v.clone() for k, v in mid.items()}  # off the clock
+        # back to the mid-point in place (off the clock): a captured loop
+        # reads the slabs where it was captured
+        for k, v in mid.items():
+            caches2[k].copy_(v)
         _sync(device)
         t0 = time.perf_counter()
-        toks, _ = run_loop(w, c, tok_mid, prompt_len + K)
+        toks, _ = run_loop(w, caches2, tok_mid, prompt_len + K)
         toks_np = toks.cpu().numpy()  # the one readback
         return time.perf_counter() - t0, toks_np
 
+    # on a card the first window captures the loop
+    timed_window(loop, weights2)
     wall, toks2_np = min((timed_window(loop, weights2) for _ in range(3)),
                          key=lambda w: w[0])
     full2 = mod.generate(params, ids, config, max_new_tokens=2 * K + 1,
@@ -827,6 +855,19 @@ def measure_decode_dag(
         "token_agreement_vs_whole_program": round(
             float((ours == full2).mean()), 4),
     }
+    if device.type == "cuda":
+        # the same window through the eager loop, beside the captured one
+        eloop = build_decode_loop(ddag2.graph, dsched2, config, steps=K,
+                                  capture=False)
+        timed_window(eloop, weights2)  # warm-up
+        ewall, etoks_np = min(
+            (timed_window(eloop, weights2) for _ in range(3)),
+            key=lambda w: w[0])
+        looped["eager"] = {
+            "tok_s": round(batch * K / ewall, 2),
+            "ms_per_token": round(ewall * 1e3 / K, 4),
+            "tokens_equal_captured": bool(np.array_equal(etoks_np, toks2_np)),
+        }
     # int8 weights: the placed weight tasks quantized (channel scales, the
     # cache slabs kept), the window timed from the same mid-point
     qd = quantize_dag(ddag2, exclude_prefixes=("cache_",))

@@ -3,10 +3,14 @@
 PyTorch port of ``distributed_llm_scheduler_tpu.models.decode``: a
 static-shape KV cache allocated at ``max_len`` up front, masked cached
 attention, the int8 cache with per-row scales, greedy / temperature
-sampling, and :func:`generate`.  JAX runs the generation as one
-``lax.scan`` program; here it is a plain Python loop of eager steps.  The
-cache is written IN PLACE (JAX returns updated arrays); every function
-still returns the cache so call sites read alike.
+sampling, and :func:`generate`.  JAX runs the generation as one jitted
+``lax.scan`` per static configuration, the cache donated; here greedy
+generation runs its decode steps over a :class:`DecodeProgram` that owns
+the cache, as the donated buffers are owned by the jitted program: on a
+card the step is one CUDA graph captured at the first step and replayed
+(``backends.device.CapturedStep``), off the card the same body runs
+eagerly.  The cache is written IN PLACE (JAX returns updated arrays);
+every function still returns the cache so call sites read alike.
 
 The step position ``pos_start`` is a Python int or a 0-d integer tensor on
 the cache's device.  With a tensor, the cache writes are ``index_copy_``
@@ -31,6 +35,7 @@ and ``forward_cached(params, ids, cache, pos_start, config)``;
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
@@ -260,6 +265,107 @@ def _position_limit(config: Any) -> Optional[int]:
     )
 
 
+# The decode programs of :func:`generate` by static key, least recently used
+# first.  The JAX package keeps 64 compiled programs (``lru_cache``); a
+# program here owns its cache, so the store is bounded by the bytes its
+# programs own instead (one Llama-3 8B bf16 cache at batch 8, 576 rows is
+# ~0.6 GB): past ``PROGRAM_BYTES`` the least recently used programs are
+# dropped, the one in use never.
+PROGRAM_BYTES = 4 << 30
+_programs: "OrderedDict[tuple, DecodeProgram]" = OrderedDict()
+
+
+class DecodeProgram:
+    """The greedy decode state of one static configuration and the step
+    that advances it, the counterpart of the body of the JAX package's
+    ``lax.scan``.
+
+    The state lives at fixed addresses: the cache (``init_cache_fn``'s,
+    int8 with ``kv_int8``), the current token ``tok`` (B,), its position
+    ``pos`` (a 0-d int32 tensor on the device, advanced by the step, so no
+    step reads anything back) and ``out`` (B, M) int32, whose column
+    ``pos + 1`` each step writes.  :meth:`start` re-initialises the cache in
+    place (zeros, unit int8 scales) and prefills the prompt into it
+    eagerly, since the prefill's shape follows the prompt.  :meth:`step`
+    runs one decode step: on a card through a
+    :class:`...backends.device.CapturedStep` (one CUDA graph of ONE step,
+    captured at the first step and replayed once per token: it is reused
+    for any number of new tokens at this cache length, and a step is
+    milliseconds of device work against microseconds to launch a graph),
+    on the CPU or meta tensors as the same body run eagerly.  The graph
+    reads ``params`` at the addresses it was captured with, which is why
+    their addresses are part of the program's key."""
+
+    def __init__(self, forward_cached, init_cache_fn, config, B: int, M: int,
+                 kv_int8: bool, device: torch.device):
+        cache = init_cache_fn(config, B, M, device=device)
+        self.cache = quantize_cache(cache) if kv_int8 else cache
+        self.forward_cached = forward_cached
+        self.config = config
+        self.tok = torch.zeros((B,), dtype=torch.int32, device=device)
+        self.pos = torch.zeros((), dtype=torch.int32, device=device)
+        self.out = torch.zeros((B, M), dtype=torch.int32, device=device)
+        self.params: Optional[Dict[str, Any]] = None
+        self.nbytes = sum(t.nbytes for t in (*self.cache.values(), self.tok,
+                                             self.pos, self.out))
+        if device.type == "cuda":
+            from ..backends.device import CapturedStep
+
+            self.step = CapturedStep(self._body, device)
+        else:
+            self.step = self._body
+
+    def _body(self) -> None:
+        logits, _ = self.forward_cached(
+            self.params, self.tok[:, None], self.cache, self.pos, self.config)
+        nxt = sample_token(logits[:, -1, :], None, 0.0)
+        self.out.index_copy_(
+            1, (self.pos + 1).to(torch.int64).view(1), nxt[:, None])
+        self.tok.copy_(nxt)
+        self.pos.add_(1)
+
+    def start(self, params: Dict[str, Any], prompt_ids: torch.Tensor) -> None:
+        """Bind ``params``, reset the cache in place, prefill the prompt
+        and write its greedy token at column T of ``out``."""
+        for name, t in self.cache.items():
+            t.fill_(1 if name.endswith("_scale") else 0)
+        self.params = params
+        T = prompt_ids.shape[1]
+        logits, _ = self.forward_cached(
+            params, prompt_ids, self.cache, 0, self.config)
+        first = sample_token(logits[:, -1, :], None, 0.0)
+        self.out[:, T] = first
+        self.tok.copy_(first)
+        self.pos.fill_(T)
+
+
+def _program(forward_cached, init_cache_fn, params, config, B, M,
+             temperature, top_k, kv_int8, device) -> DecodeProgram:
+    """The store's program for this static configuration (made on a miss),
+    moved to the most recent end; older ones dropped past
+    ``PROGRAM_BYTES``.  Keyed as the JAX package keys ``_compiled_run``
+    (model, config, batch, cache length, temperature, top-k, int8 cache)
+    plus the device and the params' addresses."""
+    from ..backends.device import address_key
+
+    key = (forward_cached, init_cache_fn, config, B, M, temperature, top_k,
+           kv_int8, device, address_key(params))
+    prog = _programs.pop(key, None)
+    if prog is None:
+        prog = DecodeProgram(forward_cached, init_cache_fn, config, B, M,
+                             kv_int8, device)
+    _programs[key] = prog
+    total = sum(p.nbytes for p in _programs.values())
+    while total > PROGRAM_BYTES and len(_programs) > 1:
+        total -= _programs.popitem(last=False)[1].nbytes
+    return prog
+
+
+def clear_programs() -> None:
+    """Drop every stored decode program, with its cache and graph."""
+    _programs.clear()
+
+
 @torch.no_grad()
 def generate(
     forward_cached: Callable[..., Tuple[torch.Tensor, KVCache]],
@@ -273,12 +379,23 @@ def generate(
     generator: Optional[torch.Generator] = None,
     max_len: Optional[int] = None,
     kv_int8: bool = False,
+    capture: bool = True,
 ) -> torch.Tensor:
     """Prefill the prompt, then decode ``max_new_tokens`` steps one by
     one.  ``kv_int8=True`` stores the KV cache as int8 with per-row scales
     (:func:`quantize_cache`; lossy, so opt-in).  Returns (B, prompt_len +
     max_new_tokens) int32: prompt + generated, on the prompt's device.
-    The loop reads nothing back to the host: tokens stay on the device."""
+    No step reads anything back to the host: tokens stay on the device.
+
+    Greedy decoding (``temperature == 0``) runs over the stored
+    :class:`DecodeProgram` of its static configuration: on a card its
+    steps replay one captured CUDA graph, and a capture or replay error
+    raises.  Two rules keep a generation eager, on a fresh cache with
+    int positions: ``temperature > 0`` (the draws take an explicit
+    ``torch.Generator`` whose state a graph would have to own; the JAX
+    package draws with a key it splits inside the scan), and
+    ``capture=False`` (the decode bench's eager leg).  Both give the
+    captured path's greedy tokens."""
     if max_new_tokens < 0:
         raise ValueError(f"max_new_tokens must be >= 0, got {max_new_tokens}")
     if max_new_tokens == 0:
@@ -293,6 +410,17 @@ def generate(
             f"prompt ({T}) + max_new_tokens ({max_new_tokens}) exceeds the "
             f"model's position limit {limit}"
         )
+    if temperature == 0.0 and capture:
+        prog = _program(forward_cached, init_cache_fn, params, config, B, M,
+                        temperature, top_k, kv_int8, prompt_ids.device)
+        prog.start(params, prompt_ids)
+        try:
+            for _ in range(max_new_tokens - 1):
+                prog.step()
+        finally:
+            prog.params = None
+        return torch.cat([prompt_ids.to(torch.int32),
+                          prog.out[:, T:T + max_new_tokens]], dim=1)
     cache = init_cache_fn(config, B, M, device=prompt_ids.device)
     if kv_int8:
         cache = quantize_cache(cache)

@@ -10,8 +10,11 @@ engine.
   timed schedule;
 * :mod:`.attribution` — measured critical path and the compute /
   transfer / dispatch / idle split that tiles the makespan;
+* :mod:`.drift` — per-task predicted-vs-measured cost-model audit;
 * :mod:`.memprof` — per-device memory timelines with watermark
   attribution;
+* :mod:`.memdrift` — measured-vs-predicted memory peaks, per device and
+  per task, with the near-OOM headroom warning;
 * :mod:`.reqlog` — per-request lifecycle records (``dls.requests/1``);
 * :mod:`.slo` — sliding-window SLO accounting over the request log;
 * :mod:`.flight` — bounded ring-buffer flight recorder that dumps trace
@@ -32,8 +35,6 @@ Everything is opt-in: pass ``trace=Tracer()`` / ``metrics=`` /
 records into one shared tracer and registry (flight recorder).  With
 neither, the ambient getters return ``None`` and every instrumented path
 skips all recording behind ``if tracer is not None`` checks.
-
-The JAX package's ``drift`` and ``memdrift`` modules are not ported.
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ from typing import Optional
 from ..utils.env import env_flag
 from .attribution import Attribution, attribute_run, attribute_trace
 from .clockutil import Clock, default_clock, resolve_clock
+from .drift import DriftReport, TaskDrift, compute_drift
 from .fleet import (
     FleetHealthReport,
     fleet_detectors,
@@ -63,6 +65,13 @@ from .interference import (
     InterferenceReport,
     attribute_requests,
     events_from_perfetto,
+)
+from .memdrift import (
+    DeviceMemDrift,
+    MemDriftReport,
+    TaskMemDrift,
+    compute_mem_drift,
+    predicted_node_peak_bytes,
 )
 from .memprof import MemoryProfiler
 from .metrics import (
@@ -156,6 +165,9 @@ __all__ = [
     "Clock", "default_clock", "resolve_clock",
     "Counter", "Gauge", "Histogram", "MetricsRegistry",
     "diff_snapshots", "validate_snapshot",
+    "DriftReport", "TaskDrift", "compute_drift",
+    "DeviceMemDrift", "MemDriftReport", "TaskMemDrift", "compute_mem_drift",
+    "predicted_node_peak_bytes",
     "Detector", "HealthFinding", "HealthMonitor", "HealthReport",
     "default_detectors", "report_from_soak_artifact",
     "FleetHealthReport", "fleet_detectors", "merge_snapshots",

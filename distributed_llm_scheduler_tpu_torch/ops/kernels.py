@@ -13,12 +13,15 @@ and spills (``-Xptxas=-v``).
 ``launches`` counts kernel launches by name.  A wrapper adds one exactly
 where it launches its kernel, so a run can show that its main path went
 through the kernel.  Under CUDA-graph capture that launch is recorded, not
-run: ``replayed`` counts the kernels each replay of a captured graph
-launches (``backends.device.CapturedProgram`` adds them at every replay).
+run: ``captured`` counts those recorded launches, and ``replayed`` the
+kernels each replay of a captured graph launches
+(``backends.device.CapturedProgram`` and ``CapturedStep`` add them at
+capture and at every replay), so the launches that ran on the card are
+``launches - captured + replayed``.
 ``routes`` counts the calls on a CUDA tensor that a wrapper's resolver
 handed its kernel on copies, by ``<kernel>.<route>`` (for example
 ``flash_attention.kernel:padded``): the views and head dims the kernel
-does not read as given.  :func:`reset_launches` zeroes all three.
+does not read as given.  :func:`reset_launches` zeroes all four.
 """
 
 from __future__ import annotations
@@ -41,6 +44,9 @@ NVCC_FLAGS = (
 
 # kernel name -> launches since the last reset_launches()
 launches: Dict[str, int] = {}
+# kernel name -> launches recorded by CUDA-graph captures since the last
+# reset (counted in ``launches`` too, but run only by the replays)
+captured: Dict[str, int] = {}
 # kernel name -> launches by CUDA-graph replays since the last reset
 replayed: Dict[str, int] = {}
 # "<kernel>.<route>" -> CUDA calls a resolver handed the kernel on copies
@@ -50,8 +56,15 @@ build_logs: Dict[str, str] = {}
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
+def ran(name: str) -> int:
+    """Launches of kernel ``name`` that ran on the card since the last
+    reset: the eager ones and the replays', not the captures' records."""
+    return (launches.get(name, 0) - captured.get(name, 0)
+            + replayed.get(name, 0))
+
+
 def reset_launches() -> None:
-    for counts in (launches, replayed, routes):
+    for counts in (launches, captured, replayed, routes):
         for name in counts:
             counts[name] = 0
 

@@ -474,8 +474,7 @@ def test_bench_forwards_to_the_port_bench(monkeypatch):
     assert calls == [["small"], ["medium"]]
 
 
-@pytest.mark.parametrize("cmd", ["lint", "train", "rankcheck", "slo", "serve",
-                                 "soak", "doctor", "metrics-diff", "regress"])
+@pytest.mark.parametrize("cmd", ["lint", "train", "rankcheck", "metrics-diff"])
 def test_unported_commands_are_refused(cmd, capsys):
     with pytest.raises(SystemExit) as e:
         main([cmd])
@@ -503,17 +502,23 @@ def test_parser_keeps_the_jax_flags():
     jparser = captured["parser"]
     assert argparse.ArgumentParser.parse_args is orig
 
-    def flags(parser):
+    def flags(parser, prefix=""):
+        """{command: its flags}, nested commands (``metrics diff``) too."""
         sub = next(a for a in parser._actions
                    if isinstance(a, argparse._SubParsersAction))
-        # (the JAX `metrics` command also holds `metrics diff`, which is
-        # not ported)
-        return {name: {(tuple(a.option_strings), a.dest, a.default)
-                       for a in p._actions
-                       if not isinstance(a, argparse._SubParsersAction)}
-                for name, p in sub.choices.items()}
+        out = {}
+        for name, p in sub.choices.items():
+            out[prefix + name] = {
+                (tuple(a.option_strings), a.dest, a.default)
+                for a in p._actions
+                if not isinstance(a, argparse._SubParsersAction)}
+            if any(isinstance(a, argparse._SubParsersAction)
+                   for a in p._actions):
+                out.update(flags(p, prefix + name + " "))
+        return out
 
     pf, jf = flags(build_parser()), flags(jparser)
+    assert "metrics diff" in pf
     for name in pf:
         assert pf[name] == jf[name], name
 

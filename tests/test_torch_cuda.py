@@ -1356,7 +1356,9 @@ def test_memprof_reconciles_the_allocator_peak(cuda):
 def test_fleet_restart_gives_back_pages_and_device_memory(cuda):
     """Three replicas of the serve engine share the card; a restart
     through ``rebind_obs`` returns the replica's pages and its device
-    memory: ``memory_allocated`` comes back to its level before."""
+    memory: ``memory_allocated`` comes back to its level before (taken
+    once the engine has captured its segment graph, whose static buffers
+    live as long as the engine)."""
     from distributed_llm_scheduler_tpu_torch.eval import serve_bench as SB
     from distributed_llm_scheduler_tpu_torch.serve import (
         EngineRegistry, VirtualClock, prompt_token_ids)
@@ -1372,9 +1374,12 @@ def test_fleet_restart_gives_back_pages_and_device_memory(cuda):
     for rid in engines:
         reg.add(rid)
     eng = reg.get("n1").engine
+    vocab = int(eng.config.vocab_size)
+    eng.submit("warm", prompt_token_ids("warm", 8, vocab, 0), 4)
+    eng.run()
+    eng.reset()
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated(cuda)
-    vocab = int(eng.config.vocab_size)
     for i in range(3):
         eng.submit(f"r{i}", prompt_token_ids(f"r{i}", 8, vocab, 0), 12)
     eng.step_segment()
@@ -1691,16 +1696,24 @@ def test_decode_dag_captured_rungs_read_slabs_updated_in_place(cuda):
 def test_int8_cache_generate_on_the_card_equals_the_plain_norms(cuda,
                                                                  monkeypatch):
     """generate with the int8 KV cache on the card: the RMSNorm kernel's
-    greedy tokens equal those of the same run with the plain RMSNorm."""
-    from distributed_llm_scheduler_tpu_torch.models import llama
+    greedy tokens equal those of the same run with the plain RMSNorm.  The
+    5 decode steps run captured: the prefill, the first step (eager, then
+    recorded into the graph) launch eagerly, the 4 later steps by
+    replays."""
+    from distributed_llm_scheduler_tpu_torch.models import decode, llama
     from distributed_llm_scheduler_tpu_torch.ops import norms as N
 
     cfg, params, ids = _tiny_llama(cuda)
-    before = kernels.launches[N.RMS_KERNEL]
+    decode.clear_programs()
+    kernels.reset_launches()
     got = llama.generate(params, ids, cfg, max_new_tokens=6, kv_int8=True)
-    assert kernels.launches[N.RMS_KERNEL] == before + 6 * (2 * cfg.n_layers + 1)
+    per = 2 * cfg.n_layers + 1
+    assert kernels.launches[N.RMS_KERNEL] == 3 * per
+    assert kernels.replayed[N.RMS_KERNEL] == 4 * per
+    decode.clear_programs()  # a stored graph would replay the kernel
     monkeypatch.setattr(llama, "rms_norm", N.reference_rms_norm)
     want = llama.generate(params, ids, cfg, max_new_tokens=6, kv_int8=True)
+    decode.clear_programs()
     assert torch.equal(got, want)
 
 
@@ -1728,3 +1741,176 @@ def test_rms_norm_launches_per_decode_step(cuda, family):
     n = 2 * cfg.n_layers + 1
     assert kernels.launches[N.RMS_KERNEL] == n
     assert kernels.launches[f"{N.RMS_KERNEL}.register"] == n
+
+
+# -- the captured decode loops ------------------------------------------------
+
+def _family_params(cuda, family, dtype=torch.float32):
+    from distributed_llm_scheduler_tpu_torch import params_from_numpy
+    from distributed_llm_scheduler_tpu_torch.models.family import module_for
+
+    mod = module_for(family)
+    cfg = {"gpt2": lambda: mod.GPT2Config.tiny(dtype=dtype),
+           "llama": lambda: mod.LlamaConfig.tiny(dtype=dtype),
+           "mixtral": lambda: mod.MixtralConfig.tiny(dtype=dtype)}[family]()
+    params = params_from_numpy(mod.init_params_numpy(cfg, 0), cuda, dtype)
+    rng = np.random.default_rng(1)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 8),
+                                        dtype=np.int32)).to(cuda)
+    return mod, cfg, params, ids
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_int8", [False, True], ids=["plain", "int8"])
+@pytest.mark.parametrize("family", ["gpt2", "llama", "mixtral"])
+def test_captured_generate_equals_the_eager_path(cuda, family, kv_int8):
+    """Greedy generate on the card replays one captured step graph; its
+    tokens equal ``capture=False``'s bit for bit, on a fresh program and
+    on the stored one with another prompt (its cache reset in place)."""
+    from distributed_llm_scheduler_tpu_torch.models import decode
+
+    mod, cfg, params, ids = _family_params(cuda, family)
+    decode.clear_programs()
+    for prompt in (ids, ids.flip(0)):
+        kernels.reset_launches()
+        got = mod.generate(params, prompt, cfg, max_new_tokens=8,
+                           kv_int8=kv_int8)
+        assert sum(kernels.replayed.values()) > 0
+        want = mod.generate(params, prompt, cfg, max_new_tokens=8,
+                            kv_int8=kv_int8, capture=False)
+        assert torch.equal(got, want), family
+    assert len(decode._programs) == 1
+    decode.clear_programs()
+
+
+@pytest.mark.cuda
+def test_captured_dense_loop_equals_the_eager_loop(cuda):
+    """The dense K-step loop captured per (batch, K) and slab set: equal
+    tokens and slabs to the eager loop from the same state, windows
+    chained on one set of slabs with no new capture."""
+    import distributed_llm_scheduler_tpu_torch as P
+    from distributed_llm_scheduler_tpu_torch.backends.decode_loop import (
+        build_decode_loop, split_cache_params)
+
+    cfg, params, ids = _tiny_llama(cuda)
+    M = 24
+    cluster = P.Cluster.from_torch_devices([cuda])
+    be = P.DeviceBackend(cluster)
+    pdag = P.build_decode_dag_any(cfg, batch=2, step_len=8, max_len=M)
+    ddag = P.build_decode_dag_any(cfg, batch=2, step_len=1, max_len=M)
+    sched = P.get_scheduler("greedy").schedule(ddag.graph, cluster)
+    pc = pdag.derive_params(params)
+    rep = be.execute(pdag.graph, P.get_scheduler("greedy").schedule(
+        pdag.graph, cluster), pc, P.decode_inputs(ids, 0), keep_outputs=True)
+    P.apply_cache_updates(pc, rep.task_outputs, cfg, 0)
+    tok0 = rep.output[:, -1].argmax(-1).to(torch.int32)[:, None]
+    weights, caches = split_cache_params(pc)
+    start = {k: v.clone() for k, v in caches.items()}
+    runs = []
+    for capture in (True, False):
+        for k, v in start.items():
+            caches[k].copy_(v)
+        loop = build_decode_loop(ddag.graph, sched, cfg, steps=4,
+                                 capture=capture)
+        toks, tok, pos = [], tok0, 8
+        for _ in range(3):
+            kernels.reset_launches()
+            out, caches = loop(weights, caches, tok, pos)
+            if capture and pos > 8:
+                assert not kernels.launches.get("rms_norm", 0)
+                assert kernels.replayed["rms_norm"] > 0
+            toks.append(out)
+            tok, pos = out[:, -1:], pos + 4
+        runs.append((torch.cat(toks, 1), {k: v.clone()
+                                          for k, v in caches.items()}))
+    assert torch.equal(runs[0][0], runs[1][0])
+    for k in start:
+        assert torch.equal(runs[0][1][k], runs[1][1][k]), k
+
+
+def _serve_engines(cuda):
+    from distributed_llm_scheduler_tpu_torch.eval import serve_bench as SB
+
+    return [SB.build_serve_engine(device=cuda)[0] for _ in range(2)]
+
+
+def _capture_reqs(vocab, n=6):
+    rng = np.random.default_rng(3)
+    return [(f"q{i}", rng.integers(0, vocab, size=(1, 8 + 4 * (i % 3)),
+                                   dtype=np.int32), 6 + i) for i in range(n)]
+
+
+@pytest.mark.cuda
+def test_captured_segment_equals_the_eager_engine(cuda):
+    """The paged engine's segment replays one graph per engine; a second
+    engine with ``capture=False`` gives the same tokens bit for bit, and
+    the captured one launches the paged kernel only by replays once
+    warm."""
+    captured, eager = _serve_engines(cuda)
+    eager.capture = False
+    reqs = _capture_reqs(int(captured.config.vocab_size))
+    out = []
+    for eng in (captured, eager, captured):
+        eng.reset()
+        kernels.reset_launches()
+        for rid, ids, n in reqs:
+            eng.submit(rid, ids, n)
+        out.append(eng.run())
+    assert kernels.launches.get(A.PAGED_KERNEL, 0) == 0
+    assert kernels.replayed[A.PAGED_KERNEL] > 0
+    for rid, _, _ in reqs:
+        assert np.array_equal(out[0][rid], out[1][rid]), rid
+        assert np.array_equal(out[2][rid], out[1][rid]), rid
+
+
+@pytest.mark.cuda
+def test_reset_zeroes_the_pools_the_graph_reads(cuda):
+    """After ``reset()`` the captured segment replays over the same pool
+    tensors, zeroed in place (no new capture, the first run's tokens);
+    pools replaced by other tensors are refused by the captured program."""
+    eng = _serve_engines(cuda)[0]
+    reqs = _capture_reqs(int(eng.config.vocab_size))
+    runs, progs = [], []
+    for _ in range(2):
+        eng.reset()
+        addr = {k: v.data_ptr() for k, v in eng.pools.items()}
+        for rid, ids, n in reqs:
+            eng.submit(rid, ids, n)
+        runs.append(eng.run())
+        progs.append(eng._captured_seg)
+        assert {k: v.data_ptr() for k, v in eng.pools.items()} == addr
+        assert all(int(v.abs().sum()) > 0 for v in eng.pools.values())
+    assert progs[0] is progs[1] is not None
+    for rid, _, _ in reqs:
+        assert np.array_equal(runs[0][rid], runs[1][rid])
+    eng.reset()
+    eng.pools = {k: v.clone() for k, v in eng.pools.items()}
+    eng.submit("x", reqs[0][1], 4)
+    with pytest.raises(RuntimeError, match="another tensor"):
+        eng.run()
+
+
+@pytest.mark.cuda
+def test_a_step_that_reads_to_the_host_fails_capture(cuda):
+    """A body that syncs with the host cannot be captured: the capture
+    raises, and nothing runs it eagerly instead."""
+    from distributed_llm_scheduler_tpu_torch.backends.device import (
+        CapturedProgram, CapturedStep, capture_stream)
+
+    x = torch.ones((4,), device=cuda)
+    calls = []
+
+    def body():
+        calls.append(1)
+        x.add_(float(x.sum()))  # .item()-style read: a sync
+
+    step = CapturedStep(body, cuda)
+    with pytest.raises(RuntimeError):
+        step()
+    assert step.graph is None and len(calls) == 2  # the warm-up, the capture
+    prog = CapturedProgram(lambda p, e: e["a"] * int(e["a"].sum()),
+                           stream=capture_stream(cuda))
+    with pytest.raises(RuntimeError):
+        prog({}, {"a": x})
+    assert prog.graph is None
+    torch.cuda.synchronize()
