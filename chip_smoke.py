@@ -285,6 +285,31 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     -m distributed_llm_scheduler_tpu_torch execute --model gpt2`` in a
     subprocess exits 0.  Each command's wall time and makespan
     (``CLI_LINE``).
+21. the pre-flight lint and the sim-against-card rank check, through the
+    port's ``__main__.main(argv)`` in this process, every launch count set
+    to 0 just before each command and read just after.  a. ``lint --model
+    gpt2 --json``, ``lint --model llama-8b --json`` (the sharding pass over
+    Llama-3 8B's meta specs under ``factorize_mesh(8)``) and ``lint
+    --model gpt2 --quantize int8 --json``: each exits as, and prints the
+    JSON of, the same command under ``DLS_PLATFORM=cpu``, and no kernel
+    runs.  b. ``lint --model gpt2 --preflight`` on the card (each distinct
+    task once: the flash and LayerNorm kernels run), its CST diagnostics
+    printed; ``lint --serving`` (the serve bench's scenario on the card,
+    the paged kernel replayed) exits 0 with no PGL, LCY or DET diagnostic,
+    so the port's tree is clean under the determinism pass; ``--inject-leak
+    4`` exits 1 naming PGL001 and ``--prefix --inject-underflow`` exits 1
+    naming PGL006.  c. ``rankcheck --model gpt2`` at its defaults (GPT-2
+    small f32, batch 1, seq 512, 99 tasks, on the cards ``--num-nodes 8``
+    binds) exits 0 or 1.  d. ``run_rank_check`` over the same DAG on 8
+    nodes sharing the card, ``roundrobin,critical,pipeline,pack``, 3
+    measured repeats, uncalibrated and with ``anchor_calibrate``: every
+    policy completes and every measured run's output equals one node's
+    under the f32 rule (``benchlib.oracle_close``); predicted and measured
+    ms per policy, Kendall's tau and the agreement printed.  e. ``rankcheck
+    --stress``: with fewer than 4 cards it exits 2 with one line; with 4 or
+    more it runs.  f. ``trace_to_chain`` over the GPT-2 small forward on
+    meta tensors: every weight charged (``total_param_gb`` the params'
+    bytes), its task count printed (``LINT_RANK_LINE``).
 
 The last lines are one JSON object of per-kernel numbers (``launches`` is
 the count of the kernel's main path, ``launches_by_path`` each counted
@@ -313,6 +338,12 @@ hand, with no check; see :func:`ragged_sweep`.
 
 does the same for the norm kernels of the package under ROOT at phase
 5's three timed shapes; see :func:`norm_timing`.
+
+    python3 chip_smoke.py --preflight-passes [ROOT]
+
+measures ``lint --preflight``'s task footprints (GPT-2 small f32) twice
+in a fresh process with the package under ROOT and prints where the two
+passes differ; see :func:`preflight_passes`.
 """
 
 from __future__ import annotations
@@ -3394,6 +3425,10 @@ def run_searched_path(torch, P, A, N, dev, bench_result) -> tuple:
         outs = {}
         for rung, kw in (("planned", {}), ("compiled", dict(compiled=True))):
             label = f"{name} x8 {rung}"
+            # an earlier policy whose placement lowers to the same program
+            # (refine and search can converge) left it captured: the run
+            # replays it, with no warm-up or capture launch of its own
+            n_progs = len(backend._prog_cache.get(graph, {}))
             kernels.reset_launches()
             rep = backend.execute(graph, sched, params, ids, reps=REPS, **kw)
             torch.cuda.synchronize()
@@ -3404,12 +3439,14 @@ def run_searched_path(torch, P, A, N, dev, bench_result) -> tuple:
             if kw:
                 captured = {k: rep.captured_launches.get(k, 0)
                             for k in per_forward}
+                reused = len(backend._prog_cache.get(graph, {})) == n_progs
+                row["program_reused"] = reused
                 if (captured != per_forward
-                        or eager != times(captured, 2)
+                        or eager != times(captured, 0 if reused else 2)
                         or replayed != times(captured, 1 + REPS)):
                     raise AssertionError(
                         f"{label}: captured {captured}, eager {eager}, "
-                        f"replayed {replayed}")
+                        f"replayed {replayed}, program reused {reused}")
                 launches[label] = replayed
             else:
                 if eager != times(per_forward, 1 + REPS):
@@ -4983,6 +5020,252 @@ def serving_commands(torch, A, N, main, record, counts) -> None:
            regressed=verdict["n_regressed"])
 
 
+# phase 21: the pre-flight lint and the sim-against-card rank check
+LINT_HOST = (["lint", "--model", "gpt2", "--json"],
+             ["lint", "--model", "llama-8b", "--json"],
+             ["lint", "--model", "gpt2", "--quantize", "int8", "--json"])
+LINT_SERVING = (
+    # (argv, exit code, a code the report must name)
+    (["lint", "--serving", "--json"], 0, None),
+    (["lint", "--serving", "--inject-leak", "4", "--json"], 1, "PGL001"),
+    (["lint", "--serving", "--prefix", "--inject-underflow", "--json"], 1,
+     "PGL006"),
+)
+RANK_POLICIES = ("roundrobin", "critical", "pipeline", "pack")
+RANK_REPEATS = 3
+
+
+def cli_call(torch, main, argv: list, platform=None) -> tuple:
+    """One command of the port's CLI in this process, with
+    ``DLS_PLATFORM`` set to ``platform`` (None: unset, the card) while it
+    runs, stdout and stderr captured, every launch count set to 0 just
+    before and read just after.  Returns (exit code, stdout, stderr, wall
+    seconds, {kernel: launches that ran})."""
+    import os
+
+    from distributed_llm_scheduler_tpu_torch.ops import kernels
+
+    prev = os.environ.pop("DLS_PLATFORM", None)
+    if platform is not None:
+        os.environ["DLS_PLATFORM"] = platform
+    kernels.reset_launches()
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = main(argv)
+        torch.cuda.synchronize()
+    finally:
+        os.environ.pop("DLS_PLATFORM", None)
+        if prev is not None:
+            os.environ["DLS_PLATFORM"] = prev
+    wall = time.perf_counter() - t0
+    ran = {k: kernels.ran(k) for k in sorted(set(kernels.launches)
+                                             | set(kernels.replayed))}
+    return rc, out.getvalue(), err.getvalue(), wall, ran
+
+
+def lint_codes(out: str, severity=None) -> list:
+    """(code, task) of each diagnostic of a ``lint --json`` report, of one
+    severity when given."""
+    return [(d["code"], d.get("task")) for d in json.loads(out)["diagnostics"]
+            if severity is None or d["severity"] == severity]
+
+
+def rank_summary(rep: dict) -> dict:
+    """The rank check's figures, per policy in ms."""
+    return dict(
+        policies={p: dict(predicted_ms=r["predicted_s"] * 1e3,
+                          measured_ms=r["measured_s"] * 1e3,
+                          ratio=r["ratio"])
+                  for p, r in rep["policies"].items()},
+        predicted_order=rep["predicted_order"],
+        measured_order=rep["measured_order"], kendall_tau=rep["kendall_tau"],
+        winner_agreement=rep["winner_agreement"],
+        prediction_is_tie=rep["prediction_is_tie"],
+        prediction_spread=rep["prediction_spread"],
+        cross_group_agreement=rep["cross_group_agreement"],
+        n_devices=rep["n_devices"], link_provenance=rep["link_provenance"],
+        anchor_calibration=rep["anchor_calibration"], wall_s=rep["wall_s"])
+
+
+def run_lint_rank_path(torch, P, A, N, dev) -> tuple:
+    """Phase 21: ``lint`` and ``rankcheck`` on the card (see the module
+    docstring).  Returns (LINT_RANK_LINE dict, {run: {kernel: launches
+    that ran}})."""
+    from distributed_llm_scheduler_tpu_torch.__main__ import main
+    from distributed_llm_scheduler_tpu_torch.eval.benchlib import (
+        oracle_close as f32_close,
+    )
+    from distributed_llm_scheduler_tpu_torch.eval.rankcheck import (
+        run_rank_check,
+    )
+    from distributed_llm_scheduler_tpu_torch.frontend.tracer import (
+        trace_to_chain,
+    )
+    from distributed_llm_scheduler_tpu_torch.models import gpt2
+    from distributed_llm_scheduler_tpu_torch.ops import kernels
+    from distributed_llm_scheduler_tpu_torch.utils.config import RunConfig
+
+    line, counts = {}, {}
+    main_kernels = (A.KERNEL, N.LN_KERNEL)
+
+    # a. host-only lints: on the card's platform and on the CPU, equal
+    line["host_lints"] = {}
+    for argv in LINT_HOST:
+        label = " ".join(argv[1:])
+        rc, out, err, wall, ran = cli_call(torch, main, argv)
+        rc_cpu, out_cpu, _, _, _ = cli_call(torch, main, argv, "cpu")
+        if (rc, out) != (rc_cpu, out_cpu):
+            raise AssertionError(f"lint {label}: exit {rc} and its JSON differ "
+                                 f"from DLS_PLATFORM=cpu's (exit {rc_cpu})")
+        if any(ran.values()):
+            raise AssertionError(f"lint {label}: kernels ran {ran}")
+        codes = sorted({c for c, _ in lint_codes(out)})
+        line["host_lints"][label] = dict(exit=rc, codes=codes, wall_s=wall)
+        log(f"  a. lint {label}: exit {rc}, codes {codes}, equal to "
+            f"DLS_PLATFORM=cpu's, no kernel ran, {wall:.2f} s")
+
+    # b. the preflight on the card, then the serving lint
+    argv = ["lint", "--model", "gpt2", "--preflight", "--json"]
+    rc, out, err, wall, ran = cli_call(torch, main, argv)
+    if rc != 0:
+        raise AssertionError(f"lint --preflight exited {rc}: {err[-2000:]}")
+    cst = [(d["code"], d["task"], d["data"]["analytic_gb"] * 1024,
+            d["data"]["compiled_gb"] * 1024 if "compiled_gb" in d["data"]
+            else None)
+           for d in json.loads(out)["diagnostics"]
+           if d["code"].startswith("CST")]
+    pre = {k: ran.get(k, 0) for k in main_kernels}
+    if min(pre.values()) < 1:
+        raise AssertionError(f"lint --preflight: launches {pre}")
+    counts["lint --preflight"] = pre
+    line["preflight"] = dict(cst=cst, launches=pre, wall_s=wall)
+    log(f"  b. lint --model gpt2 --preflight: exit 0, {len(cst)} CST "
+        "diagnostics (code, task, analytic MB, measured MB) "
+        f"{cst}; flash ran {pre[A.KERNEL]}, layer_norm ran "
+        f"{pre[N.LN_KERNEL]} (each distinct task once), {wall:.2f} s")
+    line["serving"] = {}
+    for argv, want_rc, must in LINT_SERVING:
+        label = " ".join(argv[1:-1])
+        rc, out, err, wall, ran = cli_call(torch, main, argv)
+        codes = lint_codes(out)
+        errors = sorted({c for c, _ in lint_codes(out, "error")})
+        n = {k: ran.get(k, 0) for k in (A.PAGED_KERNEL, N.LN_KERNEL)}
+        if rc != want_rc or (must and must not in errors):
+            raise AssertionError(f"lint {label}: exit {rc} (want {want_rc}), "
+                                 f"errors {errors} (must name {must})")
+        if not must and any(c.startswith(("PGL", "LCY", "DET"))
+                            for c, _ in codes):
+            raise AssertionError(f"lint {label}: {codes[:5]}")
+        if n[A.PAGED_KERNEL] < 1:
+            raise AssertionError(f"lint {label}: the paged kernel did not run")
+        counts[f"lint {label}"] = n
+        line["serving"][label] = dict(exit=rc, errors=errors, launches=n,
+                                      wall_s=wall)
+        log(f"  b. lint {label}: exit {rc}, errors {errors}; paged ran "
+            f"{n[A.PAGED_KERNEL]}, layer_norm ran {n[N.LN_KERNEL]}, "
+            f"{wall:.2f} s")
+
+    # c. rankcheck through the CLI at its defaults: the cards --num-nodes
+    # binds (one card: one node, so every policy places alike)
+    rc, out, err, wall, ran = cli_call(torch, main, ["rankcheck", "--model",
+                                                     "gpt2"])
+    if rc not in (0, 1) or "Traceback" in err:
+        raise AssertionError(f"rankcheck exited {rc}: {err[-2000:]}")
+    rep = json.loads(out)
+    counts["rankcheck"] = {k: ran.get(k, 0) for k in main_kernels}
+    line["rankcheck_cli"] = dict(rank_summary(rep), exit=rc,
+                                 launches=counts["rankcheck"], wall_s=wall)
+    log(f"  c. rankcheck --model gpt2: exit {rc} on {rep['n_devices']} "
+        f"node(s), winner_agreement {rep['winner_agreement']}, kendall_tau "
+        f"{rep['kendall_tau']:.3f}, prediction_is_tie "
+        f"{rep['prediction_is_tie']}; {wall:.2f} s")
+
+    # d. run_rank_check on 8 nodes sharing the card, the same DAG
+    cfg = RunConfig(model="gpt2")
+    dag = cfg.build_graph()
+    graph = dag.graph
+    params, ids = dag.init_params(device=dev), dag.make_inputs(device=dev)
+    one = P.Cluster.from_torch_devices([dev])
+    single = P.DeviceBackend(one).execute(
+        graph, P.get_scheduler("greedy").schedule(graph, one), params,
+        ids).output.clone()
+    cluster = P.Cluster.from_torch_devices([dev] * 8, hbm_cap_gb=cfg.hbm_gb)
+    line["rank_on_8_nodes"] = {}
+    for label, anchor in (("uncalibrated", False), ("anchor-calibrated", True)):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with spied(P.DeviceBackend, "execute") as calls:
+            rep = run_rank_check(graph, params, ids, policies=RANK_POLICIES,
+                                 cluster=cluster,
+                                 measure_repeats=RANK_REPEATS,
+                                 anchor_calibrate=anchor, log=log)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if rep["n_policies"] != len(RANK_POLICIES):
+            raise AssertionError(f"rank check ({label}): {rep['n_policies']} "
+                                 f"of {len(RANK_POLICIES)} policies completed")
+        placed = [c[2].output for c in calls if c[0][0].cluster is cluster]
+        if len(placed) != len(RANK_POLICIES) * (1 + RANK_REPEATS):
+            raise AssertionError(f"rank check ({label}): {len(placed)} runs")
+        bad = [i for i, out in enumerate(placed)
+               if not f32_close(single, out, "float32")]
+        if bad:
+            raise AssertionError(f"rank check ({label}): runs {bad} differ "
+                                 "from the single node's output")
+        del calls, placed
+        n = ran_counts(main_kernels)
+        counts[f"rank check 8 nodes {label}"] = n
+        summary = rank_summary(rep)
+        line["rank_on_8_nodes"][label] = dict(summary, launches=n,
+                                              wall_s=wall)
+        for p, r in summary["policies"].items():
+            log(f"  d. {label} {p}: predicted {r['predicted_ms']:.3f} ms, "
+                f"measured {r['measured_ms']:.3f} ms")
+        log(f"  d. {label}: kendall_tau {rep['kendall_tau']:.3f}, "
+            f"winner_agreement {rep['winner_agreement']}, tie "
+            f"{rep['prediction_is_tie']}; every run equal to one node's "
+            f"output (f32 rule); {n}; {wall:.1f} s")
+    del params, ids, single
+
+    # e. --stress: 4 cards or a one-line refusal
+    rc, out, err, wall, _ = cli_call(torch, main, ["rankcheck", "--stress"])
+    cards = torch.cuda.device_count()
+    if cards < 4:
+        if rc != 2 or out or len(err.strip().splitlines()) != 1:
+            raise AssertionError(f"rankcheck --stress on {cards} card(s): "
+                                 f"exit {rc}, stderr {err!r}")
+        line["stress"] = dict(exit=rc, refusal=err.strip())
+        log(f"  e. rankcheck --stress on {cards} card(s): exit 2, "
+            f"{err.strip()!r}")
+    else:
+        if rc not in (0, 1):
+            raise AssertionError(f"rankcheck --stress exited {rc}: "
+                                 f"{err[-2000:]}")
+        line["stress"] = dict(exit=rc, **rank_summary(json.loads(out)))
+        log(f"  e. rankcheck --stress: exit {rc}, {line['stress']}")
+
+    # f. the tracer at full width, on meta tensors
+    small = P.GPT2Config.small()
+    meta = {k: torch.empty(shape, dtype=dt, device="meta")
+            for k, (shape, dt) in gpt2.param_shapes(small).items()}
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    traced = trace_to_chain(lambda i: gpt2.forward(meta, i, small),
+                            torch.zeros((1, 512), dtype=torch.int32,
+                                        device="meta"), name="gpt2_small")
+    wall = time.perf_counter() - t0
+    want_gb = sum(t.numel() * t.element_size() for t in meta.values()) / 2**30
+    if traced.total_param_gb() != want_gb or any(kernels.launches.values()):
+        raise AssertionError(f"tracer: {traced.total_param_gb()} GB of params "
+                             f"(want {want_gb}), launches {kernels.launches}")
+    line["tracer"] = dict(tasks=len(traced), param_gb=want_gb, wall_s=wall)
+    log(f"  f. trace_to_chain(GPT-2 small forward, meta): {len(traced)} "
+        f"tasks, {want_gb:.4f} GB of params (every weight), {wall:.2f} s")
+    return line, counts
+
+
 def gc_cuda(torch) -> None:
     """Free what a leg left on the card: the stored decode programs of
     ``generate`` (their caches and graphs), then unreferenced tensors."""
@@ -5178,6 +5461,47 @@ def norm_timing(root: Path) -> int:
     return 0
 
 
+def preflight_passes(root: Path) -> int:
+    """``python3 chip_smoke.py --preflight-passes [ROOT]``: the package
+    under ROOT (default: this checkout) measures the task footprints of
+    ``lint --preflight``'s DAG (GPT-2 small f32, batch 1, seq 512) twice,
+    in this fresh process, and prints one JSON line: each pass's
+    footprints where the two differ, in MB.  A first pass that reads more
+    than the second carries the process's one-time allocations."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    root = root.resolve()
+    sys.path.insert(0, str(root))
+    from distributed_llm_scheduler_tpu_torch.ops import attention as A
+    from distributed_llm_scheduler_tpu_torch.ops import kernels
+    from distributed_llm_scheduler_tpu_torch.ops import norms as N
+    from distributed_llm_scheduler_tpu_torch.utils.config import RunConfig
+    from distributed_llm_scheduler_tpu_torch.utils.hbm import (
+        preflight_task_memory,
+    )
+
+    if not Path(kernels.__file__).resolve().is_relative_to(root):
+        raise AssertionError(f"imported {kernels.__file__}, not the package "
+                             f"under {root}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels.build(A.KERNEL, N.SOURCE)
+    dev = torch.device("cuda", 0)
+    passes = []
+    for _ in range(2):
+        dag = RunConfig(model="gpt2").build_graph()
+        passes.append(preflight_task_memory(
+            dag.graph, dag.init_params(device=dev), dag.make_inputs(device=dev)))
+    differ = {t: [gb[t] * 1024 for gb in passes] for t in passes[0]
+              if passes[0][t] != passes[1][t]}
+    print(json.dumps({"tree": str(root), "tasks": len(passes[0]),
+                      "differ_mb": differ, "device": nvidia_smi_line()}),
+          flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -5190,6 +5514,9 @@ def main() -> int:
                             sys.argv[4:5] == ["short"])
     if sys.argv[1:2] == ["--norm-timing"]:
         return norm_timing(Path(sys.argv[2]) if len(sys.argv) > 2 else ROOT)
+    if sys.argv[1:2] == ["--preflight-passes"]:
+        return preflight_passes(Path(sys.argv[2]) if len(sys.argv) > 2
+                                else ROOT)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
@@ -5203,7 +5530,7 @@ def main() -> int:
     t_all = time.perf_counter()
     dev = torch.device("cuda", 0)
     smi = nvidia_smi_line()
-    log(f"[1/20] device: {torch.cuda.get_device_name(0)} ({smi}); torch "
+    log(f"[1/21] device: {torch.cuda.get_device_name(0)} ({smi}); torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5211,7 +5538,7 @@ def main() -> int:
 
     sources = (A.KERNEL, A.PAGED_SOURCE, N.SOURCE)
     secs = kernels.build(*sources)
-    log(f"[2/20] built {', '.join(f'{n}.cu' for n in sources)} with "
+    log(f"[2/21] built {', '.join(f'{n}.cu' for n in sources)} with "
         f"{kernels.nvcc_path()} for sm_90a in {secs:.1f} s (in parallel)")
     log_ptxas(kernels.build_logs.get(A.KERNEL, ""))
     log_ptxas(kernels.build_logs.get(A.PAGED_SOURCE, ""),
@@ -5223,59 +5550,59 @@ def main() -> int:
                     if "paged_ragged_tc" in k]
     norm_ptxas = log_norm_ptxas(kernels.build_logs.get(N.SOURCE, ""))
 
-    log("[3/20] flash kernel check against its plain version")
+    log("[3/21] flash kernel check against its plain version")
     attn = check_attention_kernel(
         torch, A, dev, P.LlamaConfig.llama3_8b(dtype=torch.bfloat16))
 
-    log("[4/20] paged kernel check against the plain versions")
+    log("[4/21] paged kernel check against the plain versions")
     paged = check_paged_kernels(torch, A, DB, dev)
     ragged_n = run_ragged_op_path(torch, A, DB, dev)
 
-    log("[5/20] LayerNorm and RMSNorm kernel check against the plain versions")
+    log("[5/21] LayerNorm and RMSNorm kernel check against the plain versions")
     norms = check_norm_kernels(torch, N, dev)
 
     def phase_done():  # free the phase's tensors before the next one
         gc_cuda(torch)
 
-    log("[6/20] flagship forward path: GPT-2 small bf16 DAG on the card")
+    log("[6/21] flagship forward path: GPT-2 small bf16 DAG on the card")
     gpt2_n = run_main_path(torch, P, dev)
     phase_done()
 
-    log("[7/20] execution ladder: the flagship per task, planned, coalesced, "
+    log("[7/21] execution ladder: the flagship per task, planned, coalesced, "
         "segmented and compiled")
     ladder_n = run_ladder_path(torch, P, dev)
     phase_done()
 
-    log("[8/20] north-star bench: GPT-2 small bf16, 10 policies replayed")
+    log("[8/21] north-star bench: GPT-2 small bf16, 10 policies replayed")
     bench_n, bench_result = run_bench_path(torch, P, dev)
     phase_done()
 
-    log("[9/20] serve path: GPT-2 small bf16 through the paged decode engine")
+    log("[9/21] serve path: GPT-2 small bf16 through the paged decode engine")
     serve_launches, serve_ragged, serve_ln, serve_tr, served = run_serve_path(
         torch, P, A, dev)
     phase_done()
 
-    log("[10/20] Llama path: Llama-3 8B bf16 DAG, pipeline stages, on the card")
+    log("[10/21] Llama path: Llama-3 8B bf16 DAG, pipeline stages, on the card")
     llama_n = run_llama_path(torch, P, dev)
     phase_done()
 
-    log("[11/20] f32 leg: GPT-2 placed on the card vs fused on the CPU")
+    log("[11/21] f32 leg: GPT-2 placed on the card vs fused on the CPU")
     run_f32_leg(torch, P, dev)
 
-    log("[12/20] f32 serve leg: the engine on the card vs on the CPU")
+    log("[12/21] f32 serve leg: the engine on the card vs on the CPU")
     run_f32_serve_leg(torch, P, dev)
     phase_done()
 
-    log("[13/20] f32 Llama leg: placed on the card vs fused on the CPU")
+    log("[13/21] f32 Llama leg: placed on the card vs fused on the CPU")
     run_llama_f32_leg(torch, P, dev)
     phase_done()
 
-    log("[14/20] parameter streaming: GPT-2 medium and the flagship under "
+    log("[14/21] parameter streaming: GPT-2 medium and the flagship under "
         "budgets below their params")
     stream_n = run_stream_path(torch, P, dev)
     phase_done()
 
-    log("[15/20] online serving: the serve bench on the card, then the "
+    log("[15/21] online serving: the serve bench on the card, then the "
         "frontend over GPT-2 small bf16 on a real clock")
     t15 = time.perf_counter()
     bench_on_card = run_serve_bench_on_card(torch, dev)
@@ -5285,7 +5612,7 @@ def main() -> int:
     log(f"  phase 15 in {time.perf_counter() - t15:.1f} s")
     phase_done()
 
-    log("[16/20] run doctor: the flagship and the engine traced, the soak "
+    log("[16/21] run doctor: the flagship and the engine traced, the soak "
         "doctor and the health-routed fleet")
     t16 = time.perf_counter()
     doctor, doctor_n = run_doctor_path(torch, P, A, dev, served)
@@ -5296,7 +5623,7 @@ def main() -> int:
     del served
     phase_done()
 
-    log("[17/20] searched placements: the bench's refine and search "
+    log("[17/21] searched placements: the bench's refine and search "
         "placements on the card, the pre-execution gate and analyze()")
     t17 = time.perf_counter()
     searched, search_n = run_search_phase(torch, P, A, N, dev, bench_result)
@@ -5307,14 +5634,14 @@ def main() -> int:
     del bench_result
     phase_done()
 
-    log("[18/20] BASELINE.json configs #5 and #4: the GPT-2 training step "
+    log("[18/21] BASELINE.json configs #5 and #4: the GPT-2 training step "
         "and the Mixtral-8x7B MoE forward")
     t18 = time.perf_counter()
     train, train_n, moe, moe_n = run_baseline_configs(torch, P, A, N, dev)
     log(f"  phase 18 in {time.perf_counter() - t18:.1f} s")
     phase_done()
 
-    log("[19/20] decoding: Llama-3 8B and Mixtral through generate and the "
+    log("[19/21] decoding: Llama-3 8B and Mixtral through generate and the "
         "decode-step DAG, GPT-2 small through the decode bench")
     t19 = time.perf_counter()
     decoded, decode_n, decode_norms = run_decode_path(torch, P, A, N, dev)
@@ -5323,7 +5650,7 @@ def main() -> int:
     log(f"  phase 19 in {decoded['seconds']:.1f} s")
     phase_done()
 
-    log("[20/20] the command line on the card: execute, trace, metrics, "
+    log("[20/21] the command line on the card: execute, trace, metrics, "
         "generate, schedule and the serving commands through the port's "
         "__main__")
     t20 = time.perf_counter()
@@ -5332,6 +5659,17 @@ def main() -> int:
     cli_line["card"] = smi
     print("CLI_LINE " + json.dumps(cli_line), flush=True)
     log(f"  phase 20 in {cli_line['seconds']:.1f} s")
+    phase_done()
+
+    log("[21/21] the pre-flight lint and the sim-against-card rank check: "
+        "lint, lint --preflight, lint --serving and rankcheck through the "
+        "port's __main__, run_rank_check on 8 nodes of the card, the tracer")
+    t21 = time.perf_counter()
+    lint_line, lint_n = run_lint_rank_path(torch, P, A, N, dev)
+    lint_line["seconds"] = time.perf_counter() - t21
+    lint_line["card"] = smi
+    print("LINT_RANK_LINE " + json.dumps(lint_line), flush=True)
+    log(f"  phase 21 in {lint_line['seconds']:.1f} s")
     phase_done()
 
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
@@ -5346,7 +5684,8 @@ def main() -> int:
     tpu_norms = "distributed_llm_scheduler_tpu/ops/norms.py:"
     runs = (("gpt2", gpt2_n), ("ladder", ladder_n), ("bench", bench_n),
             ("llama", llama_n), ("stream", stream_n), ("run", doctor_n),
-            ("searched", search_n), ("decode", decode_n), ("cli", cli_n))
+            ("searched", search_n), ("decode", decode_n), ("cli", cli_n),
+            ("lint", lint_n))
     line = {"kernels": [
         {"name": A.KERNEL, "route": "cuda", "source": csrc + "flash_attention.cu",
          "replaces": tpu + "152",
@@ -5365,7 +5704,7 @@ def main() -> int:
              k: n[A.PAGED_KERNEL] for k, n in online_n.items()}, **{
              k: n[A.PAGED_KERNEL] for k, n in doctor_n.items()
              if A.PAGED_KERNEL in n}, **by_path(A.PAGED_KERNEL, (
-                 ("decode", decode_n), ("cli", cli_n)))},
+                 ("decode", decode_n), ("cli", cli_n), ("lint", lint_n)))},
          **paged[A.PAGED_KERNEL], "serve_trace": serve_tr},
         {"name": A.PAGED_RAGGED_KERNEL, "route": "cuda",
          "source": csrc + "paged_attention.cu", "replaces": tpu + "547",

@@ -5,6 +5,10 @@ code is all ported (the flags, defaults, help texts and exit codes are the
 JAX package's):
 
 * ``schedule``  — build a DAG, place it with a policy, report + save
+* ``lint``      — static analysis of a DAG + schedule + sharding and
+  quantization config (``--fix``, ``--preflight``), or ``--serving``: the
+  page-lifetime, request-lifecycle and determinism passes over the serve
+  bench's scenario (``--parallel`` waits for the parallel layer)
 * ``sweep``     — the full evaluation sweep (CSV + PNG + summary)
 * ``execute``   — run a scheduled model DAG on live devices
 * ``visualize`` — DAG structure and Gantt renderings
@@ -22,12 +26,17 @@ JAX package's):
   run, or ``--trace``, ``--memory``, ``--slo``, ``--soak``, ``--fleet``,
   ``--serve``, ``--requests``
 * ``regress``   — perf-regression gate between two bench artifacts
+* ``rankcheck`` — does the simulator rank the policies the way the live
+  devices do (``--stress``: the transfer-bound DAG on 4 cards)
 
-Exit codes of the gating commands: 0 ok, 1 a gate breached, 2 malformed
-input.  Live devices are the CUDA cards; ``DLS_PLATFORM=cpu`` runs on the
-CPU instead (``utils/config.py``).  With no card and no such setting the
-device commands fail with a message: nothing falls back to the CPU.  A
-command that cannot run exits 2 with one line on stderr.
+Exit codes of the gating commands: 0 ok, 1 a gate breached (``lint``:
+an error; ``rankcheck``: the predicted winner lost), 2 malformed input or
+a configuration that cannot run, 3 (``rankcheck``) fewer than two
+policies placed the whole graph.  Live devices are the CUDA cards;
+``DLS_PLATFORM=cpu`` runs on the CPU instead (``utils/config.py``).  With
+no card and no such setting the device commands fail with a message:
+nothing falls back to the CPU.  A command that cannot run exits 2 with
+one line on stderr.
 """
 
 from __future__ import annotations
@@ -196,6 +205,293 @@ def cmd_schedule(args) -> int:
             schedule, f"{cfg.out_dir}/{graph.name}.{cfg.scheduler}.schedule.json"
         ))
     return 0
+
+
+def _cmd_lint_serving(args) -> int:
+    """The serving half of the lint (``lint --serving``): run the
+    serve_bench scenario with the page-ownership seam attached, then
+    the three serving-safety passes — the page-lifetime prover
+    (PGL00x) over the recorded event stream, the request-lifecycle
+    checker (LCY00x) over both the frontend's rows and the engine's
+    reqlog, and the repo-wide determinism lint (DET00x).
+    ``--prefix`` serves the shared-prefix session workload on a
+    sharing-enabled engine instead, so the prover replays the
+    ref-counted share/unshare/cow/write lattice (PGL006/PGL007).
+    ``--inject-leak N`` swaps in the leaky-pool fault injector (the CI
+    must-fail leg: exit 1 naming PGL001); ``--inject-underflow`` (with
+    ``--prefix``) swaps in the refcount-underflow injector (exit 1
+    naming PGL006)."""
+    import functools
+
+    from .analysis import (
+        Severity,
+        analyze_determinism,
+        analyze_lifecycle,
+        analyze_pages,
+    )
+    from .eval.serve_bench import (
+        PREFIX_SCENARIO,
+        SCENARIO,
+        build_serve_engine,
+    )
+    from .models.kv_pages import PageOwnershipLog
+    from .obs.slo import SLOPolicy
+    from .serve.frontend import (
+        ServiceTimeModel,
+        ServingFrontend,
+        VirtualClock,
+    )
+    from .serve.loadgen import (
+        poisson_arrivals,
+        session_arrivals,
+        session_prompt_token_ids,
+    )
+    from .serve.soak import inject_page_leak, inject_refcount_underflow
+    from .utils.config import platform_devices
+
+    if args.inject_leak is not None and args.inject_leak < 1:
+        print(f"--inject-leak must be >= 1, got {args.inject_leak}",
+              file=sys.stderr)
+        return 2
+    prefix = bool(getattr(args, "prefix", False))
+    prompt_fn = None
+    if prefix:
+        sc = dict(SCENARIO, **PREFIX_SCENARIO)
+        arrivals = session_arrivals(
+            sc["prefix_rate_rps"], sc["n_sessions"], args.seed,
+            system_len=sc["system_len"], user_len=sc["user_len"],
+            turns=sc["turns"],
+            max_new_tokens=sc["prefix_max_new_tokens"],
+            priorities=sc["priorities"],
+            priority_weights=sc["priority_weights"],
+            think_time_s=sc["think_time_s"],
+        )
+        prompt_fn = functools.partial(
+            session_prompt_token_ids,
+            system_len=sc["system_len"], user_len=sc["user_len"],
+        )
+    else:
+        sc = SCENARIO
+        arrivals = poisson_arrivals(
+            sc["rate_rps"], sc["n_requests"], args.seed,
+            prompt_lens=sc["prompt_lens"],
+            max_new_tokens=sc["max_new_tokens"],
+            priorities=sc["priorities"],
+            priority_weights=sc["priority_weights"],
+        )
+    eng, _pool = build_serve_engine(
+        slots=sc["slots"], page_size=sc["page_size"],
+        n_pages=sc["n_pages"], pages_per_seq=sc["pages_per_seq"],
+        seg_steps=sc["seg_steps"], clock=VirtualClock(),
+        sharing=prefix, device=platform_devices(1)[0],
+    )
+    ownlog = PageOwnershipLog()
+    eng.attach_ownership_log(ownlog)
+    if args.inject_leak is not None:
+        inject_page_leak(eng, args.inject_leak)
+    if getattr(args, "inject_underflow", False):
+        inject_refcount_underflow(eng)
+    fe = ServingFrontend(
+        eng, arrivals,
+        SLOPolicy(ttft_s=sc["ttft_s"], window_s=sc["window_s"],
+                  percentile=sc["percentile"]),
+        admission="slo", preemption=True,
+        time_model=ServiceTimeModel(
+            wave_s=sc["wave_s"], segment_s=sc["segment_s"],
+            idle_s=sc["idle_s"],
+        ),
+        prompt_fn=prompt_fn,
+    )
+    fe.run()
+    rep = analyze_determinism()
+    rep.extend(analyze_pages(ownlog))
+    rep.extend(analyze_lifecycle(fe.request_rows(), final=True,
+                                 label="serving"))
+    rep.extend(analyze_lifecycle(eng.reqlog.snapshot(), final=True,
+                                 label="engine"))
+    rep = rep.dedupe()
+    if args.json:
+        print(json.dumps(rep.to_json()))
+        return rep.exit_code
+    min_sev = Severity.INFO if args.verbose else Severity.WARNING
+    print(rep.render(min_severity=min_sev))
+    if not rep.diagnostics:
+        n_pool = sum(
+            1 for e in ownlog.events
+            if e["kind"] in ("alloc", "free", "share", "unshare")
+        )
+        shared = sum(
+            len(e["pages"]) for e in ownlog.events
+            if e["kind"] == "share"
+        )
+        extra = (
+            f" ({shared} shared-page references ref-counted)"
+            if prefix else ""
+        )
+        print(
+            f"serving lint clean: {len(ownlog)} ownership events "
+            f"replayed, free+used tiling proven at all {n_pool} pool "
+            f"events{extra}; lifecycle and determinism passes found "
+            "nothing",
+            file=sys.stderr,
+        )
+    return rep.exit_code
+
+
+def cmd_lint(args) -> int:
+    """Static analysis (analysis/): build the DAG, schedule it, and lint
+    graph + schedule + memory + sharding + quantization without executing
+    anything.  Exit 1 on errors, 0 otherwise; 2 for a configuration that
+    cannot run.  ``--preflight`` runs each distinct task once on the card
+    (the allocator's peak); ``--serving`` runs its scenario's engine there
+    too, unless ``DLS_PLATFORM=cpu``."""
+    from .analysis import _spec_shapes, analyze
+    from .parallel.mesh import factorize_mesh
+
+    if getattr(args, "serving", False):
+        if args.parallel or args.decode or args.paged or args.preflight \
+                or args.fix:
+            print("--serving runs the serving-safety passes and combines "
+                  "only with --json/--verbose/--prefix/--inject-leak/"
+                  "--inject-underflow/--seed",
+                  file=sys.stderr)
+            return 2
+        if getattr(args, "inject_underflow", False) \
+                and not getattr(args, "prefix", False):
+            print("--inject-underflow needs the sharing-enabled workload: "
+                  "use lint --serving --prefix --inject-underflow",
+                  file=sys.stderr)
+            return 2
+        return _cmd_lint_serving(args)
+    if getattr(args, "inject_leak", None) is not None:
+        print("--inject-leak only applies to lint --serving",
+              file=sys.stderr)
+        return 2
+    if getattr(args, "prefix", False) \
+            or getattr(args, "inject_underflow", False):
+        print("--prefix/--inject-underflow only apply to lint --serving",
+              file=sys.stderr)
+        return 2
+
+    if args.parallel:
+        # the sweep traces the hand-written parallel layer, which runs on
+        # torch.distributed across cards and is not ported yet
+        print("lint --parallel: the parallel layer (parallel/*) and its "
+              "collective sweep are not ported to PyTorch yet (ROADMAP.md "
+              "A.11)", file=sys.stderr)
+        return 2
+
+    cfg = _config_from(args)
+    if args.decode and _weights_family(cfg.model) is None:
+        print("--decode needs a real model family (gpt2*/llama*/mixtral*)",
+              file=sys.stderr)
+        return 2
+    if args.paged and _weights_family(cfg.model) != "gpt2":
+        print("--paged lints the paged decode step (gpt2 family only)",
+              file=sys.stderr)
+        return 2
+    if args.paged:
+        from .frontend.decode_dag import build_paged_decode_dag
+
+        dag = build_paged_decode_dag(
+            cfg.model_config(), slots=cfg.batch,
+            page_size=getattr(args, "page_size", 16),
+        )
+    elif args.decode:
+        from .frontend.decode_dag import build_decode_dag_any
+
+        dag = build_decode_dag_any(cfg.model_config(), batch=cfg.batch)
+        if cfg.quantize == "int8":
+            from .utils.quantize import quantize_dag
+
+            dag = quantize_dag(dag)
+    else:
+        dag = cfg.build_graph()
+    graph = getattr(dag, "graph", dag)
+    if args.fix:
+        from .analysis import fix_duplicate_dependencies
+
+        fixed = fix_duplicate_dependencies(graph)
+        if fixed:
+            shown = ", ".join(fixed[:5]) + ("..." if len(fixed) > 5 else "")
+            print(f"--fix: deduplicated dependencies on {len(fixed)} "
+                  f"task(s): {shown}", file=sys.stderr)
+    compiled_gb = analytic_gb = None
+    if args.preflight:
+        if not hasattr(dag, "init_params"):
+            print("--preflight needs a model DAG (gpt2*/llama*/mixtral*): "
+                  "the preflight runs the real task fns", file=sys.stderr)
+            return 2
+        from .utils.config import platform_devices
+        from .utils.hbm import preflight_task_memory
+
+        # preflight mutates memory_required up to max(analytic,
+        # compiled): snapshot the analytic estimates first so the cost
+        # pass compares against what the frontend actually declared.
+        # On the card each distinct task runs once (the allocator's
+        # peak); on the CPU nothing is measured
+        dev = platform_devices(1)[0]
+        analytic_gb = {t.task_id: t.memory_required for t in graph}
+        compiled_gb = preflight_task_memory(
+            graph, dag.init_params(device=dev), dag.make_inputs(device=dev)
+        )
+    cluster = cfg.build_cluster()
+    schedule = cfg.build_scheduler().schedule(graph, cluster)
+    if args.fix:
+        from .analysis import fix_per_node_order
+
+        resorted = fix_per_node_order(graph, schedule)
+        if resorted is None:
+            print("--fix: no legal topological order exists (dependency "
+                  "cycle among placed tasks); order left as scheduled",
+                  file=sys.stderr)
+        elif resorted:
+            shown = ", ".join(resorted[:5]) + (
+                "..." if len(resorted) > 5 else ""
+            )
+            print(f"--fix: re-sorted execution order on {len(resorted)} "
+                  f"node(s): {shown}", file=sys.stderr)
+
+    family = _weights_family(cfg.model)
+    param_specs = getattr(dag, "param_specs", None)
+    param_shapes = mesh_axes = None
+    if family is not None and param_specs:
+        param_shapes = _spec_shapes(param_specs)
+        mesh_axes = factorize_mesh(cfg.num_nodes)
+    rep = analyze(
+        graph,
+        cluster,
+        schedule,
+        strict=args.strict,
+        param_shapes=param_shapes,
+        mesh_axes=mesh_axes,
+        family=family or "gpt2",
+        param_specs=param_specs if cfg.quantize == "int8" else None,
+        compiled_gb=compiled_gb,
+        analytic_gb=analytic_gb,
+        # typecheck (TYP001-TYP004) inputs: param *specs* carry the same
+        # avals as initialized weights without materializing any arrays
+        params=param_specs,
+        graph_input=getattr(dag, "input_spec", None),
+        chunk_tokens=getattr(args, "chunk_tokens", None),
+        decode_budget=(
+            cfg.batch * args.seg_steps
+            if getattr(args, "chunk_tokens", None) is not None
+            else None
+        ),
+    )
+    if schedule.failed and not args.json:
+        print(f"note: scheduler failed {len(schedule.failed)} task(s) "
+              "under this memory regime (not a schedule defect)",
+              file=sys.stderr)
+    if args.json:
+        print(json.dumps(rep.to_json()))
+        return rep.exit_code
+    from .analysis import Severity
+
+    min_sev = Severity.INFO if args.verbose else Severity.WARNING
+    print(rep.render(min_severity=min_sev))
+    return rep.exit_code
 
 
 def cmd_sweep(args) -> int:
@@ -804,6 +1100,71 @@ def _generate_task_graph(args, cfg, cluster, config, params, prompt, ids
         result["weights"] = "int8"
     print(json.dumps(result))
     return 0
+
+
+def cmd_rankcheck(args) -> int:
+    """Sim-vs-real rank agreement: schedule with several policies,
+    predict makespans with the full-fidelity simulator, execute each
+    placement on the live devices, report rank agreement as JSON.  Exit 0
+    when the predicted winner wins, 1 when it does not, 2 for a
+    configuration that cannot run, 3 when fewer than two policies produce
+    complete placements.  The cluster is the live devices ``--num-nodes``
+    binds (a prefix of the cards; ``DLS_PLATFORM=cpu``: CPU nodes)."""
+    from .eval.rankcheck import run_rank_check
+
+    if args.stress:
+        # the separating configuration: transfer-bound by construction,
+        # so the sim claims a winner and the check bites
+        from .core.cluster import Cluster
+        from .frontend.stress_dag import build_transfer_stress_dag
+        from .utils.config import platform_devices
+
+        devs = platform_devices(4)
+        distinct = list(dict.fromkeys(devs))
+        if len(distinct) < 4:
+            # nodes sharing one card (or the host) copy nothing between
+            # them, so fewer than 4 cards collapse the regime into a tie
+            # (2-3 divide the 6 chains, so round-robin accidentally gets
+            # perfect chain locality) — a vacuous pass here would defeat
+            # the flag's whole point
+            print(f"rankcheck --stress needs >= 4 cards ({len(distinct)} "
+                  "distinct device(s) here; nodes sharing a card copy "
+                  "nothing between them)", file=sys.stderr)
+            return 2
+        dag = build_transfer_stress_dag(chains=6, length=6, edge_mb=8.0)
+        cluster = Cluster.from_torch_devices(distinct[:4], hbm_cap_gb=4.0)
+        if args.policies is None:
+            # five policies spanning distinct makespan tiers on this graph
+            args.policies = "roundrobin,critical,dfs,greedy,pipeline"
+    else:
+        cfg = _config_from(args)
+        dag = cfg.build_graph()  # applies --fuse / --quantize per RunConfig
+        if not hasattr(dag, "graph"):
+            print("rankcheck needs a model DAG (gpt2* / llama* / mixtral*); "
+                  "synthetic graphs have no fns", file=sys.stderr)
+            return 2
+        cluster = cfg.build_cluster_with_devices()
+    dev = cluster.devices[0].torch_device
+    if args.policies is None:
+        args.policies = "roundrobin,critical,pipeline,pack"
+    report = run_rank_check(
+        dag.graph,
+        dag.init_params(device=dev),
+        dag.make_inputs(device=dev),
+        policies=[p.strip() for p in args.policies.split(",") if p.strip()],
+        cluster=cluster,
+        measure_repeats=args.measure_repeats,
+        reps=args.reps,
+        anchor_calibrate=args.anchor_calibrate,
+    )
+    print(json.dumps(report, indent=1))
+    if report["winner_agreement"] is None:
+        # <2 surviving policies: nothing was rankable — distinct exit code
+        # so callers don't conflate it with a measured rank refutation
+        print("rankcheck: fewer than 2 policies produced complete "
+              "placements; no ranking to check", file=sys.stderr)
+        return 3
+    return 0 if report["winner_agreement"] else 1
 
 
 def _observed_run(args, tracer, metrics) -> int:
@@ -1864,6 +2225,87 @@ def build_parser() -> argparse.ArgumentParser:
                    help="run the independent schedule checker (exit 2 on violations)")
     p.set_defaults(fn=cmd_schedule)
 
+    p = sub.add_parser(
+        "lint",
+        help="static analysis: lint a DAG + schedule + sharding config "
+             "without executing (exit 1 on errors)",
+    )
+    _add_common(p)
+    p.add_argument("--parallel", action="store_true",
+                   help="sweep the hand-written parallel layer instead of "
+                        "a DAG: trace every registered entry point "
+                        "(parallel/*) and check collective ordering "
+                        "(COL003/COL004/COL008) plus the MPMD "
+                        "happens-before self-check (COL005-COL007); not "
+                        "ported yet (exits 2, ROADMAP.md A.11)")
+    p.add_argument("--serving", action="store_true",
+                   help="run the serving-safety passes instead of a DAG: "
+                        "page-lifetime prover (PGL00x) over an "
+                        "ownership-instrumented serve_bench scenario, "
+                        "request-lifecycle checker (LCY00x) over frontend "
+                        "+ engine logs, repo-wide determinism lint "
+                        "(DET00x)")
+    p.add_argument("--prefix", action="store_true",
+                   help="with --serving: serve the shared-prefix session "
+                        "workload on a sharing-enabled engine so the "
+                        "prover replays the ref-counted "
+                        "share/unshare/cow/write lattice "
+                        "(PGL006/PGL007)")
+    p.add_argument("--inject-leak", type=int, default=None,
+                   dest="inject_leak", metavar="N",
+                   help="with --serving: withhold one page from every "
+                        "Nth free (the leaky-pool fault injector) — the "
+                        "prover must exit 1 naming PGL001")
+    p.add_argument("--inject-underflow", action="store_true",
+                   dest="inject_underflow",
+                   help="with --serving --prefix: lose one reference per "
+                        "share (the refcount-underflow fault injector) — "
+                        "the prover must exit 1 naming PGL006")
+    p.add_argument("--decode", action="store_true",
+                   help="lint the single-token decode-step DAG instead of "
+                        "the full forward")
+    p.add_argument("--paged", action="store_true",
+                   help="lint the paged KV-cache decode-step DAG "
+                        "(--batch sets the slot count; gpt2 family only)")
+    p.add_argument("--page-size", type=int, default=16,
+                   help="rows per KV page for --paged (default 16); "
+                        "DEC005 warns when the geometry makes the fused "
+                        "Pallas kernel ineligible (gather fallback)")
+    p.add_argument("--chunk-tokens", type=int, default=None,
+                   dest="chunk_tokens", metavar="N",
+                   help="with --paged: also lint the chunked-prefill "
+                        "chunk size (DEC006 warns when the ragged "
+                        "multi-token-q kernel is ineligible at this "
+                        "size, or when one chunk exceeds the "
+                        "slots*seg-steps per-segment prefill budget)")
+    p.add_argument("--seg-steps", type=int, default=8,
+                   dest="seg_steps", metavar="K",
+                   help="decode steps per segment for the DEC006 budget "
+                        "check (default 8, the engine default; --batch "
+                        "sets the slot count)")
+    p.add_argument("--fix", action="store_true",
+                   help="apply mechanical fixes before linting "
+                        "(DAG003 duplicate-dependency dedup keeping the "
+                        "original call arity; SCH005/PIP001 per-node "
+                        "order re-sort when a legal topological order "
+                        "exists)")
+    p.add_argument("--preflight", action="store_true",
+                   help="also run the memory preflight (each distinct "
+                        "task once on the card, the allocator's peak) and "
+                        "flag tasks whose analytic estimate diverges >2x "
+                        "from it (CST00x warnings; model DAGs only)")
+    p.add_argument("--strict", action="store_true",
+                   help="treat eviction-required residency (MEM002) as an "
+                        "error")
+    p.add_argument("--verbose", action="store_true",
+                   help="also print info-level diagnostics (per-node peak "
+                        "residency)")
+    p.add_argument("--json", action="store_true",
+                   help="emit the report as one machine-readable JSON "
+                        "object (schema dls.lint/1) on stdout instead of "
+                        "rendered text; exit codes unchanged")
+    p.set_defaults(fn=cmd_lint)
+
     p = sub.add_parser("sweep", help="full evaluation sweep (CSV+PNG)")
     _add_common(p)
     p.add_argument("--num-runs", type=int, default=3)
@@ -2278,6 +2720,33 @@ def build_parser() -> argparse.ArgumentParser:
                    help="print the structured verdict instead of the "
                         "table")
     p.set_defaults(fn=cmd_regress)
+
+    p = sub.add_parser(
+        "rankcheck",
+        help="sim-vs-real policy rank agreement on live devices (JSON)",
+    )
+    _add_common(p)
+    p.add_argument("--policies", default=None,
+                   help="comma-separated policies to rank (default: "
+                        "roundrobin,critical,pipeline,pack; --stress "
+                        "defaults to all 8 distinct-tier policies)")
+    p.add_argument("--measure-repeats", type=int, default=3)
+    p.add_argument("--reps", type=int, default=1,
+                   help="amortized repetitions per measured run")
+    p.add_argument("--anchor-calibrate", action="store_true",
+                   help="two-anchor in-situ calibration (busy-host "
+                        "compute scale + dispatcher-blocking staging "
+                        "rate) before predicting; anchors are in-sample, "
+                        "other policies and the ordering out-of-sample "
+                        "(eval/rankcheck.py)")
+    p.add_argument("--stress", action="store_true",
+                   help="use the transfer-stress DAG (frontend/stress_dag): "
+                        "cheap compute, large cross-device activations — "
+                        "the regime where the sim PREDICTS separation, so "
+                        "rank agreement is asserted without the tie escape "
+                        "(ignores --model; 4 cards, 8 policies unless "
+                        "--policies given explicitly)")
+    p.set_defaults(fn=cmd_rankcheck)
     return ap
 
 

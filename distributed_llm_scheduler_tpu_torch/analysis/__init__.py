@@ -17,11 +17,10 @@ order, ...).  Entry points:
 
 Ported: graph, schedule, memory, pipeline, decode, typecheck, stream,
 collective (over the port's ``ProgramIR``), donation, happens-before,
-lifecycle and page passes.  Not ported yet: the sharding, quantization and
-cost passes (:func:`analyze` raises ``NotImplementedError`` when given
-their inputs, ROADMAP.md A.7), the determinism, fixes and parallel-sweep
-passes, and the jaxpr walk ``analyze_collectives_jaxpr`` (with
-``parallel/``, ROADMAP.md A.11).
+lifecycle, page, sharding, quantization, cost and determinism passes, and
+the ``lint --fix`` fixers.  Not ported yet: the parallel sweep and the
+jaxpr walk ``analyze_collectives_jaxpr`` (with ``parallel/``'s
+strategies, ROADMAP.md A.11).
 """
 
 from __future__ import annotations
@@ -40,8 +39,11 @@ from .diagnostics import (
     Severity,
 )
 from .collective_pass import analyze_collectives, analyze_schedule_lowerability
+from .cost_pass import analyze_cost
 from .decode_pass import analyze_decode
+from .determinism_pass import analyze_determinism
 from .donation_pass import analyze_donation
+from .fixes import fix_duplicate_dependencies, fix_per_node_order
 from .graph_pass import analyze_graph
 from .hb_pass import StageOp, analyze_happens_before, stage_programs_1f1b
 from .incremental import AnalysisDelta, IncrementalAnalyzer
@@ -49,7 +51,9 @@ from .lifecycle_pass import analyze_lifecycle
 from .memory_pass import analyze_memory, node_memory_slice
 from .page_pass import analyze_pages, analyze_serve_artifact
 from .pipeline_pass import analyze_pipeline
+from .quant_pass import analyze_quantization
 from .schedule_pass import analyze_schedule, placement_of
+from .sharding_pass import analyze_sharding
 from .stream_pass import analyze_streaming, compiled_stream_refusal, stream_verdict
 from .typecheck_pass import analyze_typecheck
 
@@ -66,7 +70,9 @@ __all__ = [
     "StageOp",
     "analyze",
     "analyze_collectives",
+    "analyze_cost",
     "analyze_decode",
+    "analyze_determinism",
     "analyze_donation",
     "analyze_graph",
     "analyze_happens_before",
@@ -74,12 +80,16 @@ __all__ = [
     "analyze_memory",
     "analyze_pages",
     "analyze_pipeline",
+    "analyze_quantization",
     "analyze_schedule",
     "analyze_schedule_lowerability",
     "analyze_serve_artifact",
+    "analyze_sharding",
     "analyze_streaming",
     "analyze_typecheck",
     "compiled_stream_refusal",
+    "fix_duplicate_dependencies",
+    "fix_per_node_order",
     "gate_enabled",
     "node_memory_slice",
     "placement_of",
@@ -91,14 +101,6 @@ __all__ = [
 #: Setting this env var to anything non-empty (and not "0") disables the
 #: backend pre-execution gate globally.
 SKIP_ENV = "DLS_SKIP_ANALYSIS"
-
-#: the passes whose inputs :func:`analyze` refuses until they are ported:
-#: (argument names, the pass and its codes)
-_UNPORTED = (
-    (("param_shapes", "mesh_axes"), "sharding pass (SHD001-SHD004)"),
-    (("param_specs",), "quantization pass (QNT001-QNT004)"),
-    (("compiled_gb",), "cost pass (CST001-CST003)"),
-)
 
 
 def gate_enabled() -> bool:
@@ -130,41 +132,34 @@ def analyze(
     chunk_tokens: Optional[int] = None,
     decode_budget: Optional[int] = None,
 ) -> AnalysisReport:
-    """Run every ported pass the provided inputs make applicable.
+    """Run every pass the provided inputs make applicable.
 
     Graph hygiene and the decode pass always run; schedule consistency,
     memory, pipeline, typecheck (TYP001-TYP004, fed by ``params`` —
     tensors or a table of meta tensors — and ``graph_input`` when
     available) and stream safety (STR001-STR003) run when ``cluster`` and
-    ``schedule`` are given; the happens-before pass runs when
+    ``schedule`` are given; the sharding pass runs when ``param_shapes`` +
+    ``mesh_axes`` are given; the quantization pass runs when
+    ``param_specs`` is given (``param_specs`` also feeds the typecheck
+    pass's QNT metadata); the cost pass runs when ``compiled_gb`` (an
+    ``utils.hbm.preflight_task_memory`` result, with ``analytic_gb`` the
+    pre-preflight snapshot) is given; the happens-before pass runs when
     ``stage_programs`` is given; the donation pass when ``plan`` (a
     DispatchPlan/CompiledSchedule or their metadata dict) is given; the
     page-lifetime prover when ``page_events`` is given; the
     request-lifecycle checker when ``request_log`` is given.
-
-    The sharding (``param_shapes`` + ``mesh_axes``), quantization
-    (``param_specs``) and cost (``compiled_gb``) passes are not ported
-    yet: given their inputs, this raises ``NotImplementedError`` naming
-    the pass rather than leave it out silently.
 
     The returned report is stamped with ``schedule.signature()`` when a
     schedule was analyzed, so it can be handed straight back to
     :func:`pre_execution_gate` as ``precomputed=`` without re-running
     the base passes.
     """
-    given = {"param_shapes": param_shapes, "mesh_axes": mesh_axes,
-             "param_specs": param_specs, "compiled_gb": compiled_gb}
-    for names, what in _UNPORTED:
-        if all(given[n] is not None for n in names):
-            raise NotImplementedError(
-                f"analyze({', '.join(f'{n}=' for n in names)}): the {what} "
-                "is not ported to PyTorch yet (ROADMAP.md A.7)"
-            )
-    del family, seq_parallel, analytic_gb  # inputs of the unported passes
     rep = analyze_graph(graph)
-    # DEC005 (kernel eligibility) reads the pool shapes off the params
+    # DEC005 (kernel eligibility) needs the pool spec shapes; either the
+    # quantization spec table or the typecheck param table carries them
     rep.extend(
-        analyze_decode(graph, cluster, schedule, param_specs=params,
+        analyze_decode(graph, cluster, schedule,
+                       param_specs=param_specs or params,
                        chunk_tokens=chunk_tokens,
                        decode_budget=decode_budget)
     )
@@ -178,10 +173,24 @@ def analyze(
                 cluster,
                 schedule,
                 params=params,
+                param_specs=param_specs,
                 graph_input=graph_input,
             )
         )
         rep.extend(analyze_streaming(graph, cluster, schedule))
+    if param_shapes is not None and mesh_axes is not None:
+        rep.extend(
+            analyze_sharding(
+                param_shapes,
+                mesh_axes,
+                family,
+                seq_parallel=seq_parallel,
+            )
+        )
+    if param_specs is not None:
+        rep.extend(analyze_quantization(graph, param_specs))
+    if compiled_gb is not None:
+        rep.extend(analyze_cost(graph, compiled_gb, analytic_gb))
     if stage_programs is not None:
         rep.extend(analyze_happens_before(stage_programs))
     if plan is not None:
@@ -302,3 +311,18 @@ def pre_execution_gate(
     )
     gated.raise_if_errors()
     return gated
+
+
+def _spec_shapes(specs: Optional[Dict[str, Any]]) -> Dict[str, Tuple[int, ...]]:
+    """Shape dict from a ModelDAG ``param_specs`` mapping; QParam entries
+    report their int8 payload's shape (the sharded axis layout)."""
+    from ..utils.quantize import QParam
+
+    out: Dict[str, Tuple[int, ...]] = {}
+    for name, spec in (specs or {}).items():
+        if isinstance(spec, QParam):
+            spec = spec.q
+        shape = getattr(spec, "shape", None)
+        if shape is not None:
+            out[name] = tuple(shape)
+    return out

@@ -56,6 +56,7 @@ timestamps on the CPU) around every task.  Peak device memory comes from
 """
 
 from __future__ import annotations
+# dls-lint: allow-file(DET001) real-device execution timing: wall time IS the measured quantity
 
 import bisect
 import time

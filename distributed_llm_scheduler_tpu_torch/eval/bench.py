@@ -172,9 +172,11 @@ def _timed(fn: Callable[[], Any], reps: int, device: torch.device) -> float:
         end.synchronize()
         del out
         return start.elapsed_time(end) / 1e3 / reps
+    # dls-lint: allow(DET001) bench timer: wall time IS the measured quantity
     t0 = time.perf_counter()
     for _ in range(reps):
         fn()
+    # dls-lint: allow(DET001) bench timer: wall time IS the measured quantity
     return (time.perf_counter() - t0) / reps
 
 
@@ -214,6 +216,7 @@ def run(
     if refresh is None:
         refresh = recalibrate_requested()
     make_cfg, model_tag, shape = CONFIGS[config_name]
+    # dls-lint: allow(DET001) bench timer: wall time IS the measured quantity
     t_start = time.perf_counter()
     on_card = device.type == "cuda"
     if on_card:
@@ -250,6 +253,7 @@ def run(
         log(f"calibration replayed from {path} (measured "
             f"{cost_model.measured_at or 'at an unknown time'})")
     elif cost_model is None:
+        # dls-lint: allow(DET001) bench timer: wall time IS the measured quantity
         t0 = time.perf_counter()
         windows = _leg(launches, "calibrate", lambda: repeat_capture(
             lambda: calibrate(graph, params, ids, device=device,
@@ -258,6 +262,7 @@ def run(
         cost_model.save(path)
         calibration_runs = CAL_WINDOWS * CAL_REPEATS
         log(f"calibrated on {cost_model.platform} in "
+            # dls-lint: allow(DET001) bench timer: wall time IS the measured quantity
             f"{time.perf_counter() - t0:.1f} s: per-task totals " + ", ".join(
                 f"{sum(w.task_seconds.values()) * 1e3:.3f}" for w in windows)
             + f" ms; saved to {path}")
@@ -363,11 +368,13 @@ def run(
         f"MFU {mfu_comp}")
     oracle_ok = oracle_ok and seg_ok and comp_ok
 
+    # dls-lint: allow(DET001) bench timer: wall time IS the measured quantity
     t0 = time.perf_counter()
     footprints = _leg(launches, "preflight",
                       lambda: preflight_task_memory(graph, params, ids))
     preflight_max_gb = max(footprints.values()) if footprints else None
     log(f"pre-flight over {len(graph)} tasks in "
+        # dls-lint: allow(DET001) bench timer: wall time IS the measured quantity
         f"{time.perf_counter() - t0:.1f} s; max footprint {preflight_max_gb}")
 
     # replay on an 8-node model of this card, link measured on the card
@@ -391,9 +398,11 @@ def run(
 
     makespans, schedules, sched_s, digests, stats = {}, {}, {}, {}, {}
     for name in sorted(ALL_SCHEDULERS):
+        # dls-lint: allow(DET001) bench timer: wall time IS the measured quantity
         t0 = time.perf_counter()
         policy = get_scheduler(name, link=link, **policy_kwargs(name))
         s = policy.schedule(graph, cluster)
+        # dls-lint: allow(DET001) bench timer: wall time IS the measured quantity
         sched_s[name] = time.perf_counter() - t0
         if getattr(policy, "stats", None):
             stats[name] = dict(policy.stats)
@@ -482,6 +491,7 @@ def run(
     )
     log(f"best={best_name} ({best * 1e3:.3f} ms) vs roundrobin "
         f"({rr * 1e3:.3f} ms) -> {result.vs_baseline:.3f}x; total "
+        # dls-lint: allow(DET001) bench timer: wall time IS the measured quantity
         f"{time.perf_counter() - t_start:.1f} s")
     return result
 

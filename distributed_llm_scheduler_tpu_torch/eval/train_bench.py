@@ -33,6 +33,7 @@ injected (``cost_model=``, ``link=``), and a failed leg raises.
 """
 
 from __future__ import annotations
+# dls-lint: allow-file(DET001) benchmark harness: wall time IS the measured quantity
 
 import contextlib
 import sys

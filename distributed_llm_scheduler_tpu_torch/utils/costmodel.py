@@ -15,6 +15,7 @@ idiom the bench shares with it.
 """
 
 from __future__ import annotations
+# dls-lint: allow-file(DET001) calibration measures real step/transfer time
 
 import json
 import os
@@ -25,6 +26,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import torch
 
 from ..core.graph import TaskGraph
+from .env import env_str
 
 
 @dataclass
@@ -182,11 +184,6 @@ def cache_age_days(measured_at: str) -> Optional[float]:
     now = datetime.datetime.now(datetime.timezone.utc)
     # clamp: clock skew or a future stamp must not read as negative age
     return max((now - then).total_seconds() / 86400.0, 0.0)
-
-
-def env_str(name: str) -> Optional[str]:
-    """The environment variable ``name``, or None when it is unset."""
-    return os.environ.get(name)
 
 
 def recalibrate_requested() -> bool:

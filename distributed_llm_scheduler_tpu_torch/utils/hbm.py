@@ -63,6 +63,18 @@ def _key_of(fn: Any, pd: Dict[str, torch.Tensor], args: Tuple[Any, ...]):
     ))
 
 
+def _warm_libraries(device) -> None:
+    """Make the one-time allocations of the math libraries before any
+    footprint is read: cuBLAS takes its workspace (32 MB on an H100) from
+    the caching allocator at the first matmul on a stream and keeps it, so
+    without this the first task measured with a matmul carries it."""
+    for dtype in (torch.float32, torch.bfloat16):
+        a = torch.ones((8, 8), dtype=dtype, device=device)
+        torch.addmm(a[0], a, a)
+        torch.mm(a, a)
+    torch.cuda.synchronize(device)
+
+
 def _measure_on_card(fn, pd, args, device) -> int:
     """Peak bytes the caching allocator holds above what it held before
     one run of ``fn`` (temporaries and output), at least the output's own
@@ -109,6 +121,8 @@ def preflight_task_memory(
     footprint_gb: Dict[str, float] = {}
     cache: Dict[Any, Tuple[float, int]] = {}
     input_spec = _meta(graph_input)
+    if on_card:
+        _warm_libraries(device)
 
     with torch.no_grad():
         for tid in graph.topo_order:

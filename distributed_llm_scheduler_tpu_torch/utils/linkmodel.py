@@ -12,8 +12,14 @@ what the device backend pays on the card:
   copy through its own pinned buffer;
 * **interconnect** (device → device): a tensor on one card copied onto a
   second card (a peer copy over NVLink where the cards have it).  It is
-  measured only when two CUDA devices are given; with one card it keeps
-  the H100 estimate below and says so in its provenance;
+  measured only when two distinct CUDA devices are given; with one card
+  (nodes sharing it copy nothing between them) it keeps the H100
+  estimate below and says so in its provenance;
+* **on the CPU** (CPU devices passed explicitly, as the CPU tests and
+  the rank check's CPU legs do): the port's CPU nodes share the host's
+  memory and ``Tensor.to`` moves nothing, so both legs time the copy a
+  move would make if it copied, a host ``Tensor.clone`` on the host
+  clock — a conservative charge, never an erased one;
 * **sustained** (host → device, ``calibrate_link(sustained=True)``): a
   back-to-back train of copies timed as one window, the copy the
   parameter streamer issues (``backends.device._ParamStreamer``): from
@@ -30,6 +36,7 @@ fails raises: it never turns into the estimate.
 """
 
 from __future__ import annotations
+# dls-lint: allow-file(DET001) link calibration measures real transfer time
 
 import json
 import os
@@ -192,6 +199,46 @@ def _time_transfer(make_src, dst, repeats: int) -> float:
     return best
 
 
+def _time_host_copy(make_src, repeats: int) -> float:
+    """Best-of-``repeats`` host-clock seconds for one ``Tensor.clone`` of
+    a fresh ``make_src()``: the CPU legs' copy."""
+    best = float("inf")
+    for _ in range(repeats):
+        src = make_src()
+        t0 = time.perf_counter()
+        out = src.clone()
+        best = min(best, time.perf_counter() - t0)
+        del out, src
+    return best
+
+
+def _calibrate_host(devices, sizes: Sequence[int], repeats: int
+                    ) -> LinkCalibration:
+    """CPU nodes: one sweep of host copies stands for the param-load leg
+    and, with two or more nodes, the interconnect leg (module
+    docstring)."""
+    import numpy as np
+    import torch
+
+    _time_host_copy(lambda: torch.ones(1024, dtype=torch.uint8), 1)
+    samples: List[Tuple[int, float]] = []
+    for size in sizes:
+        arr = np.random.default_rng(0).integers(0, 255, size, np.uint8)
+        samples.append((size, _time_host_copy(
+            lambda a=arr: torch.from_numpy(a.copy()), repeats)))
+    _, gbps = _fit_affine(samples)
+    cal = LinkCalibration(platform="cpu", latency_s=_fixed_cost(samples))
+    legs = ["param_load"] + (["interconnect"] if len(devices) >= 2 else [])
+    for leg in legs:
+        setattr(cal, f"{leg}_gbps", gbps)
+        cal.provenance[leg] = "measured(host copy)"
+        cal.samples[leg] = [[b, t] for b, t in samples]
+    from .costmodel import _utc_stamp
+
+    cal.measured_at = _utc_stamp()
+    return cal
+
+
 def calibrate_link(
     devices: Optional[Sequence[Any]] = None,
     sizes: Sequence[int] = _SIZES,
@@ -200,10 +247,14 @@ def calibrate_link(
 ) -> LinkCalibration:
     """Measure host->card and card->card copy costs.
 
-    ``devices``: CUDA devices (default: every visible one).  The first is
-    the host-load target; the first two, when there are two, form the
-    interconnect pair.  One warm-up copy per leg absorbs one-time CUDA
-    and allocator set-up before timing.  Raises when there is no card.
+    ``devices``: CUDA devices (default: every visible one), or CPU
+    devices passed explicitly (both legs then time host copies, module
+    docstring).  The first is the host-load target; the first two form
+    the interconnect pair when they are two distinct cards (nodes sharing
+    one card copy nothing between them).  One warm-up copy per leg
+    absorbs one-time CUDA and allocator set-up before timing.  Raises
+    when none are given and there is no card, and on a list that mixes
+    the CPU and cards.
 
     ``sustained=True`` also times a back-to-back train of host->card
     copies as the parameter streamer issues them (pinned source,
@@ -217,9 +268,15 @@ def calibrate_link(
     if devices is None:
         devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     devices = [torch.device(d) for d in devices]
+    if devices and all(d.type == "cpu" for d in devices):
+        if sustained:
+            raise ValueError("the sustained leg times a card's copy stream; "
+                             "CPU devices have none")
+        return _calibrate_host(devices, sizes, repeats)
     if not devices or any(d.type != "cuda" for d in devices):
         raise RuntimeError(
-            f"calibrate_link measures CUDA devices only, got {devices}"
+            f"calibrate_link measures CUDA devices (or CPU devices passed "
+            f"explicitly) only, got {devices}"
         )
     dev0 = devices[0]
     cal = LinkCalibration(platform=dev0.type)
@@ -273,7 +330,7 @@ def calibrate_link(
 
     # device -> device (interconnect leg) — needs a second card
     lat_d = None
-    if len(devices) >= 2:
+    if len(devices) >= 2 and devices[1] != dev0:
         dev1 = devices[1]
         ici_samples: List[Tuple[int, float]] = []
         torch.ones(1024, dtype=torch.uint8, device=dev0).to(dev1)

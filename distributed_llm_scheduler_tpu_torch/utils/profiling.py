@@ -15,6 +15,7 @@ counterpart per function:
 """
 
 from __future__ import annotations
+# dls-lint: allow-file(DET001) profiler: wall time IS the measured quantity
 
 import contextlib
 import os

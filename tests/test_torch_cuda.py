@@ -1914,3 +1914,92 @@ def test_a_step_that_reads_to_the_host_fails_capture(cuda):
         prog({}, {"a": x})
     assert prog.graph is None
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_lint_preflight_on_the_card(cuda, monkeypatch):
+    """``lint --preflight`` on the card measures every task with an fn
+    (each distinct one once): each footprint is at least the task's
+    analytic estimate (its output's bytes, which the measurement never
+    goes below), the placement sees the larger of the two, the flash and
+    LayerNorm kernels ran, and the CST diagnostics are the cost pass's
+    over exactly those numbers."""
+    import contextlib
+    import io
+    import json
+
+    from distributed_llm_scheduler_tpu_torch.__main__ import main
+    from distributed_llm_scheduler_tpu_torch.analysis import analyze_cost
+    from distributed_llm_scheduler_tpu_torch.ops import norms as N
+    from distributed_llm_scheduler_tpu_torch.utils import hbm
+
+    monkeypatch.delenv("DLS_PLATFORM", raising=False)
+    seen = []
+    real = hbm.preflight_task_memory
+
+    def spy(graph, params, graph_input):
+        analytic = {t.task_id: t.memory_required for t in graph}
+        gb = real(graph, params, graph_input)
+        seen.append((graph, analytic, gb))
+        return gb
+
+    monkeypatch.setattr(hbm, "preflight_task_memory", spy)
+    kernels.reset_launches()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main(["lint", "--model", "gpt2-tiny", "--batch", "2",
+                   "--seq-len", "64", "--preflight", "--json"])
+    assert rc == 0
+    assert kernels.ran(A.KERNEL) >= 1 and kernels.ran(N.LN_KERNEL) >= 1
+    ((graph, analytic, gb),) = seen
+    assert set(gb) == set(analytic)
+    for t in graph:
+        assert gb[t.task_id] >= analytic[t.task_id]
+        assert t.memory_required == max(analytic[t.task_id], gb[t.task_id])
+    got = [(d["code"], d["task"]) for d in json.loads(out.getvalue())[
+        "diagnostics"] if d["code"].startswith("CST")]
+    want = analyze_cost(graph, gb, analytic)
+    assert got == [(d.code, d.task) for d in want.diagnostics]
+
+
+@pytest.mark.cuda
+def test_rank_check_on_eight_nodes_sharing_the_card(cuda):
+    """The rank check's card leg: 8 nodes on one card, four policies, each
+    placement measured; the report has every key, the interconnect keeps
+    its estimate (nodes sharing a card copy nothing), and the check
+    completes for every policy."""
+    import distributed_llm_scheduler_tpu_torch as P
+    from distributed_llm_scheduler_tpu_torch.eval.rankcheck import run_rank_check
+
+    dag = P.build_gpt2_dag(P.GPT2Config.tiny(), batch=2, seq_len=64)
+    cluster = P.Cluster.from_torch_devices([cuda] * 8, hbm_cap_gb=4.0)
+    rep = run_rank_check(dag.graph, dag.init_params(device=cuda),
+                         dag.make_inputs(device=cuda), cluster=cluster,
+                         measure_repeats=2, log=lambda m: None)
+    assert rep["n_policies"] == 4 and rep["n_devices"] == 8
+    assert rep["platform"] == "cuda"
+    assert rep["link_provenance"]["param_load"] == "measured"
+    assert rep["link_provenance"]["interconnect"].startswith("estimated(")
+    assert rep["winner_agreement"] in (True, False)
+    for row in rep["policies"].values():
+        assert row["predicted_s"] > 0 and row["measured_s"] > 0
+
+
+@pytest.mark.cuda
+def test_rankcheck_stress_counts_cards(cuda, monkeypatch):
+    """``rankcheck --stress`` needs 4 cards: with fewer it exits 2 with
+    one line before anything runs."""
+    import contextlib
+    import io
+
+    from distributed_llm_scheduler_tpu_torch.__main__ import main
+
+    if torch.cuda.device_count() >= 4:
+        pytest.skip("runs the stress check on 4 cards instead")
+    monkeypatch.delenv("DLS_PLATFORM", raising=False)
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = main(["rankcheck", "--stress"])
+    assert rc == 2
+    (line,) = err.getvalue().strip().splitlines()
+    assert "needs >= 4 cards" in line

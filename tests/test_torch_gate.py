@@ -174,17 +174,33 @@ def test_analyze_on_gpt2_with_meta_params_equals_jax():
 
 
 def test_unported_passes_raise():
+    """The sharding, quantization and cost passes are ported: given their
+    inputs, ``analyze`` runs them (it used to raise ``NotImplementedError``
+    naming the pass), with the JAX package's diagnostics."""
+    import numpy as np
+
+    from distributed_llm_scheduler_tpu.utils.quantize import QParam as JQ
+    from distributed_llm_scheduler_tpu_torch.utils.quantize import QParam as PQ
+
+    zeros = {J: lambda shape: np.zeros(shape, np.float32),
+             P: lambda shape: torch.zeros(shape)}
+    cases = (
+        (lambda Q, z: dict(param_shapes={"attn_qkv_w": (4,)},
+                           mesh_axes={"tp": 2}), "SHD002"),
+        (lambda Q, z: dict(param_specs={"w": Q(q=z((64, 64)),
+                                               scale=z((1, 64)))}), "QNT001"),
+        (lambda Q, z: dict(compiled_gb={"a": 5.0}), "CST001"),
+    )
+    for make, code in cases:
+        reps = [A.analyze(ab(pkg), two_caps(pkg),
+                          sched(S, {"n0": ["a", "b"]}),
+                          **make(JQ if pkg is J else PQ, zeros[pkg]))
+                for pkg, A, S in PKGS]
+        assert reps[1].has(code), code
+        assert fields(reps[1]) == fields(reps[0])
+    # the sharding pass needs both of its inputs, as in the reference
     g, c = ab(P), two_caps(P)
     s = sched(PSchedule, {"n0": ["a", "b"]})
-    for kw, what in (
-        (dict(param_shapes={"w": (4,)}, mesh_axes={"tp": 2}), "sharding"),
-        (dict(param_specs={"w": torch.empty(4, device="meta")}),
-         "quantization"),
-        (dict(compiled_gb={"a": 0.1}), "cost"),
-    ):
-        with pytest.raises(NotImplementedError, match=f"the {what} pass"):
-            PA.analyze(g, c, s, **kw)
-    # the sharding pass needs both of its inputs, as in the reference
     assert PA.analyze(g, c, s, param_shapes={"w": (4,)}).ok
 
 

@@ -117,8 +117,13 @@ def test_estimates_are_the_h100s():
 
 
 def test_measuring_off_cuda_raises():
-    with pytest.raises(RuntimeError, match="CUDA devices only"):
-        T.calibrate_link([torch.device("cpu")])
+    """No devices given and no card visible raises, as does a list that
+    mixes the CPU and a card; CPU devices passed explicitly are measured
+    (host copies, ``test_torch_rankcheck.py``)."""
+    with pytest.raises(RuntimeError, match="CUDA devices"):
+        T.calibrate_link()
+    with pytest.raises(RuntimeError, match="CUDA devices"):
+        T.calibrate_link([torch.device("cpu"), torch.device("cuda", 0)])
 
 
 @pytest.mark.parametrize("name", sorted(SAMPLES))
