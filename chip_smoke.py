@@ -310,6 +310,29 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     more it runs.  f. ``trace_to_chain`` over the GPT-2 small forward on
     meta tensors: every weight charged (``total_param_gb`` the params'
     bytes), its task count printed (``LINT_RANK_LINE``).
+22. the parallel layer on ``torch.distributed``: ``parallel.launch.spawn``
+    starts one process per visible card (NCCL) and each runs
+    :func:`parallel_rank`; the world and the card count are printed.
+    a. GPT-2 small f32 (config #5), batch 8, seq 512, ``make_train_step``
+    over ``factorize_mesh(n)``: 3 steps, the flash and LayerNorm launches
+    counted from 0 over them; the losses within rtol = atol = 1e-4 of the
+    unsharded step's on rank 0 from the same weights; then 8 more steps,
+    each timed between CUDA events (median and range).  b. the state saved after step 2 (``utils/checkpoint``,
+    a ``torch.distributed.checkpoint`` directory), loaded into a fresh
+    state, step 3 taken: its loss equal to the uninterrupted run's (atol
+    0).  c. Llama-3 8B bf16, batch 8, prompt 512 (phase 19's input), 32
+    greedy tokens, tp = n: ``measure_decode_sharded`` (ms per token, tok/s;
+    the RMSNorm launches that ran counted from 0); an f32 leg at 2 layers
+    of its widths, 8 greedy tokens: the tensor-parallel logits of the
+    prefill and of each decode step fed the same tokens at rtol = atol =
+    2e-4 against the unsharded ``forward_cached``, and the greedy tokens
+    equal to the unsharded ``generate``'s but at a near tie (the two
+    tokens' logits within twice that tolerance where a row first parts).  d. ring and Ulysses attention at Llama width
+    (B 1, H 32, T 8,192, hd 128), bf16 and f32, sp = n: each against the
+    other and against ``mha`` (the flash kernel) at the flash check's
+    tolerance (``KERNEL_TOL``), Ulysses launching flash once per rank; each
+    call timed between CUDA events after an untimed first one, which opens
+    the NCCL communicators (``PARALLEL_LINE``).
 
 The last lines are one JSON object of per-kernel numbers (``launches`` is
 the count of the kernel's main path, ``launches_by_path`` each counted
@@ -338,6 +361,11 @@ hand, with no check; see :func:`ragged_sweep`.
 
 does the same for the norm kernels of the package under ROOT at phase
 5's three timed shapes; see :func:`norm_timing`.
+
+    python3 chip_smoke.py --parallel
+
+runs phase 22 alone over every visible card (one card, or the four of
+the four-card machine) and prints its ``PARALLEL_LINE``.
 
     python3 chip_smoke.py --preflight-passes [ROOT]
 
@@ -5266,6 +5294,323 @@ def run_lint_rank_path(torch, P, A, N, dev) -> tuple:
     return line, counts
 
 
+# phase 22: the parallel layer on torch.distributed, one process per card
+# (parallel/launch.spawn over every visible card).  a: GPT-2 small f32
+# (config #5), batch 8, seq 512, make_train_step over factorize_mesh(n),
+# 3 steps against the unsharded step on rank 0, then PAR_TIMED_STEPS steps
+# timed one by one (the checked steps open cuBLAS and NCCL).  b: a
+# checkpoint after step 2, resumed into a fresh state.  c: Llama-3 8B
+# bf16, phase 19's input, tp = n, measure_decode_sharded; an f32 leg at 2
+# layers holds the prefill logits and each decode step's (T = 1 over the
+# rank's KV heads, logits gathered over tp) against the unsharded forward
+# fed the same tokens, and the greedy tokens against the unsharded
+# generate.  d: ring and Ulysses at Llama width, sp = n, bf16 and f32,
+# against each other and mha (flash).
+PAR_TRAIN = dict(batch=8, seq=512, steps=3)
+PAR_TRAIN_TOL = 1e-4
+PAR_TIMED_STEPS = 8
+PAR_DECODE = dict(batch=8, prompt_len=512, new_tokens=32, reps=2)
+PAR_F32_LAYERS = 2
+PAR_F32_NEW = 8
+PAR_ATTN = (1, 32, 8192, 128)
+
+
+def _cuda_ms(torch, fn) -> tuple:
+    """(result, ms) of one call of ``fn`` between CUDA events."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def _par_train(torch, dist, P, kernels, A, N, world) -> dict:
+    """Part a and b on every rank; rank 0's numbers."""
+    import tempfile
+
+    from distributed_llm_scheduler_tpu_torch.models import gpt2
+    from distributed_llm_scheduler_tpu_torch.parallel import train as T
+    from distributed_llm_scheduler_tpu_torch.parallel.launch import device
+    from distributed_llm_scheduler_tpu_torch.parallel.mesh import (
+        factorize_mesh, make_mesh)
+    from distributed_llm_scheduler_tpu_torch.utils.checkpoint import (
+        load_state, save_state)
+
+    rank, dev = dist.get_rank(), device()
+    cfg = gpt2.GPT2Config.small()
+    # tp at most 2, so four cards run dp2 x tp2: both axes at once
+    axes = factorize_mesh(world, prefer_tp=2)
+    mesh = make_mesh(**axes)
+    whole = gpt2.init_params_numpy(cfg, 0)
+    ids, tgt = (torch.from_numpy(a).to(dev) for a in T.train_batch(
+        PAR_TRAIN["batch"], PAR_TRAIN["seq"], cfg.vocab_size))
+    step, init = T.make_train_step(cfg, mesh)
+    state = init(params=whole)
+    with tempfile.TemporaryDirectory(prefix="dls_par_") as tmp:
+        box = [tmp]
+        dist.broadcast_object_list(box, src=0)
+        ckpt = box[0] + "/ckpt"
+        kernels.reset_launches()
+        losses = []
+        for i in range(PAR_TRAIN["steps"]):
+            state, loss = step(state, ids, tgt)
+            losses.append(float(loss))
+            if i == 1:
+                save_state(state, ckpt, mesh)
+        launched = {k: kernels.launches.get(k, 0) for k in (A.KERNEL, N.LN_KERNEL)}
+        resumed = load_state(ckpt, init(params=whole), mesh)
+        if resumed.step != 2:
+            raise AssertionError(f"resumed at step {resumed.step}, not 2")
+        _, loss3 = step(resumed, ids, tgt)
+        dist.barrier()
+    ms = [_cuda_ms(torch, lambda: step(state, ids, tgt))[1]
+          for _ in range(PAR_TIMED_STEPS)]
+    out = {"mesh": axes, "losses": losses, "step_ms": ms,
+           "step_ms_median": statistics.median(ms),
+           "step_ms_min": min(ms), "step_ms_max": max(ms),
+           "launches": launched,
+           "launches_per_step": {k: v / PAR_TRAIN["steps"] for k, v in launched.items()},
+           "resumed_loss": float(loss3)}
+    if float(loss3) != losses[2]:
+        raise AssertionError(f"resumed step 3 loss {float(loss3)!r} != "
+                             f"uninterrupted {losses[2]!r}")
+    if not all(launched.values()):
+        raise AssertionError(f"the training step launched no kernel: {launched}")
+    del state, resumed
+    if rank == 0:  # the unsharded step on the same weights
+        ref_step, ref_init = T.make_train_step(cfg, make_mesh())
+        ref = ref_init(params=whole)
+        ref_losses = [float(ref_step(ref, ids, tgt)[1])
+                      for _ in range(PAR_TRAIN["steps"])]
+        out["unsharded_losses"] = ref_losses
+        for a, b in zip(losses, ref_losses):
+            if abs(a - b) > PAR_TRAIN_TOL + PAR_TRAIN_TOL * abs(b):
+                raise AssertionError(f"sharded losses {losses} off the "
+                                     f"unsharded {ref_losses}")
+        del ref
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def _par_decode(torch, dist, P, kernels, N, world) -> dict:
+    """Part c on every rank; rank 0's numbers."""
+    import functools
+
+    from distributed_llm_scheduler_tpu_torch.eval.decode_bench import (
+        measure_decode_sharded, prompt_ids)
+    from distributed_llm_scheduler_tpu_torch.models import llama
+    from distributed_llm_scheduler_tpu_torch.parallel.blocks import (
+        FORWARD_CACHED, init_cache)
+    from distributed_llm_scheduler_tpu_torch.parallel.decode import (
+        generate_on_shards, shard_decode_params)
+    from distributed_llm_scheduler_tpu_torch.parallel.launch import device
+    from distributed_llm_scheduler_tpu_torch.parallel.mesh import make_mesh
+
+    rank, dev = dist.get_rank(), device()
+    mesh = make_mesh(tp=world)
+    cfg = llama.LlamaConfig.llama3_8b(dtype=torch.bfloat16)
+    kernels.reset_launches()
+    res = measure_decode_sharded(cfg, tp=world, mesh=mesh, **PAR_DECODE)
+    torch.cuda.synchronize()
+    ran = kernels.ran(N.RMS_KERNEL)
+    if not ran:
+        raise AssertionError("TP decode ran no RMSNorm kernel")
+    res["rms_norm_launches"] = ran
+    torch.cuda.empty_cache()
+    # f32 leg: the TP greedy tokens, and the logits of the TP prefill and
+    # of each TP decode step fed those tokens, against the unsharded ones
+    cfg32 = llama.LlamaConfig.llama3_8b(n_layers=PAR_F32_LAYERS)
+    whole = llama.init_params_torch(cfg32, 0, device=dev)
+    local = shard_decode_params(mesh, whole, cfg32)
+    ids = prompt_ids(cfg32, PAR_DECODE["batch"], PAR_DECODE["prompt_len"], dev)
+    with torch.no_grad():
+        toks = generate_on_shards(local, ids, cfg32, mesh, PAR_F32_NEW)
+        got = _cached_logits(
+            functools.partial(FORWARD_CACHED["llama"], mesh=mesh), local,
+            init_cache(cfg32, ids.shape[0], toks.shape[1], dev, mesh=mesh),
+            toks, ids.shape[1], cfg32)
+    if rank != 0:
+        del whole
+    else:
+        with torch.no_grad():
+            want = _cached_logits(
+                llama.forward_cached, whole,
+                llama.init_cache(cfg32, ids.shape[0], toks.shape[1], dev),
+                toks, ids.shape[1], cfg32)
+            ref = llama.generate(whole, ids, cfg32, PAR_F32_NEW)
+        res["f32_leg"] = _hold_tp_decode(torch, got, want, toks, ref,
+                                         ids.shape[1])
+        del whole, want, ref
+    del local, got
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return res
+
+
+def _cached_logits(forward, params, cache, toks, T: int, config) -> list:
+    """The logits of a prefill over ``toks[:, :T]``, then of a decode step
+    (T = 1) over each next token of ``toks`` but the last: [(B, T, V),
+    (B, 1, V), ...], the cache written in place as generation writes it."""
+    logits, cache = forward(params, toks[:, :T], cache, 0, config)
+    out = [logits]
+    for pos in range(T, toks.shape[1] - 1):
+        logits, cache = forward(params, toks[:, pos:pos + 1], cache, pos, config)
+        out.append(logits)
+    return out
+
+
+def _hold_tp_decode(torch, got: list, want: list, toks, ref, T: int) -> dict:
+    """Phase 22 c's f32 gates: every step's logits (the prefill's, then
+    each decode step's) within F32_RTOL / F32_ATOL of the unsharded
+    forward fed the same tokens, and the greedy tokens equal to the
+    unsharded ``generate``'s.  A row may part only at a near tie: where
+    it first parts, the two tokens' unsharded logits lie within twice
+    the tolerance, so rounding inside it decides the argmax."""
+    errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+    close = [bool(torch.allclose(g, w, rtol=F32_RTOL, atol=F32_ATOL))
+             for g, w in zip(got, want)]
+    if len(got) != len(want) or not all(close):
+        raise AssertionError(f"TP logits off the unsharded ones: max abs per "
+                             f"step {errs} (prefill first)")
+    if toks.shape != ref.shape or not torch.equal(toks[:, :T], ref[:, :T]):
+        raise AssertionError("TP generate changed the prompt or its shape")
+    ties = []
+    for b in range(toks.shape[0]):
+        parted = (toks[b, T:] != ref[b, T:]).nonzero()
+        if not len(parted):
+            continue
+        j = int(parted[0])
+        w = want[j][b, -1]
+        a, c = w[ref[b, T + j]], w[toks[b, T + j]]
+        gap = float((a - c).abs())
+        if gap > 2 * (F32_ATOL + F32_RTOL * float(a.abs())):
+            raise AssertionError(
+                f"TP greedy tokens part from the unsharded generate's at row "
+                f"{b}, token {j}, where their logits differ by {gap}: no tie")
+        ties.append({"row": b, "token": j, "logit_gap": gap})
+    return {"layers": PAR_F32_LAYERS, "steps": len(got),
+            "max_abs_err": max(errs), "max_abs_err_per_step": errs,
+            "token_agreement": float((toks == ref).float().mean()),
+            "near_ties": ties}
+
+
+def _par_attention(torch, dist, kernels, A, world) -> dict:
+    """Part d on every rank; rank 0's numbers."""
+    from distributed_llm_scheduler_tpu_torch.parallel.launch import device
+    from distributed_llm_scheduler_tpu_torch.parallel.mesh import make_mesh
+    from distributed_llm_scheduler_tpu_torch.parallel.ring_attention import (
+        ring_attention_sharded)
+    from distributed_llm_scheduler_tpu_torch.parallel.ulysses import (
+        ulysses_attention_sharded)
+
+    rank, dev = dist.get_rank(), device()
+    mesh = make_mesh(sp=world)
+    out = {}
+    for dname in ("bfloat16", "float32"):
+        dtype = getattr(torch, dname)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(7)
+        q, k, v = (torch.randn(PAR_ATTN, generator=gen, device=dev).to(dtype)
+                   for _ in range(3))
+        # a first call of each, untimed: it opens the NCCL communicators
+        ring = ring_attention_sharded(q, k, v, mesh)
+        ring, ring_ms = _cuda_ms(torch, lambda: ring_attention_sharded(q, k, v, mesh))
+        ulysses_attention_sharded(q, k, v, mesh)
+        kernels.reset_launches()
+        uly, uly_ms = _cuda_ms(torch, lambda: ulysses_attention_sharded(q, k, v, mesh))
+        flash_n = kernels.launches.get(A.KERNEL, 0)
+        if flash_n != 1:
+            raise AssertionError(f"Ulysses launched flash {flash_n} times, not 1")
+        bound, by = attention_bound_ms(PAR_ATTN, dname, True)
+        row = {"ring_ms": ring_ms, "ulysses_ms": uly_ms, "flash_launches": flash_n,
+               "flash_bound_ms": bound, "flash_bound_by": by}
+        if rank == 0:
+            A.mha(q, k, v, causal=True)
+            ref, mha_ms = _cuda_ms(torch, lambda: A.mha(q, k, v, causal=True))
+            tol = KERNEL_TOL[dname]
+            errs = {"ring_vs_mha": float((ring.float() - ref.float()).abs().max()),
+                    "ulysses_vs_mha": float((uly.float() - ref.float()).abs().max()),
+                    "ring_vs_ulysses": float((ring.float() - uly.float()).abs().max())}
+            row.update(errs, mha_ms=mha_ms, tol=tol)
+            if max(errs.values()) > tol:
+                raise AssertionError(f"sequence parallel {dname} off: {errs}")
+            del ref
+        out[dname] = row
+        del q, k, v, ring, uly
+        torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def parallel_rank() -> dict:
+    """Phase 22 on one rank of the world (every card); rank 0's numbers
+    come back to :func:`run_parallel_path`."""
+    import torch
+    import torch.distributed as dist
+
+    import distributed_llm_scheduler_tpu_torch as P
+    from distributed_llm_scheduler_tpu_torch.ops import attention as A
+    from distributed_llm_scheduler_tpu_torch.ops import kernels
+    from distributed_llm_scheduler_tpu_torch.ops import norms as N
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    world = dist.get_world_size()
+    out = {"world": world, "backend": dist.get_backend()}
+    t = time.perf_counter()
+    out["train"] = _par_train(torch, dist, P, kernels, A, N, world)
+    out["train"]["seconds"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["decode"] = _par_decode(torch, dist, P, kernels, N, world)
+    out["decode"]["seconds"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["attention"] = _par_attention(torch, dist, kernels, A, world)
+    out["attention"]["seconds"] = time.perf_counter() - t
+    return out
+
+
+def run_parallel_path(torch, A, N) -> tuple:
+    """Phase 22: :func:`parallel_rank` on every visible card through
+    ``parallel.launch.spawn``.  Returns (PARALLEL_LINE dict, {run:
+    {kernel: launches}})."""
+    from distributed_llm_scheduler_tpu_torch.parallel import launch
+
+    n = torch.cuda.device_count()
+    log(f"  spawning a world of {n} (one process per card, NCCL)")
+    t = time.perf_counter()
+    line = launch.spawn(parallel_rank, n, timeout=900)
+    line["seconds"] = time.perf_counter() - t
+    tr, dec, att = line["train"], line["decode"], line["attention"]
+    log(f"  world {line['world']} ({line['backend']}) of {n} cards; a. mesh "
+        f"{tr['mesh']}: losses {tr['losses']} vs unsharded "
+        f"{tr['unsharded_losses']}, ms per step (median of "
+        f"{len(tr['step_ms'])} after the checked steps) {tr['step_ms_median']:.2f}, "
+        f"range {tr['step_ms_min']:.2f}-{tr['step_ms_max']:.2f} ({tr['step_ms']}), launches "
+        f"per step {tr['launches_per_step']}; b. resumed step 3 loss "
+        f"{tr['resumed_loss']} (uninterrupted {tr['losses'][2]})")
+    log(f"  c. Llama-3 8B bf16 tp {dec['tp']}: {dec['ms_per_token_step']:.3f} ms "
+        f"per token, {dec['decode_tok_s']:.1f} tok/s, RMSNorm ran "
+        f"{dec['rms_norm_launches']}; f32 leg {dec['f32_leg']}")
+    for dname, row in att.items():
+        if isinstance(row, dict):
+            log(f"  d. {dname} {PAR_ATTN}: ring {row['ring_ms']:.2f} ms, Ulysses "
+                f"{row['ulysses_ms']:.2f} ms, mha {row['mha_ms']:.2f} ms (bound "
+                f"{row['flash_bound_ms']:.3f} ms, {row['flash_bound_by']}); max abs "
+                f"ring-mha {row['ring_vs_mha']:.3g}, ulysses-mha "
+                f"{row['ulysses_vs_mha']:.3g}, ring-ulysses "
+                f"{row['ring_vs_ulysses']:.3g} (tol {row['tol']})")
+    counts = {
+        "train": dict(tr["launches"]),
+        "decode": {N.RMS_KERNEL: dec["rms_norm_launches"]},
+        "ulysses": {A.KERNEL: sum(
+            row["flash_launches"] for row in att.values() if isinstance(row, dict))},
+    }
+    return line, counts
+
+
 def gc_cuda(torch) -> None:
     """Free what a leg left on the card: the stored decode programs of
     ``generate`` (their caches and graphs), then unreferenced tensors."""
@@ -5502,6 +5847,31 @@ def preflight_passes(root: Path) -> int:
     return 0
 
 
+def parallel_only() -> int:
+    """``python3 chip_smoke.py --parallel``: phase 22 alone over every
+    visible card (the kernels built first), its ``PARALLEL_LINE`` and the
+    card's name and power limit."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from distributed_llm_scheduler_tpu_torch.ops import attention as A
+    from distributed_llm_scheduler_tpu_torch.ops import kernels
+    from distributed_llm_scheduler_tpu_torch.ops import norms as N
+
+    smi = nvidia_smi_line()
+    secs = kernels.build(A.KERNEL, N.SOURCE)
+    log(f"built {A.KERNEL}.cu, {N.SOURCE}.cu in {secs:.1f} s; {smi}")
+    line, counts = run_parallel_path(torch, A, N)
+    line["card"] = smi
+    line["counts"] = counts
+    print("PARALLEL_LINE " + json.dumps(line), flush=True)
+    print(smi, flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -5514,6 +5884,8 @@ def main() -> int:
                             sys.argv[4:5] == ["short"])
     if sys.argv[1:2] == ["--norm-timing"]:
         return norm_timing(Path(sys.argv[2]) if len(sys.argv) > 2 else ROOT)
+    if sys.argv[1:2] == ["--parallel"]:
+        return parallel_only()
     if sys.argv[1:2] == ["--preflight-passes"]:
         return preflight_passes(Path(sys.argv[2]) if len(sys.argv) > 2
                                 else ROOT)
@@ -5530,7 +5902,7 @@ def main() -> int:
     t_all = time.perf_counter()
     dev = torch.device("cuda", 0)
     smi = nvidia_smi_line()
-    log(f"[1/21] device: {torch.cuda.get_device_name(0)} ({smi}); torch "
+    log(f"[1/22] device: {torch.cuda.get_device_name(0)} ({smi}); torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5538,7 +5910,7 @@ def main() -> int:
 
     sources = (A.KERNEL, A.PAGED_SOURCE, N.SOURCE)
     secs = kernels.build(*sources)
-    log(f"[2/21] built {', '.join(f'{n}.cu' for n in sources)} with "
+    log(f"[2/22] built {', '.join(f'{n}.cu' for n in sources)} with "
         f"{kernels.nvcc_path()} for sm_90a in {secs:.1f} s (in parallel)")
     log_ptxas(kernels.build_logs.get(A.KERNEL, ""))
     log_ptxas(kernels.build_logs.get(A.PAGED_SOURCE, ""),
@@ -5550,59 +5922,59 @@ def main() -> int:
                     if "paged_ragged_tc" in k]
     norm_ptxas = log_norm_ptxas(kernels.build_logs.get(N.SOURCE, ""))
 
-    log("[3/21] flash kernel check against its plain version")
+    log("[3/22] flash kernel check against its plain version")
     attn = check_attention_kernel(
         torch, A, dev, P.LlamaConfig.llama3_8b(dtype=torch.bfloat16))
 
-    log("[4/21] paged kernel check against the plain versions")
+    log("[4/22] paged kernel check against the plain versions")
     paged = check_paged_kernels(torch, A, DB, dev)
     ragged_n = run_ragged_op_path(torch, A, DB, dev)
 
-    log("[5/21] LayerNorm and RMSNorm kernel check against the plain versions")
+    log("[5/22] LayerNorm and RMSNorm kernel check against the plain versions")
     norms = check_norm_kernels(torch, N, dev)
 
     def phase_done():  # free the phase's tensors before the next one
         gc_cuda(torch)
 
-    log("[6/21] flagship forward path: GPT-2 small bf16 DAG on the card")
+    log("[6/22] flagship forward path: GPT-2 small bf16 DAG on the card")
     gpt2_n = run_main_path(torch, P, dev)
     phase_done()
 
-    log("[7/21] execution ladder: the flagship per task, planned, coalesced, "
+    log("[7/22] execution ladder: the flagship per task, planned, coalesced, "
         "segmented and compiled")
     ladder_n = run_ladder_path(torch, P, dev)
     phase_done()
 
-    log("[8/21] north-star bench: GPT-2 small bf16, 10 policies replayed")
+    log("[8/22] north-star bench: GPT-2 small bf16, 10 policies replayed")
     bench_n, bench_result = run_bench_path(torch, P, dev)
     phase_done()
 
-    log("[9/21] serve path: GPT-2 small bf16 through the paged decode engine")
+    log("[9/22] serve path: GPT-2 small bf16 through the paged decode engine")
     serve_launches, serve_ragged, serve_ln, serve_tr, served = run_serve_path(
         torch, P, A, dev)
     phase_done()
 
-    log("[10/21] Llama path: Llama-3 8B bf16 DAG, pipeline stages, on the card")
+    log("[10/22] Llama path: Llama-3 8B bf16 DAG, pipeline stages, on the card")
     llama_n = run_llama_path(torch, P, dev)
     phase_done()
 
-    log("[11/21] f32 leg: GPT-2 placed on the card vs fused on the CPU")
+    log("[11/22] f32 leg: GPT-2 placed on the card vs fused on the CPU")
     run_f32_leg(torch, P, dev)
 
-    log("[12/21] f32 serve leg: the engine on the card vs on the CPU")
+    log("[12/22] f32 serve leg: the engine on the card vs on the CPU")
     run_f32_serve_leg(torch, P, dev)
     phase_done()
 
-    log("[13/21] f32 Llama leg: placed on the card vs fused on the CPU")
+    log("[13/22] f32 Llama leg: placed on the card vs fused on the CPU")
     run_llama_f32_leg(torch, P, dev)
     phase_done()
 
-    log("[14/21] parameter streaming: GPT-2 medium and the flagship under "
+    log("[14/22] parameter streaming: GPT-2 medium and the flagship under "
         "budgets below their params")
     stream_n = run_stream_path(torch, P, dev)
     phase_done()
 
-    log("[15/21] online serving: the serve bench on the card, then the "
+    log("[15/22] online serving: the serve bench on the card, then the "
         "frontend over GPT-2 small bf16 on a real clock")
     t15 = time.perf_counter()
     bench_on_card = run_serve_bench_on_card(torch, dev)
@@ -5612,7 +5984,7 @@ def main() -> int:
     log(f"  phase 15 in {time.perf_counter() - t15:.1f} s")
     phase_done()
 
-    log("[16/21] run doctor: the flagship and the engine traced, the soak "
+    log("[16/22] run doctor: the flagship and the engine traced, the soak "
         "doctor and the health-routed fleet")
     t16 = time.perf_counter()
     doctor, doctor_n = run_doctor_path(torch, P, A, dev, served)
@@ -5623,7 +5995,7 @@ def main() -> int:
     del served
     phase_done()
 
-    log("[17/21] searched placements: the bench's refine and search "
+    log("[17/22] searched placements: the bench's refine and search "
         "placements on the card, the pre-execution gate and analyze()")
     t17 = time.perf_counter()
     searched, search_n = run_search_phase(torch, P, A, N, dev, bench_result)
@@ -5634,14 +6006,14 @@ def main() -> int:
     del bench_result
     phase_done()
 
-    log("[18/21] BASELINE.json configs #5 and #4: the GPT-2 training step "
+    log("[18/22] BASELINE.json configs #5 and #4: the GPT-2 training step "
         "and the Mixtral-8x7B MoE forward")
     t18 = time.perf_counter()
     train, train_n, moe, moe_n = run_baseline_configs(torch, P, A, N, dev)
     log(f"  phase 18 in {time.perf_counter() - t18:.1f} s")
     phase_done()
 
-    log("[19/21] decoding: Llama-3 8B and Mixtral through generate and the "
+    log("[19/22] decoding: Llama-3 8B and Mixtral through generate and the "
         "decode-step DAG, GPT-2 small through the decode bench")
     t19 = time.perf_counter()
     decoded, decode_n, decode_norms = run_decode_path(torch, P, A, N, dev)
@@ -5650,7 +6022,7 @@ def main() -> int:
     log(f"  phase 19 in {decoded['seconds']:.1f} s")
     phase_done()
 
-    log("[20/21] the command line on the card: execute, trace, metrics, "
+    log("[20/22] the command line on the card: execute, trace, metrics, "
         "generate, schedule and the serving commands through the port's "
         "__main__")
     t20 = time.perf_counter()
@@ -5661,7 +6033,7 @@ def main() -> int:
     log(f"  phase 20 in {cli_line['seconds']:.1f} s")
     phase_done()
 
-    log("[21/21] the pre-flight lint and the sim-against-card rank check: "
+    log("[21/22] the pre-flight lint and the sim-against-card rank check: "
         "lint, lint --preflight, lint --serving and rankcheck through the "
         "port's __main__, run_rank_check on 8 nodes of the card, the tracer")
     t21 = time.perf_counter()
@@ -5671,6 +6043,14 @@ def main() -> int:
     print("LINT_RANK_LINE " + json.dumps(lint_line), flush=True)
     log(f"  phase 21 in {lint_line['seconds']:.1f} s")
     phase_done()
+
+    log("[22/22] the parallel layer on torch.distributed: the dp x tp GPT-2 "
+        "training step and its checkpoint, Llama-3 8B tensor-parallel "
+        "decode, ring and Ulysses attention, one process per card")
+    par_line, par_n = run_parallel_path(torch, A, N)
+    par_line["card"] = smi
+    print("PARALLEL_LINE " + json.dumps(par_line), flush=True)
+    log(f"  phase 22 in {par_line['seconds']:.1f} s")
 
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
 
@@ -5685,7 +6065,7 @@ def main() -> int:
     runs = (("gpt2", gpt2_n), ("ladder", ladder_n), ("bench", bench_n),
             ("llama", llama_n), ("stream", stream_n), ("run", doctor_n),
             ("searched", search_n), ("decode", decode_n), ("cli", cli_n),
-            ("lint", lint_n))
+            ("lint", lint_n), ("parallel", par_n))
     line = {"kernels": [
         {"name": A.KERNEL, "route": "cuda", "source": csrc + "flash_attention.cu",
          "replaces": tpu + "152",

@@ -8,10 +8,13 @@ JAX package's):
 * ``lint``      — static analysis of a DAG + schedule + sharding and
   quantization config (``--fix``, ``--preflight``), or ``--serving``: the
   page-lifetime, request-lifecycle and determinism passes over the serve
-  bench's scenario (``--parallel`` waits for the parallel layer)
+  bench's scenario (``--parallel`` waits for the collective sweep)
 * ``sweep``     — the full evaluation sweep (CSV + PNG + summary)
 * ``execute``   — run a scheduled model DAG on live devices
 * ``visualize`` — DAG structure and Gantt renderings
+* ``train``     — a few sharded (dp x tp) training steps, one process
+  per device (``--pp`` and ``mixtral*`` wait for the pipeline and expert
+  layers)
 * ``generate``  — autoregressive KV-cache decoding (any model family)
 * ``bench``     — the north-star benchmark (one JSON line)
 * ``trace``     — traced execute (+ paged-decode leg) -> Perfetto JSON
@@ -374,11 +377,12 @@ def cmd_lint(args) -> int:
         return 2
 
     if args.parallel:
-        # the sweep traces the hand-written parallel layer, which runs on
-        # torch.distributed across cards and is not ported yet
-        print("lint --parallel: the parallel layer (parallel/*) and its "
-              "collective sweep are not ported to PyTorch yet (ROADMAP.md "
-              "A.11)", file=sys.stderr)
+        # the sweep traces every strategy of the parallel layer through
+        # its collective_probe hook; the hooks and the sweep are not
+        # ported yet, nor are the expert and pipeline strategies
+        print("lint --parallel: the collective sweep of the parallel layer "
+              "(analysis/parallel_sweep, the collective_probe hooks) is not "
+              "ported to PyTorch yet (ROADMAP.md A.11)", file=sys.stderr)
         return 2
 
     cfg = _config_from(args)
@@ -799,6 +803,44 @@ def cmd_visualize(args) -> int:
         schedule, f"{cfg.out_dir}/{graph.name}.{cfg.scheduler}.gantt.png",
         show=args.show,
     ))
+    return 0
+
+
+def cmd_train(args) -> int:
+    """A few sharded (dp x tp) training steps of GPT-2: one process per
+    device (``utils/config.platform_world``), rank 0's lines printed."""
+    if args.pp or args.model.startswith("mixtral"):
+        print("train: pipeline-parallel (--pp) and MoE (mixtral*) training "
+              "are not ported to PyTorch yet (ROADMAP.md A.11)",
+              file=sys.stderr)
+        return 2
+    from .models.gpt2 import GPT2Config
+    from .parallel import launch
+    from .parallel.train import run_train_loop
+    from .utils.config import platform_world
+
+    cfg_map = {"gpt2": GPT2Config.small, "gpt2-medium": GPT2Config.medium,
+               "gpt2-tiny": GPT2Config.tiny}
+    if args.model not in cfg_map:
+        # silently training a default GPT-2 when asked for llama would be
+        # worse than refusing
+        print(f"train supports {sorted(cfg_map)} and mixtral* (dp x ep "
+              "expert parallelism, ROADMAP.md A.11); llama trains via the "
+              "task-graph path: --train-step on schedule/execute",
+              file=sys.stderr)
+        return 2
+    mcfg = cfg_map[args.model]()
+    world = platform_world()
+    res = launch.spawn(
+        run_train_loop, world,
+        args=(mcfg, args.steps, min(args.seq_len, mcfg.n_positions),
+              args.seed, args.ckpt, args.remat, args.scan), timeout=None)
+    if res["resumed"]:
+        print(res["resumed"], file=sys.stderr)
+    for line in res["stdout"]:
+        print(line)
+    if res["saved"]:
+        print(res["saved"], file=sys.stderr)
     return 0
 
 
@@ -2357,6 +2399,25 @@ def build_parser() -> argparse.ArgumentParser:
                         "of a simulated replay; critical-path spans get "
                         "a highlight edge")
     p.set_defaults(fn=cmd_visualize)
+
+    p = sub.add_parser("train", help="run sharded training steps")
+    _add_common(p)
+    p.add_argument("--steps", type=int, default=3)
+    p.add_argument("--pp", type=int, default=0,
+                   help="N>0: pipeline-parallel training over N stage "
+                        "devices (GPipe scan; microbatches default to N); "
+                        "not ported yet (exits 2, ROADMAP.md A.11)")
+    p.add_argument("--remat", action="store_true",
+                   help="rematerialize transformer blocks in the backward "
+                        "pass (torch.utils.checkpoint): memory for FLOPs")
+    p.add_argument("--scan", action="store_true",
+                   help="apply one block over stacked layer params "
+                        "(lax.scan's layout)")
+    p.add_argument("--ckpt", default=None,
+                   help="checkpoint directory: resumed from if it exists, "
+                        "written (params + optimizer state + step) at the "
+                        "end of the run")
+    p.set_defaults(fn=cmd_train)
 
     p = sub.add_parser(
         "generate", help="autoregressive KV-cache decoding (one JSON line)"

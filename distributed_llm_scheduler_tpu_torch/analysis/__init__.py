@@ -19,8 +19,8 @@ Ported: graph, schedule, memory, pipeline, decode, typecheck, stream,
 collective (over the port's ``ProgramIR``), donation, happens-before,
 lifecycle, page, sharding, quantization, cost and determinism passes, and
 the ``lint --fix`` fixers.  Not ported yet: the parallel sweep and the
-jaxpr walk ``analyze_collectives_jaxpr`` (with ``parallel/``'s
-strategies, ROADMAP.md A.11).
+jaxpr walk ``analyze_collectives_jaxpr`` (with the ``collective_probe``
+hooks of ``parallel/``'s strategies, ROADMAP.md A.11).
 """
 
 from __future__ import annotations

@@ -21,9 +21,9 @@ the property statically:
 
 The reference's third entry point, ``analyze_collectives_jaxpr`` (COL003,
 divergent collectives inside the branches of one SPMD program), walks a
-jaxpr of a ``parallel/`` program; the port has no such program yet, and
-its counterpart (a walk of a ``torch.fx`` graph) comes with them
-(ROADMAP.md A.11).
+jaxpr of a ``parallel/`` program; its counterpart (a walk of a
+``torch.fx`` graph of each strategy's probe) comes with the port's
+``collective_probe`` hooks (ROADMAP.md A.11).
 
 Wired into :func:`..analysis.pre_execution_gate` through its ``program=``
 parameter: the compiled rung passes its IR, and COL001/COL002/COL004 join

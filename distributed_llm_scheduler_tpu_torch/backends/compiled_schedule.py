@@ -27,9 +27,9 @@ destination node, as the reference counts them.  Per-task outputs stay
 bit-identical to the planned path: the same plan runs the same kernels on
 the same shapes.  The reference lowers a run that spans several devices to
 one SPMD program with ``ppermute`` exchanges (``_build_mesh``); its
-counterpart over several cards waits for ``parallel/`` on
-``torch.distributed`` (ROADMAP.md A.11), so a cluster whose nodes span
-more than one device raises here.  On the CPU the plan runs eagerly, for
+counterpart over several cards (a process per card with NCCL sends and
+receives, over ``parallel/launch``) is not written yet (ROADMAP.md
+A.11), so a cluster whose nodes span more than one device raises here.  On the CPU the plan runs eagerly, for
 the tests.
 """
 
@@ -59,8 +59,8 @@ def one_device(backend, nodes) -> Optional[torch.device]:
             f"compiled=True captures one device's run; the placed nodes "
             f"span {len(devices)} devices "
             f"({', '.join(str(d) for d in devices)}), and the compiled "
-            "rung over several cards waits for parallel/ on "
-            "torch.distributed (ROADMAP.md A.11)"
+            "rung over several cards (a process per card with NCCL sends "
+            "and receives) is not ported yet (ROADMAP.md A.11)"
         )
     return devices[0] if devices else None
 

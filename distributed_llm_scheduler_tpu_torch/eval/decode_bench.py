@@ -9,9 +9,10 @@ with no MODE (``measure_decode``: GPT-2 small bf16 greedy generation),
 ``--attribute`` (``decode_attribution``), ``--dag``
 (``measure_decode_dag``: decoding through the scheduler), ``--int8`` or
 ``--kv-int8`` (int8 weights and cache, or the cache alone), ``--paged``
-(``measure_paged_decode``, gated) or ``--kernel``
-(``measure_paged_kernel``, gated).  ``--tp`` needs ``parallel/`` and
-raises.  Each prints one JSON line.
+(``measure_paged_decode``, gated), ``--kernel``
+(``measure_paged_kernel``, gated) or ``--tp N``
+(``measure_decode_sharded``: a world of N cards).  Each prints one JSON
+line.
 
 The measured paths run on the card the caller names and read the card's
 clock only after ``torch.cuda.synchronize``; the CPU runs the same code
@@ -500,12 +501,79 @@ def measure_decode(
     return out
 
 
-def measure_decode_sharded(*args, **kwargs):
-    """Tensor-parallel decode needs the port's ``parallel/`` package, which
-    does not exist yet (ROADMAP A.11)."""
-    raise NotImplementedError(
-        "measure_decode_sharded needs parallel/decode, not ported yet "
-        "(ROADMAP A.11)")
+def measure_decode_sharded(
+    config: Any = None,
+    tp: int = 2,
+    batch: int = 8,
+    prompt_len: int = 64,
+    new_tokens: int = 16,
+    reps: int = 3,
+    mesh: Any = None,
+) -> Dict[str, Any]:
+    """Tensor-parallel decode throughput over a dp=1 x tp mesh
+    (:func:`..parallel.decode.generate_sharded`), greedy.
+
+    Without ``mesh`` it starts a world of ``tp`` ranks on the platform
+    seam's platform (the cards unless ``DLS_PLATFORM=cpu``) and returns rank 0's
+    numbers; inside a world, every rank of ``mesh`` calls it.  The
+    weights are drawn from seed 0 on each rank's device and sharded once;
+    the prompt is :func:`prompt_ids`'.  ``wall_s`` is one generation of
+    ``new_tokens`` (fence-amortized over ``reps``); the per-step cost is
+    the difference of two generation lengths, as :func:`measure_decode`'s.
+    On the CPU the numbers are functional only (``functional_only``):
+    every rank shares the host.  Keys: the JAX bench's, plus
+    ``ms_per_token_step``, ``decode_tok_s`` and ``device``."""
+    if mesh is None:
+        from ..parallel.launch import spawn
+
+        return spawn(_sharded_decode_rank, tp,
+                     args=(config, tp, batch, prompt_len, new_tokens, reps))
+    from ..models.family import family_of, module_for
+    from ..parallel.decode import generate_on_shards, shard_decode_params
+    from ..parallel.launch import device as rank_device
+
+    if config is None:
+        from ..models.gpt2 import GPT2Config
+
+        config = GPT2Config.small(dtype=torch.bfloat16)
+    if new_tokens < 2:
+        raise ValueError("new_tokens must be >= 2 to difference out prefill")
+    device = rank_device()
+    mod = module_for(family_of(config))
+    local = shard_decode_params(mesh, init_params(mod, config, 0, device), config)
+    ids = prompt_ids(config, batch, prompt_len, device)
+
+    def timed(n: int) -> float:
+        generate_on_shards(local, ids, config, mesh, n)  # warm-up
+        return _amortized(
+            lambda: generate_on_shards(local, ids, config, mesh, n), reps,
+            device)
+
+    wall_1 = timed(1)
+    wall = timed(new_tokens)
+    step_s = max((wall - wall_1) / (new_tokens - 1), 1e-9)
+    return {
+        "tp": float(mesh.axis_size("tp")),
+        "batch": float(batch),
+        "prompt_len": float(prompt_len),
+        "new_tokens": float(new_tokens),
+        "wall_s": wall,
+        "tok_s_end_to_end": batch * new_tokens / wall,
+        "prefill_plus_one_s": wall_1,
+        "ms_per_token_step": step_s * 1e3,
+        "decode_tok_s": batch / step_s,
+        "platform": device.type,
+        "functional_only": device.type == "cpu",
+        "device": _device_kind(device),
+    }
+
+
+def _sharded_decode_rank(config, tp, batch, prompt_len, new_tokens, reps):
+    """One rank of :func:`measure_decode_sharded`'s world."""
+    from ..parallel.mesh import make_mesh
+
+    return measure_decode_sharded(config, tp, batch, prompt_len, new_tokens,
+                                  reps, mesh=make_mesh(tp=tp))
 
 
 @torch.no_grad()
@@ -1233,11 +1301,17 @@ def main(argv: Optional[List[str]] = None) -> int:
     card and exits 2 without one."""
     argv = sys.argv[1:] if argv is None else argv
     mode = argv[0] if argv else ""
-    if mode == "--tp" or mode.startswith("--tp="):
-        measure_decode_sharded()
     if not torch.cuda.is_available():
         print("decode_bench: no CUDA device", file=sys.stderr)
         return 2
+    if mode == "--tp" or mode.startswith("--tp="):
+        try:
+            tp = int(mode.split("=", 1)[1] if "=" in mode else argv[1])
+        except (IndexError, ValueError):
+            print("usage: decode_bench [--tp N]", file=sys.stderr)
+            return 2
+        print(json.dumps(_round4(measure_decode_sharded(tp=tp))))
+        return 0
     if mode == "--attribute":
         print(json.dumps(decode_attribution()))
         return 0

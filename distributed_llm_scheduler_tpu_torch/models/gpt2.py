@@ -219,18 +219,19 @@ def transformer_block(block_params: Dict[str, Any], x, config: GPT2Config):
     return residual_add(x, h)
 
 
-def _select_block(remat: bool):
-    """The layer function both forwards iterate: checkpointed (its
-    activations recomputed in the backward, ``jax.checkpoint``'s trade)
-    or plain."""
+def _select_block(remat: bool, block=transformer_block):
+    """The layer function both forwards iterate (``block``, by default
+    :func:`transformer_block`; the tensor-parallel forward passes its
+    own): checkpointed (its activations recomputed in the backward,
+    ``jax.checkpoint``'s trade) or plain."""
     if not remat:
-        return transformer_block
+        return block
 
-    def block(block_params, x, config):
+    def checkpointed(block_params, x, config):
         return torch.utils.checkpoint.checkpoint(
-            transformer_block, block_params, x, config, use_reentrant=False)
+            block, block_params, x, config, use_reentrant=False)
 
-    return block
+    return checkpointed
 
 
 def _head(x, params: Dict[str, Any], config: GPT2Config):

@@ -1,10 +1,27 @@
-"""Parallel layout: mesh axes and the parameter sharding rules.
+"""Hand-written parallel strategies on ``torch.distributed``.
 
-The device-free part of the JAX package's ``parallel/``: the mesh
-factorization (:mod:`.mesh`) and the tensor-parallel rule tables
-(:mod:`.sharding`), which the static sharding pass
-(``analysis/sharding_pass.py``) and ``lint`` read.  The strategies
-themselves (ring attention, Ulysses, expert, pipeline, train, decode, the
-sharded placement of params) run on ``torch.distributed`` across cards and
-are not ported yet (ROADMAP.md A.11).
+The JAX package runs its parallel layer SPMD from one process over a
+``jax.sharding.Mesh`` and lets GSPMD insert most collectives; the port
+runs one process per device (:mod:`.launch`: NCCL on the cards, gloo on
+the CPU) and writes every collective out (:mod:`.collectives`).  Ported:
+
+* :mod:`.mesh` — ``make_mesh`` (a ``(dp, sp, tp)`` mesh of ranks with a
+  process group per axis) and ``factorize_mesh``;
+* :mod:`.sharding` — the rule tables, and each rank's blocks of params,
+  batches and activations (``shard_params``, ``param_shardings``,
+  ``batch_sharding``, ``activation_sharding``);
+* :mod:`.blocks` — tensor-parallel blocks of GPT-2, Llama and Mixtral
+  (dense experts) over the families' per-op functions;
+* :mod:`.train` — the dp x tp (x sp) GPT-2 training step, ``TrainState``,
+  ``make_eval_step`` and the ``train`` command's loop;
+* :mod:`.ring_attention`, :mod:`.ulysses` — the two sequence-parallel
+  attentions;
+* :mod:`.decode` — tensor-parallel ``generate_sharded``;
+* :mod:`.runs` — the entry points a world runs (tests, the card checks).
+
+Still to port (ROADMAP.md A.11): expert parallelism (``expert``), the
+pipeline (``pipeline_pp``, ``train --pp``), the MoE training path, and
+the ``collective_probe`` hooks of every strategy with the collective
+sweep behind ``lint --parallel`` (the JAX package's
+``COLLECTIVE_ENTRY_POINTS``).
 """

@@ -14,16 +14,30 @@ A spec is a plain tuple with one entry per leading dimension: ``None``
 (not sharded), a mesh axis name, or a tuple of names — the JAX package's
 ``PartitionSpec`` entries.  ``()`` replicates.  The rules and
 :func:`param_spec` are equal to the JAX package's; the static sharding
-pass (``analysis/sharding_pass.py``) reads them.  Placing params by these
-specs (``shard_params``, the batch and activation shardings over a live
-mesh) comes with the parallel layer on ``torch.distributed`` (ROADMAP.md
-A.11).
+pass (``analysis/sharding_pass.py``) reads them.
+
+Placing by these specs: the JAX package ``device_put``s a global array
+onto a ``NamedSharding`` and every device keeps its block; here each rank
+of a :class:`.mesh.Mesh` keeps its own block (:class:`Sharding`,
+:func:`shard_params`, :func:`batch_sharding`, :func:`activation_sharding`)
+and nothing else exists.  One block differs from GSPMD's: GPT-2's fused
+``attn_qkv_w`` (d, 3d) / ``attn_qkv_b`` (3d,), column-sharded over tp.
+GSPMD's contiguous column block of the fused matrix is not a set of whole
+heads (for tp=2 it is all of q and half of k), which does not matter to
+XLA, which partitions the global program as a whole.  A rank that
+computes whole heads needs the q, k and v columns of its heads, so here
+the block of tp rank r is ``[q_r | k_r | v_r]``, each the r-th of tp
+column blocks of q, k and v: the same shape as GSPMD's block, its columns
+permuted.  :meth:`Sharding.gather` undoes it.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import re
-from typing import Optional, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
+
+import torch
 
 #: a spec entry: not sharded, one mesh axis, or several
 SpecEntry = Optional[Union[str, Tuple[str, ...]]]
@@ -82,4 +96,101 @@ def param_spec(name: str, family: str = "gpt2") -> Spec:
     return ()
 
 
-__all__ = ["GPT2_PARAM_RULES", "LLAMA_PARAM_RULES", "Spec", "param_spec"]
+#: the fused projections whose tp block is whole heads: q, k and v's blocks
+FUSED_QKV = re.compile(r"attn_qkv_[wb]$")
+
+
+def _axes(entry: SpecEntry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+@dataclasses.dataclass(frozen=True)
+class Sharding:
+    """A spec on a mesh: which block of a global tensor this rank holds.
+
+    ``fused`` > 1 marks a fused projection (GPT-2's qkv, 3 parts) whose
+    sharded dim is cut part by part, so each rank holds whole heads."""
+
+    mesh: Any
+    spec: Spec
+    fused: int = 1
+
+    def _dims(self, ndim: int):
+        """(dim, axes, n, index) of each sharded dim."""
+        out = []
+        for dim, entry in enumerate(self.spec[:ndim]):
+            axes = _axes(entry)
+            n = self.mesh.axis_size(*axes) if axes else 1
+            if n > 1:
+                out.append((dim, axes, n, self.mesh.axis_index(*axes)))
+        return out
+
+    def local_shape(self, shape: Tuple[int, ...]) -> Tuple[int, ...]:
+        """The shape of this rank's block of a global ``shape``."""
+        local = list(shape)
+        for dim, _axes_, n, _ in self._dims(len(shape)):
+            local[dim] //= n
+        return tuple(local)
+
+    def shard(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the global tensor ``t`` (a copy of its
+        own, so the global one may be dropped)."""
+        for dim, axes, n, idx in self._dims(t.ndim):
+            size = t.shape[dim]
+            if size % (n * self.fused):
+                raise ValueError(
+                    f"dim {dim} of size {size} does not split evenly over "
+                    f"{'x'.join(axes)}={n}")
+            if self.fused > 1:
+                parts = t.unflatten(dim, (self.fused, size // self.fused))
+                t = parts.chunk(n, dim=dim + 1)[idx].flatten(dim, dim + 1)
+            else:
+                t = t.chunk(n, dim=dim)[idx]
+        return t.contiguous().clone()
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """The global tensor from every rank's block ``t`` (a collective
+        over the sharded axes; the inverse of :meth:`shard`)."""
+        from .collectives import all_gather_dim
+
+        for dim, axes, n, _ in reversed(self._dims(t.ndim)):
+            group = self.mesh.group(*axes)
+            if self.fused > 1:
+                parts = t.unflatten(dim, (self.fused, t.shape[dim] // self.fused))
+                t = all_gather_dim(parts, group, dim + 1).flatten(dim, dim + 1)
+            else:
+                t = all_gather_dim(t, group, dim)
+        return t
+
+
+def param_shardings(mesh: Any, params: Dict[str, Any], family: str = "gpt2"
+                    ) -> Dict[str, Sharding]:
+    """Each param's :class:`Sharding` on ``mesh`` under the family's rules."""
+    return {k: Sharding(mesh, param_spec(k, family),
+                        3 if FUSED_QKV.search(k) else 1) for k in params}
+
+
+def shard_params(mesh: Any, params: Dict[str, Any], family: str = "gpt2"
+                 ) -> Dict[str, torch.Tensor]:
+    """This rank's blocks of the whole param dict, by the rules."""
+    shardings = param_shardings(mesh, params, family)
+    return {k: shardings[k].shard(v) for k, v in params.items()}
+
+
+def batch_sharding(mesh: Any, seq_parallel: bool = False) -> Sharding:
+    """(B, T) token batches: batch over dp, optionally sequence over sp."""
+    return Sharding(mesh, ("dp", "sp" if seq_parallel else None))
+
+
+def activation_sharding(mesh: Any, seq_parallel: bool = False) -> Sharding:
+    """(B, T, D) activations: batch over dp, optionally sequence over sp."""
+    return Sharding(mesh, ("dp", "sp" if seq_parallel else None, None))
+
+
+__all__ = [
+    "FUSED_QKV", "GPT2_PARAM_RULES", "LLAMA_PARAM_RULES", "Sharding", "Spec",
+    "activation_sharding", "batch_sharding", "param_shardings", "param_spec",
+    "shard_params",
+]

@@ -9,7 +9,8 @@ with live clusters bound to torch devices.
 The platform seam: ``DLS_PLATFORM`` (``cpu`` or ``cuda``; ``DLS_FORCE_CPU``
 set is shorthand for ``cpu``) picks what :meth:`RunConfig.build_cluster_with_devices`
 binds.  Unset means the CUDA cards, and no card raises: nothing falls back
-to the CPU on its own.
+to the CPU on its own.  A parallel run (``train``) starts one process per
+device: :func:`platform_world` ranks.
 """
 
 from __future__ import annotations
@@ -59,6 +60,26 @@ def platform_devices(n: Optional[int] = None) -> list:
             "no CUDA device visible; set DLS_PLATFORM=cpu to run on the CPU"
         )
     return [torch.device("cuda", i) for i in range(count)]
+
+
+def platform_world() -> int:
+    """The ranks of a parallel run (one process per device) on
+    :func:`platform`: every visible card on ``cuda`` (none raises
+    :class:`ConfigError`); on ``cpu``, ``DLS_CPU_WORLD`` processes
+    (default 1), the counterpart of XLA's host device count."""
+    import torch
+
+    if platform() == "cpu":
+        raw = env_str("DLS_CPU_WORLD") or "1"
+        if not raw.isdigit() or int(raw) < 1:
+            raise ValueError(f"DLS_CPU_WORLD={raw!r} is not a positive count")
+        return int(raw)
+    count = torch.cuda.device_count()
+    if count == 0:
+        raise ConfigError(
+            "no CUDA device visible; set DLS_PLATFORM=cpu to run on the CPU"
+        )
+    return count
 
 
 @dataclasses.dataclass
@@ -348,4 +369,5 @@ __all__ = [
     "env_str",
     "platform",
     "platform_devices",
+    "platform_world",
 ]

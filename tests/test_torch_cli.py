@@ -476,15 +476,16 @@ def test_bench_forwards_to_the_port_bench(monkeypatch):
 
 @pytest.mark.parametrize("cmd", ["lint", "train", "rankcheck", "metrics-diff"])
 def test_unported_commands_are_refused(cmd, capsys, monkeypatch):
-    """``train`` waits for the parallel layer (ROADMAP.md A.11), and
-    ``metrics-diff`` is ``metrics diff``: argparse refuses both.  ``lint``
-    and ``rankcheck`` are ported; what of them is not refuses with exit 2
-    and one line: ``lint --parallel`` (the parallel sweep, A.11) and
+    """``metrics-diff`` is ``metrics diff``: argparse refuses it.
+    ``lint``, ``train`` and ``rankcheck`` are ported; what of them is not
+    refuses with exit 2 and one line: ``lint --parallel`` (the parallel
+    sweep, ROADMAP.md A.11), ``train --pp`` (the pipeline, A.11) and
     ``rankcheck --stress`` on fewer than 4 cards (here: the CPU)."""
     monkeypatch.setenv("DLS_PLATFORM", "cpu")
-    if cmd in ("lint", "rankcheck"):
-        flag = {"lint": "--parallel", "rankcheck": "--stress"}[cmd]
-        assert main([cmd, flag]) == 2
+    if cmd in ("lint", "train", "rankcheck"):
+        flag = {"lint": ["--parallel"], "train": ["--pp", "2"],
+                "rankcheck": ["--stress"]}[cmd]
+        assert main([cmd, *flag]) == 2
         out = capsys.readouterr()
         assert out.out == "" and len(out.err.strip().splitlines()) == 1
         return

@@ -190,12 +190,31 @@ def test_measure_paged_kernel_keys_and_parity():
     assert len(res["ragged_parity"]["fixtures"]) == 5
 
 
-def test_tensor_parallel_decode_raises_naming_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="A.11"):
-        DB.measure_decode_sharded(tp=2)
-    for argv in (["--tp", "2"], ["--tp=2"]):
-        with pytest.raises(NotImplementedError, match="A.11"):
-            DB.main(argv)
+# the JAX bench's documented keys of measure_decode_sharded
+SHARDED_KEYS = {"tp", "batch", "prompt_len", "new_tokens", "wall_s",
+                "tok_s_end_to_end", "platform", "functional_only"}
+
+
+def test_tensor_parallel_decode_raises_naming_the_roadmap_item(monkeypatch):
+    """``measure_decode_sharded`` runs (parallel/, ROADMAP.md A.11, is
+    ported): on the CPU (``DLS_PLATFORM=cpu``) a world of 2 gloo ranks
+    gives functional numbers with the JAX bench's keys; with the seam
+    unset (the cards) it raises where the world cannot start (2 cards
+    asked for, none visible), and the command line without a card exits
+    2."""
+    monkeypatch.setenv("DLS_PLATFORM", "cpu")
+    res = DB.measure_decode_sharded(GPT2Config.tiny(), tp=2, batch=2,
+                                    prompt_len=8, new_tokens=3, reps=1)
+    assert SHARDED_KEYS <= set(res)
+    assert res["tp"] == 2.0 and res["functional_only"] is True
+    assert res["platform"] == "cpu" and res["wall_s"] > 0
+    monkeypatch.delenv("DLS_PLATFORM")
+    monkeypatch.delenv("DLS_FORCE_CPU", raising=False)
+    if not torch.cuda.is_available():
+        with pytest.raises(ValueError, match="needs 2 cards"):
+            DB.measure_decode_sharded(tp=2)
+        for argv in (["--tp", "2"], ["--tp=2"]):
+            assert DB.main(argv) == 2
 
 
 def test_the_command_line_needs_the_card(monkeypatch, capsys):
