@@ -333,6 +333,27 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     tolerance (``KERNEL_TOL``), Ulysses launching flash once per rank; each
     call timed between CUDA events after an untimed first one, which opens
     the NCCL communicators (``PARALLEL_LINE``).
+23. the compiled rung over the cards (``execute(compiled=True)`` in a
+    world of one process per card, each capturing its share with the
+    IR's cross-card exchanges as NCCL sends and receives).  a. the
+    flagship DAG of phase 6 (bf16, 537 tasks, weights on the host) placed
+    by ``heft`` on 8 nodes bound to the visible cards in turn (two per
+    card on four cards; on one card, all eight on it in a world of one,
+    ``DeviceBackend(world=True)``): the world's output bit-equal to the
+    planned rung's on the same placement in this process (and on one
+    card to the in-process compiled rung's), within the bf16 oracle rule
+    of the fused forward, its host calls per run at most the input's
+    tensors plus one; the flash and LayerNorm kernels that ran in each
+    rank (the ranks' ``kernels.ran``, counted over one run) above 0 and
+    summing to one forward's; the makespan of both rungs (median and
+    range of ``COMPILED_SAMPLES`` runs), the exchanges in all and across
+    cards with their bytes, and the world's start seconds.  b. the
+    ladder's two benches (``eval/dispatch_bench``, ``eval/compiled_bench``)
+    at the reference's defaults on the visible cards: their JSON printed,
+    bit-identity and the compiled launch bound required, the re-batched
+    segmented leg (the one the makespan gate reads) required allclose to
+    planned, the timing gates' verdicts and legs recorded
+    (``COMPILED_CARDS_LINE``).
 
 The last lines are one JSON object of per-kernel numbers (``launches`` is
 the count of the kernel's main path, ``launches_by_path`` each counted
@@ -366,6 +387,11 @@ does the same for the norm kernels of the package under ROOT at phase
 
 runs phase 22 alone over every visible card (one card, or the four of
 the four-card machine) and prints its ``PARALLEL_LINE``.
+
+    python3 chip_smoke.py --compiled-cards
+
+runs phase 23 alone over every visible card and prints its
+``COMPILED_CARDS_LINE``.
 
     python3 chip_smoke.py --preflight-passes [ROOT]
 
@@ -5611,6 +5637,203 @@ def run_parallel_path(torch, A, N) -> tuple:
     return line, counts
 
 
+COMPILED_SAMPLES = 5
+COMPILED_NODES = 8
+
+
+def _ms_stats(reports) -> dict:
+    ms = [r.makespan_s * 1e3 for r in reports]
+    return {"median_ms": statistics.median(ms), "min_ms": min(ms),
+            "max_ms": max(ms), "samples_ms": ms}
+
+
+def run_compiled_cards_path(torch, P, A, N) -> tuple:
+    """Phase 23: the flagship's compiled rung in a world of one process per
+    visible card against the planned rung, then the ladder's two benches.
+    Returns (COMPILED_CARDS_LINE dict, {run: {kernel: launches}})."""
+    from distributed_llm_scheduler_tpu_torch.eval import compiled_bench as CB
+    from distributed_llm_scheduler_tpu_torch.eval import dispatch_bench as DB
+
+    n = torch.cuda.device_count()
+    cfg = P.GPT2Config.small(dtype=torch.bfloat16)
+    dag = P.build_gpt2_dag(cfg, **FLAGSHIP)
+    graph = P.fuse_linear_chains(dag.graph)
+    if len(graph) != FLAGSHIP_TASKS:
+        raise AssertionError(f"flagship has {len(graph)} tasks")
+    n_attn = sum(1 for t in graph if t.task_id.endswith("_attention"))
+    n_ln = sum(1 for t in dag.graph
+               if t.task_id.endswith(("_ln1", "_ln2", "final_ln")))
+    params = dag.init_params(seed=0, device="cpu")
+    ids = dag.make_inputs(seed=1, device="cpu")
+    cards = [torch.device("cuda", i % n) for i in range(COMPILED_NODES)]
+    cluster = P.Cluster.from_torch_devices(cards)
+    sched = P.get_scheduler("heft").schedule(graph, cluster)
+    if sched.failed or len(sched.completed) != len(graph):
+        raise AssertionError(f"heft x8: {len(sched.failed)} tasks failed")
+    backend = P.DeviceBackend(cluster, world=True)
+    line = {"cards": n, "nodes": COMPILED_NODES, "tasks": len(graph)}
+    try:
+        planned = backend.execute(graph, sched, params, ids)
+        want = planned.output
+        line["planned"] = _ms_stats([
+            backend.execute(graph, sched, params, ids, warmup=False)
+            for _ in range(COMPILED_SAMPLES)])
+        t0 = time.perf_counter()
+        first = backend.execute(graph, sched, params, ids, compiled=True)
+        build_s = time.perf_counter() - t0
+        got = first.output
+        if not torch.equal(got, want.to(got.device)):
+            raise AssertionError("the world's output differs from the "
+                                 "planned rung's")
+        fused = dag.reference_forward(
+            {k: v.to(got.device) for k, v in params.items()},
+            ids.to(got.device))
+        ok, viol, allowed, rel = oracle_close(fused, got)
+        if not (ok and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"the world's output fails the oracle: "
+                                 f"{viol} > {allowed} or rel {rel:.3e}")
+        del fused
+        runs = [backend.execute(graph, sched, params, ids, compiled=True,
+                                warmup=False)
+                for _ in range(COMPILED_SAMPLES)]
+        rep = runs[-1]
+        w = rep.world
+        line["world"] = _ms_stats(runs)
+        bound = 2  # the ids' copy and the replay
+        if rep.n_dispatches > bound:
+            raise AssertionError(f"{rep.n_dispatches} host calls per run > "
+                                 f"{bound}")
+        ran = w["ran_by_rank"]
+        for r, counts in enumerate(ran):
+            if counts.get(A.KERNEL, 0) <= 0 or counts.get(N.LN_KERNEL, 0) <= 0:
+                raise AssertionError(f"rank {r} ran {counts}")
+        total = {k: sum(c.get(k, 0) for c in ran)
+                 for k in (A.KERNEL, N.LN_KERNEL)}
+        if total != {A.KERNEL: n_attn, N.LN_KERNEL: n_ln}:
+            raise AssertionError(f"the ranks ran {total} per run, one "
+                                 f"forward is {n_attn} flash, {n_ln} LN")
+        line.update(
+            ranks=w["ranks"], start_s=w["start_s"], first_execute_s=build_s,
+            n_dispatches=rep.n_dispatches,
+            n_dispatches_sum=w["n_dispatches_sum"],
+            makespan_spread_ms=w["makespan_spread_s"] * 1e3,
+            makespan_ms_by_rank=[x * 1e3 for x in w["makespan_s_by_rank"]],
+            dispatch_ms_by_rank=[
+                x * 1e3 for x in w["dispatch_overhead_s_by_rank"]],
+            exchanges=rep.transfer_edges, exchange_bytes=rep.transfer_bytes,
+            build_s_by_rank=w["build_s_by_rank"],
+            exchanges_across_cards=w["exchanges_across_ranks"],
+            bytes_across_cards=w["bytes_across_ranks"],
+            ran_by_rank=ran, captured_by_rank=w["captured_by_rank"],
+            oracle={"violations": viol, "allowed": allowed, "rel_fro": rel},
+            bit_equal_to_planned=True)
+        log(f"  a. world of {w['ranks']} on {n} card(s), started in "
+            f"{w['start_s']:.1f} s (first execute {build_s:.1f} s): makespan "
+            f"median {line['world']['median_ms']:.3f} ms (range "
+            f"{line['world']['min_ms']:.3f}-{line['world']['max_ms']:.3f}, "
+            f"spread across ranks {line['makespan_spread_ms']:.3f}) vs "
+            f"planned {line['planned']['median_ms']:.3f} ms (range "
+            f"{line['planned']['min_ms']:.3f}-"
+            f"{line['planned']['max_ms']:.3f}); {rep.transfer_edges} "
+            f"exchanges ({rep.transfer_bytes / 1024**2:.1f} MiB), "
+            f"{w['exchanges_across_ranks']} across cards "
+            f"({w['bytes_across_ranks'] / 1024**2:.1f} MiB); "
+            f"{rep.n_dispatches} host calls per rank per run "
+            f"({w['n_dispatches_sum']} in all); ran per rank {ran}; "
+            f"bit-equal to planned, oracle rel {rel:.3e}")
+        if n == 1:  # the world of one against the in-process compiled rung
+            # (its capture copies the input on the card, and reads the
+            # params where they were placed: both go there once)
+            one = P.DeviceBackend(cluster)
+            on_card = {k: v.to(got.device) for k, v in params.items()}
+            ids_dev = ids.to(got.device)
+            inproc = one.execute(graph, sched, on_card, ids_dev, compiled=True)
+            if not torch.equal(inproc.output, got):
+                raise AssertionError("the world of one differs from the "
+                                     "in-process compiled rung")
+            line["in_process"] = _ms_stats([
+                one.execute(graph, sched, on_card, ids_dev, compiled=True,
+                            warmup=False)
+                for _ in range(COMPILED_SAMPLES)])
+            log(f"  a. world of one bit-equal to the in-process compiled "
+                f"rung (median {line['in_process']['median_ms']:.3f} ms)")
+            del one, inproc, on_card
+        del planned, want, got, first, runs, rep  # the world's output too
+    finally:
+        backend.close()
+    gc_cuda(torch)
+
+    def sub(msg: str) -> None:
+        log("    " + msg)
+
+    benches = {}
+    for name, run, gates in (
+            ("dispatch", DB.run_dispatch_bench,
+             lambda r: DB.evaluate_gates(r, *DB.GATES, sub)),
+            ("compiled", CB.run_compiled_bench,
+             lambda r: CB.evaluate_gates(r, *CB.GATES, sub))):
+        t0 = time.perf_counter()
+        log(f"  b. {name} bench at the reference's defaults")
+        report = run(log=sub)
+        gates(report)
+        report["seconds"] = time.perf_counter() - t0
+        print(f"{name.upper()}_BENCH_LINE " + json.dumps(report), flush=True)
+        if not report["bit_identical"]:
+            raise AssertionError(f"{name} bench: outputs not bit-identical")
+        legs = report["legs"]
+        benches[name] = {"gates": report["gates"],
+                         "seconds": report["seconds"]}
+        for key in ("makespan_ms", "dispatch_overhead_ms"):
+            benches[name][key] = {k: v[key] for k, v in legs.items()
+                                  if key in v}
+    seg = report["stand_ins"]["segmented"]
+    if not seg["rebatched_allclose"]:
+        raise AssertionError(f"compiled bench: the re-batched segmented "
+                             f"output is {seg['rebatched_max_abs_err']:.3e} "
+                             f"from planned")
+    benches["compiled"]["rebatched"] = {
+        k: seg[k] for k in ("rebatched_bit_identical",
+                            "rebatched_max_abs_err", "rebatched_allclose")}
+    launches = report["legs"]["compiled"]["n_dispatches"]
+    budget = report["n_devices"] + CB.GATES[2]
+    if launches > budget:
+        raise AssertionError(f"compiled bench: {launches} launches > "
+                             f"{budget}")
+    line["benches"] = benches
+    counts = {"heft x8 world": total}
+    return line, counts
+
+
+def compiled_cards_only() -> int:
+    """``python3 chip_smoke.py --compiled-cards``: phase 23 alone over every
+    visible card (the kernels built first), its ``COMPILED_CARDS_LINE`` and
+    the card's name and power limit."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    import distributed_llm_scheduler_tpu_torch as P
+    from distributed_llm_scheduler_tpu_torch.ops import attention as A
+    from distributed_llm_scheduler_tpu_torch.ops import kernels
+    from distributed_llm_scheduler_tpu_torch.ops import norms as N
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = nvidia_smi_line()
+    secs = kernels.build(A.KERNEL, N.SOURCE)
+    log(f"built {A.KERNEL}.cu, {N.SOURCE}.cu in {secs:.1f} s; {smi}")
+    t = time.perf_counter()
+    line, counts = run_compiled_cards_path(torch, P, A, N)
+    line["seconds"] = time.perf_counter() - t
+    line["card"] = smi
+    line["counts"] = counts
+    print("COMPILED_CARDS_LINE " + json.dumps(line), flush=True)
+    print(smi, flush=True)
+    return 0
+
+
 def gc_cuda(torch) -> None:
     """Free what a leg left on the card: the stored decode programs of
     ``generate`` (their caches and graphs), then unreferenced tensors."""
@@ -5886,6 +6109,8 @@ def main() -> int:
         return norm_timing(Path(sys.argv[2]) if len(sys.argv) > 2 else ROOT)
     if sys.argv[1:2] == ["--parallel"]:
         return parallel_only()
+    if sys.argv[1:2] == ["--compiled-cards"]:
+        return compiled_cards_only()
     if sys.argv[1:2] == ["--preflight-passes"]:
         return preflight_passes(Path(sys.argv[2]) if len(sys.argv) > 2
                                 else ROOT)
@@ -5902,7 +6127,7 @@ def main() -> int:
     t_all = time.perf_counter()
     dev = torch.device("cuda", 0)
     smi = nvidia_smi_line()
-    log(f"[1/22] device: {torch.cuda.get_device_name(0)} ({smi}); torch "
+    log(f"[1/23] device: {torch.cuda.get_device_name(0)} ({smi}); torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5910,7 +6135,7 @@ def main() -> int:
 
     sources = (A.KERNEL, A.PAGED_SOURCE, N.SOURCE)
     secs = kernels.build(*sources)
-    log(f"[2/22] built {', '.join(f'{n}.cu' for n in sources)} with "
+    log(f"[2/23] built {', '.join(f'{n}.cu' for n in sources)} with "
         f"{kernels.nvcc_path()} for sm_90a in {secs:.1f} s (in parallel)")
     log_ptxas(kernels.build_logs.get(A.KERNEL, ""))
     log_ptxas(kernels.build_logs.get(A.PAGED_SOURCE, ""),
@@ -5922,59 +6147,59 @@ def main() -> int:
                     if "paged_ragged_tc" in k]
     norm_ptxas = log_norm_ptxas(kernels.build_logs.get(N.SOURCE, ""))
 
-    log("[3/22] flash kernel check against its plain version")
+    log("[3/23] flash kernel check against its plain version")
     attn = check_attention_kernel(
         torch, A, dev, P.LlamaConfig.llama3_8b(dtype=torch.bfloat16))
 
-    log("[4/22] paged kernel check against the plain versions")
+    log("[4/23] paged kernel check against the plain versions")
     paged = check_paged_kernels(torch, A, DB, dev)
     ragged_n = run_ragged_op_path(torch, A, DB, dev)
 
-    log("[5/22] LayerNorm and RMSNorm kernel check against the plain versions")
+    log("[5/23] LayerNorm and RMSNorm kernel check against the plain versions")
     norms = check_norm_kernels(torch, N, dev)
 
     def phase_done():  # free the phase's tensors before the next one
         gc_cuda(torch)
 
-    log("[6/22] flagship forward path: GPT-2 small bf16 DAG on the card")
+    log("[6/23] flagship forward path: GPT-2 small bf16 DAG on the card")
     gpt2_n = run_main_path(torch, P, dev)
     phase_done()
 
-    log("[7/22] execution ladder: the flagship per task, planned, coalesced, "
+    log("[7/23] execution ladder: the flagship per task, planned, coalesced, "
         "segmented and compiled")
     ladder_n = run_ladder_path(torch, P, dev)
     phase_done()
 
-    log("[8/22] north-star bench: GPT-2 small bf16, 10 policies replayed")
+    log("[8/23] north-star bench: GPT-2 small bf16, 10 policies replayed")
     bench_n, bench_result = run_bench_path(torch, P, dev)
     phase_done()
 
-    log("[9/22] serve path: GPT-2 small bf16 through the paged decode engine")
+    log("[9/23] serve path: GPT-2 small bf16 through the paged decode engine")
     serve_launches, serve_ragged, serve_ln, serve_tr, served = run_serve_path(
         torch, P, A, dev)
     phase_done()
 
-    log("[10/22] Llama path: Llama-3 8B bf16 DAG, pipeline stages, on the card")
+    log("[10/23] Llama path: Llama-3 8B bf16 DAG, pipeline stages, on the card")
     llama_n = run_llama_path(torch, P, dev)
     phase_done()
 
-    log("[11/22] f32 leg: GPT-2 placed on the card vs fused on the CPU")
+    log("[11/23] f32 leg: GPT-2 placed on the card vs fused on the CPU")
     run_f32_leg(torch, P, dev)
 
-    log("[12/22] f32 serve leg: the engine on the card vs on the CPU")
+    log("[12/23] f32 serve leg: the engine on the card vs on the CPU")
     run_f32_serve_leg(torch, P, dev)
     phase_done()
 
-    log("[13/22] f32 Llama leg: placed on the card vs fused on the CPU")
+    log("[13/23] f32 Llama leg: placed on the card vs fused on the CPU")
     run_llama_f32_leg(torch, P, dev)
     phase_done()
 
-    log("[14/22] parameter streaming: GPT-2 medium and the flagship under "
+    log("[14/23] parameter streaming: GPT-2 medium and the flagship under "
         "budgets below their params")
     stream_n = run_stream_path(torch, P, dev)
     phase_done()
 
-    log("[15/22] online serving: the serve bench on the card, then the "
+    log("[15/23] online serving: the serve bench on the card, then the "
         "frontend over GPT-2 small bf16 on a real clock")
     t15 = time.perf_counter()
     bench_on_card = run_serve_bench_on_card(torch, dev)
@@ -5984,7 +6209,7 @@ def main() -> int:
     log(f"  phase 15 in {time.perf_counter() - t15:.1f} s")
     phase_done()
 
-    log("[16/22] run doctor: the flagship and the engine traced, the soak "
+    log("[16/23] run doctor: the flagship and the engine traced, the soak "
         "doctor and the health-routed fleet")
     t16 = time.perf_counter()
     doctor, doctor_n = run_doctor_path(torch, P, A, dev, served)
@@ -5995,7 +6220,7 @@ def main() -> int:
     del served
     phase_done()
 
-    log("[17/22] searched placements: the bench's refine and search "
+    log("[17/23] searched placements: the bench's refine and search "
         "placements on the card, the pre-execution gate and analyze()")
     t17 = time.perf_counter()
     searched, search_n = run_search_phase(torch, P, A, N, dev, bench_result)
@@ -6006,14 +6231,14 @@ def main() -> int:
     del bench_result
     phase_done()
 
-    log("[18/22] BASELINE.json configs #5 and #4: the GPT-2 training step "
+    log("[18/23] BASELINE.json configs #5 and #4: the GPT-2 training step "
         "and the Mixtral-8x7B MoE forward")
     t18 = time.perf_counter()
     train, train_n, moe, moe_n = run_baseline_configs(torch, P, A, N, dev)
     log(f"  phase 18 in {time.perf_counter() - t18:.1f} s")
     phase_done()
 
-    log("[19/22] decoding: Llama-3 8B and Mixtral through generate and the "
+    log("[19/23] decoding: Llama-3 8B and Mixtral through generate and the "
         "decode-step DAG, GPT-2 small through the decode bench")
     t19 = time.perf_counter()
     decoded, decode_n, decode_norms = run_decode_path(torch, P, A, N, dev)
@@ -6022,7 +6247,7 @@ def main() -> int:
     log(f"  phase 19 in {decoded['seconds']:.1f} s")
     phase_done()
 
-    log("[20/22] the command line on the card: execute, trace, metrics, "
+    log("[20/23] the command line on the card: execute, trace, metrics, "
         "generate, schedule and the serving commands through the port's "
         "__main__")
     t20 = time.perf_counter()
@@ -6033,7 +6258,7 @@ def main() -> int:
     log(f"  phase 20 in {cli_line['seconds']:.1f} s")
     phase_done()
 
-    log("[21/22] the pre-flight lint and the sim-against-card rank check: "
+    log("[21/23] the pre-flight lint and the sim-against-card rank check: "
         "lint, lint --preflight, lint --serving and rankcheck through the "
         "port's __main__, run_rank_check on 8 nodes of the card, the tracer")
     t21 = time.perf_counter()
@@ -6044,13 +6269,24 @@ def main() -> int:
     log(f"  phase 21 in {lint_line['seconds']:.1f} s")
     phase_done()
 
-    log("[22/22] the parallel layer on torch.distributed: the dp x tp GPT-2 "
+    log("[22/23] the parallel layer on torch.distributed: the dp x tp GPT-2 "
         "training step and its checkpoint, Llama-3 8B tensor-parallel "
         "decode, ring and Ulysses attention, one process per card")
     par_line, par_n = run_parallel_path(torch, A, N)
     par_line["card"] = smi
     print("PARALLEL_LINE " + json.dumps(par_line), flush=True)
     log(f"  phase 22 in {par_line['seconds']:.1f} s")
+    phase_done()
+
+    log("[23/23] the compiled rung over the cards: the flagship in a world "
+        "of one process per card against the planned rung, and the "
+        "ladder's two benches")
+    t23 = time.perf_counter()
+    cc_line, cc_n = run_compiled_cards_path(torch, P, A, N)
+    cc_line["seconds"] = time.perf_counter() - t23
+    cc_line["card"] = smi
+    print("COMPILED_CARDS_LINE " + json.dumps(cc_line), flush=True)
+    log(f"  phase 23 in {cc_line['seconds']:.1f} s")
 
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
 
@@ -6065,7 +6301,7 @@ def main() -> int:
     runs = (("gpt2", gpt2_n), ("ladder", ladder_n), ("bench", bench_n),
             ("llama", llama_n), ("stream", stream_n), ("run", doctor_n),
             ("searched", search_n), ("decode", decode_n), ("cli", cli_n),
-            ("lint", lint_n), ("parallel", par_n))
+            ("lint", lint_n), ("parallel", par_n), ("compiled cards", cc_n))
     line = {"kernels": [
         {"name": A.KERNEL, "route": "cuda", "source": csrc + "flash_attention.cu",
          "replaces": tpu + "152",

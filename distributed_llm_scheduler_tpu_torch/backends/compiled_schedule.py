@@ -25,18 +25,24 @@ The IR gives the program's signature (its cache key) and the exchanges
 counted in ``transfer_edges`` and ``transfer_bytes``: one per value and
 destination node, as the reference counts them.  Per-task outputs stay
 bit-identical to the planned path: the same plan runs the same kernels on
-the same shapes.  The reference lowers a run that spans several devices to
-one SPMD program with ``ppermute`` exchanges (``_build_mesh``); its
-counterpart over several cards (a process per card with NCCL sends and
-receives, over ``parallel/launch``) is not written yet (ROADMAP.md
-A.11), so a cluster whose nodes span more than one device raises here.  On the CPU the plan runs eagerly, for
-the tests.
+the same shapes.  On the CPU the plan runs eagerly, for the tests.
+
+The reference lowers a run that spans several devices to one SPMD program
+with ``ppermute`` exchanges (``_build_mesh``).  Its counterpart here is
+:class:`.compiled_world.WorldProgram`: when the placed nodes span several
+devices (several cards, or ``torch.device("cpu", r)`` for several ``r``),
+:meth:`CompiledSchedule.build` starts one process per device, each
+replaying its own nodes' share as one captured program, with the IR's
+cross-device exchanges as NCCL sends and receives (gloo under
+``DLS_PLATFORM=cpu``).  A backend built with ``world=True`` takes that
+path on one device too (a world of one).
 """
 
 from __future__ import annotations
 # dls-lint: allow-file(DET001) compiled-path timing harness: wall time IS the measured quantity
 
 import time
+import weakref
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -45,24 +51,23 @@ from torch.utils._pytree import tree_leaves
 from ..core.graph import TaskGraph
 from ..core.schedule import Schedule
 from ..sched.linearize import ProgramIR
+from .compiled_world import (
+    WorldProgram,
+    book_program_memory,
+    check_world_devices,
+    device_index,
+    no_recipe_message,
+    world_devices,
+)
 from .device import CapturedProgram, _array_bytes
 from .dispatch_plan import DispatchPlan
 
 
-def one_device(backend, nodes) -> Optional[torch.device]:
-    """The one device ``nodes`` are bound to (None for no node); raises
-    ``ValueError`` when they span several."""
-    devices = list(dict.fromkeys(
-        backend.cluster[n].torch_device for n in nodes))
-    if len(devices) > 1:
-        raise ValueError(
-            f"compiled=True captures one device's run; the placed nodes "
-            f"span {len(devices)} devices "
-            f"({', '.join(str(d) for d in devices)}), and the compiled "
-            "rung over several cards (a process per card with NCCL sends "
-            "and receives) is not ported yet (ROADMAP.md A.11)"
-        )
-    return devices[0] if devices else None
+def in_world(backend, devices: Tuple[torch.device, ...]) -> bool:
+    """Whether a run over ``devices`` (:func:`.compiled_world.
+    world_devices`) takes a world: several devices, or a backend built
+    with ``world=True``."""
+    return len(devices) > 1 or backend.world
 
 
 class CompiledSchedule:
@@ -99,9 +104,10 @@ class CompiledSchedule:
     @staticmethod
     def lower(backend, graph: TaskGraph, schedule: Schedule,
               pre_analysis: bool = True, pre_report: Any = None
-              ) -> Tuple[ProgramIR, Optional[torch.device]]:
+              ) -> Tuple[ProgramIR, Tuple[torch.device, ...]]:
         """The gate, then the lowering of ``schedule`` to its IR; returns
-        the IR and the one device its nodes are bound to.
+        the IR and the devices its nodes are bound to (one rank each when
+        they take a world).
 
         With the gate on (``pre_analysis`` and no ``DLS_SKIP_ANALYSIS``)
         the schedule's corruption is refused first, before ``freeze()``
@@ -111,8 +117,11 @@ class CompiledSchedule:
         are linearized: no global order is :class:`..analysis.
         AnalysisError` COL002, gate or not (there is no program to build),
         and with the gate on a divergent or malformed exchange order
-        (COL001/COL004) is refused too.  Raises ``ValueError`` when the
-        placed nodes span more than one device."""
+        (COL001/COL004) is refused too.  A run that takes a world needs
+        the graph's recipe (``TaskGraph.recipe``) and devices of the
+        platform seam's one type (:func:`.compiled_world.
+        check_world_devices`): else it raises ``ValueError`` here, before
+        anything is placed or started."""
         from ..analysis import (
             AnalysisError,
             analyze_schedule_lowerability,
@@ -135,36 +144,70 @@ class CompiledSchedule:
         if not ir.order:
             raise ValueError(
                 "schedule places no executable tasks; nothing to lower")
-        return ir, one_device(backend, ir.devices)
+        devices = world_devices(backend, ir.devices)
+        if in_world(backend, devices):
+            check_world_devices(devices)
+            if graph.recipe is None:
+                raise ValueError(no_recipe_message(graph, devices))
+        return ir, devices
 
     @classmethod
     def build(cls, backend, graph: TaskGraph, schedule: Schedule,
               placed: Dict[Tuple[str, str], Any], graph_input: Any,
               pre_analysis: bool = True, pre_report: Any = None,
-              lowered: Optional[Tuple[ProgramIR, Optional[torch.device]]]
-              = None) -> "CompiledSchedule":
+              lowered: Optional[Tuple[ProgramIR, Tuple[torch.device, ...]]]
+              = None, params: Optional[Dict[str, Any]] = None):
         """Lower ``schedule`` over ``backend``'s cluster (cached per graph,
         IR, params and input shape).  ``lowered`` is :meth:`lower`'s result
         when the caller lowered already (``execute`` does, before it places
-        anything); else :meth:`lower` runs here.  A new program's
-        donation metadata is checked by the donation pass when the gate
-        is on."""
-        ir, device = lowered or cls.lower(
+        anything); else :meth:`lower` runs here.  A run that takes a world
+        is a :class:`.compiled_world.WorldProgram` over the unplaced
+        ``params`` (``placed`` is empty then: each rank places its own),
+        built in a :class:`..parallel.launch.World` started here and
+        stopped when the program is collected or closed; a cache hit
+        returns the program with its world, after reloading into the ranks
+        any param updated in place (:meth:`.compiled_world.WorldProgram.
+        refresh`).  A new program's donation metadata is checked by the
+        donation pass when the gate is on."""
+        ir, devices = lowered or cls.lower(
             backend, graph, schedule, pre_analysis, pre_report)
+        world = in_world(backend, devices)
+        held = ({g: params[g] for g in graph.unique_params()} if world
+                else placed)
         key = (
             ir.signature(),
-            tuple(sorted((k, v.data_ptr()) for k, v in placed.items())),
+            tuple(sorted((k, tuple(t.data_ptr() for t in tree_leaves(v)))
+                         for k, v in held.items())),
             tuple((tuple(t.shape), t.dtype) for t in tree_leaves(graph_input)),
         )
         cache = backend._prog_cache.setdefault(graph, {})
         prog = cache.get(key)
         if prog is None:
-            prog = cls(backend, graph, schedule, ir, placed, device)
             from ..analysis import analyze_donation, gate_enabled
+            from ..parallel.launch import World
 
-            if pre_analysis and gate_enabled():
-                analyze_donation(prog).raise_if_errors()
+            gate = pre_analysis and gate_enabled()
+            if world:
+                w = World(len(devices), cards=(
+                    [device_index(d) for d in devices]
+                    if devices[0].type == "cuda" else None))
+                try:
+                    prog = WorldProgram(backend, graph, schedule, ir,
+                                        devices, params, graph_input, w,
+                                        gate=gate)
+                    if gate:
+                        analyze_donation(prog).raise_if_errors()
+                except BaseException:
+                    w.close()
+                    raise
+                weakref.finalize(prog, w.close)
+            else:
+                prog = cls(backend, graph, schedule, ir, placed, devices[0])
+                if gate:
+                    analyze_donation(prog).raise_if_errors()
             cache[key] = prog
+        elif world:
+            prog.refresh()
         return prog
 
     def donation_summary(self) -> Dict[str, Any]:
@@ -253,20 +296,11 @@ class CompiledSchedule:
             metrics.counter("compiled.launches").inc(calls)
             metrics.counter("compiled.exchanges").inc(self.transfer_edges)
         if mem is not None:
-            in_bytes = _array_bytes(graph_input)
-            for node in self.ir.devices:
-                pb = (slab_bytes or {}).get(node, 0)
-                if pb:
-                    mem.alloc(node, "slab:params", pb, "params")
-                mem.alloc(node, "input", in_bytes, "activations")
-            for ph in self.ir.phases:
-                for ex in ph.exchanges:
-                    mem.alloc(ex.dst, f"xfer:{ex.tid}",
-                              self.plan.xfer_nbytes[ex.tid], "transfers")
             order = set(self.ir.order)
             final = (self.graph_final if self.graph_final in order
                      else self.ir.order[-1])
-            mem.alloc(self.placement[final], f"out:{final}",
-                      _array_bytes(out), "activations")
+            book_program_memory(mem, self.ir, self.placement, graph_input,
+                                slab_bytes, self.plan.xfer_nbytes, final,
+                                _array_bytes(out))
         return (out, {}, self.transfer_edges, self.transfer_bytes, calls,
                 t1 - t0, {})

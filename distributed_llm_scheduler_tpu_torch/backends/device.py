@@ -137,6 +137,10 @@ class DeviceReport:
     # memprof runs: the memory profiler's summary (per-device peaks,
     # watermark buckets, the allocator's peak beside the model's)
     memory: Optional[Dict[str, Any]] = None
+    # a compiled run in a world of one process per device: every rank's
+    # window, host time, host calls and kernels ran per run, the world's
+    # start seconds and the exchanges that crossed ranks
+    world: Optional[Dict[str, Any]] = None
 
     @property
     def total_param_gb_placed(self) -> float:
@@ -186,6 +190,7 @@ class DeviceReport:
                 if self.memory is not None
                 else {}
             ),
+            **({"world": self.world} if self.world is not None else {}),
         }
 
 
@@ -508,9 +513,16 @@ class DeviceBackend:
     maps task -> DeviceState -> real device.  Each node bound to a CUDA
     device runs on a stream of its own (the k-th node of a card on that
     card's k-th :func:`node_stream`, which every backend shares).
+
+    ``world``: the compiled rung runs in a world of one process per device
+    (:mod:`.compiled_world`) even when the placed nodes share one device
+    (a world of one); by default only a placement over several devices
+    takes a world.  :meth:`close` stops every world the backend's
+    programs hold.
     """
 
-    def __init__(self, cluster: Cluster, pre_analysis: bool = True):
+    def __init__(self, cluster: Cluster, pre_analysis: bool = True,
+                 world: bool = False):
         missing = [d.node_id for d in cluster if d.torch_device is None]
         if missing:
             raise ValueError(
@@ -521,6 +533,7 @@ class DeviceBackend:
         # opt-out static pre-execution gate (see analysis/):
         # pre_analysis=False per instance, DLS_SKIP_ANALYSIS=1 globally
         self.pre_analysis = pre_analysis
+        self.world = world
         self.devices = list(dict.fromkeys(d.torch_device for d in cluster))
         self.cuda_devices = [d for d in self.devices if d.type == "cuda"]
         self._streams: Optional[Dict[str, Any]] = None
@@ -532,6 +545,29 @@ class DeviceBackend:
     def _synchronize(self) -> None:
         for dev in self.cuda_devices:
             torch.cuda.synchronize(dev)
+
+    def close(self) -> None:
+        """Drop every cached program, stopping the worlds of the compiled
+        rung's programs over several devices (their ranks exit)."""
+        for cache in list(self._prog_cache.values()):
+            for prog in cache.values():
+                if hasattr(prog, "world"):
+                    prog.close()
+        self._prog_cache = weakref.WeakKeyDictionary()
+        self._seg_cache = weakref.WeakKeyDictionary()
+
+    def param_bytes(self, graph: TaskGraph, schedule: Schedule,
+                    params: Dict[str, Any]) -> Dict[str, int]:
+        """The bytes :meth:`place_params` would place on each node, with
+        nothing placed (a world's ranks place their own)."""
+        out: Dict[str, int] = {d.node_id: 0 for d in self.cluster}
+        seen: set = set()
+        for tid, node_id in schedule.placement.items():
+            for p in graph[tid].params_needed:
+                if (p, node_id) not in seen:
+                    seen.add((p, node_id))
+                    out[node_id] += _array_bytes(params[p])
+        return out
 
     @property
     def streams(self) -> Dict[str, Any]:
@@ -584,19 +620,17 @@ class DeviceBackend:
         QParam moves and counts leaf by leaf).  ``mem`` (a memory
         profiler) books each placement as a param birth."""
         placed: Dict[Tuple[str, str], Any] = {}
-        bytes_per_node: Dict[str, int] = {d.node_id: 0 for d in self.cluster}
         for tid, node_id in schedule.placement.items():
             dev = self.cluster[node_id].torch_device
             for p in graph[tid].params_needed:
                 key = (p, node_id)
                 if key not in placed:
                     placed[key] = _map_leaves(lambda t: t.to(dev), params[p])
-                    nb = _array_bytes(params[p])
-                    bytes_per_node[node_id] += nb
                     if mem is not None:
-                        mem.alloc(node_id, f"param:{p}", nb, "params")
+                        mem.alloc(node_id, f"param:{p}",
+                                  _array_bytes(params[p]), "params")
         self._synchronize()
-        return placed, bytes_per_node
+        return placed, self.param_bytes(graph, schedule, params)
 
     # -- parameter streaming ----------------------------------------------
     class _ParamStreamer:
@@ -1599,8 +1633,18 @@ class DeviceBackend:
         graph, each node's tasks on its stream and each exchange an event
         between two streams (:mod:`.compiled_schedule`); a run is one
         replay.  Incompatible with ``profile``, ``segments``,
-        ``coalesce``, ``keep_outputs``, ``ext_outputs`` and ``planned``;
-        one card only.  On the CPU the program runs eagerly.
+        ``coalesce``, ``keep_outputs``, ``ext_outputs`` and ``planned``.
+        On the CPU the program runs eagerly.  A placement whose nodes
+        span several devices runs in a world of one process per device
+        (:mod:`.compiled_world`): the graph needs its recipe, the
+        controller places nothing (each rank places its own nodes'
+        params), each rank captures its share with the exchanges as NCCL
+        sends and receives (gloo, eagerly, under ``DLS_PLATFORM=cpu``)
+        and replays it once per run.  The ranks time themselves:
+        ``makespan_s`` is the largest rank's window (each opens and
+        closes on a barrier), ``dispatch_overhead_s`` and
+        ``n_dispatches`` the largest rank's host time and calls per run,
+        and ``world`` carries every rank's numbers.
 
         The output of a captured rung (segments or compiled on a card) is
         the graph's own tensor: it holds until the same program runs
@@ -1734,12 +1778,14 @@ class DeviceBackend:
                 "measure a warm param cache; use reps=1"
             )
         lowered = None
+        world = False
         if compiled:
             # the gate and the lowering, before anything is placed
-            from .compiled_schedule import CompiledSchedule
+            from .compiled_schedule import CompiledSchedule, in_world
 
             lowered = CompiledSchedule.lower(self, graph, schedule,
                                              self.pre_analysis, pre_report)
+            world = in_world(self, lowered[1])
         elif self.pre_analysis:
             from ..analysis import pre_execution_gate
 
@@ -1788,6 +1834,9 @@ class DeviceBackend:
                         "with the host; pin them once with pin_params"
                     )
             placed, bytes_per_node = {}, {d.node_id: 0 for d in self.cluster}
+        elif world:  # each rank places its own nodes' params
+            placed = {}
+            bytes_per_node = self.param_bytes(graph, schedule, params)
         else:
             t_ph = time.perf_counter() if tracer is not None else 0.0
             # the compiled rung books its params as one slab per node at
@@ -1811,13 +1860,18 @@ class DeviceBackend:
             t_ph = time.perf_counter() if tracer is not None else 0.0
             prog = CompiledSchedule.build(
                 self, graph, schedule, placed, graph_input,
-                pre_analysis=self.pre_analysis, lowered=lowered)
+                pre_analysis=self.pre_analysis, lowered=lowered,
+                params=params)
             if tracer is not None:
                 tracer.complete(
                     "program_build", t_ph, time.perf_counter(),
                     track="host", cat="plan", phases=len(prog.ir.phases),
                     exchanges=prog.ir.n_exchanges,
                 )
+            if world:
+                return self._execute_world(
+                    prog, schedule, graph_input, reps, warmup,
+                    bytes_per_node, held, tracer, mreg, memprof, ev_exec)
         else:
             t_ph = time.perf_counter() if tracer is not None else 0.0
             order = self.dispatch_order(graph, schedule)
@@ -1987,21 +2041,7 @@ class DeviceBackend:
         if mreg is not None:
             self._record_metrics(mreg, n_disp, tedges, tbytes, reps,
                                  loop_s / reps, makespan, compile_s, timings)
-        attribution = None
-        if ev_exec is not None:
-            tracer.end(ev_exec, makespan_s=makespan)
-            # attribute this execute's window (an ambient tracer holds
-            # earlier runs too).  Diagnosis only: a failure here never
-            # fails the run, and leaves the attribution None
-            try:
-                from ..obs.attribution import attribute_run
-
-                att = attribute_run(
-                    tracer, window=(ev_exec["t0"], ev_exec["t1"]))
-                if att.critical_path:
-                    attribution = att.summary()
-            except Exception:
-                attribution = None
+        attribution = self._attribute(tracer, ev_exec, makespan)
         captured: Dict[str, int] = {}
         for p in ([prog] if prog is not None else seg_fns):
             for k, v in getattr(p, "launches", {}).items():
@@ -2033,6 +2073,115 @@ class DeviceBackend:
             attribution=attribution,
             memory=memprof.summary() if memprof is not None else None,
         )
+
+    def _execute_world(self, prog, schedule: Schedule, graph_input: Any,
+                       reps: int, warmup: bool,
+                       bytes_per_node: Dict[str, int], held: Dict[str, int],
+                       tracer, mreg, memprof, ev_exec) -> DeviceReport:
+        """:meth:`execute`'s runs of a :class:`.compiled_world.WorldProgram`
+        and its report: an untimed run first under ``warmup``, then
+        ``reps`` runs that every rank times itself."""
+        from .compiled_world import book_program_memory
+
+        compile_s = 0.0
+        if warmup:
+            t0 = time.perf_counter()
+            prog.run(graph_input, 1)
+            compile_s = time.perf_counter() - t0
+            if tracer is not None:
+                tracer.complete("warmup", t0, time.perf_counter(),
+                                track="host", cat="plan",
+                                compile_s=compile_s)
+        t0 = time.perf_counter()
+        res = prog.run(graph_input, reps)
+        t1 = time.perf_counter()
+        ranks = res["ranks"]
+        windows = [r["window_s"] for r in ranks]
+        makespan = max(max(windows), 1e-9)
+        n_disp = max(r["calls"] for r in ranks)
+        loop_s = max(r["host_s"] for r in ranks)
+        ir = prog.ir
+        if tracer is not None:
+            tracer.complete("world_run", t0, t1, track="host", cat="launch",
+                            dispatches=n_disp, ranks=len(ranks), reps=reps)
+            for node in ir.devices:
+                tracer.complete(
+                    "program", t0, t1, track=node, cat="program",
+                    tasks=sum(len(ph.compute.get(node, ()))
+                              for ph in ir.phases),
+                    phases=len(ir.phases), rank=prog.rank_of[node])
+        tedges, tbytes = prog.transfer_edges, prog.transfer_bytes
+        if mreg is not None:
+            mreg.counter("compiled.launches").inc(n_disp * reps)
+            mreg.counter("compiled.exchanges").inc(tedges * reps)
+            self._record_metrics(mreg, n_disp, tedges, tbytes, reps, loop_s,
+                                 makespan, compile_s, {})
+        peaks: Dict[str, int] = {}
+        if prog.devices[0].type == "cuda":
+            peaks = {str(d): r["peak_bytes"]
+                     for d, r in zip(prog.devices, ranks)}
+            held = {str(d): r["held_bytes"]
+                    for d, r in zip(prog.devices, ranks)}
+        if memprof is not None:
+            for _ in range(reps):  # once per run, as the one-device rung
+                book_program_memory(memprof, ir, prog.placement, graph_input,
+                                    bytes_per_node, prog.xfer_nbytes,
+                                    prog.final, prog.out_bytes)
+            memprof.reconcile({
+                d.node_id: peaks[str(d.torch_device)]
+                for d in self.cluster if str(d.torch_device) in peaks})
+        attribution = self._attribute(tracer, ev_exec, makespan)
+        return DeviceReport(
+            policy=schedule.policy,
+            makespan_s=makespan,
+            output=res["output"],
+            n_devices=len(self.cluster),
+            transfer_edges=tedges,
+            transfer_bytes=tbytes,
+            param_bytes_placed=bytes_per_node,
+            compile_s=compile_s,
+            peak_hbm_bytes=peaks,
+            n_dispatches=n_disp,
+            dispatch_overhead_s=loop_s,
+            compiled=True,
+            captured_launches=prog.launches,
+            held_hbm_bytes=held,
+            attribution=attribution,
+            memory=memprof.summary() if memprof is not None else None,
+            world={
+                "ranks": len(ranks),
+                "devices": [str(d) for d in prog.devices],
+                "start_s": prog.start_s,
+                "build_s_by_rank": prog.build_s,
+                "makespan_s_by_rank": windows,
+                "makespan_spread_s": max(windows) - min(windows),
+                "dispatch_overhead_s_by_rank": [r["host_s"] for r in ranks],
+                "n_dispatches_by_rank": [r["calls"] for r in ranks],
+                "n_dispatches_sum": sum(r["calls"] for r in ranks),
+                "ran_by_rank": [r["ran"] for r in ranks],
+                "captured_by_rank": prog.rank_launches,
+                "exchanges_across_ranks": len(prog.cross),
+                "bytes_across_ranks": sum(prog.xfer_nbytes[ex.tid]
+                                          for ex in prog.cross),
+            },
+        )
+
+    @staticmethod
+    def _attribute(tracer, ev_exec, makespan: float) -> Optional[Dict]:
+        """Close the ``execute`` span and attribute its window (an ambient
+        tracer holds earlier runs too); None untraced.  Diagnosis only: a
+        failure here never fails the run, and leaves the attribution
+        None."""
+        if ev_exec is None:
+            return None
+        tracer.end(ev_exec, makespan_s=makespan)
+        try:
+            from ..obs.attribution import attribute_run
+
+            att = attribute_run(tracer, window=(ev_exec["t0"], ev_exec["t1"]))
+        except Exception:
+            return None
+        return att.summary() if att.critical_path else None
 
     @staticmethod
     def _record_metrics(mreg, n_disp: int, tedges: int, tbytes: int,

@@ -206,4 +206,17 @@ def fuse_linear_chains(
         if t.arg_tasks is not None:
             t.arg_tasks = [exit_of.get(d, d) for d in t.arg_tasks]
 
-    return TaskGraph(tasks, name=f"{graph.name}_fused").freeze()
+    fused = TaskGraph(tasks, name=f"{graph.name}_fused").freeze()
+    if graph.recipe is not None:  # the same fusion of the rebuilt graph
+        fused.recipe = (f"{__name__}:fuse_recipe", (graph.recipe,),
+                        dict(min_chain=min_chain, max_chain=max_chain))
+    return fused
+
+
+def fuse_recipe(recipe, min_chain: int = 2,
+                max_chain: Optional[int] = None) -> TaskGraph:
+    """:func:`fuse_linear_chains` of the graph ``recipe`` builds: the
+    recipe of a fused graph (``TaskGraph.recipe``)."""
+    from .graph import from_recipe
+
+    return fuse_linear_chains(from_recipe(recipe), min_chain, max_chain)

@@ -201,6 +201,22 @@ class GraphValidationError(ValueError):
     pass
 
 
+#: ``(import path "module:function", args, kwargs)`` of a DAG builder
+#: call: a picklable record of how a graph was built
+Recipe = Tuple[str, Tuple[Any, ...], Dict[str, Any]]
+
+
+def from_recipe(recipe: Recipe) -> "TaskGraph":
+    """The graph a recorded builder call gives when made again: the
+    builder's result, or its ``.graph`` when it returns a model DAG."""
+    import importlib
+
+    path, args, kwargs = recipe
+    module, _, name = path.partition(":")
+    built = getattr(importlib.import_module(module), name)(*args, **kwargs)
+    return getattr(built, "graph", built)
+
+
 class TaskGraph:
     """A validated DAG of tasks plus the topological utilities schedulers use.
 
@@ -215,6 +231,10 @@ class TaskGraph:
 
     def __init__(self, tasks: Iterable[Task] = (), name: str = "dag"):
         self.name = name
+        # how to build this graph again in another process (its task fns
+        # are closures and do not pickle): set by the DAG builders that
+        # record one; see :func:`from_recipe`
+        self.recipe: Optional[Recipe] = None
         self._tasks: Dict[str, Task] = {}
         self._dependents: Dict[str, List[str]] = {}
         self._param_gb: Dict[str, float] = {}

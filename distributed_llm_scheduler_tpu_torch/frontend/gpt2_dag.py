@@ -363,6 +363,9 @@ def build_gpt2_dag(
         return out
 
     graph = TaskGraph(tasks, name=name).freeze()
+    graph.recipe = (f"{__name__}:build_gpt2_dag", (), dict(
+        config=config, batch=batch, seq_len=seq_len, microbatches=microbatches,
+        vocab_shards=vocab_shards, effective_flops=effective_flops))
     return ModelDAG(
         graph=graph,
         config=config,

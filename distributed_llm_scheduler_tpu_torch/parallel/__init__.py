@@ -3,7 +3,9 @@
 The JAX package runs its parallel layer SPMD from one process over a
 ``jax.sharding.Mesh`` and lets GSPMD insert most collectives; the port
 runs one process per device (:mod:`.launch`: NCCL on the cards, gloo on
-the CPU) and writes every collective out (:mod:`.collectives`).  Ported:
+the CPU; ``spawn`` for one call, a ``World`` that lives for many, as the
+compiled rung over several cards keeps one) and writes every collective
+out (:mod:`.collectives`).  Ported:
 
 * :mod:`.mesh` — ``make_mesh`` (a ``(dp, sp, tp)`` mesh of ranks with a
   process group per axis) and ``factorize_mesh``;

@@ -7,9 +7,11 @@ output must equal the planned path's bit for bit on every placement, as the JAX 
 (``tests/test_compiled_schedule.py:79``), stay equal over repeated runs and
 executes, and count the exchanges the JAX compiled run counts (one per
 value and destination node).  The combinations the reference refuses are
-refused with its message, and a cluster whose nodes span two devices is
-refused (the several-card compiled rung waits for ``parallel/``).  The
-captured form runs only on a card (``tests/test_torch_cuda.py``).
+refused with its message, and a graph without a recipe whose nodes span
+two cards is refused (the several-card rung, ``tests/
+test_torch_compiled_world.py``, rebuilds the graph in each card's
+process).  The captured form runs only on a card
+(``tests/test_torch_cuda.py``).
 """
 
 import jax
@@ -151,16 +153,26 @@ def test_stream_params_is_refused(tiny):
     assert {d.code for d in e.value.report.diagnostics} & {"STR002", "STR003"}
 
 
-def test_a_cluster_over_two_cards_is_refused(tiny):
-    """Nothing touches a card: the refusal comes before any placement."""
+def test_a_cluster_over_two_cards_is_refused(tiny, monkeypatch):
+    """Over two cards the rung runs a process per card, and each rebuilds
+    the graph from its recipe: a graph without one is refused before any
+    placement, so nothing touches a card and no process starts."""
+    from distributed_llm_scheduler_tpu_torch.parallel import launch
+
+    def no_world(self, *a, **k):
+        raise AssertionError("a refused schedule started a world")
+
+    monkeypatch.setattr(launch.World, "__init__", no_world)
+    graph = P.build_gpt2_dag(P.GPT2Config.tiny(), **KW).graph
+    graph.recipe = None
     tc = P.Cluster([
         P.DeviceState(f"core_{i}", 8.0, torch_device=torch.device("cuda", i))
         for i in range(2)
     ])
-    ts = P.get_scheduler("roundrobin").schedule(tiny["tg"], tc)
-    with pytest.raises(ValueError, match="ROADMAP.md A.11"):
+    ts = P.get_scheduler("roundrobin").schedule(graph, tc)
+    with pytest.raises(ValueError, match="recipe"):
         P.DeviceBackend(tc).execute(
-            tiny["tg"], ts, tiny["tparams"], torch.from_numpy(tiny["ids"]),
+            graph, ts, tiny["tparams"], torch.from_numpy(tiny["ids"]),
             compiled=True)
 
 

@@ -2088,3 +2088,111 @@ def test_sequence_parallel_on_the_cards(cuda):
     want = reference_causal_attention(*(torch.from_numpy(t) for t in (q, k, v)))
     np.testing.assert_allclose(ring, want.numpy(), rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(uly, want.numpy(), rtol=1e-4, atol=1e-4)
+
+
+def _world_case(cards: int, world: bool = False):
+    """GPT-2 tiny f32 placed by ``heft`` on 4 nodes over ``cards`` cards
+    (node i on card i % cards), params and ids on the host."""
+    import distributed_llm_scheduler_tpu_torch as P
+
+    dag = P.build_gpt2_dag(P.GPT2Config.tiny(), batch=2, seq_len=16,
+                           microbatches=2, vocab_shards=2)
+    tc = P.Cluster.from_torch_devices(
+        [torch.device("cuda", i % cards) for i in range(4)], hbm_cap_gb=4.0)
+    ts = P.get_scheduler("heft").schedule(dag.graph, tc)
+    return (dag, P.DeviceBackend(tc, world=world), ts,
+            dag.init_params(device="cpu"), dag.make_inputs(device="cpu"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cards", [1, 2])
+def test_compiled_world_on_the_cards_equals_planned(cuda, cards):
+    """The compiled rung over ``cards`` cards (a world of one process per
+    card, each replaying its captured share; on one card a world of one)
+    bit-equal to the planned rung in this process, within the launch
+    bound, with each rank's flash and LayerNorm kernels run.  Two cards
+    need the four-card machine."""
+    if torch.cuda.device_count() < cards:
+        pytest.skip(f"needs {cards} cards")
+    dag, backend, ts, params, ids = _world_case(cards, world=True)
+    try:
+        planned = backend.execute(dag.graph, ts, params, ids)
+        comp = backend.execute(dag.graph, ts, params, ids, compiled=True)
+        assert comp.world["ranks"] == cards
+        assert torch.equal(comp.output.cpu(), planned.output.cpu())
+        assert comp.n_dispatches <= 2
+        for ran in comp.world["ran_by_rank"]:
+            assert ran.get("flash_attention", 0) > 0
+            assert ran.get("layer_norm", 0) > 0
+    finally:
+        backend.close()
+
+
+@pytest.mark.cuda
+def test_compiled_world_cache_hit_starts_no_world(cuda, monkeypatch):
+    """A second execute of the cached program replays in the same world;
+    a param updated in place reaches the ranks' captured graphs before the
+    next replay, with no new world; close() stops its ranks."""
+    import os
+
+    from distributed_llm_scheduler_tpu_torch.parallel import launch
+
+    cards = min(torch.cuda.device_count(), 2)
+    started = []
+    real = launch.World.__init__
+
+    def counting(self, *a, **k):
+        started.append(a)
+        real(self, *a, **k)
+
+    monkeypatch.setattr(launch.World, "__init__", counting)
+    dag, backend, ts, params, ids = _world_case(cards, world=True)
+    first = backend.execute(dag.graph, ts, params, ids, compiled=True)
+    out = first.output.clone()
+    again = backend.execute(dag.graph, ts, params, ids, compiled=True,
+                            warmup=False, reps=3)
+    assert len(started) == 1 and torch.equal(again.output, out)
+    with torch.no_grad():
+        params["ln_f_g"].mul_(1.5)
+    updated = backend.execute(dag.graph, ts, params, ids, compiled=True,
+                              warmup=False).output.clone()
+    planned = backend.execute(dag.graph, ts, params, ids).output
+    assert len(started) == 1
+    assert torch.equal(updated.cpu(), planned.cpu())
+    assert not torch.equal(updated, out)
+    (prog,) = backend._prog_cache[dag.graph].values()
+    pids = prog.world.pids()
+    backend.close()
+    for pid in pids:
+        with pytest.raises(ProcessLookupError):
+            os.kill(pid, 0)
+
+
+@pytest.mark.cuda
+def test_rebatched_segments_are_allclose_to_planned_on_the_card(cuda):
+    """The compiled bench's shape on one card (2 layers): segments without
+    re-batching are bit-equal to the planned rung; re-batched ones run
+    other GEMM shapes and are held to it at the reference's cross-path
+    tolerance, which is why the bench's bit-identity check reads the
+    first and its makespan gate the second."""
+    import dataclasses
+
+    import distributed_llm_scheduler_tpu_torch as P
+    from distributed_llm_scheduler_tpu_torch.eval import compiled_bench as CB
+
+    dag = P.build_gpt2_dag(
+        dataclasses.replace(P.GPT2Config.tiny(), n_layer=2), batch=8,
+        seq_len=8, microbatches=8, vocab_shards=8)
+    dev = torch.device("cuda", 0)
+    tc = P.Cluster.from_torch_devices([dev], hbm_cap_gb=4.0)
+    ts = P.get_scheduler("roundrobin").schedule(dag.graph, tc)
+    params, ids = dag.init_params(device=dev), dag.make_inputs(device=dev)
+    backend = P.DeviceBackend(tc)
+    planned = backend.execute(dag.graph, ts, params, ids).output.cpu()
+    plain = backend.execute(dag.graph, ts, params, ids,
+                            **CB.SEGMENTED_BIT_IDENTITY).output.cpu()
+    rebatched = backend.execute(dag.graph, ts, params, ids,
+                                **CB.SEGMENTED).output.cpu()
+    assert torch.equal(plain, planned)
+    torch.testing.assert_close(rebatched, planned, rtol=CB.REBATCH_RTOL,
+                               atol=CB.REBATCH_ATOL)
