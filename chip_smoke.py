@@ -354,6 +354,33 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     segmented leg (the one the makespan gate reads) required allclose to
     planned, the timing gates' verdicts and legs recorded
     (``COMPILED_CARDS_LINE``).
+24. expert and pipeline parallelism: one ``parallel.launch.World`` of a
+    process per visible card (NCCL) runs :func:`expert_pipeline_rank`;
+    each rank's numbers come back.  a. the dp x ep Mixtral training step
+    (``parallel/expert.make_moe_train_step``; ep = the cards, dp the
+    rest) at Mixtral-8x7B widths, batch 2, seq 512, dense and routed
+    (capacity 2.0): bf16 at ``MOE_LAYERS`` layers, weights drawn on the
+    card tensor by tensor with each rank keeping its experts, 3 steps
+    with finite losses and each rank's flash and RMSNorm launches (one
+    forward's per step: the attention and norms run on every ep rank)
+    counted from 0, then ``PAR_TIMED_STEPS`` steps timed between CUDA
+    events; f32 at 1 layer, the 3 losses within rtol = atol = 1e-4 of the
+    unsharded per-expert step's (``models/mixtral.loss_fn``, the same
+    AdamW) on rank 0, and the routed forward's dropped slots at capacity
+    2.0 and at 0.5 (which must drop some) equal to the unsharded routed
+    forward's.  b. the GPipe training step of GPT-2
+    small f32 (``parallel/pipeline_pp.make_pp_train_step``: batch 8, seq
+    512, pp = the cards, 8 microbatches): 3 steps within 1e-4 of the
+    unsharded step's on rank 0, each stage rank launching flash ``L/S x
+    M`` and LayerNorm ``2 L/S x M + 1`` times a step (no fill or drain
+    step runs a layer; the head's norm on every rank), then timed as in
+    a.  c. the pipeline forward of Llama-3 8B widths at 8 layers, bf16,
+    batch 4, seq 512, 4 microbatches, against the plain forward on rank
+    0 under the bf16 oracle rule, timed between CUDA events.  Each leg's
+    peak GiB per rank.  d. ``train --model mixtral-tiny --routed --steps
+    2`` and ``train --model gpt2 --pp n --steps 2`` through the port's
+    ``__main__``: exit 0 and two ``step N: loss X`` lines
+    (``EXPERT_PIPELINE_LINE``).
 
 The last lines are one JSON object of per-kernel numbers (``launches`` is
 the count of the kernel's main path, ``launches_by_path`` each counted
@@ -392,6 +419,11 @@ the four-card machine) and prints its ``PARALLEL_LINE``.
 
 runs phase 23 alone over every visible card and prints its
 ``COMPILED_CARDS_LINE``.
+
+    python3 chip_smoke.py --expert-pipeline
+
+runs phase 24 alone over every visible card and prints its
+``EXPERT_PIPELINE_LINE``.
 
     python3 chip_smoke.py --preflight-passes [ROOT]
 
@@ -5384,9 +5416,9 @@ def _par_train(torch, dist, P, kernels, A, N, world) -> dict:
             state, loss = step(state, ids, tgt)
             losses.append(float(loss))
             if i == 1:
-                save_state(state, ckpt, mesh)
+                save_state(state, ckpt)
         launched = {k: kernels.launches.get(k, 0) for k in (A.KERNEL, N.LN_KERNEL)}
-        resumed = load_state(ckpt, init(params=whole), mesh)
+        resumed = load_state(ckpt, init(params=whole))
         if resumed.step != 2:
             raise AssertionError(f"resumed at step {resumed.step}, not 2")
         _, loss3 = step(resumed, ids, tgt)
@@ -5804,6 +5836,381 @@ def run_compiled_cards_path(torch, P, A, N) -> tuple:
     return line, counts
 
 
+# phase 24: expert and pipeline parallelism on torch.distributed, one world
+# of one process per card (parallel/launch.World over every visible card)
+# for legs a-c, each rank's launches, peak GiB and numbers gathered.  a:
+# the dp x ep Mixtral step at Mixtral-8x7B widths (ep = the cards, dp the
+# rest), batch 2, seq 512 (phase 18's), dense and routed (capacity 2.0):
+# bf16 at MOE_LAYERS layers, EP_CHECKED steps checked then PAR_TIMED_STEPS
+# timed; f32 at 1 layer, its losses held against the unsharded per-expert
+# step on rank 0 at PAR_TRAIN_TOL and its routed dropped slots equal.  b:
+# the GPipe training step of GPT-2 small f32 (config #5: batch 8, seq 512,
+# pp = the cards, 8 microbatches) against the unsharded step on rank 0.
+# c: the pipeline forward of Llama-3 8B widths at PP_LLAMA_LAYERS layers,
+# bf16, against the plain forward under the bf16 oracle rule.  d: the
+# CLI's train --model mixtral-tiny --routed and train --model gpt2 --pp n.
+EP_CHECKED = 3
+EP_BATCH = dict(batch=2, seq=512)
+EP_CAPACITY = 2.0
+EP_SQUEEZE = 0.5  # a capacity below the average load: the f32 leg's drops
+PP_TRAIN = dict(batch=8, seq=512, microbatches=8, steps=3)
+PP_LLAMA = dict(batch=4, seq=512, microbatches=4)
+PP_LLAMA_LAYERS = 8
+
+
+def _peak_gib(torch) -> float:
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def _expect(label: str, want: dict) -> dict:
+    """The flash, LayerNorm and RMSNorm launches that ran since the counts
+    were set to 0, which must equal ``want``."""
+    got = ran_counts(want)
+    if got != want:
+        raise AssertionError(f"{label}: launches {got} != {want}")
+    return got
+
+
+def _ep_batch(torch, cfg, dev):
+    from distributed_llm_scheduler_tpu_torch.parallel.train import train_batch
+
+    return tuple(torch.from_numpy(a).to(dev) for a in train_batch(
+        EP_BATCH["batch"], EP_BATCH["seq"], cfg.vocab_size))
+
+
+def _routed_stats_ref(torch, mixtral, params, ids, cfg, capacity) -> int:
+    """Dropped slots of the unsharded per-expert routed forward (the
+    models' own ``moe_routed`` with stats) at ``capacity``, summed over
+    the layers."""
+    dropped = 0
+    with torch.no_grad():
+        x = mixtral.embedding(ids, params["tok_emb"])
+        keys = mixtral._layer_keys(cfg)
+        for i in range(cfg.n_layers):
+            bp = {k: params[f"l{i}_{k}"] for k in keys}
+            h = mixtral.rms_norm(x, bp["attn_norm_g"], cfg.rms_eps)
+            x = x + mixtral.gqa_attention(h, bp["wq"], bp["wk"], bp["wv"],
+                                          bp["wo"], cfg.n_heads, cfg.n_kv_heads,
+                                          cfg.rope_theta)
+            h = mixtral.rms_norm(x, bp["ffn_norm_g"], cfg.rms_eps)
+            out, st = mixtral.moe_routed(bp, h, cfg, capacity, with_stats=True)
+            x = x + out
+            dropped += int(st["dropped_slots"])
+    return dropped
+
+
+def _ep_bf16(torch, dist, kernels, A, N, world) -> dict:
+    """Part a's bf16 legs on this rank: dense and routed."""
+    import functools
+
+    from distributed_llm_scheduler_tpu_torch.models import mixtral
+    from distributed_llm_scheduler_tpu_torch.parallel.expert import (
+        expert_mesh_axes, make_moe_train_step)
+    from distributed_llm_scheduler_tpu_torch.parallel.launch import device
+    from distributed_llm_scheduler_tpu_torch.parallel.mesh import make_axes_mesh
+
+    dev = device()
+    cfg = mixtral.MixtralConfig.mixtral_8x7b(n_layers=MOE_LAYERS,
+                                             dtype=torch.bfloat16)
+    dp, ep = expert_mesh_axes(cfg.n_experts, world)
+    mesh = make_axes_mesh(dp=dp, ep=ep)
+    ids, tgt = _ep_batch(torch, cfg, dev)
+    # the per-tensor update: foreach's list temporaries would not fit
+    # beside 4 layers' params, gradients and moments on one card
+    opt = functools.partial(torch.optim.AdamW, lr=3e-4, weight_decay=0.01,
+                            foreach=False)
+    out = {"mesh": {"dp": dp, "ep": ep}, "layers": MOE_LAYERS}
+    L = cfg.n_layers
+    for label, routed in (("dense", False), ("routed", True)):
+        torch.cuda.reset_peak_memory_stats()
+        step, init = make_moe_train_step(cfg, mesh, optimizer=opt, routed=routed,
+                                         capacity_factor=EP_CAPACITY)
+        state = init(params=mixtral.iter_params_torch(cfg, 0, dev))
+        kernels.reset_launches()
+        losses = [float(step(state, ids, tgt)[1]) for _ in range(EP_CHECKED)]
+        launched = _expect(f"a. {label} bf16", {
+            A.KERNEL: L * EP_CHECKED, N.LN_KERNEL: 0,
+            N.RMS_KERNEL: (2 * L + 1) * EP_CHECKED})
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"a. {label} bf16 losses {losses}")
+        ms = [_cuda_ms(torch, lambda: step(state, ids, tgt))[1]
+              for _ in range(PAR_TIMED_STEPS)]
+        out[label] = {"losses": losses, "launches": launched,
+                      "step_ms": ms, "step_ms_median": statistics.median(ms),
+                      "step_ms_min": min(ms), "step_ms_max": max(ms),
+                      "peak_gib": _peak_gib(torch)}
+        del state, step, init
+        torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def _ep_f32(torch, dist, kernels, A, N, world) -> dict:
+    """Part a's f32 leg at 1 layer: dense and routed EP steps, each held
+    against the unsharded per-expert step on rank 0; the routed forward's
+    dropped slots against the unsharded routed forward's."""
+    from distributed_llm_scheduler_tpu_torch.models import mixtral
+    from distributed_llm_scheduler_tpu_torch.parallel.expert import (
+        expert_mesh_axes, forward_ep_stats, make_moe_train_step)
+    from distributed_llm_scheduler_tpu_torch.parallel.launch import device
+    from distributed_llm_scheduler_tpu_torch.parallel.mesh import (
+        make_axes_mesh, make_mesh)
+    from distributed_llm_scheduler_tpu_torch.parallel.sharding import Sharding
+    from distributed_llm_scheduler_tpu_torch.parallel.train import make_step_from_loss
+
+    rank, dev = dist.get_rank(), device()
+    cfg = mixtral.MixtralConfig.mixtral_8x7b(n_layers=1)
+    dp, ep = expert_mesh_axes(cfg.n_experts, world)
+    mesh = make_axes_mesh(dp=dp, ep=ep)
+    ids, tgt = _ep_batch(torch, cfg, dev)
+    out = {}
+    for label, routed in (("dense", False), ("routed", True)):
+        step, init = make_moe_train_step(cfg, mesh, routed=routed,
+                                         capacity_factor=EP_CAPACITY)
+        state = init(params=mixtral.iter_params_torch(cfg, 0, dev))
+        row = {}
+        if routed:  # the drops at the training capacity and at the squeeze
+            row["dropped_slots"], row["total_slots"] = [], 0
+            for cf in (EP_CAPACITY, EP_SQUEEZE):
+                with torch.no_grad():
+                    _, st = forward_ep_stats(
+                        state.params, Sharding(mesh, ("dp", None)).shard(ids),
+                        cfg, cf, mesh=mesh)
+                row["dropped_slots"].append(int(st["dropped_slots"]))
+                row["total_slots"] = int(st["total_slots"])
+        row["losses"] = [float(step(state, ids, tgt)[1]) for _ in range(EP_CHECKED)]
+        del state, step, init
+        torch.cuda.empty_cache()
+        if rank == 0:  # the per-expert model, one device, the same AdamW
+            whole = mixtral.init_params_torch(cfg, 0, dev)
+
+            def loss(p, i, t):
+                return mixtral.loss_fn(p, i, t, cfg, routed=routed,
+                                       capacity_factor=EP_CAPACITY)
+
+            if routed:
+                row["unsharded_dropped_slots"] = [
+                    _routed_stats_ref(torch, mixtral, whole, ids, cfg, cf)
+                    for cf in (EP_CAPACITY, EP_SQUEEZE)]
+            ref_step, ref_init = make_step_from_loss(
+                loss, lambda seed, p: {k: v for k, v in whole.items()})
+            ref = ref_init()
+            row["unsharded_losses"] = [float(ref_step(ref, ids, tgt)[1])
+                                       for _ in range(EP_CHECKED)]
+            del ref, whole, ref_step, ref_init
+            torch.cuda.empty_cache()
+            for a, b in zip(row["losses"], row["unsharded_losses"]):
+                if abs(a - b) > PAR_TRAIN_TOL + PAR_TRAIN_TOL * abs(b):
+                    raise AssertionError(f"a. f32 {label}: EP losses {row['losses']} "
+                                         f"off the unsharded {row['unsharded_losses']}")
+            if routed and (row["dropped_slots"] != row["unsharded_dropped_slots"]
+                           or not row["dropped_slots"][1]):
+                raise AssertionError(f"a. f32 routed: {row['dropped_slots']} slots "
+                                     f"dropped at capacities {EP_CAPACITY} and "
+                                     f"{EP_SQUEEZE}, unsharded "
+                                     f"{row['unsharded_dropped_slots']}")
+        out[label] = row
+        dist.barrier()
+    return out
+
+
+def _pp_train(torch, dist, kernels, A, N, world) -> dict:
+    """Part b on this rank."""
+    from distributed_llm_scheduler_tpu_torch.models import gpt2
+    from distributed_llm_scheduler_tpu_torch.parallel import train as T
+    from distributed_llm_scheduler_tpu_torch.parallel.launch import device
+    from distributed_llm_scheduler_tpu_torch.parallel.mesh import (
+        make_axes_mesh, make_mesh)
+    from distributed_llm_scheduler_tpu_torch.parallel.pipeline_pp import (
+        make_pp_train_step)
+
+    rank, dev = dist.get_rank(), device()
+    cfg = gpt2.GPT2Config.small()
+    S, M = world, PP_TRAIN["microbatches"]
+    mesh = make_axes_mesh(pp=S)
+    whole = gpt2.init_params_numpy(cfg, 0)
+    ids, tgt = (torch.from_numpy(a).to(dev) for a in T.train_batch(
+        PP_TRAIN["batch"], PP_TRAIN["seq"], cfg.vocab_size))
+    torch.cuda.reset_peak_memory_stats()
+    step, init = make_pp_train_step(cfg, mesh, M)
+    state = init(params=whole)
+    kernels.reset_launches()
+    losses = [float(step(state, ids, tgt)[1]) for _ in range(PP_TRAIN["steps"])]
+    per = cfg.n_layer // S
+    launched = _expect("b. pipeline step", {
+        A.KERNEL: per * M * PP_TRAIN["steps"], N.RMS_KERNEL: 0,
+        N.LN_KERNEL: (2 * per * M + 1) * PP_TRAIN["steps"]})
+    ms = [_cuda_ms(torch, lambda: step(state, ids, tgt))[1]
+          for _ in range(PAR_TIMED_STEPS)]
+    out = {"pp": S, "microbatches": M, "losses": losses, "launches": launched,
+           "step_ms": ms, "step_ms_median": statistics.median(ms),
+           "step_ms_min": min(ms), "step_ms_max": max(ms),
+           "peak_gib": _peak_gib(torch)}
+    del state, step, init
+    torch.cuda.empty_cache()
+    if rank == 0:  # the unsharded step on the same weights
+        ref_step, ref_init = T.make_train_step(cfg, make_mesh())
+        ref = ref_init(params=whole)
+        out["unsharded_losses"] = [float(ref_step(ref, ids, tgt)[1])
+                                   for _ in range(PP_TRAIN["steps"])]
+        del ref
+        torch.cuda.empty_cache()
+        for a, b in zip(losses, out["unsharded_losses"]):
+            if abs(a - b) > PAR_TRAIN_TOL + PAR_TRAIN_TOL * abs(b):
+                raise AssertionError(f"b. pipeline losses {losses} off the "
+                                     f"unsharded {out['unsharded_losses']}")
+    dist.barrier()
+    return out
+
+
+def _pp_llama(torch, dist, kernels, A, N, world) -> dict:
+    """Part c on this rank."""
+    from distributed_llm_scheduler_tpu_torch.eval.decode_bench import prompt_ids
+    from distributed_llm_scheduler_tpu_torch.models import llama
+    from distributed_llm_scheduler_tpu_torch.parallel.launch import device
+    from distributed_llm_scheduler_tpu_torch.parallel.mesh import make_axes_mesh
+    from distributed_llm_scheduler_tpu_torch.parallel.pipeline_pp import (
+        pipeline_forward, stage_param_names)
+
+    rank, dev = dist.get_rank(), device()
+    cfg = llama.LlamaConfig.llama3_8b(n_layers=PP_LLAMA_LAYERS,
+                                      dtype=torch.bfloat16)
+    S, M = world, PP_LLAMA["microbatches"]
+    mesh = make_axes_mesh(pp=S)
+    keep = set(stage_param_names(cfg, S, rank))
+    params = {k: v for k, v in llama.iter_params_torch(cfg, 0, dev)
+              if rank == 0 or k in keep}
+    ids = prompt_ids(cfg, PP_LLAMA["batch"], PP_LLAMA["seq"], dev)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        pipeline_forward(params, ids, cfg, mesh, M)  # opens the hops' channels
+        kernels.reset_launches()
+        logits, ms = _cuda_ms(torch, lambda: pipeline_forward(params, ids, cfg,
+                                                              mesh, M))
+    per = cfg.n_layers // S
+    launched = _expect("c. Llama pipeline forward", {
+        A.KERNEL: per * M, N.LN_KERNEL: 0, N.RMS_KERNEL: 2 * per * M + 1})
+    out = {"pp": S, "microbatches": M, "layers": PP_LLAMA_LAYERS, "ms": ms,
+           "launches": launched, "peak_gib": _peak_gib(torch)}
+    if rank == 0:
+        with torch.no_grad():
+            want, plain_ms = _cuda_ms(torch, lambda: llama.forward(params, ids, cfg))
+        ok, viol, allowed, rel = oracle_close(want, logits)
+        out.update(plain_ms=plain_ms, oracle_ok=ok, violations=viol,
+                   allowed=allowed, rel_fro=rel)
+        if not ok:
+            raise AssertionError(f"c. Llama pipeline logits off the plain forward: "
+                                 f"{viol} > {allowed} outside the band, rel {rel}")
+        del want
+    del params, logits
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def expert_pipeline_rank() -> dict:
+    """Phase 24 a-c on one rank of the world (every card); each rank's
+    numbers come back to :func:`run_expert_pipeline_path`."""
+    import torch
+    import torch.distributed as dist
+
+    from distributed_llm_scheduler_tpu_torch.ops import attention as A
+    from distributed_llm_scheduler_tpu_torch.ops import kernels
+    from distributed_llm_scheduler_tpu_torch.ops import norms as N
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    world = dist.get_world_size()
+    out = {"rank": dist.get_rank(), "world": world, "backend": dist.get_backend()}
+    for key, leg in (("moe_bf16", _ep_bf16), ("moe_f32", _ep_f32),
+                     ("pp_train", _pp_train), ("pp_llama", _pp_llama)):
+        t = time.perf_counter()
+        out[key] = leg(torch, dist, kernels, A, N, world)
+        out[key]["seconds"] = time.perf_counter() - t
+    return out
+
+
+def run_expert_pipeline_path(torch, A, N) -> tuple:
+    """Phase 24: :func:`expert_pipeline_rank` on every visible card in one
+    ``parallel.launch.World``, then part d through the port's
+    ``__main__``.  Returns (EXPERT_PIPELINE_LINE dict, {run: {kernel:
+    launches per rank}})."""
+    from distributed_llm_scheduler_tpu_torch.__main__ import main
+    from distributed_llm_scheduler_tpu_torch.parallel import launch
+
+    n = torch.cuda.device_count()
+    log(f"  a world of {n} (one process per card, NCCL)")
+    t = time.perf_counter()
+    w = launch.World(n, timeout=900)
+    try:
+        ranks = w.call(expert_pipeline_rank)
+    finally:
+        w.close()
+    r0 = ranks[0]
+    line = {"world": r0["world"], "backend": r0["backend"],
+            "start_s": w.start_s, "world_s": time.perf_counter() - t}
+    for key in ("moe_bf16", "moe_f32", "pp_train", "pp_llama"):
+        line[key] = r0[key]
+    gib = line["peak_gib_per_rank"] = {
+        "moe_bf16 dense": [r["moe_bf16"]["dense"]["peak_gib"] for r in ranks],
+        "moe_bf16 routed": [r["moe_bf16"]["routed"]["peak_gib"] for r in ranks],
+        "pp_train": [r["pp_train"]["peak_gib"] for r in ranks],
+        "pp_llama": [r["pp_llama"]["peak_gib"] for r in ranks]}
+    counts = {}
+    for r in ranks:
+        for key, sub in (("moe_bf16", "dense"), ("moe_bf16", "routed")):
+            counts[f"moe {sub} bf16 rank {r['rank']}"] = r[key][sub]["launches"]
+        counts[f"pp train rank {r['rank']}"] = r["pp_train"]["launches"]
+        counts[f"pp llama rank {r['rank']}"] = r["pp_llama"]["launches"]
+    mb, f32, pt, pl = (line[k] for k in ("moe_bf16", "moe_f32", "pp_train", "pp_llama"))
+    log(f"  world {line['world']} ({line['backend']}) of {n} cards, started in "
+        f"{line['start_s']:.1f} s")
+    for sub in ("dense", "routed"):
+        r = mb[sub]
+        log(f"  a. Mixtral-8x7B widths, {MOE_LAYERS} layers, bf16, {sub}, mesh "
+            f"{mb['mesh']}: losses {r['losses']}; ms per step (median of "
+            f"{len(r['step_ms'])}) {r['step_ms_median']:.2f}, range "
+            f"{r['step_ms_min']:.2f}-{r['step_ms_max']:.2f}; launches per rank "
+            f"over {EP_CHECKED} steps {r['launches']}; peak GiB per rank "
+            f"{gib['moe_bf16 ' + sub]}")
+    for sub in ("dense", "routed"):
+        log(f"  a. f32, 1 layer, {sub}: EP losses {f32[sub]['losses']} vs "
+            f"unsharded {f32[sub]['unsharded_losses']}"
+            + (f"; dropped slots at capacity {EP_CAPACITY} and {EP_SQUEEZE} "
+               f"{f32[sub]['dropped_slots']} of {f32[sub]['total_slots']} "
+               f"(unsharded {f32[sub]['unsharded_dropped_slots']})"
+               if sub == "routed" else ""))
+    log(f"  b. GPT-2 small f32 pipeline, pp {pt['pp']}, {pt['microbatches']} "
+        f"microbatches: losses {pt['losses']} vs unsharded {pt['unsharded_losses']}; "
+        f"peak GiB per rank {gib['pp_train']}; "
+        f"ms per step (median of {len(pt['step_ms'])}) {pt['step_ms_median']:.2f}, "
+        f"range {pt['step_ms_min']:.2f}-{pt['step_ms_max']:.2f} (phase 22 times the "
+        f"dp x tp step on the same batch); launches per rank "
+        f"{pt['launches']}")
+    log(f"  c. Llama-3 8B widths, {pl['layers']} layers, bf16 pipeline forward, pp "
+        f"{pl['pp']}: {pl['ms']:.2f} ms (plain {pl['plain_ms']:.2f}), oracle "
+        f"{pl['oracle_ok']} (rel_fro {pl['rel_fro']:.3e}, {pl['violations']} "
+        f"outside the band); launches per rank {pl['launches']}; peak GiB per "
+        f"rank {gib['pp_llama']}")
+    # d. the CLI on the card: each command starts its own world
+    line["cli"] = {}
+    for label, argv in (
+            ("mixtral-tiny routed", ["train", "--model", "mixtral-tiny",
+                                     "--routed", "--steps", "2"]),
+            (f"gpt2 pp {n}", ["train", "--model", "gpt2", "--pp", str(n),
+                              "--steps", "2"])):
+        rc, out, err, wall, _ = cli_call(torch, main, argv)
+        steps = [ln for ln in out.splitlines() if ln.startswith("step ")]
+        if rc != 0 or [ln.split(":")[0] for ln in steps] != ["step 1", "step 2"]:
+            raise AssertionError(f"d. `{' '.join(argv)}` exited {rc}: {out!r} "
+                                 f"{err[-2000:]!r}")
+        line["cli"][label] = {"exit": rc, "stdout": steps, "wall_s": wall,
+                              "stderr_last": err.strip().splitlines()[-1:]}
+        log(f"  d. `{' '.join(argv)}`: exit 0, {steps}, {wall:.1f} s")
+    line["launches_per_rank"] = counts
+    return line, counts
+
+
 def compiled_cards_only() -> int:
     """``python3 chip_smoke.py --compiled-cards``: phase 23 alone over every
     visible card (the kernels built first), its ``COMPILED_CARDS_LINE`` and
@@ -6095,6 +6502,35 @@ def parallel_only() -> int:
     return 0
 
 
+def expert_pipeline_only() -> int:
+    """``python3 chip_smoke.py --expert-pipeline``: phase 24 alone over
+    every visible card (the kernels built first), its
+    ``EXPERT_PIPELINE_LINE`` and the card's name and power limit."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from distributed_llm_scheduler_tpu_torch.ops import attention as A
+    from distributed_llm_scheduler_tpu_torch.ops import kernels
+    from distributed_llm_scheduler_tpu_torch.ops import norms as N
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = nvidia_smi_line()
+    secs = kernels.build(A.KERNEL, N.SOURCE)
+    log(f"built {A.KERNEL}.cu, {N.SOURCE}.cu in {secs:.1f} s; {smi}")
+    t = time.perf_counter()
+    line, _ = run_expert_pipeline_path(torch, A, N)
+    line["seconds"] = time.perf_counter() - t
+    line["card"] = smi
+    print("EXPERT_PIPELINE_LINE " + json.dumps(line), flush=True)
+    log(f"  phase 24 in {line['seconds']:.1f} s")
+    print(smi, flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -6111,6 +6547,8 @@ def main() -> int:
         return parallel_only()
     if sys.argv[1:2] == ["--compiled-cards"]:
         return compiled_cards_only()
+    if sys.argv[1:2] == ["--expert-pipeline"]:
+        return expert_pipeline_only()
     if sys.argv[1:2] == ["--preflight-passes"]:
         return preflight_passes(Path(sys.argv[2]) if len(sys.argv) > 2
                                 else ROOT)
@@ -6127,7 +6565,7 @@ def main() -> int:
     t_all = time.perf_counter()
     dev = torch.device("cuda", 0)
     smi = nvidia_smi_line()
-    log(f"[1/23] device: {torch.cuda.get_device_name(0)} ({smi}); torch "
+    log(f"[1/24] device: {torch.cuda.get_device_name(0)} ({smi}); torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -6135,7 +6573,7 @@ def main() -> int:
 
     sources = (A.KERNEL, A.PAGED_SOURCE, N.SOURCE)
     secs = kernels.build(*sources)
-    log(f"[2/23] built {', '.join(f'{n}.cu' for n in sources)} with "
+    log(f"[2/24] built {', '.join(f'{n}.cu' for n in sources)} with "
         f"{kernels.nvcc_path()} for sm_90a in {secs:.1f} s (in parallel)")
     log_ptxas(kernels.build_logs.get(A.KERNEL, ""))
     log_ptxas(kernels.build_logs.get(A.PAGED_SOURCE, ""),
@@ -6147,59 +6585,59 @@ def main() -> int:
                     if "paged_ragged_tc" in k]
     norm_ptxas = log_norm_ptxas(kernels.build_logs.get(N.SOURCE, ""))
 
-    log("[3/23] flash kernel check against its plain version")
+    log("[3/24] flash kernel check against its plain version")
     attn = check_attention_kernel(
         torch, A, dev, P.LlamaConfig.llama3_8b(dtype=torch.bfloat16))
 
-    log("[4/23] paged kernel check against the plain versions")
+    log("[4/24] paged kernel check against the plain versions")
     paged = check_paged_kernels(torch, A, DB, dev)
     ragged_n = run_ragged_op_path(torch, A, DB, dev)
 
-    log("[5/23] LayerNorm and RMSNorm kernel check against the plain versions")
+    log("[5/24] LayerNorm and RMSNorm kernel check against the plain versions")
     norms = check_norm_kernels(torch, N, dev)
 
     def phase_done():  # free the phase's tensors before the next one
         gc_cuda(torch)
 
-    log("[6/23] flagship forward path: GPT-2 small bf16 DAG on the card")
+    log("[6/24] flagship forward path: GPT-2 small bf16 DAG on the card")
     gpt2_n = run_main_path(torch, P, dev)
     phase_done()
 
-    log("[7/23] execution ladder: the flagship per task, planned, coalesced, "
+    log("[7/24] execution ladder: the flagship per task, planned, coalesced, "
         "segmented and compiled")
     ladder_n = run_ladder_path(torch, P, dev)
     phase_done()
 
-    log("[8/23] north-star bench: GPT-2 small bf16, 10 policies replayed")
+    log("[8/24] north-star bench: GPT-2 small bf16, 10 policies replayed")
     bench_n, bench_result = run_bench_path(torch, P, dev)
     phase_done()
 
-    log("[9/23] serve path: GPT-2 small bf16 through the paged decode engine")
+    log("[9/24] serve path: GPT-2 small bf16 through the paged decode engine")
     serve_launches, serve_ragged, serve_ln, serve_tr, served = run_serve_path(
         torch, P, A, dev)
     phase_done()
 
-    log("[10/23] Llama path: Llama-3 8B bf16 DAG, pipeline stages, on the card")
+    log("[10/24] Llama path: Llama-3 8B bf16 DAG, pipeline stages, on the card")
     llama_n = run_llama_path(torch, P, dev)
     phase_done()
 
-    log("[11/23] f32 leg: GPT-2 placed on the card vs fused on the CPU")
+    log("[11/24] f32 leg: GPT-2 placed on the card vs fused on the CPU")
     run_f32_leg(torch, P, dev)
 
-    log("[12/23] f32 serve leg: the engine on the card vs on the CPU")
+    log("[12/24] f32 serve leg: the engine on the card vs on the CPU")
     run_f32_serve_leg(torch, P, dev)
     phase_done()
 
-    log("[13/23] f32 Llama leg: placed on the card vs fused on the CPU")
+    log("[13/24] f32 Llama leg: placed on the card vs fused on the CPU")
     run_llama_f32_leg(torch, P, dev)
     phase_done()
 
-    log("[14/23] parameter streaming: GPT-2 medium and the flagship under "
+    log("[14/24] parameter streaming: GPT-2 medium and the flagship under "
         "budgets below their params")
     stream_n = run_stream_path(torch, P, dev)
     phase_done()
 
-    log("[15/23] online serving: the serve bench on the card, then the "
+    log("[15/24] online serving: the serve bench on the card, then the "
         "frontend over GPT-2 small bf16 on a real clock")
     t15 = time.perf_counter()
     bench_on_card = run_serve_bench_on_card(torch, dev)
@@ -6209,7 +6647,7 @@ def main() -> int:
     log(f"  phase 15 in {time.perf_counter() - t15:.1f} s")
     phase_done()
 
-    log("[16/23] run doctor: the flagship and the engine traced, the soak "
+    log("[16/24] run doctor: the flagship and the engine traced, the soak "
         "doctor and the health-routed fleet")
     t16 = time.perf_counter()
     doctor, doctor_n = run_doctor_path(torch, P, A, dev, served)
@@ -6220,7 +6658,7 @@ def main() -> int:
     del served
     phase_done()
 
-    log("[17/23] searched placements: the bench's refine and search "
+    log("[17/24] searched placements: the bench's refine and search "
         "placements on the card, the pre-execution gate and analyze()")
     t17 = time.perf_counter()
     searched, search_n = run_search_phase(torch, P, A, N, dev, bench_result)
@@ -6231,14 +6669,14 @@ def main() -> int:
     del bench_result
     phase_done()
 
-    log("[18/23] BASELINE.json configs #5 and #4: the GPT-2 training step "
+    log("[18/24] BASELINE.json configs #5 and #4: the GPT-2 training step "
         "and the Mixtral-8x7B MoE forward")
     t18 = time.perf_counter()
     train, train_n, moe, moe_n = run_baseline_configs(torch, P, A, N, dev)
     log(f"  phase 18 in {time.perf_counter() - t18:.1f} s")
     phase_done()
 
-    log("[19/23] decoding: Llama-3 8B and Mixtral through generate and the "
+    log("[19/24] decoding: Llama-3 8B and Mixtral through generate and the "
         "decode-step DAG, GPT-2 small through the decode bench")
     t19 = time.perf_counter()
     decoded, decode_n, decode_norms = run_decode_path(torch, P, A, N, dev)
@@ -6247,7 +6685,7 @@ def main() -> int:
     log(f"  phase 19 in {decoded['seconds']:.1f} s")
     phase_done()
 
-    log("[20/23] the command line on the card: execute, trace, metrics, "
+    log("[20/24] the command line on the card: execute, trace, metrics, "
         "generate, schedule and the serving commands through the port's "
         "__main__")
     t20 = time.perf_counter()
@@ -6258,7 +6696,7 @@ def main() -> int:
     log(f"  phase 20 in {cli_line['seconds']:.1f} s")
     phase_done()
 
-    log("[21/23] the pre-flight lint and the sim-against-card rank check: "
+    log("[21/24] the pre-flight lint and the sim-against-card rank check: "
         "lint, lint --preflight, lint --serving and rankcheck through the "
         "port's __main__, run_rank_check on 8 nodes of the card, the tracer")
     t21 = time.perf_counter()
@@ -6269,7 +6707,7 @@ def main() -> int:
     log(f"  phase 21 in {lint_line['seconds']:.1f} s")
     phase_done()
 
-    log("[22/23] the parallel layer on torch.distributed: the dp x tp GPT-2 "
+    log("[22/24] the parallel layer on torch.distributed: the dp x tp GPT-2 "
         "training step and its checkpoint, Llama-3 8B tensor-parallel "
         "decode, ring and Ulysses attention, one process per card")
     par_line, par_n = run_parallel_path(torch, A, N)
@@ -6278,7 +6716,7 @@ def main() -> int:
     log(f"  phase 22 in {par_line['seconds']:.1f} s")
     phase_done()
 
-    log("[23/23] the compiled rung over the cards: the flagship in a world "
+    log("[23/24] the compiled rung over the cards: the flagship in a world "
         "of one process per card against the planned rung, and the "
         "ladder's two benches")
     t23 = time.perf_counter()
@@ -6287,6 +6725,17 @@ def main() -> int:
     cc_line["card"] = smi
     print("COMPILED_CARDS_LINE " + json.dumps(cc_line), flush=True)
     log(f"  phase 23 in {cc_line['seconds']:.1f} s")
+    phase_done()
+
+    log("[24/24] expert and pipeline parallelism: the dp x ep Mixtral step, "
+        "dense and routed, the GPipe GPT-2 step and Llama forward, one "
+        "process per card, and the train command's two new paths")
+    t24 = time.perf_counter()
+    ep_line, ep_n = run_expert_pipeline_path(torch, A, N)
+    ep_line["seconds"] = time.perf_counter() - t24
+    ep_line["card"] = smi
+    print("EXPERT_PIPELINE_LINE " + json.dumps(ep_line), flush=True)
+    log(f"  phase 24 in {ep_line['seconds']:.1f} s")
 
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
 
@@ -6301,7 +6750,8 @@ def main() -> int:
     runs = (("gpt2", gpt2_n), ("ladder", ladder_n), ("bench", bench_n),
             ("llama", llama_n), ("stream", stream_n), ("run", doctor_n),
             ("searched", search_n), ("decode", decode_n), ("cli", cli_n),
-            ("lint", lint_n), ("parallel", par_n), ("compiled cards", cc_n))
+            ("lint", lint_n), ("parallel", par_n), ("compiled cards", cc_n),
+            ("expert pipeline", ep_n))
     line = {"kernels": [
         {"name": A.KERNEL, "route": "cuda", "source": csrc + "flash_attention.cu",
          "replaces": tpu + "152",

@@ -12,9 +12,8 @@ JAX package's):
 * ``sweep``     — the full evaluation sweep (CSV + PNG + summary)
 * ``execute``   — run a scheduled model DAG on live devices
 * ``visualize`` — DAG structure and Gantt renderings
-* ``train``     — a few sharded (dp x tp) training steps, one process
-  per device (``--pp`` and ``mixtral*`` wait for the pipeline and expert
-  layers)
+* ``train``     — a few sharded training steps, one process per device:
+  GPT-2 dp x tp or (``--pp``) a pipeline, Mixtral dp x ep
 * ``generate``  — autoregressive KV-cache decoding (any model family)
 * ``bench``     — the north-star benchmark (one JSON line)
 * ``trace``     — traced execute (+ paged-decode leg) -> Perfetto JSON
@@ -379,10 +378,10 @@ def cmd_lint(args) -> int:
     if args.parallel:
         # the sweep traces every strategy of the parallel layer through
         # its collective_probe hook; the hooks and the sweep are not
-        # ported yet, nor are the expert and pipeline strategies
+        # ported yet
         print("lint --parallel: the collective sweep of the parallel layer "
               "(analysis/parallel_sweep, the collective_probe hooks) is not "
-              "ported to PyTorch yet (ROADMAP.md A.11)", file=sys.stderr)
+              "ported to PyTorch yet (ROADMAP.md A.11 item 3)", file=sys.stderr)
         return 2
 
     cfg = _config_from(args)
@@ -807,16 +806,13 @@ def cmd_visualize(args) -> int:
 
 
 def cmd_train(args) -> int:
-    """A few sharded (dp x tp) training steps of GPT-2: one process per
-    device (``utils/config.platform_world``), rank 0's lines printed."""
-    if args.pp or args.model.startswith("mixtral"):
-        print("train: pipeline-parallel (--pp) and MoE (mixtral*) training "
-              "are not ported to PyTorch yet (ROADMAP.md A.11)",
-              file=sys.stderr)
-        return 2
+    """A few sharded training steps, one process per device
+    (``utils/config.platform_world``), rank 0's lines printed: GPT-2 dp x
+    tp, or with ``--pp`` a GPipe pipeline over ``--pp`` stage devices;
+    ``mixtral*`` dp x ep (:func:`_cmd_train_moe`)."""
+    if args.model.startswith("mixtral"):
+        return _cmd_train_moe(args)
     from .models.gpt2 import GPT2Config
-    from .parallel import launch
-    from .parallel.train import run_train_loop
     from .utils.config import platform_world
 
     cfg_map = {"gpt2": GPT2Config.small, "gpt2-medium": GPT2Config.medium,
@@ -825,16 +821,45 @@ def cmd_train(args) -> int:
         # silently training a default GPT-2 when asked for llama would be
         # worse than refusing
         print(f"train supports {sorted(cfg_map)} and mixtral* (dp x ep "
-              "expert parallelism, ROADMAP.md A.11); llama trains via the "
-              "task-graph path: --train-step on schedule/execute",
-              file=sys.stderr)
+              "expert parallelism, --routed for sparse dispatch); llama "
+              "trains via the task-graph path: --train-step on "
+              "schedule/execute", file=sys.stderr)
         return 2
     mcfg = cfg_map[args.model]()
     world = platform_world()
+    if args.pp:
+        # pipeline-parallel training: a stage a rank, one GPipe schedule
+        # per step (parallel/pipeline_pp.py)
+        if args.scan:
+            # stages already apply their layer blocks one by one; a
+            # separate --scan would be a no-op claim
+            print("--pp already scans layer blocks within each stage; "
+                  "drop --scan", file=sys.stderr)
+            return 2
+        layers = mcfg.n_layer
+        if args.pp < 1 or layers % args.pp or args.pp > world:
+            print(f"--pp {args.pp} must be >= 1, divide n_layer={layers}, "
+                  f"and not exceed {world} devices", file=sys.stderr)
+            return 2
+        world = args.pp  # the stages; the other devices stay idle
+    return _run_train_loop(
+        args, mcfg, world, min(args.seq_len, mcfg.n_positions),
+        dict(pp=args.pp, microbatches=args.microbatches, remat=args.remat,
+             scan=args.scan))
+
+
+def _run_train_loop(args, config, world: int, seq: int, path: dict) -> int:
+    """The train command's scaffold for every path: ``parallel.train.
+    run_train_loop`` (init or resume, the synthetic batch, the steps, the
+    save) on a world of ``world`` ranks, and rank 0's notes and lines
+    printed."""
+    from .parallel import launch
+    from .parallel.train import run_train_loop
+
     res = launch.spawn(
         run_train_loop, world,
-        args=(mcfg, args.steps, min(args.seq_len, mcfg.n_positions),
-              args.seed, args.ckpt, args.remat, args.scan), timeout=None)
+        args=(config, args.steps, seq, args.seed, args.ckpt, path),
+        timeout=None)
     if res["resumed"]:
         print(res["resumed"], file=sys.stderr)
     for line in res["stdout"]:
@@ -842,6 +867,41 @@ def cmd_train(args) -> int:
     if res["saved"]:
         print(res["saved"], file=sys.stderr)
     return 0
+
+
+def _cmd_train_moe(args) -> int:
+    """Mixtral training on a dp x ep mesh (dense or routed dispatch): the
+    CLI face of ``parallel/expert.make_moe_train_step``."""
+    from .models.mixtral import MixtralConfig
+    from .parallel.expert import expert_mesh_axes
+    from .utils.config import platform_world
+
+    cfg_map = {
+        "mixtral": MixtralConfig.mixtral_8x7b,
+        "mixtral-8x7b": MixtralConfig.mixtral_8x7b,
+        "mixtral-tiny": MixtralConfig.tiny,
+    }
+    if args.model not in cfg_map:
+        print(f"unknown model {args.model!r}; mixtral variants are "
+              f"{sorted(cfg_map)}", file=sys.stderr)
+        return 2
+    if args.pp or args.scan:
+        print("--pp/--scan are the GPT-2 train path's flags; the MoE "
+              "path trains dp x ep", file=sys.stderr)
+        return 2
+    mcfg = cfg_map[args.model]()
+    world = platform_world()
+    # widest ep that divides both the expert count and the device count;
+    # the other devices are dp
+    dp, ep = expert_mesh_axes(mcfg.n_experts, world)
+    print(f"mesh dp={dp} x ep={ep}"
+          + (f", routed (capacity x{args.capacity_factor})"
+             if args.routed else ", dense dispatch"),
+          file=sys.stderr)
+    return _run_train_loop(
+        args, mcfg, world, min(args.seq_len, mcfg.max_seq_len),
+        dict(remat=args.remat, routed=args.routed,
+             capacity_factor=args.capacity_factor))
 
 
 def cmd_generate(args) -> int:
@@ -2405,8 +2465,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--steps", type=int, default=3)
     p.add_argument("--pp", type=int, default=0,
                    help="N>0: pipeline-parallel training over N stage "
-                        "devices (GPipe scan; microbatches default to N); "
-                        "not ported yet (exits 2, ROADMAP.md A.11)")
+                        "devices (GPipe scan; microbatches default to N)")
     p.add_argument("--remat", action="store_true",
                    help="rematerialize transformer blocks in the backward "
                         "pass (torch.utils.checkpoint): memory for FLOPs")

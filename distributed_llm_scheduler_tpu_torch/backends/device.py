@@ -59,9 +59,10 @@ from __future__ import annotations
 # dls-lint: allow-file(DET001) real-device execution timing: wall time IS the measured quantity
 
 import bisect
+import gc
 import time
 import weakref
-from contextlib import nullcontext
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -435,11 +436,27 @@ class CapturedProgram:
             for k, v in ext.items()}
         graph = torch.cuda.CUDAGraph()
         before = dict(kernels.launches)
-        with torch.no_grad(), torch.cuda.graph(graph, pool=self.pool,
-                                               stream=stream):
+        with torch.no_grad(), _no_collection(), torch.cuda.graph(
+                graph, pool=self.pool, stream=stream):
             self.static_out = self.fn(params, self.static_in)
         self.launches = _recorded_since(before)
         self.graph = graph
+
+
+@contextmanager
+def _no_collection():
+    """No garbage collection while a graph captures.  ``torch.cuda.graph``
+    no longer collects on entry, so a dead CUDA graph in a reference cycle
+    may be freed by a collection that a capture's own allocations set off;
+    destroying a graph is not permitted while a stream captures, and the
+    capture is invalidated.  Collections run between captures instead."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
 
 
 def _recorded_since(before: Dict[str, int]) -> Dict[str, int]:
@@ -488,7 +505,7 @@ class CapturedStep:
             self.body()
         graph = torch.cuda.CUDAGraph()
         before = dict(kernels.launches)
-        with torch.no_grad(), torch.cuda.graph(
+        with torch.no_grad(), _no_collection(), torch.cuda.graph(
                 graph, stream=capture_stream(self.device)):
             self.body()
         self.launches = _recorded_since(before)

@@ -28,7 +28,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import re
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Iterator, Tuple
 
 import numpy as np
 import torch
@@ -140,7 +140,33 @@ def init_params_numpy(config: LlamaConfig, seed: int = 0) -> Dict[str, np.ndarra
     return out
 
 
-@torch.no_grad()
+def seeded_params(shapes: Dict[str, Tuple[Tuple[int, ...], torch.dtype]],
+                  scale_of: Callable[[str], float], seed: int, device: Any
+                  ) -> Iterator[Tuple[str, torch.Tensor]]:
+    """``(name, tensor)`` drawn on ``device`` one at a time, in ``shapes``'
+    order, from one seeded ``torch.Generator``: N(0, 1) times
+    ``scale_of(name)``, ones where it is 0 (a norm gain)."""
+    device = torch.device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    for name, (shape, dtype) in shapes.items():
+        scale = scale_of(name)
+        if scale == 0.0:
+            yield name, torch.ones(shape, dtype=dtype, device=device)
+            continue
+        w = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+        yield name, w.mul_(scale).to(dtype)
+
+
+def iter_params_torch(config: LlamaConfig, seed: int = 0, device: Any = "cuda"
+                      ) -> Iterator[Tuple[str, torch.Tensor]]:
+    """``(name, tensor)`` of :func:`init_params_torch`, one at a time, so
+    a caller that keeps only some (a pipeline stage's) never holds the
+    whole model."""
+    return seeded_params(param_shapes(config),
+                         lambda name: _init_scale(config, name), seed, device)
+
+
 def init_params_torch(
     config: LlamaConfig, seed: int = 0, device: Any = "cuda"
 ) -> Dict[str, torch.Tensor]:
@@ -148,18 +174,7 @@ def init_params_torch(
     from one seeded ``torch.Generator``: for full-size weights, whose numpy
     draw costs minutes of host time.  Other numbers than
     :func:`init_params_numpy`'s, at the same scales."""
-    device = torch.device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    out: Dict[str, torch.Tensor] = {}
-    for name, (shape, dtype) in param_shapes(config).items():
-        scale = _init_scale(config, name)
-        if scale == 0.0:
-            out[name] = torch.ones(shape, dtype=dtype, device=device)
-            continue
-        w = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
-        out[name] = w.mul_(scale).to(dtype)
-    return out
+    return dict(iter_params_torch(config, seed, device))
 
 
 # -- per-op functions (DAG task granularity) ------------------------------------
@@ -250,15 +265,19 @@ def transformer_block(block_params: Dict[str, Any], x, config: LlamaConfig):
     return residual_add(x, h)
 
 
-@torch.no_grad()
-def backbone_forward(params: Dict[str, Any], input_ids, config: Any,
-                     block_fn: Callable[..., Any], layer_keys: Tuple[str, ...],
-                     scan: bool = False):
+def backbone(params: Dict[str, Any], input_ids, config: Any,
+             block_fn: Callable[..., Any], layer_keys: Tuple[str, ...],
+             remat: bool = False, scan: bool = False):
     """The Llama-backbone forward skeleton: embed -> n_layers x block ->
-    final RMSNorm -> LM head, parameterized by the layer block.
-    ``scan=True`` expects stacked ``layers_*`` params (:func:`stack_layers`)
-    and applies the block along their leading axis (the JAX package's
-    ``lax.scan``), with the same block math and order."""
+    final RMSNorm -> LM head, parameterized by the layer block, with
+    gradients flowing.  ``scan=True`` expects stacked ``layers_*`` params
+    (:func:`stack_layers`) and applies the block along their leading axis
+    (the JAX package's ``lax.scan``), with the same block math and order;
+    ``remat=True`` checkpoints the block either way (``jax.checkpoint``'s
+    trade, :func:`.gpt2._select_block`)."""
+    from .gpt2 import _select_block
+
+    block_fn = _select_block(remat, block_fn)
     x = embedding(input_ids, params["tok_emb"])
     if scan:
         stacked = {k: params["layers_" + k] for k in layer_keys}
@@ -271,6 +290,14 @@ def backbone_forward(params: Dict[str, Any], input_ids, config: Any,
         x = block_fn(bp, x, config)
     x = rms_norm(x, params["final_norm_g"], config.rms_eps)
     return lm_head(x, params["lm_head"])
+
+
+@torch.no_grad()
+def backbone_forward(params: Dict[str, Any], input_ids, config: Any,
+                     block_fn: Callable[..., Any], layer_keys: Tuple[str, ...],
+                     scan: bool = False):
+    """:func:`backbone` without gradients: the fused baseline and oracle."""
+    return backbone(params, input_ids, config, block_fn, layer_keys, scan=scan)
 
 
 def forward(params: Dict[str, Any], input_ids, config: LlamaConfig):

@@ -1,8 +1,7 @@
 """Mixtral-style sparse MoE in plain PyTorch: the third model family
 (BASELINE.json config #4: "Mixtral-8x7B MoE DAG, expert nodes as tasks").
 
-PyTorch port of ``distributed_llm_scheduler_tpu.models.mixtral``
-(remat and the training loss excepted).  The architecture is the Llama backbone (RMSNorm, RoPE,
+PyTorch port of ``distributed_llm_scheduler_tpu.models.mixtral``.  The architecture is the Llama backbone (RMSNorm, RoPE,
 GQA, reused from :mod:`.llama`) with the SwiGLU FFN replaced by a router
 and ``n_experts`` experts under top-k gating.  Params are a flat
 ``Dict[str, Tensor]`` with the Llama names plus ``l{i}_router`` and
@@ -31,15 +30,17 @@ scatters are ``index_put_(..., accumulate=True)`` and ``index_add_``.
 
 The decode half (the stacked-layer scan, ``init_cache``,
 ``forward_cached`` with the dense MoE, ``generate``) reuses the Llama
-backbone's.  Left out against the reference (queued with ``parallel/``):
-remat and ``loss_fn``.
+backbone's.  :func:`loss_fn` is the training forward, the Llama backbone
+(:func:`..llama.backbone`, with remat) over Mixtral's blocks; the
+expert-parallel path (``parallel/expert.py``) runs the same backbone
+over its stacked-expert block.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Iterator, Tuple
 
 import numpy as np
 import torch
@@ -165,25 +166,23 @@ def init_params_numpy(config: MixtralConfig, seed: int = 0
     return out
 
 
-@torch.no_grad()
+def iter_params_torch(config: MixtralConfig, seed: int = 0,
+                      device: Any = "cuda") -> Iterator[Tuple[str, torch.Tensor]]:
+    """``(name, tensor)`` of :func:`init_params_torch`, one at a time, so
+    a caller that keeps only some (a rank's experts) never holds the
+    whole model."""
+    return _llama.seeded_params(param_shapes(config),
+                                lambda name: _init_scale(config, name),
+                                seed, device)
+
+
 def init_params_torch(config: MixtralConfig, seed: int = 0,
                       device: Any = "cuda") -> Dict[str, torch.Tensor]:
     """The same initializer drawn on ``device`` itself, tensor by tensor,
     from one seeded ``torch.Generator``: for full-width weights, whose
     numpy draw costs minutes of host time.  Other numbers than
     :func:`init_params_numpy`'s, at the same scales."""
-    device = torch.device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    out: Dict[str, torch.Tensor] = {}
-    for name, (shape, dtype) in param_shapes(config).items():
-        scale = _init_scale(config, name)
-        if scale == 0.0:
-            out[name] = torch.ones(shape, dtype=dtype, device=device)
-            continue
-        w = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
-        out[name] = w.mul_(scale).to(dtype)
-    return out
+    return dict(iter_params_torch(config, seed, device))
 
 
 # -- MoE ops (DAG task granularity) --------------------------------------------
@@ -384,18 +383,47 @@ def routed_transformer_block(block_params: Dict[str, Any], x,
         lambda bp, h: moe_routed(bp, h, config, capacity_factor))
 
 
+def nll_loss(logits, targets):
+    """Next-token cross-entropy in float32 (shared by both MoE paths and
+    the pipeline)."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(-1, targets.long()[..., None])[..., 0].mean()
+
+
+def _block_for(routed: bool, capacity_factor: float):
+    if not routed:
+        return transformer_block
+
+    def block(bp, x, cfg):
+        return routed_transformer_block(bp, x, cfg, capacity_factor)
+
+    return block
+
+
 def forward(params: Dict[str, Any], input_ids, config: MixtralConfig,
             routed: bool = False, capacity_factor: float = 2.0):
     """The Llama backbone (:func:`..llama.backbone_forward`) over Mixtral's
     blocks.  ``routed=True`` switches every layer's MoE to the capacity-
     buffer dispatch (:func:`moe_routed`)."""
-    if routed:
-        def block(bp, x, cfg):
-            return routed_transformer_block(bp, x, cfg, capacity_factor)
-    else:
-        block = transformer_block
-    return _llama.backbone_forward(params, input_ids, config, block,
+    return _llama.backbone_forward(params, input_ids, config,
+                                   _block_for(routed, capacity_factor),
                                    _layer_keys(config))
+
+
+def loss_fn(params: Dict[str, Any], input_ids, targets, config: MixtralConfig,
+            remat: bool = False, scan: bool = False, routed: bool = False,
+            capacity_factor: float = 2.0):
+    """Next-token cross-entropy of the per-expert forward, gradients
+    flowing (``scan=True``: stacked-layer params, dense dispatch only)."""
+    if routed and scan:
+        raise ValueError(
+            "routed MoE is per-layer (stacked-expert einsums inside "
+            "the block); use scan=False"
+        )
+    logits = _llama.backbone(params, input_ids, config,
+                             _block_for(routed, capacity_factor),
+                             _layer_keys(config), remat=remat, scan=scan)
+    return nll_loss(logits, targets)
 
 
 def stack_layer_params(params: Dict[str, Any], config: MixtralConfig

@@ -24,8 +24,17 @@ gradients right:
 * :func:`seq_to_heads` / :func:`heads_to_seq` — Ulysses' two
   ``all_to_all_single`` redistributions of (B, H, T, hd) between sequence
   and head sharding; each is the other's backward.
+* :func:`successor_hop` — the pipeline's hop: send to the next rank of
+  the group, receive from the previous one; the first receives zeros and
+  the last sends nothing (``ppermute`` with ``i -> i + 1`` for
+  ``i < n - 1``); backward: the gradient back to the predecessor.
+* :func:`share_from_last` — the last rank's tensor on every rank (the
+  pipeline's final sum over ``pp``, where only the last stage adds
+  anything); backward: the last rank keeps its gradient, the others pass
+  back zeros, so the stages see the gradient of the one loss once.
 * :func:`all_gather_dim` — concatenate the group's tensors along a dim
-  (no gradient: logits and outputs gathered for reading).
+  (no gradient: logits and outputs gathered for reading);
+  :func:`gather_objects` the same for picklable objects.
 
 Every function takes ``group=None`` for a group of one rank and is then
 the identity, so the single-device path runs the same code.
@@ -117,6 +126,74 @@ def ring_hop(x: torch.Tensor, group) -> torch.Tensor:
     return _RingHop.apply(x, group)
 
 
+def _succ(x: torch.Tensor, group, back: bool) -> torch.Tensor:
+    """Forward: send ``x`` to group rank ``me + 1`` (none from the last),
+    receive from ``me - 1`` (zeros on the first).  ``back``: the reverse,
+    send to ``me - 1`` and receive from ``me + 1``."""
+    n, me = dist.get_world_size(group), dist.get_rank(group)
+    to, frm = (me - 1, me + 1) if back else (me + 1, me - 1)
+    send = x.contiguous()
+    recv = torch.zeros_like(send)
+    ops = []
+    if 0 <= to < n:
+        ops.append(dist.P2POp(dist.isend, send, dist.get_global_rank(group, to), group))
+    if 0 <= frm < n:
+        ops.append(dist.P2POp(dist.irecv, recv, dist.get_global_rank(group, frm), group))
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return recv
+
+
+class _SuccessorHop(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, anchor, group):
+        ctx.group = group
+        return _succ(x, group, back=False)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _succ(grad, ctx.group, back=True), None, None
+
+
+def successor_hop(x: torch.Tensor, group, anchor: torch.Tensor) -> torch.Tensor:
+    """The previous rank's tensor (zeros on the group's first rank); this
+    rank's ``x`` goes to the next (the last rank's goes nowhere).  Every
+    rank of the group calls it together, forward and backward.
+
+    A received tensor has no autograd history on this rank, and autograd
+    runs only the nodes between the loss and the tensors differentiated
+    for, so a hop whose ``x`` reaches no param (a fill step's zeros) would
+    have its backward pruned while the neighbour waits on it.
+    ``anchor``, a param every rank differentiates for, ties every hop into
+    the graph (it gets no gradient from the hop)."""
+    if group is None:
+        return torch.zeros_like(x)
+    return _SuccessorHop.apply(x, anchor, group)
+
+
+class _ShareFromLast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        n = dist.get_world_size(group)
+        ctx.last = dist.get_rank(group) == n - 1
+        out = x.contiguous().clone()
+        dist.broadcast(out, src=dist.get_global_rank(group, n - 1), group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (grad if ctx.last else torch.zeros_like(grad)), None
+
+
+def share_from_last(x: torch.Tensor, group) -> torch.Tensor:
+    """The group's last rank's ``x`` on every rank (each rank passes a
+    tensor of one shape); the gradient reaches the last rank's ``x``
+    alone."""
+    if group is None:
+        return x
+    return _ShareFromLast.apply(x, group)
+
+
 def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     """``all_to_all_single`` over the leading dim (one slice per rank)."""
     x = x.contiguous()
@@ -192,6 +269,16 @@ def all_gather_dim(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     return torch.cat(parts, dim=dim)
 
 
+def gather_objects(obj, group) -> list:
+    """Every rank of ``group``'s picklable ``obj``, in group-rank order
+    (``[obj]`` for a group of one)."""
+    if group is None:
+        return [obj]
+    parts = [None] * dist.get_world_size(group)
+    dist.all_gather_object(parts, obj, group=group)
+    return parts
+
+
 def mean_over(value: torch.Tensor, group) -> torch.Tensor:
     """The mean of a detached tensor over ``group``."""
     out = value.detach().clone()
@@ -199,7 +286,7 @@ def mean_over(value: torch.Tensor, group) -> torch.Tensor:
 
 
 __all__ = [
-    "all_gather_dim", "all_reduce_", "copy_to_group",
+    "all_gather_dim", "all_reduce_", "copy_to_group", "gather_objects",
     "group_size", "heads_to_seq", "mean_over", "reduce_from_group",
-    "ring_hop", "seq_to_heads",
+    "ring_hop", "seq_to_heads", "share_from_last", "successor_hop",
 ]

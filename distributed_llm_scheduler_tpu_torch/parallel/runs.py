@@ -14,14 +14,17 @@ count that does not divide, a mesh larger than the world) gives
 
 from __future__ import annotations
 
+import functools
 import tempfile
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..ops import kernels
 from .launch import device
-from .mesh import make_mesh
+from .mesh import make_axes_mesh, make_mesh
+from .sharding import Sharding
 
 
 def _t(a) -> torch.Tensor:
@@ -56,13 +59,15 @@ def train(config: Any, axes: Dict[str, int], params: Dict[str, np.ndarray],
     if not scan:
         logits = make_eval_step(config, mesh, seq_parallel)(state.params, ids_t)
         out["logits"] = _np(logits)
+    kernels.reset_launches()
     losses = []
     for _ in range(steps):
         state, loss = step(state, ids_t, tgt_t)
         losses.append(float(loss))
+    out["launches"] = _ran()
     out["losses"] = losses
     out["step"] = state.step
-    out["params"] = gather_params(state, mesh)
+    out["params"] = gather_params(state)
     return out
 
 
@@ -73,7 +78,7 @@ def resume(config: Any, axes: Dict[str, int], params: Dict[str, np.ndarray],
     four uninterrupted steps from the same params.  For each of
     ``other_configs``, the refusal of loading the checkpoint into its
     fresh state (None if it loaded).  Every rank of the world must be in
-    the mesh (saving is a collective over the world)."""
+    the mesh."""
     from ..utils.checkpoint import load_state, save_state
     from .train import make_train_step
 
@@ -86,8 +91,8 @@ def resume(config: Any, axes: Dict[str, int], params: Dict[str, np.ndarray],
         state = init(params=params)
         for _ in range(2):
             state, _ = step(state, ids_t, tgt_t)
-        save_state(state, path, mesh)
-        resumed = load_state(path, init(params=params), mesh)
+        save_state(state, path)
+        resumed = load_state(path, init(params=params))
         restored_step = resumed.step
         got = []
         for _ in range(2):
@@ -104,7 +109,7 @@ def resume(config: Any, axes: Dict[str, int], params: Dict[str, np.ndarray],
         for other in other_configs:
             _, other_init = make_train_step(other, mesh)
             try:
-                load_state(path, other_init(), mesh)
+                load_state(path, other_init())
                 out["refusals"].append(None)
             except ValueError as e:
                 out["refusals"].append(str(e))
@@ -166,8 +171,228 @@ def decode(config: Any, axes: Dict[str, int], params: Dict[str, np.ndarray],
             "kv_heads_local": kv_heads(config) // mesh.axis_size("tp")}
 
 
+def _ran() -> Dict[str, int]:
+    """This rank's flash, LayerNorm and RMSNorm launches that ran since the
+    counts were set to 0 (all 0 on the CPU, where the plain versions run)."""
+    from ..ops import attention, norms
+
+    return {k: kernels.ran(k)
+            for k in (attention.KERNEL, norms.LN_KERNEL, norms.RMS_KERNEL)}
+
+
+class KeepGrads(torch.optim.Optimizer):
+    """An optimizer that keeps the gradients a training step hands it
+    (after the step's own reductions) and changes no param: one step with
+    it reads the step's gradients."""
+
+    def __init__(self, params):
+        super().__init__(params, {})
+        self.grads: List[torch.Tensor] = []
+
+    def step(self, closure=None):
+        self.grads = [p.grad.detach().clone()
+                      for g in self.param_groups for p in g["params"]]
+
+
+def _step_grads(make_step, params, ids, targets
+                ) -> Tuple[Dict[str, torch.Tensor], float]:
+    """This rank's gradients of one step of ``make_step(optimizer=...)``
+    from the whole ``params``, by param name, and the step's loss."""
+    step, init = make_step(optimizer=KeepGrads)
+    state = init(params=params)
+    _, loss = step(state, ids, targets)
+    return dict(zip(state.params, state.opt_state.grads)), float(loss)
+
+
+def expert(config: Any, axes: Dict[str, int], params: Dict[str, np.ndarray],
+           ids: np.ndarray, targets: np.ndarray, steps: int,
+           remat: bool = False, routed: bool = False,
+           capacity_factor: float = 2.0, stats_capacity: Sequence[float] = (),
+           grads: bool = False) -> Optional[Dict[str, Any]]:
+    """Mixtral from the whole per-expert ``params`` on a ``(dp, ep)`` mesh
+    of ``axes``: the shard shapes of this rank's blocks, the sharded
+    forward's global logits (before any step), ``forward_ep_stats`` at
+    each of ``stats_capacity`` (the global logits and dropped-slot count),
+    with ``grads`` the whole gradients of a first step (the step's own,
+    averaged over ``dp``), ``steps`` train
+    steps' losses and this rank's kernel launches over them, and the
+    whole stacked params after them."""
+    from .collectives import all_gather_dim
+    from .expert import forward_ep, forward_ep_stats, make_moe_train_step
+    from .train import gather_params
+
+    mesh = make_axes_mesh(**axes)
+    if not mesh.contains:
+        return None
+    step, init = make_moe_train_step(config, mesh, remat=remat, routed=routed,
+                                     capacity_factor=capacity_factor)
+    state = init(params=params)
+    data = Sharding(mesh, ("dp", None))
+    ids_t, tgt_t = _t(ids), _t(targets)
+    mine = data.shard(ids_t)
+    out: Dict[str, Any] = {
+        "shard_shapes": {k: tuple(v.shape) for k, v in state.params.items()}}
+    with torch.no_grad():
+        logits = forward_ep(state.params, mine, config, routed=routed,
+                            capacity_factor=capacity_factor, mesh=mesh)
+        out["logits"] = _np(all_gather_dim(logits, mesh.group("dp"), 0))
+        out["stats"] = []
+        for cf in stats_capacity:
+            lg, st = forward_ep_stats(state.params, mine, config, cf, mesh=mesh)
+            out["stats"].append({
+                "logits": _np(all_gather_dim(lg, mesh.group("dp"), 0)),
+                "dropped_slots": int(st["dropped_slots"]),
+                "total_slots": int(st["total_slots"]),
+                "capacity": st["capacity"]})
+    if grads:
+        g, _ = _step_grads(functools.partial(
+            make_moe_train_step, config, mesh, remat=remat, routed=routed,
+            capacity_factor=capacity_factor), params, ids_t, tgt_t)
+        sh = state.layout.shardings
+        out["grads"] = {k: _np(sh[k].gather(v)) for k, v in sorted(g.items())}
+    kernels.reset_launches()
+    losses = []
+    for _ in range(steps):
+        state, loss = step(state, ids_t, tgt_t)
+        losses.append(float(loss))
+    out["launches"] = _ran()
+    out["losses"] = losses
+    out["step"] = state.step
+    out["params"] = gather_params(state)
+    return out
+
+
+def _count_p2p(counts: Dict[str, int]):
+    """``dist.batch_isend_irecv`` counting the sends and receives it is
+    given into ``counts``."""
+    import torch.distributed as dist
+
+    real = dist.batch_isend_irecv
+
+    def counted(ops):
+        for op in ops:
+            counts["send" if op.op is dist.isend else "recv"] += 1
+        return real(ops)
+
+    return counted
+
+
+def pipeline(config: Any, stages: int, microbatches: int,
+             params: Dict[str, np.ndarray], ids: np.ndarray,
+             targets: Optional[np.ndarray] = None, remat: bool = False,
+             grads: bool = False, steps: int = 0) -> Optional[Dict[str, Any]]:
+    """``pipeline_forward`` of the whole ``params`` over a ``(pp,)`` mesh of
+    ``stages`` ranks: its logits, every stage rank's hop sends and
+    receives (``hops``, forward and backward), with ``grads`` the loss
+    and the whole gradients of a first training step (each stage's
+    layers, the shared params' parts summed over ``pp``), and
+    ``steps`` losses of ``make_pp_train_step`` from the same params with
+    this rank's kernel launches over them."""
+    from unittest import mock
+
+    import torch.distributed as dist
+
+    from ..models.gpt2 import params_from_numpy
+    from .collectives import gather_objects
+    from .pipeline_pp import make_pp_train_step, pipeline_forward, stage_param_names
+
+    mesh = make_axes_mesh(pp=stages)
+    if not mesh.contains:
+        return None
+    ids_t = _t(ids)
+    counts = {"send": 0, "recv": 0}
+    out: Dict[str, Any] = {}
+    with mock.patch.object(dist, "batch_isend_irecv", _count_p2p(counts)):
+        if grads:
+            g, out["loss"] = _step_grads(functools.partial(
+                make_pp_train_step, config, mesh, microbatches, remat=remat),
+                params, ids_t, _t(targets))
+            parts = gather_objects({k: _np(v) for k, v in g.items()},
+                                   mesh.group("pp"))
+            out["grads"] = {k: v for part in parts for k, v in part.items()}
+        else:
+            names = stage_param_names(config, stages, mesh.axis_index("pp"))
+            local = params_from_numpy({k: params[k] for k in names}, device(),
+                                      config.dtype)
+            with torch.no_grad():
+                out["logits"] = _np(pipeline_forward(local, ids_t, config, mesh,
+                                                     microbatches, remat=remat))
+    out["hops"] = gather_objects(counts, mesh.group("pp"))
+    if steps:
+        step, init = make_pp_train_step(config, mesh, microbatches, remat=remat)
+        state = init(params=params)
+        kernels.reset_launches()
+        losses = []
+        for _ in range(steps):
+            state, loss = step(state, ids_t, _t(targets))
+            losses.append(float(loss))
+        out["launches"] = _ran()
+        out["losses"] = losses
+    return out
+
+
+def _path_mesh(axes: Dict[str, int]):
+    return (make_axes_mesh(**axes) if "ep" in axes or "pp" in axes
+            else make_mesh(**axes))
+
+
+def _path_step(config: Any, axes: Dict[str, int], mesh, microbatches: int):
+    """The training step of the path ``axes`` names: with ``ep`` the dp x
+    ep MoE step, with ``pp`` the pipeline, else GPT-2 dp x tp."""
+    if "ep" in axes:
+        from .expert import make_moe_train_step
+
+        return make_moe_train_step(config, mesh)
+    if "pp" in axes:
+        from .pipeline_pp import make_pp_train_step
+
+        return make_pp_train_step(config, mesh, microbatches)
+    from .train import make_train_step
+
+    return make_train_step(config, mesh)
+
+
+def reshard(config: Any, save: Dict[str, int], loads: Sequence[Dict[str, int]],
+            params: Dict[str, np.ndarray], ids: np.ndarray, targets: np.ndarray,
+            steps: int = 2, microbatches: int = 2) -> Dict[str, Any]:
+    """A checkpoint written on one mesh and read on others: ``steps``
+    steps from ``params`` on the mesh of ``save`` (axes: with ``ep`` the dp
+    x ep MoE step, with ``pp`` the pipeline, else dp x tp), the state
+    saved, then ``steps`` more; for each of ``loads``, a fresh state of
+    another seed on its mesh restored from the checkpoint, then ``steps``
+    steps.  Returns a row per mesh: the whole params at the checkpoint,
+    the losses after it and (loads) the restored step.  Every rank builds
+    every mesh; a rank outside one sits its part out."""
+    from ..utils.checkpoint import load_state, save_state
+    from .train import gather_params
+
+    every = (save, *loads)
+    meshes = [_path_mesh(axes) for axes in every]
+    ids_t, tgt_t = _t(ids), _t(targets)
+    rows = []
+    with tempfile.TemporaryDirectory(prefix="dls_ckpt_") as tmp:
+        path = _shared_dir(tmp)
+        for i, (axes, mesh) in enumerate(zip(every, meshes)):
+            if mesh.contains:
+                step, init = _path_step(config, axes, mesh, microbatches)
+                if i == 0:
+                    state = init(params=params)
+                    for _ in range(steps):
+                        state, _ = step(state, ids_t, tgt_t)
+                    save_state(state, path)
+                else:
+                    state = load_state(path, init(seed=1))
+                row = {"step": state.step, "params": gather_params(state),
+                       "losses": [float(step(state, ids_t, tgt_t)[1])
+                                  for _ in range(steps)]}
+                rows.append(row)
+            _barrier()
+    return {"rows": rows}
+
+
 LEGS = {"train": train, "resume": resume, "attention": attention,
-        "decode": decode}
+        "decode": decode, "expert": expert, "pipeline": pipeline,
+        "reshard": reshard}
 
 
 def run_legs(legs: Sequence[Tuple[str, Dict[str, Any]]]) -> List[Any]:
@@ -182,4 +407,5 @@ def run_legs(legs: Sequence[Tuple[str, Dict[str, Any]]]) -> List[Any]:
     return out
 
 
-__all__ = ["LEGS", "attention", "decode", "resume", "run_legs", "train"]
+__all__ = ["KeepGrads", "LEGS", "attention", "decode", "expert", "pipeline",
+           "reshard", "resume", "run_legs", "train"]

@@ -179,6 +179,23 @@ def shard_params(mesh: Any, params: Dict[str, Any], family: str = "gpt2"
     return {k: shardings[k].shard(v) for k, v in params.items()}
 
 
+@dataclasses.dataclass(frozen=True)
+class FlatLayout:
+    """How a rank's training state maps onto the model's whole, flat
+    leaves (what a checkpoint holds, the JAX package's layout): ``shapes``
+    the global shape of every param of the model, whichever rank holds
+    it; ``shardings`` the :class:`Sharding` of each param this rank holds
+    (its block of the global leaf); ``group`` the process group of the
+    ranks that hold the state (None: this rank alone); ``staged`` whether
+    those ranks hold disjoint params (the pipeline's stages) rather than a
+    block of every param."""
+
+    shapes: Dict[str, Tuple[int, ...]]
+    shardings: Dict[str, Sharding]
+    group: Any = None
+    staged: bool = False
+
+
 def batch_sharding(mesh: Any, seq_parallel: bool = False) -> Sharding:
     """(B, T) token batches: batch over dp, optionally sequence over sp."""
     return Sharding(mesh, ("dp", "sp" if seq_parallel else None))
@@ -190,7 +207,7 @@ def activation_sharding(mesh: Any, seq_parallel: bool = False) -> Sharding:
 
 
 __all__ = [
-    "FUSED_QKV", "GPT2_PARAM_RULES", "LLAMA_PARAM_RULES", "Sharding", "Spec",
+    "FUSED_QKV", "FlatLayout", "GPT2_PARAM_RULES", "LLAMA_PARAM_RULES", "Sharding", "Spec",
     "activation_sharding", "batch_sharding", "param_shardings", "param_spec",
     "shard_params",
 ]

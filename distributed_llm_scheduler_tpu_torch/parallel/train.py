@@ -40,7 +40,7 @@ from ..models import gpt2
 from ..models.gpt2 import GPT2Config
 from .blocks import gpt2_forward
 from .collectives import all_gather_dim, all_reduce_, group_size, mean_over
-from .sharding import batch_sharding, shard_params
+from .sharding import FlatLayout, Sharding, batch_sharding, param_shardings, shard_params
 
 #: the default optimizer, ``optax.adamw(3e-4, weight_decay=0.01)``'s
 #: counterpart
@@ -49,12 +49,14 @@ ADAMW = functools.partial(torch.optim.AdamW, lr=3e-4, weight_decay=0.01)
 
 @dataclasses.dataclass
 class TrainState:
-    """This rank's params (its blocks), its optimizer over them, and the
-    step count."""
+    """This rank's params (its blocks), its optimizer over them, the step
+    count, and the :class:`.sharding.FlatLayout` that maps the blocks onto
+    the model's whole leaves (what a checkpoint holds)."""
 
     params: Dict[str, torch.Tensor]
     opt_state: torch.optim.Optimizer
     step: int
+    layout: Any
 
 
 def _materialize(opt: torch.optim.Optimizer) -> None:
@@ -70,12 +72,26 @@ def _materialize(opt: torch.optim.Optimizer) -> None:
             }
 
 
+def _all_reduce_flat(grads: List[torch.Tensor], group, div: int = 1
+                     ) -> List[torch.Tensor]:
+    """One all-reduce (sum, divided by ``div``) of every gradient of
+    ``grads``, flattened together."""
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    all_reduce_(flat, group)
+    if div > 1:
+        flat.div_(div)
+    return [f.view_as(g) for f, g in zip(flat.split([g.numel() for g in grads]), grads)]
+
+
 def make_step_from_loss(
     loss_fn: Callable[..., torch.Tensor],
     init_params: Callable[..., Dict[str, torch.Tensor]],
     optimizer: Optional[Callable[[List[torch.Tensor]], torch.optim.Optimizer]] = None,
     data_sharding: Any = None,
     grad_group: Any = None,
+    sum_group: Any = None,
+    sum_params: Tuple[str, ...] = (),
+    layout: Any = None,
 ) -> Tuple[Callable[..., Any], Callable[..., TrainState]]:
     """The one optimizer skeleton behind the train-step builders:
     ``loss_fn(params, input_ids, targets)`` (this rank's mean loss) and a
@@ -84,7 +100,12 @@ def make_step_from_loss(
     the param list (default :data:`ADAMW`).  ``data_sharding`` (a
     :class:`.sharding.Sharding`) cuts this rank's block out of the global
     token batches; ``grad_group`` is the process group the gradients and
-    the loss are averaged over."""
+    the loss are averaged over.  The gradients of ``sum_params`` are
+    first summed over ``sum_group`` (the pipeline's shared params, each
+    stage holding a part of their gradient); a param the loss does not
+    reach on this rank gets a zero gradient.  ``layout`` goes into the
+    state (:class:`TrainState`); by default every param is whole on this
+    rank."""
     optimizer = optimizer or ADAMW
 
     def init_state(seed: int = 0, params: Optional[Mapping[str, Any]] = None
@@ -95,20 +116,27 @@ def make_step_from_loss(
             t.requires_grad_(True)
         opt = optimizer(list(local.values()))
         _materialize(opt)
-        return TrainState(params=local, opt_state=opt, step=0)
+        return TrainState(params=local, opt_state=opt, step=0,
+                          layout=layout or FlatLayout(
+                              {k: tuple(v.shape) for k, v in local.items()},
+                              {k: Sharding(None, ()) for k in local}))
 
     def train_step(state: TrainState, input_ids, targets):
         if data_sharding is not None:
             input_ids = data_sharding.shard(input_ids)
             targets = data_sharding.shard(targets)
+        names = list(state.params)
         params = list(state.params.values())
         loss = loss_fn(state.params, input_ids, targets)
-        grads = torch.autograd.grad(loss, params)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
+            params, torch.autograd.grad(loss, params, allow_unused=True))]
+        if sum_params and group_size(sum_group) > 1:
+            at = [i for i, k in enumerate(names) if k in sum_params]
+            for i, g in zip(at, _all_reduce_flat([grads[i] for i in at], sum_group)):
+                grads[i] = g
         n = group_size(grad_group)
-        if n > 1:  # one all-reduce of every gradient, flattened together
-            flat = torch.cat([g.reshape(-1) for g in grads])
-            all_reduce_(flat, grad_group).div_(n)
-            grads = flat.split([g.numel() for g in grads])
+        if n > 1:
+            grads = _all_reduce_flat(grads, grad_group, n)
         for p, g in zip(params, grads):
             p.grad = g.view_as(p)
         state.opt_state.step()
@@ -164,10 +192,17 @@ def make_train_step(
             whole = gpt2.stack_layer_params(whole, config)
         return shard_params(mesh, whole)
 
+    shapes = {k: s for k, (s, _) in gpt2.param_shapes(config).items()}
+    if scan:
+        shapes = {k: tuple(v.shape) for k, v in gpt2.stack_layer_params(
+            {k: torch.empty(s, device="meta") for k, s in shapes.items()},
+            config).items()}
     return make_step_from_loss(
         loss_fn, init_params, optimizer,
         data_sharding=batch_sharding(mesh, seq_parallel=seq_parallel),
         grad_group=mesh.group("dp", "sp"),
+        layout=FlatLayout(shapes, param_shardings(mesh, shapes),
+                          group=mesh.group(*mesh.axes)),
     )
 
 
@@ -197,57 +232,99 @@ def train_batch(batch: int, seq: int, vocab_size: int, seed: int = 1):
     return ids, np.roll(ids, -1, axis=1)
 
 
-def run_train_loop(config: GPT2Config, steps: int, seq: int, seed: int = 0,
-                   ckpt: Optional[str] = None, remat: bool = False,
-                   scan: bool = False) -> Dict[str, Any]:
+def train_setup(config: Any, world: int, pp: int = 0, microbatches: int = 1,
+                remat: bool = False, scan: bool = False, routed: bool = False,
+                capacity_factor: float = 2.0):
+    """The ``train`` command's path on this rank of a world of ``world``:
+    ``(train_step, init_state, batch)``.  Mixtral trains dp x ep
+    (:func:`.expert.expert_mesh_axes`, :func:`.expert.make_moe_train_step`);
+    ``pp`` > 0 pipelines GPT-2 over the first ``pp`` ranks with
+    ``max(microbatches, pp)`` microbatches (:func:`.pipeline_pp.
+    make_pp_train_step`); else GPT-2 trains dp x tp over the world
+    (``factorize_mesh``).  The batch is ``max(2 * dp, 2)`` sequences, and
+    with pp at least one per microbatch (the JAX CLI's rules)."""
+    from ..models.family import family_of
+    from .mesh import factorize_mesh, make_axes_mesh, make_mesh
+
+    if family_of(config) == "mixtral":
+        from .expert import expert_mesh_axes, make_moe_train_step
+
+        dp, ep = expert_mesh_axes(config.n_experts, world)
+        mesh = make_axes_mesh(dp=dp, ep=ep)
+        step, init = make_moe_train_step(config, mesh, remat=remat,
+                                         routed=routed,
+                                         capacity_factor=capacity_factor)
+        return step, init, max(2 * dp, 2)
+    if pp:
+        from .pipeline_pp import make_pp_train_step
+
+        mesh = make_axes_mesh(pp=pp)
+        pp_mb = max(microbatches, pp)
+        step, init = make_pp_train_step(config, mesh, microbatches=pp_mb,
+                                        remat=remat)
+        return step, init, max(2, pp_mb)
+    axes = factorize_mesh(world)
+    step, init = make_train_step(config, make_mesh(**axes), remat=remat,
+                                 scan=scan)
+    return step, init, max(2 * axes["dp"], 2)
+
+
+def run_train_loop(config: Any, steps: int, seq: int, seed: int = 0,
+                   ckpt: Optional[str] = None,
+                   path: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
     """One rank of the ``train`` command (every rank of the world runs
-    it): a dp x tp mesh over the whole world (``factorize_mesh``), the
-    state from ``seed`` or resumed from ``ckpt`` when it exists, ``steps``
-    steps on the synthetic batch (``max(2 * dp, 2)`` sequences of ``seq``
-    tokens, :func:`train_batch`), and the state saved to ``ckpt``.
-    Returns what the command prints: ``stdout`` (a ``step N: loss X`` line
-    per step), and ``resumed`` / ``saved`` (its notes, or None)."""
+    it), the JAX CLI's ``_run_train_loop`` for every path: the path's
+    mesh, step and batch size (:func:`train_setup` with the keywords of
+    ``path``: ``pp``, ``microbatches``, ``remat``, ``scan``, ``routed``,
+    ``capacity_factor``), the state from ``seed`` or resumed from
+    ``ckpt`` when it exists, ``steps`` steps on the synthetic batch
+    (:func:`train_batch`, ``seq`` tokens), and the state saved to
+    ``ckpt``.  Returns what the command prints: ``stdout`` (a ``step N:
+    loss X`` line per step), and ``resumed`` / ``saved`` (its notes, or
+    None)."""
     import os
 
     import torch.distributed as dist
 
     from ..utils.checkpoint import load_state, save_state
     from .launch import device
-    from .mesh import factorize_mesh, make_mesh
 
     world = dist.get_world_size() if dist.is_initialized() else 1
-    axes = factorize_mesh(world)
-    mesh = make_mesh(**axes)
-    train_step, init_state = make_train_step(config, mesh, remat=remat,
-                                             scan=scan)
+    train_step, init_state, batch = train_setup(config, world, **(path or {}))
     state = init_state(seed)
     out: Dict[str, Any] = {"stdout": [], "resumed": None, "saved": None}
     if ckpt and os.path.exists(ckpt):
-        state = load_state(ckpt, state, mesh)
+        state = load_state(ckpt, state)
         out["resumed"] = f"resumed from {ckpt} at step {state.step}"
     ids, targets = (torch.from_numpy(a).to(device())
-                    for a in train_batch(max(2 * axes["dp"], 2), seq,
-                                         config.vocab_size))
+                    for a in train_batch(batch, seq, config.vocab_size))
     for _ in range(steps):
         state, loss = train_step(state, ids, targets)
         out["stdout"].append(f"step {state.step}: loss {float(loss):.4f}")
     if ckpt:
-        out["saved"] = f"saved {save_state(state, ckpt, mesh)}"
+        out["saved"] = f"saved {save_state(state, ckpt)}"
     return out
 
 
-def gather_params(state: TrainState, mesh, family: str = "gpt2"
-                  ) -> Dict[str, np.ndarray]:
-    """The whole params of a sharded state as float32 numpy arrays (a
-    collective over ``tp``)."""
-    from .sharding import param_shardings
+def gather_params(state: TrainState) -> Dict[str, np.ndarray]:
+    """The whole params of a sharded state as float32 numpy arrays on
+    every rank of its layout's group (a collective over the sharded axes;
+    of a staged layout, over the stages too): copies, which later steps
+    leave as they are."""
+    from .collectives import gather_objects
 
-    sh = param_shardings(mesh, state.params, family)
-    return {k: sh[k].gather(v.detach()).float().cpu().numpy()
-            for k, v in state.params.items()}
+    lay = state.layout
+    out = {k: lay.shardings[k].gather(state.params[k].detach()).to(
+               "cpu", torch.float32, copy=True).numpy()
+           for k in sorted(state.params)}
+    if lay.staged:
+        for part in gather_objects(out, lay.group):
+            out.update(part)
+    return out
 
 
 __all__ = [
     "ADAMW", "TrainState", "gather_params", "make_eval_step",
     "make_step_from_loss", "make_train_step", "run_train_loop", "train_batch",
+    "train_setup",
 ]

@@ -7,14 +7,17 @@ array for array.  The card host has no Orbax, so a path that is not
 ``.npz`` becomes a ``torch.distributed.checkpoint`` directory here.
 
 A training state (:class:`..parallel.train.TrainState`: this rank's param
-blocks, their Adam moments and the step) is saved the same way, each
-tensor under a key that names its leaf and, for a block of a tensor
-sharded over ``tp``, the block's index (``params/h0_attn_qkv_w@tp1``): the
-ranks that hold the same block (over ``dp``) write it once, and every
-rank reads back its own.  :func:`load_state` takes the layout from its
-target, a fresh state of the same model on the same mesh, and refuses a
-checkpoint whose leaves differ in number or shape with the JAX package's
-messages, before anything is read.
+blocks, their Adam moments and the step) is saved as the whole, flat
+leaves the JAX package saves (``params/<name>``, ``opt/<name>/exp_avg``
+and ``/exp_avg_sq``, ``step``), whatever the mesh: the state's layout
+(:class:`..parallel.sharding.FlatLayout`) gathers each block to its leaf
+(a dp x tp block over ``tp``, a stacked ``l{i}_moe_*`` over ``ep``), and
+each pipeline stage writes its own layers.  Loading cuts every rank's
+block back out, so a checkpoint written on one mesh loads on another: at
+another ``tp``, ``ep`` or ``pp``, and a pipeline's into the dp x tp path.
+:func:`load_state` takes the layout from its target, a fresh state of the
+same model, and refuses a checkpoint whose leaves differ in number or
+shape with the JAX package's messages, before anything is read.
 """
 
 from __future__ import annotations
@@ -81,80 +84,85 @@ def load_params(path: str, use_npz: Optional[bool] = None
     return out
 
 
-def _state_tensors(state: Any, mesh: Any = None) -> Dict[str, torch.Tensor]:
-    """The state's tensors by checkpoint key: ``params/<name>``,
-    ``opt/<name>/exp_avg`` and ``/exp_avg_sq`` (``@tp<i>`` on a block of a
-    tensor sharded over tp), and ``step``."""
-    from ..parallel.sharding import param_spec
+def _leaf_keys(name: str):
+    return (f"params/{name}", f"opt/{name}/exp_avg", f"opt/{name}/exp_avg_sq")
 
-    def suffix(name: str) -> str:
-        if mesh is None or mesh.axis_size("tp") == 1:
-            return ""
-        sharded = any(e == "tp" or (isinstance(e, tuple) and "tp" in e)
-                      for e in param_spec(name))
-        return f"@tp{mesh.coords['tp']}" if sharded else ""
 
+def _flat_tensors(state: Any) -> Dict[str, torch.Tensor]:
+    """The state by whole-leaf key: each param and moment gathered from
+    its blocks (a collective over the sharded axes, every rank's leaves in
+    the same order), on the host."""
+    lay, opt = state.layout, state.opt_state
     out: Dict[str, torch.Tensor] = {}
-    opt = state.opt_state
-    for name, p in state.params.items():
-        tag = suffix(name)
-        out[f"params/{name}{tag}"] = p.data
+    for name in sorted(state.params):
+        p, sh = state.params[name], lay.shardings[name]
         moments = opt.state[p]
-        out[f"opt/{name}/exp_avg{tag}"] = moments["exp_avg"]
-        out[f"opt/{name}/exp_avg_sq{tag}"] = moments["exp_avg_sq"]
+        for key, t in zip(_leaf_keys(name), (p.data, moments["exp_avg"],
+                                             moments["exp_avg_sq"])):
+            out[key] = sh.gather(t).cpu()
     out["step"] = torch.tensor([state.step], dtype=torch.int64)
     return out
 
 
-def _leaf(key: str) -> str:
-    return key.split("@", 1)[0]
-
-
-def save_state(state: Any, path: str, mesh: Any = None) -> str:
+def save_state(state: Any, path: str) -> str:
     """Save a whole training state (params, optimizer moments and step)
-    as a ``torch.distributed.checkpoint`` directory; with a sharded state,
-    every rank of the world calls it with its ``mesh``.  Returns the
+    as a ``torch.distributed.checkpoint`` directory of whole leaves; with a
+    sharded state, every rank of its layout's group calls it.  Returns the
     absolute path."""
     import torch.distributed.checkpoint as dcp
 
     path = os.path.abspath(path)
-    dcp.save(_state_tensors(state, mesh), checkpoint_id=path,
-             no_dist=_single())
+    group = state.layout.group
+    dcp.save(_flat_tensors(state), checkpoint_id=path, process_group=group,
+             no_dist=group is None)
     return path
 
 
-def load_state(path: str, target: Any, mesh: Any = None) -> Any:
+def _check_shape(key: str, want, meta) -> None:
+    got = tuple(meta[key].size) if key in meta else None
+    if tuple(want) != got:
+        raise ValueError(
+            f"checkpoint leaf {key} has shape {got}; target "
+            f"expects {tuple(want)} — wrong model config?"
+        )
+
+
+def load_state(path: str, target: Any) -> Any:
     """Restore a training state saved by :func:`save_state` into
-    ``target``, a fresh state of the same structure (e.g.
-    ``init_state(seed)``) on the same mesh: it supplies the layout and
-    this rank's blocks, which are overwritten in place (params, their
-    optimizer's moments and Adam step counts, the step).  Raises
-    ``ValueError`` when the checkpoint's leaves differ from the target's
-    in number or in shape: a wrong-config resume must fail loudly, not
-    train on misrestored weights."""
+    ``target``, a fresh state of the same model (e.g. ``init_state(seed)``)
+    on any mesh: its layout says which leaves this rank reads (whole, on
+    the host) and which block of each it keeps; its blocks are
+    overwritten in place (params, their optimizer's moments and Adam step
+    counts, the step).  Raises ``ValueError`` when the checkpoint's leaves
+    differ from the target's in number or in shape: a wrong-config resume
+    must fail loudly, not train on misrestored weights."""
     import torch.distributed.checkpoint as dcp
 
     path = os.path.abspath(path)
-    mine = _state_tensors(target, mesh)
     meta = _metadata(path)
-    saved_leaves = {_leaf(k) for k in meta}
-    target_leaves = {_leaf(k) for k in mine}
-    if len(saved_leaves) != len(target_leaves):
+    lay, opt = target.layout, target.opt_state
+    saved, want = len(meta), 3 * len(lay.shapes) + 1
+    if saved != want:
         raise ValueError(
-            f"checkpoint at {path} has {len(saved_leaves)} leaves; the target "
-            f"state has {len(target_leaves)} — wrong model/optimizer config?"
+            f"checkpoint at {path} has {saved} leaves; the target "
+            f"state has {want} — wrong model/optimizer config?"
         )
-    for key in sorted(mine):
-        t_shape = tuple(mine[key].shape)
-        r_shape = tuple(meta[key].size) if key in meta else None
-        if t_shape != r_shape:
-            raise ValueError(
-                f"checkpoint leaf {key} has shape {r_shape}; target "
-                f"expects {t_shape} — wrong model config?"
-            )
-    dcp.load(mine, checkpoint_id=path, no_dist=_single())
-    target.step = int(mine["step"][0])
-    for moments in target.opt_state.state.values():
+    whole: Dict[str, torch.Tensor] = {"step": torch.zeros(1, dtype=torch.int64)}
+    for name in sorted(target.params):
+        for key in _leaf_keys(name):
+            _check_shape(key, lay.shapes[name], meta)
+            whole[key] = torch.empty(lay.shapes[name],
+                                     dtype=meta[key].properties.dtype)
+    dcp.load(whole, checkpoint_id=path, process_group=lay.group,
+             no_dist=lay.group is None)
+    with torch.no_grad():
+        for name, p in target.params.items():
+            moments, sh = opt.state[p], lay.shardings[name]
+            for key, t in zip(_leaf_keys(name), (p, moments["exp_avg"],
+                                                 moments["exp_avg_sq"])):
+                t.copy_(sh.shard(whole[key]))
+    target.step = int(whole["step"][0])
+    for moments in opt.state.values():
         moments["step"].fill_(float(target.step))
     return target
 

@@ -477,9 +477,10 @@ def test_bench_forwards_to_the_port_bench(monkeypatch):
 @pytest.mark.parametrize("cmd", ["lint", "train", "rankcheck", "metrics-diff"])
 def test_unported_commands_are_refused(cmd, capsys, monkeypatch):
     """``metrics-diff`` is ``metrics diff``: argparse refuses it.
-    ``lint``, ``train`` and ``rankcheck`` are ported; what of them is not
-    refuses with exit 2 and one line: ``lint --parallel`` (the parallel
-    sweep, ROADMAP.md A.11), ``train --pp`` (the pipeline, A.11) and
+    ``lint``, ``train`` and ``rankcheck`` are ported; what of them cannot
+    run here refuses with exit 2 and one line: ``lint --parallel`` (the
+    parallel sweep, ROADMAP.md A.11 item 3), ``train --pp 2`` on one CPU
+    rank (the JAX CLI's refusal of more stages than devices) and
     ``rankcheck --stress`` on fewer than 4 cards (here: the CPU)."""
     monkeypatch.setenv("DLS_PLATFORM", "cpu")
     if cmd in ("lint", "train", "rankcheck"):

@@ -102,11 +102,22 @@ def test_train_notes_match_the_jax_cli(runs):
 
 def test_train_refuses_what_waits_for_the_pipeline_and_experts(monkeypatch,
                                                                capsys):
-    """``--pp`` and ``mixtral*`` exit 2 with one line naming ROADMAP.md
-    A.11; an unknown model exits 2 before any world starts."""
+    """What the JAX ``cmd_train`` and ``_cmd_train_moe`` refuse, the port
+    refuses with the same exit code 2 and last stderr line, before any
+    world starts: ``--pp 2`` on a world of one, ``--pp 5`` (does not
+    divide 12 layers), ``--pp 2 --scan``, mixtral with ``--pp``, an
+    unknown mixtral variant and ``llama-tiny``.  The JAX CLI runs on one
+    device (``jax.devices`` patched), the port on one CPU rank."""
     monkeypatch.setenv("DLS_PLATFORM", "cpu")
-    for argv in (["train", "--pp", "2"], ["train", "--model", "mixtral-tiny"],
+    real = jax.devices
+    monkeypatch.setattr(jax, "devices", lambda *a: real(*a)[:1])
+    for argv in (["train", "--pp", "2"], ["train", "--pp", "5"],
+                 ["train", "--pp", "2", "--scan"],
+                 ["train", "--model", "mixtral-tiny", "--pp", "2"],
+                 ["train", "--model", "mixtral-huge"],
                  ["train", "--model", "llama-tiny"]):
+        assert jmain(argv) == 2
+        want = capsys.readouterr().err.strip().splitlines()[-1]
         assert main(argv) == 2
-        err = capsys.readouterr().err.strip().splitlines()
-        assert len(err) == 1 and "A.11" in err[0], argv
+        got = capsys.readouterr()
+        assert got.out == "" and got.err.strip().splitlines() == [want], argv

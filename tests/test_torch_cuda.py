@@ -2196,3 +2196,137 @@ def test_rebatched_segments_are_allclose_to_planned_on_the_card(cuda):
     assert torch.equal(plain, planned)
     torch.testing.assert_close(rebatched, planned, rtol=CB.REBATCH_RTOL,
                                atol=CB.REBATCH_ATOL)
+
+
+# -- expert and pipeline parallelism (one process per card) --------------------
+
+def _card_and_cpu_worlds(monkeypatch, cards: int, legs):
+    """Every rank's results of ``legs`` on a world of ``cards`` NCCL ranks,
+    then on a gloo world of as many CPU ranks (the CPU rehearsal)."""
+    from distributed_llm_scheduler_tpu_torch.parallel import launch, runs
+
+    out = []
+    for platform in ("cuda", "cpu"):
+        monkeypatch.setenv("DLS_PLATFORM", platform)
+        w = launch.World(cards, timeout=600)
+        try:
+            out.append(w.call(runs.run_legs, (legs,)))
+        finally:
+            w.close()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cards,axes", [(1, {"dp": 1, "ep": 1}),
+                                        (2, {"dp": 1, "ep": 2}),
+                                        (4, {"dp": 2, "ep": 2})])
+def test_expert_parallel_step_on_the_cards_equals_the_cpu_world(
+        cuda, monkeypatch, cards, axes):
+    """The dp x ep Mixtral step (tiny, f32), dense and routed at capacity
+    2.0 and a squeezing 0.5: over ``cards`` NCCL ranks the losses of 3
+    steps, the logits and the dropped slots equal the same world's on the
+    CPU within 1e-4 (on two and four cards the ep exchange and the dp
+    all-gather of the expert counts cross cards).  Each rank launches
+    flash ``L`` and RMSNorm ``2 L + 1`` times a step: one unsharded step's
+    (the attention and norms run on every ep rank, as on the JAX mesh)."""
+    from distributed_llm_scheduler_tpu_torch.models import mixtral
+    from distributed_llm_scheduler_tpu_torch.ops import norms as N
+
+    if torch.cuda.device_count() < cards:
+        pytest.skip(f"needs {cards} cards")
+    cfg = mixtral.MixtralConfig.tiny()
+    params = mixtral.init_params_numpy(cfg, 0)
+    ids, tgt = _tiny_batch(cfg.vocab_size)
+    legs = [("expert", dict(config=cfg, axes=axes, params=params, ids=ids,
+                            targets=tgt, steps=3, routed=routed,
+                            stats_capacity=(2.0, 0.5)))
+            for routed in (False, True)]
+    card, cpu = _card_and_cpu_worlds(monkeypatch, cards, legs)
+    L = cfg.n_layers
+    for got, want in zip(card[0], cpu[0]):
+        np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(got["logits"], want["logits"], rtol=1e-4, atol=1e-4)
+        assert [s["dropped_slots"] for s in got["stats"]] \
+            == [s["dropped_slots"] for s in want["stats"]]
+    for rank in card:
+        for leg in rank:
+            assert leg["launches"] == {A.KERNEL: 3 * L, N.LN_KERNEL: 0,
+                                       N.RMS_KERNEL: 3 * (2 * L + 1)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cards", [1, 2, 4])
+def test_pipeline_on_the_cards_equals_the_cpu_world(cuda, monkeypatch, cards):
+    """GPT-2 tiny f32 as a GPipe pipeline over ``cards`` NCCL stage ranks
+    (4 microbatches): the logits, the loss and gradients (the hops'
+    backwards crossing cards) and 3 training steps' losses equal the same
+    world's on the CPU within 1e-4; each stage launches flash ``L/S x M``
+    and LayerNorm ``2 L/S x M + 1`` times a step (no fill or drain step
+    runs a layer), flash summing over the stages to the microbatches'
+    unsharded forwards."""
+    import dataclasses
+
+    from distributed_llm_scheduler_tpu_torch.models import gpt2
+    from distributed_llm_scheduler_tpu_torch.ops import norms as N
+
+    if torch.cuda.device_count() < cards:
+        pytest.skip(f"needs {cards} cards")
+    cfg = dataclasses.replace(gpt2.GPT2Config.tiny(), n_layer=4)
+    params = gpt2.init_params_numpy(cfg, 0)
+    ids, tgt = _tiny_batch(cfg.vocab_size)
+    M = 4
+    legs = [("pipeline", dict(config=cfg, stages=cards, microbatches=M,
+                              params=params, ids=ids)),
+            ("pipeline", dict(config=cfg, stages=cards, microbatches=M,
+                              params=params, ids=ids, targets=tgt, grads=True,
+                              steps=3))]
+    card, cpu = _card_and_cpu_worlds(monkeypatch, cards, legs)
+    (fwd, grads), (fwd0, grads0) = card[0], cpu[0]
+    np.testing.assert_allclose(fwd["logits"], fwd0["logits"], rtol=1e-4, atol=1e-4)
+    assert abs(grads["loss"] - grads0["loss"]) < 1e-4
+    for k, g in grads0["grads"].items():
+        np.testing.assert_allclose(grads["grads"][k], g, rtol=1e-4, atol=1e-5,
+                                   err_msg=k)
+    np.testing.assert_allclose(grads["losses"], grads0["losses"], rtol=1e-4, atol=1e-4)
+    assert grads["hops"] == grads0["hops"]
+    per = cfg.n_layer // cards
+    for rank in card:
+        assert rank[1]["launches"] == {A.KERNEL: 3 * per * M, N.RMS_KERNEL: 0,
+                                       N.LN_KERNEL: 3 * (2 * per * M + 1)}
+    assert sum(r[1]["launches"][A.KERNEL] for r in card) == 3 * cfg.n_layer * M
+
+
+@pytest.mark.cuda
+def test_a_dead_graph_is_not_freed_inside_a_capture(cuda):
+    """A CUDA graph left in a dead reference cycle is not destroyed by a
+    garbage collection that a later capture's allocations set off (a
+    graph destroyed while a stream captures invalidates the capture)."""
+    import gc
+
+    from distributed_llm_scheduler_tpu_torch.backends.device import (
+        CapturedProgram, capture_stream)
+
+    x = torch.ones(4, device=cuda)
+    stream = capture_stream(cuda)
+    old = CapturedProgram(lambda p, ext: ext["x"] * 2, stream=stream)
+    old({}, {"x": x})
+    cycle = [old]
+    cycle.append(cycle)  # freed only by the collector once dropped
+    del old, cycle
+    threshold = gc.get_threshold()
+
+    def body(p, ext):
+        if torch.cuda.is_current_stream_capturing():
+            # allocations that would trip the collector mid-capture
+            gc.set_threshold(1, 1, 1)
+            junk = [[i] for i in range(1000)]
+            gc.set_threshold(*threshold)
+            del junk
+        return ext["x"] + 1
+
+    try:
+        out = CapturedProgram(body, stream=stream)({}, {"x": x})
+    finally:
+        gc.set_threshold(*threshold)
+    torch.cuda.synchronize()
+    assert torch.equal(out, x + 1)
