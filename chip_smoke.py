@@ -210,10 +210,12 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     ``SEARCH_LINE``.
 
 18. BASELINE.json configs #5 and #4.  a. the GPT-2 small f32 training
-    step (43 tasks): ``eval/train_bench.measure_train_dag`` on the card
-    (its oracle true, 10 policies replayed, every launch of the bench
-    counted), then the step on one node and placed by ``mru`` and ``heft``
-    on 4 nodes of the card at 0.55x the step's footprint, planned and
+    step (43 tasks): ``eval/train_bench.measure_train_dag`` on the card,
+    run as the train leg of ``eval/capture_artifacts`` (its TRAIN record:
+    oracle true, 10 policies replayed, every launch of the leg counted;
+    phase 25 b reads this run), then the step on one node and placed by
+    ``mru`` and ``heft`` on 4 nodes of the card at 0.55x the step's
+    footprint, planned and
     compiled, each within ``tests/test_train_dag.py``'s tolerances of the
     single-node step (which outputs are bit-equal is printed), 24 flash
     and 49 LayerNorm launches per step; the step's profile (the norm
@@ -232,8 +234,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     replays of one captured CUDA graph, with 65 RMSNorm launches that ran
     per forward_cached call (all on the register kernel, none on copies,
     no flash launch), tok/s, ms per step and the roofline's
-    ``bound_utilization``, and the same generations eager (``capture=
-    False``) beside them, with equal tokens; then a generation whose step logits at 8 of
+    ``bound_utilization``, and an eager generation (``capture=False``,
+    16 new tokens, one timed repetition) beside them, with tokens equal
+    to the captured generation's; then a generation whose step logits at 8 of
     the generated positions are held against the fused forward over the
     sequence so far (the JAX package's ``oracle_close``): in f32 on the
     same weights, which must hold, and in bf16, reported (a randomly drawn
@@ -242,7 +245,7 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     int8 KV cache: its bytes at most 0.75 of the bf16 cache's, tok/s and
     token agreement with a.  c. ``measure_decode_dag`` under ``heft`` on
     one node (34-task step: per task, segmented, host-driven and looped
-    legs, the K-step loop captured and eager with equal tokens,
+    legs, the K-step loop (16 steps) captured and eager with equal tokens,
     ``oracle_ok``, two graph classes); one step under ``heft`` on
     8 nodes of the card, bit-equal to one node's; the segmented and
     compiled rungs captured at step 1 and replayed at step 3, after the
@@ -381,6 +384,18 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     2`` and ``train --model gpt2 --pp n --steps 2`` through the port's
     ``__main__``: exit 0 and two ``step N: loss X`` lines
     (``EXPERT_PIPELINE_LINE``).
+25. the record tools.  a. ``lint --parallel`` and ``lint --parallel
+    --json`` through the port's ``__main__`` on the cards' count: exit 0,
+    no diagnostic, no kernel launched; then the collective sweep
+    (``analysis/parallel_sweep``) on a simulated world of 8 ranks (a
+    thread a rank, on the CPU): clean, each probe's recorded collectives
+    printed.  b. ``eval/capture_artifacts.main([23, "train"])`` at full
+    size into a temporary directory (phase 18 a's run): exit 0, the TRAIN
+    record's fields (``tests/test_artifacts_schema.py``'s), ``platform``
+    ``cuda`` and ``card``, flash and LayerNorm launches counted.  c.
+    ``eval/rankcheck_artifact.main``: below four cards its one-line
+    refusal (exit 2, nothing written); on four, both legs, each leg's
+    Kendall's tau and winner agreement printed (``ARTIFACTS_LINE``).
 
 The last lines are one JSON object of per-kernel numbers (``launches`` is
 the count of the kernel's main path, ``launches_by_path`` each counted
@@ -424,6 +439,19 @@ runs phase 23 alone over every visible card and prints its
 
 runs phase 24 alone over every visible card and prints its
 ``EXPERT_PIPELINE_LINE``.
+
+    python3 chip_smoke.py --record-tools
+
+runs phase 25 alone (b runs the train capture leg itself) and prints its
+``ARTIFACTS_LINE``.
+
+    python3 chip_smoke.py --artifacts [OUT]
+
+runs every leg of ``eval/capture_artifacts`` at full size and, on four
+cards, both legs of ``eval/rankcheck_artifact``, writing their
+``*_TORCH_r23.json`` records under OUT (default: this checkout's root),
+and prints each record's headline values (``ARTIFACTS_RECORDS_LINE``);
+see :func:`artifacts_only`.
 
     python3 chip_smoke.py --preflight-passes [ROOT]
 
@@ -3911,38 +3939,23 @@ def time_train_kernels(torch, A, N, dev) -> dict:
 
 
 def run_train_path(torch, P, A, N, dev, cfg=None) -> tuple:
-    """Phase 18 a: the training step through ``measure_train_dag`` (its
-    launches counted over the whole bench), then on one node and placed
-    by ``mru`` and ``heft`` on TRAIN_NODES nodes of the card, planned
+    """Phase 18 a: the training step through ``measure_train_dag``, run as
+    the train leg of ``eval/capture_artifacts`` (its record, launches
+    counted over the whole leg; phase 25 b reads the same run), then on
+    one node and placed by ``mru`` and ``heft`` on TRAIN_NODES nodes of
+    the card, planned
     (per step, counted) and compiled (warm-up and capture counted, the
     replays' launches counted at each replay), each against the
     single-node step.  Returns (TRAIN_LINE's dict, counted launches)."""
-    import tempfile
-
-    from distributed_llm_scheduler_tpu_torch.eval import train_bench as TB
     from distributed_llm_scheduler_tpu_torch.utils.hbm import preflight_task_memory
 
     cfg = cfg or P.GPT2Config.small()
-    per_step, per_ref = train_launches(cfg.n_layer)
+    per_step, _ = train_launches(cfg.n_layer)
     launches = {}
-    # a fresh calibration (1 warm-up + 3 profile steps) in a directory of
-    # its own: the anchor (warm-up + 1), the oracle, 4 timed steps
-    bench_steps = 2 + 4 + 4
-    with tempfile.TemporaryDirectory() as td:
-        t0 = time.perf_counter()
-        bench, launches["train bench"] = counted(
-            "train bench",
-            {k: n * bench_steps + per_ref[k] for k, n in per_step.items()},
-            lambda: TB.measure_train_dag(config=cfg, device=dev, cache_dir=td,
-                                         log=log, **TRAIN_BUILD))
-        bench_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bench, launches["train bench"] = capture_train_leg(torch, P)
+    bench_s = time.perf_counter() - t0
     print("TRAIN_BENCH_LINE " + json.dumps(bench), flush=True)
-    missing = [p for p, r in bench["policies"].items()
-               if not (r["makespan_ms"] > 0 and 0 < r["completion"] <= 1)]
-    if (not bench["oracle_ok"] or len(bench["policies"]) != 10 or missing
-            or bench["platform"] != "cuda"):
-        raise AssertionError(f"train bench: oracle {bench['oracle_ok']}, "
-                             f"{len(bench['policies'])} policies, {missing}")
     log(f"  train bench in {bench_s:.1f} s: executed step "
         f"{bench['executed_step_ms']} ms, best {bench['best_policy']} "
         f"{bench['best_makespan_ms']} ms, vs_roundrobin {bench['vs_roundrobin']}")
@@ -4231,6 +4244,10 @@ DECODE_CHECKS = 8
 # reference's does); an f32 attention read 0.986-1.011
 DECODE_BF16_K = 1.5
 DECODE_RUNG_STEPS = 3
+# leg c's K-step loop windows: 16 steps, where the JAX bench's 64 took
+# ~40 s of the phase in the eager and int8-weight windows (81 and 78 ms a
+# Llama-3 8B token; PR 23)
+DECODE_LOOP_STEPS = 16
 MOE_DECODE = dict(batch=2, prompt_len=512, new_tokens=16)
 # the shapes the decode paths give the norm kernels that phase 5 does not
 # time: a Llama-3 8B decode step's and prefill's RMSNorm, the GPT-2 small
@@ -4245,11 +4262,16 @@ def decode_calls(reps: int, new_tokens: int, lossy: bool = False,
     generate(1) and generate(new_tokens), each warmed up once and run
     ``reps`` times (one call per generated token, a captured step's replay
     included), plus, for a lossy leg, the agreement's two generations, and
-    with ``eager_leg`` the same again eagerly and the two generations that
-    compare the paths' tokens."""
+    with ``eager_leg`` the same eagerly at the bench's EAGER_REPS and
+    EAGER_TOKENS and the two generations that compare the paths' tokens."""
+    from distributed_llm_scheduler_tpu_torch.eval.decode_bench import (
+        EAGER_REPS, EAGER_TOKENS,
+    )
+
     one = (reps + 1) * (1 + new_tokens)
+    et = min(EAGER_TOKENS, new_tokens)
     return (one + (2 * new_tokens if lossy else 0)
-            + (one + 2 * new_tokens if eager_leg else 0))
+            + ((EAGER_REPS + 1) * (1 + et) + 2 * et if eager_leg else 0))
 
 
 def decode_oracle(torch, llama, cfg, params, ids, new_tokens: int,
@@ -4634,12 +4656,14 @@ def run_decode_path(torch, P, A, N, dev) -> tuple:
     a["rms_norm_replayed"] = replays[N.RMS_KERNEL]
     log_decode("Llama-3 8B generate, captured steps", a)
     e = a["eager"]
-    log(f"  Llama-3 8B generate, eager steps (capture=False): "
-        f"{e['decode_tok_s']:.1f} tok/s, {e['ms_per_token_step']:.4f} ms per "
-        f"token step, bound_utilization {e.get('bound_utilization', 0):.4f}; "
-        f"captured {a['ms_per_token_step']:.4f} ms "
+    log(f"  Llama-3 8B generate, eager steps (capture=False, "
+        f"{e['new_tokens']:.0f} tokens, {DB.EAGER_REPS} "
+        f"timed rep): {e['decode_tok_s']:.1f} tok/s, "
+        f"{e['ms_per_token_step']:.4f} ms per token step, bound_utilization "
+        f"{e.get('bound_utilization', 0):.4f}; captured "
+        f"{a['ms_per_token_step']:.4f} ms "
         f"({e['ms_per_token_step'] / a['ms_per_token_step']:.2f}x); tokens "
-        f"equal {e['tokens_equal']}")
+        f"equal {e['tokens_equal']} ({time.perf_counter() - t0:.1f} s so far)")
     if not e["tokens_equal"]:
         raise AssertionError("captured generate's tokens differ from the "
                              "eager path's")
@@ -4661,6 +4685,8 @@ def run_decode_path(torch, P, A, N, dev) -> tuple:
     del params32
     gc_cuda(torch)
     line["llama"] = a
+    log(f"  a. in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
 
     log("  b. Llama-3 8B with the int8 KV cache")
     calls_b = decode_calls(DECODE_REPS, DECODE["new_tokens"], lossy=True)
@@ -4681,12 +4707,15 @@ def run_decode_path(torch, P, A, N, dev) -> tuple:
     if b["cache_bytes_ratio"] > 0.75:
         raise AssertionError("the int8 cache is not under 0.75 of the bf16 one")
     line["llama_kv_int8"] = b
+    log(f"  b. in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
 
     log("  c. the Llama-3 8B decode-step DAG through the scheduler")
     from distributed_llm_scheduler_tpu_torch.ops import kernels
 
     kernels.reset_launches()
-    c = DB.measure_decode_dag(cfg, policy="heft", device=dev, params=params)
+    c = DB.measure_decode_dag(cfg, policy="heft", device=dev, params=params,
+                              loop_steps=DECODE_LOOP_STEPS)
     no_routes("llama decode DAG bench")
     n_rms = kernels.ran(N.RMS_KERNEL)
     launches["llama decode DAG bench"] = {N.RMS_KERNEL: n_rms}
@@ -4720,16 +4749,21 @@ def run_decode_path(torch, P, A, N, dev) -> tuple:
     line["llama_dag"] = c
     del params
     gc_cuda(torch)
+    log(f"  c. in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
 
     log("  d. Mixtral-8x7B widths, 4 layers: generate against the decode DAG")
     line["mixtral"], moe_n = moe_decode(torch, P, N, dev)
     launches.update(moe_n)
     gc_cuda(torch)
+    log(f"  d. in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
 
     log("  e. GPT-2 small bf16 through the bench's other legs")
     line["gpt2"], gpt2_n = gpt2_decode_legs(torch, P, A, N, dev)
     launches.update(gpt2_n)
     gc_cuda(torch)
+    log(f"  e. in {time.perf_counter() - t0:.1f} s")
 
     log("  norm kernels at the decode paths' shapes")
     rng = np.random.default_rng(5)
@@ -6211,6 +6245,295 @@ def run_expert_pipeline_path(torch, A, N) -> tuple:
     return line, counts
 
 
+# phase 25: the record tools.  a: ``lint --parallel`` (and ``--json``)
+# through the port's __main__ on the cards' count, then the collective
+# sweep on a simulated world of ARTIFACT_SIM_RANKS ranks, each probe's
+# recorded collectives printed.  b: ``capture_artifacts.main([n,
+# "train"])`` at full size into a temporary directory (phase 18 a's run
+# when the whole script runs): exit 0, the TRAIN record's fields, flash
+# and LayerNorm launches counted.  c: ``rankcheck_artifact.main``: its
+# refusal below four cards, both legs on four.
+ARTIFACT_ROUND = 23
+ARTIFACT_SIM_RANKS = 8
+#: the keys tests/test_artifacts_schema.py asks of the JAX TRAIN record
+TRAIN_RECORD_KEYS = ("model", "platform", "oracle_ok", "policies",
+                     "executed_step_ms")
+
+
+@contextlib.contextmanager
+def records_under(module, root: Path):
+    """``module``'s records (and ``capture_artifacts``' calibration cache)
+    under ``root`` while the block runs."""
+    names = [n for n in ("REPO_ROOT", "CACHE_DIR") if hasattr(module, n)]
+    saved = {n: getattr(module, n) for n in names}
+    module.REPO_ROOT = str(root)
+    if "CACHE_DIR" in saved:
+        module.CACHE_DIR = str(root / ".costmodel_torch")
+    try:
+        yield root
+    finally:
+        for n, v in saved.items():
+            setattr(module, n, v)
+
+
+def capture_record(CA, root: Path, leg: str) -> tuple:
+    """``capture_artifacts.main([ARTIFACT_ROUND, leg])`` writing under
+    ``root``: (its record, exit code)."""
+    with records_under(CA, root):
+        rc = CA.main([str(ARTIFACT_ROUND), leg])
+    prefix = CA.LEGS[leg][0]
+    return json.loads((root / f"{prefix}_TORCH_r{ARTIFACT_ROUND:02d}.json")
+                      .read_text()), rc
+
+
+def capture_train_leg(torch, P) -> tuple:
+    """The train capture leg at full size (a fresh calibration: 1 warm-up
+    + 3 profile steps, the anchor's 2, the oracle's 4 and 4 timed) in a
+    temporary directory, its launches counted: (record, launches)."""
+    import tempfile
+
+    from distributed_llm_scheduler_tpu_torch.eval import capture_artifacts as CA
+
+    per_step, per_ref = train_launches(P.GPT2Config.small().n_layer)
+    bench_steps = 2 + 4 + 4
+    with tempfile.TemporaryDirectory() as td:
+        (rec, rc), counts = counted(
+            "train capture",
+            {k: n * bench_steps + per_ref[k] for k, n in per_step.items()},
+            lambda: capture_record(CA, Path(td), "train"))
+    missing = [k for k in TRAIN_RECORD_KEYS if k not in rec]
+    bad = [p for p, r in rec.get("policies", {}).items()
+           if not (r["makespan_ms"] > 0 and 0 < r["completion"] <= 1)]
+    if (rc != 0 or CA._has_error(rec) or missing or bad
+            or not rec["oracle_ok"] or len(rec["policies"]) != 10
+            or rec["platform"] != "cuda" or rec["card"] != nvidia_smi_line()):
+        raise AssertionError(f"train capture: exit {rc}, missing {missing}, "
+                             f"policies off {bad}: {json.dumps(rec)[:2000]}")
+    return rec, counts
+
+
+def collectives_summary(seqs: dict) -> dict:
+    """One probe's recorded collectives: how many each rank issued, rank
+    0's in order (op, shapes, perm, group), a run of equal ones as one
+    entry with its count."""
+    runs = []
+    for c in seqs[0]:
+        text = c.describe() + f" on {list(c.group)}"
+        if runs and runs[-1][1] == text:
+            runs[-1][0] += 1
+        else:
+            runs.append([1, text])
+    return {"per_rank": [len(seqs[r]) for r in sorted(seqs)],
+            "rank0": [f"{n} x {t}" if n > 1 else t for n, t in runs]}
+
+
+def run_artifacts_path(torch, P, A, N, train=None) -> tuple:
+    """Phase 25, a-c (``train``: phase 18 a's (record, launches), else b
+    runs the leg).  Returns (ARTIFACTS_LINE dict, {run: launches})."""
+    import tempfile
+
+    from distributed_llm_scheduler_tpu_torch.__main__ import main
+    from distributed_llm_scheduler_tpu_torch.analysis import sweep_parallel_collectives
+    from distributed_llm_scheduler_tpu_torch.eval import rankcheck_artifact as RA
+
+    cards = torch.cuda.device_count()
+    line, counts = {"cards": cards}, {}
+    t = time.perf_counter()
+    rc, out, err, wall, ran = cli_call(torch, main, ["lint", "--parallel"])
+    if rc != 0 or out.strip() != "analysis: 0 error(s), 0 warning(s), 0 info":
+        raise AssertionError(f"a. lint --parallel exited {rc}: {out!r} "
+                             f"{err[-2000:]!r}")
+    rc_j, out_j, err_j, wall_j, _ = cli_call(torch, main, ["lint", "--parallel",
+                                                           "--json"])
+    rep = json.loads(out_j) if rc_j == 0 else {}
+    if rc_j != 0 or rep.get("diagnostics") != [] or rep.get("exit_code") != 0:
+        raise AssertionError(f"a. lint --parallel --json exited {rc_j}: "
+                             f"{out_j!r} {err_j[-2000:]!r}")
+    if any(ran.values()):
+        raise AssertionError(f"a. lint --parallel launched kernels: {ran}")
+    line["lint_parallel"] = {"exit": rc, "wall_s": wall, "json_wall_s": wall_j,
+                             "stdout": out.strip()}
+    log(f"  a. lint --parallel on {cards} card(s): exit 0, {out.strip()!r} "
+        f"({wall:.1f} s); --json: exit 0, no diagnostic ({wall_j:.1f} s)")
+    traces = {}
+    t0 = time.perf_counter()
+    rep = sweep_parallel_collectives(
+        devices=[torch.device("cpu")] * ARTIFACT_SIM_RANKS, traces=traces)
+    sweep_s = time.perf_counter() - t0
+    if not rep.ok or rep.diagnostics:
+        raise AssertionError(f"a. sweep at {ARTIFACT_SIM_RANKS} ranks: "
+                             f"{[d.render() for d in rep.diagnostics]}")
+    line["sweep"] = {"ranks": ARTIFACT_SIM_RANKS, "wall_s": sweep_s,
+                     "probes": {k: collectives_summary(v) for k, v in traces.items()}}
+    log(f"  a. the collective sweep on {ARTIFACT_SIM_RANKS} simulated ranks: "
+        f"clean in {sweep_s:.2f} s")
+    for name, summary in line["sweep"]["probes"].items():
+        if not any(summary["per_rank"]):
+            raise AssertionError(f"a. probe {name} issued no collective")
+        log(f"    {name}: collectives per rank {summary['per_rank']}; rank 0: "
+            + "; ".join(summary["rank0"]))
+
+    if train is None:
+        log("  b. the train capture leg at full size")
+        train = capture_train_leg(torch, P)
+        line["train_capture_run"] = "phase 25 b"
+    else:
+        line["train_capture_run"] = "phase 18 a"
+    rec, counts["train capture"] = train
+    line["train_capture"] = {k: rec[k] for k in (
+        "model", "platform", "card", "oracle_ok", "executed_step_ms",
+        "best_policy", "best_makespan_ms", "vs_roundrobin", "capture_wall_s")}
+    log(f"  b. capture_artifacts train ({line['train_capture_run']}'s run): "
+        f"exit 0, {rec['model']}, oracle {rec['oracle_ok']}, executed step "
+        f"{rec['executed_step_ms']} ms, best {rec['best_policy']} "
+        f"{rec['best_makespan_ms']} ms, vs_roundrobin {rec['vs_roundrobin']}, "
+        f"capture_wall_s {rec['capture_wall_s']}; launches "
+        f"{counts['train capture']}")
+
+    with tempfile.TemporaryDirectory() as td:
+        err = io.StringIO()
+        t0 = time.perf_counter()
+        with records_under(RA, Path(td)), contextlib.redirect_stderr(err):
+            rc = RA.main([str(ARTIFACT_ROUND)])
+        rank_s = time.perf_counter() - t0
+        lines = err.getvalue().strip().splitlines()
+        if cards < RA.CARDS:
+            if rc != 2 or len(lines) != 1 or list(Path(td).iterdir()):
+                raise AssertionError(f"c. rankcheck_artifact on {cards} card(s): "
+                                     f"exit {rc}, {lines}")
+            line["rankcheck"] = {"exit": rc, "refusal": lines[0]}
+            log(f"  c. rankcheck_artifact on {cards} card(s): exit 2, {lines[0]!r}")
+        else:
+            path = Path(td) / f"RANKCHECK_TORCH_r{ARTIFACT_ROUND:02d}.json"
+            if rc not in (0, 1) or not path.exists():
+                raise AssertionError(f"c. rankcheck_artifact exited {rc}: "
+                                     f"{lines[-20:]}")
+            line["rankcheck"] = dict(exit=rc, seconds=rank_s,
+                                     **rank_record_summary(json.loads(path.read_text())))
+            log(f"  c. rankcheck_artifact on {cards} cards: exit {rc} "
+                f"({rank_s:.1f} s): {line['rankcheck']}")
+    line["seconds"] = time.perf_counter() - t
+    return line, counts
+
+
+def rank_record_summary(rec: dict) -> dict:
+    """Each leg's verdict of a RANKCHECK_TORCH record."""
+    return {leg: rank_summary(rec[leg]) for leg in ("flagship", "separating")}
+
+
+def record_tools_only() -> int:
+    """``python3 chip_smoke.py --record-tools``: phase 25 alone (the
+    kernels built first; b runs the train capture leg itself), its
+    ``ARTIFACTS_LINE`` and the card's name and power limit."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    import distributed_llm_scheduler_tpu_torch as P
+    from distributed_llm_scheduler_tpu_torch.ops import attention as A
+    from distributed_llm_scheduler_tpu_torch.ops import kernels
+    from distributed_llm_scheduler_tpu_torch.ops import norms as N
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = nvidia_smi_line()
+    secs = kernels.build(A.KERNEL, N.SOURCE)
+    log(f"built {A.KERNEL}.cu, {N.SOURCE}.cu in {secs:.1f} s; {smi}")
+    line, counts = run_artifacts_path(torch, P, A, N)
+    line["card"] = smi
+    line["counts"] = counts
+    print("ARTIFACTS_LINE " + json.dumps(line), flush=True)
+    log(f"  phase 25 in {line['seconds']:.1f} s")
+    print(smi, flush=True)
+    return 0
+
+
+#: a capture record's headline values (and where they sit), printed by
+#: ``--artifacts``
+HEADLINES = {
+    "STREAM": ("model", "capped_makespan_ms", "uncapped_makespan_ms",
+               "slowdown", "bound_utilization", "budget_respected",
+               "oracle_ok", "quantized_capped_makespan_ms", "capture_wall_s"),
+    "DECODE": ("decode_tok_s", "ms_per_token_step", "bound_utilization",
+               "decode.paged_tok_s", "decode.paged_speedup",
+               "decode.paged_tokens_exact", "decode.kernel_tokens_exact",
+               "decode.kernel_vs_gather_speedup", "whole_program_wall_s",
+               "capture_wall_s"),
+    "TRAIN": ("model", "oracle_ok", "executed_step_ms", "best_policy",
+              "best_makespan_ms", "vs_roundrobin", "capture_wall_s"),
+}
+
+
+def artifacts_only(out: Path) -> int:
+    """``python3 chip_smoke.py --artifacts [OUT]``: every capture leg of
+    ``eval/capture_artifacts`` at full size on the cards, and on four
+    cards both legs of ``eval/rankcheck_artifact``, each writing its
+    ``*_TORCH_r{ARTIFACT_ROUND}.json`` record under OUT (default: the
+    checkout's root) with the kernels' launches of each leg counted;
+    prints ``ARTIFACTS_RECORDS_LINE`` (each record's headline values) and
+    the card's name and power limit.  Exit 1 when a capture leg failed (a
+    stub in its record); a rank-check verdict below its bar is printed,
+    not a failure."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from distributed_llm_scheduler_tpu_torch.eval import capture_artifacts as CA
+    from distributed_llm_scheduler_tpu_torch.eval import rankcheck_artifact as RA
+    from distributed_llm_scheduler_tpu_torch.ops import attention as A
+    from distributed_llm_scheduler_tpu_torch.ops import kernels
+    from distributed_llm_scheduler_tpu_torch.ops import norms as N
+
+    smi = nvidia_smi_line()
+    secs = kernels.build(A.KERNEL, A.PAGED_SOURCE, N.SOURCE)
+    log(f"built {A.KERNEL}.cu, {A.PAGED_SOURCE}.cu, {N.SOURCE}.cu in "
+        f"{secs:.1f} s; {smi}")
+    out.mkdir(parents=True, exist_ok=True)
+    names = (A.KERNEL, A.PAGED_KERNEL, A.PAGED_RAGGED_KERNEL, N.LN_KERNEL,
+             N.RMS_KERNEL)
+    line, failed = {"card": smi, "cards": torch.cuda.device_count(),
+                    "round": ARTIFACT_ROUND, "records": {}}, []
+    t_all = time.perf_counter()
+    for leg, (prefix, _) in CA.LEGS.items():
+        kernels.reset_launches()
+        t = time.perf_counter()
+        rec, rc = capture_record(CA, out, leg)
+        torch.cuda.synchronize()
+        head = {k: rec.get(k) for k in HEADLINES[prefix]}
+        head.update(exit=rc, seconds=time.perf_counter() - t,
+                    launches=ran_counts(names), card=rec.get("card"))
+        line["records"][prefix] = head
+        if rc != 0 or CA._has_error(rec):
+            failed.append(prefix)
+        log(f"  {prefix}_TORCH_r{ARTIFACT_ROUND:02d}.json: exit {rc}, {head}")
+        gc_cuda(torch)
+    if torch.cuda.device_count() >= RA.CARDS:
+        kernels.reset_launches()
+        t = time.perf_counter()
+        with records_under(RA, out):
+            rc = RA.main([str(ARTIFACT_ROUND)])
+        rec = json.loads((out / f"RANKCHECK_TORCH_r{ARTIFACT_ROUND:02d}.json")
+                         .read_text())
+        line["records"]["RANKCHECK"] = dict(
+            exit=rc, seconds=time.perf_counter() - t, card=rec["card"],
+            launches=ran_counts(names), **rank_record_summary(rec))
+        log(f"  RANKCHECK_TORCH_r{ARTIFACT_ROUND:02d}.json: exit {rc} (0: both "
+            f"legs agree on the winner with tau >= 0.8), "
+            f"{line['records']['RANKCHECK']}")
+    else:
+        log(f"  rankcheck_artifact: {torch.cuda.device_count()} card(s), "
+            f"needs {RA.CARDS}: not run")
+    line["seconds"] = time.perf_counter() - t_all
+    line["failed"] = failed
+    print("ARTIFACTS_RECORDS_LINE " + json.dumps(line), flush=True)
+    print(smi, flush=True)
+    return 1 if failed else 0
+
+
 def compiled_cards_only() -> int:
     """``python3 chip_smoke.py --compiled-cards``: phase 23 alone over every
     visible card (the kernels built first), its ``COMPILED_CARDS_LINE`` and
@@ -6549,6 +6872,10 @@ def main() -> int:
         return compiled_cards_only()
     if sys.argv[1:2] == ["--expert-pipeline"]:
         return expert_pipeline_only()
+    if sys.argv[1:2] == ["--record-tools"]:
+        return record_tools_only()
+    if sys.argv[1:2] == ["--artifacts"]:
+        return artifacts_only(Path(sys.argv[2]) if len(sys.argv) > 2 else ROOT)
     if sys.argv[1:2] == ["--preflight-passes"]:
         return preflight_passes(Path(sys.argv[2]) if len(sys.argv) > 2
                                 else ROOT)
@@ -6565,7 +6892,7 @@ def main() -> int:
     t_all = time.perf_counter()
     dev = torch.device("cuda", 0)
     smi = nvidia_smi_line()
-    log(f"[1/24] device: {torch.cuda.get_device_name(0)} ({smi}); torch "
+    log(f"[1/25] device: {torch.cuda.get_device_name(0)} ({smi}); torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -6573,7 +6900,7 @@ def main() -> int:
 
     sources = (A.KERNEL, A.PAGED_SOURCE, N.SOURCE)
     secs = kernels.build(*sources)
-    log(f"[2/24] built {', '.join(f'{n}.cu' for n in sources)} with "
+    log(f"[2/25] built {', '.join(f'{n}.cu' for n in sources)} with "
         f"{kernels.nvcc_path()} for sm_90a in {secs:.1f} s (in parallel)")
     log_ptxas(kernels.build_logs.get(A.KERNEL, ""))
     log_ptxas(kernels.build_logs.get(A.PAGED_SOURCE, ""),
@@ -6585,59 +6912,59 @@ def main() -> int:
                     if "paged_ragged_tc" in k]
     norm_ptxas = log_norm_ptxas(kernels.build_logs.get(N.SOURCE, ""))
 
-    log("[3/24] flash kernel check against its plain version")
+    log("[3/25] flash kernel check against its plain version")
     attn = check_attention_kernel(
         torch, A, dev, P.LlamaConfig.llama3_8b(dtype=torch.bfloat16))
 
-    log("[4/24] paged kernel check against the plain versions")
+    log("[4/25] paged kernel check against the plain versions")
     paged = check_paged_kernels(torch, A, DB, dev)
     ragged_n = run_ragged_op_path(torch, A, DB, dev)
 
-    log("[5/24] LayerNorm and RMSNorm kernel check against the plain versions")
+    log("[5/25] LayerNorm and RMSNorm kernel check against the plain versions")
     norms = check_norm_kernels(torch, N, dev)
 
     def phase_done():  # free the phase's tensors before the next one
         gc_cuda(torch)
 
-    log("[6/24] flagship forward path: GPT-2 small bf16 DAG on the card")
+    log("[6/25] flagship forward path: GPT-2 small bf16 DAG on the card")
     gpt2_n = run_main_path(torch, P, dev)
     phase_done()
 
-    log("[7/24] execution ladder: the flagship per task, planned, coalesced, "
+    log("[7/25] execution ladder: the flagship per task, planned, coalesced, "
         "segmented and compiled")
     ladder_n = run_ladder_path(torch, P, dev)
     phase_done()
 
-    log("[8/24] north-star bench: GPT-2 small bf16, 10 policies replayed")
+    log("[8/25] north-star bench: GPT-2 small bf16, 10 policies replayed")
     bench_n, bench_result = run_bench_path(torch, P, dev)
     phase_done()
 
-    log("[9/24] serve path: GPT-2 small bf16 through the paged decode engine")
+    log("[9/25] serve path: GPT-2 small bf16 through the paged decode engine")
     serve_launches, serve_ragged, serve_ln, serve_tr, served = run_serve_path(
         torch, P, A, dev)
     phase_done()
 
-    log("[10/24] Llama path: Llama-3 8B bf16 DAG, pipeline stages, on the card")
+    log("[10/25] Llama path: Llama-3 8B bf16 DAG, pipeline stages, on the card")
     llama_n = run_llama_path(torch, P, dev)
     phase_done()
 
-    log("[11/24] f32 leg: GPT-2 placed on the card vs fused on the CPU")
+    log("[11/25] f32 leg: GPT-2 placed on the card vs fused on the CPU")
     run_f32_leg(torch, P, dev)
 
-    log("[12/24] f32 serve leg: the engine on the card vs on the CPU")
+    log("[12/25] f32 serve leg: the engine on the card vs on the CPU")
     run_f32_serve_leg(torch, P, dev)
     phase_done()
 
-    log("[13/24] f32 Llama leg: placed on the card vs fused on the CPU")
+    log("[13/25] f32 Llama leg: placed on the card vs fused on the CPU")
     run_llama_f32_leg(torch, P, dev)
     phase_done()
 
-    log("[14/24] parameter streaming: GPT-2 medium and the flagship under "
+    log("[14/25] parameter streaming: GPT-2 medium and the flagship under "
         "budgets below their params")
     stream_n = run_stream_path(torch, P, dev)
     phase_done()
 
-    log("[15/24] online serving: the serve bench on the card, then the "
+    log("[15/25] online serving: the serve bench on the card, then the "
         "frontend over GPT-2 small bf16 on a real clock")
     t15 = time.perf_counter()
     bench_on_card = run_serve_bench_on_card(torch, dev)
@@ -6647,7 +6974,7 @@ def main() -> int:
     log(f"  phase 15 in {time.perf_counter() - t15:.1f} s")
     phase_done()
 
-    log("[16/24] run doctor: the flagship and the engine traced, the soak "
+    log("[16/25] run doctor: the flagship and the engine traced, the soak "
         "doctor and the health-routed fleet")
     t16 = time.perf_counter()
     doctor, doctor_n = run_doctor_path(torch, P, A, dev, served)
@@ -6658,7 +6985,7 @@ def main() -> int:
     del served
     phase_done()
 
-    log("[17/24] searched placements: the bench's refine and search "
+    log("[17/25] searched placements: the bench's refine and search "
         "placements on the card, the pre-execution gate and analyze()")
     t17 = time.perf_counter()
     searched, search_n = run_search_phase(torch, P, A, N, dev, bench_result)
@@ -6669,14 +6996,14 @@ def main() -> int:
     del bench_result
     phase_done()
 
-    log("[18/24] BASELINE.json configs #5 and #4: the GPT-2 training step "
+    log("[18/25] BASELINE.json configs #5 and #4: the GPT-2 training step "
         "and the Mixtral-8x7B MoE forward")
     t18 = time.perf_counter()
     train, train_n, moe, moe_n = run_baseline_configs(torch, P, A, N, dev)
     log(f"  phase 18 in {time.perf_counter() - t18:.1f} s")
     phase_done()
 
-    log("[19/24] decoding: Llama-3 8B and Mixtral through generate and the "
+    log("[19/25] decoding: Llama-3 8B and Mixtral through generate and the "
         "decode-step DAG, GPT-2 small through the decode bench")
     t19 = time.perf_counter()
     decoded, decode_n, decode_norms = run_decode_path(torch, P, A, N, dev)
@@ -6685,7 +7012,7 @@ def main() -> int:
     log(f"  phase 19 in {decoded['seconds']:.1f} s")
     phase_done()
 
-    log("[20/24] the command line on the card: execute, trace, metrics, "
+    log("[20/25] the command line on the card: execute, trace, metrics, "
         "generate, schedule and the serving commands through the port's "
         "__main__")
     t20 = time.perf_counter()
@@ -6696,7 +7023,7 @@ def main() -> int:
     log(f"  phase 20 in {cli_line['seconds']:.1f} s")
     phase_done()
 
-    log("[21/24] the pre-flight lint and the sim-against-card rank check: "
+    log("[21/25] the pre-flight lint and the sim-against-card rank check: "
         "lint, lint --preflight, lint --serving and rankcheck through the "
         "port's __main__, run_rank_check on 8 nodes of the card, the tracer")
     t21 = time.perf_counter()
@@ -6707,7 +7034,7 @@ def main() -> int:
     log(f"  phase 21 in {lint_line['seconds']:.1f} s")
     phase_done()
 
-    log("[22/24] the parallel layer on torch.distributed: the dp x tp GPT-2 "
+    log("[22/25] the parallel layer on torch.distributed: the dp x tp GPT-2 "
         "training step and its checkpoint, Llama-3 8B tensor-parallel "
         "decode, ring and Ulysses attention, one process per card")
     par_line, par_n = run_parallel_path(torch, A, N)
@@ -6716,7 +7043,7 @@ def main() -> int:
     log(f"  phase 22 in {par_line['seconds']:.1f} s")
     phase_done()
 
-    log("[23/24] the compiled rung over the cards: the flagship in a world "
+    log("[23/25] the compiled rung over the cards: the flagship in a world "
         "of one process per card against the planned rung, and the "
         "ladder's two benches")
     t23 = time.perf_counter()
@@ -6727,7 +7054,7 @@ def main() -> int:
     log(f"  phase 23 in {cc_line['seconds']:.1f} s")
     phase_done()
 
-    log("[24/24] expert and pipeline parallelism: the dp x ep Mixtral step, "
+    log("[24/25] expert and pipeline parallelism: the dp x ep Mixtral step, "
         "dense and routed, the GPipe GPT-2 step and Llama forward, one "
         "process per card, and the train command's two new paths")
     t24 = time.perf_counter()
@@ -6736,6 +7063,15 @@ def main() -> int:
     ep_line["card"] = smi
     print("EXPERT_PIPELINE_LINE " + json.dumps(ep_line), flush=True)
     log(f"  phase 24 in {ep_line['seconds']:.1f} s")
+    phase_done()
+
+    log("[25/25] the record tools: lint --parallel and the collective sweep, "
+        "the train capture leg, the rank-check record")
+    art_line, art_n = run_artifacts_path(
+        torch, P, A, N, train=(train["bench"], train_n["train bench"]))
+    art_line["card"] = smi
+    print("ARTIFACTS_LINE " + json.dumps(art_line), flush=True)
+    log(f"  phase 25 in {art_line['seconds']:.1f} s")
 
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
 
@@ -6751,7 +7087,7 @@ def main() -> int:
             ("llama", llama_n), ("stream", stream_n), ("run", doctor_n),
             ("searched", search_n), ("decode", decode_n), ("cli", cli_n),
             ("lint", lint_n), ("parallel", par_n), ("compiled cards", cc_n),
-            ("expert pipeline", ep_n))
+            ("expert pipeline", ep_n), ("record tools", art_n))
     line = {"kernels": [
         {"name": A.KERNEL, "route": "cuda", "source": csrc + "flash_attention.cu",
          "replaces": tpu + "152",

@@ -376,13 +376,31 @@ def cmd_lint(args) -> int:
         return 2
 
     if args.parallel:
-        # the sweep traces every strategy of the parallel layer through
-        # its collective_probe hook; the hooks and the sweep are not
-        # ported yet
-        print("lint --parallel: the collective sweep of the parallel layer "
-              "(analysis/parallel_sweep, the collective_probe hooks) is not "
-              "ported to PyTorch yet (ROADMAP.md A.11 item 3)", file=sys.stderr)
-        return 2
+        if args.decode or args.paged or args.preflight or args.fix:
+            print("--parallel lints the hand-written parallel layer and "
+                  "combines only with --verbose", file=sys.stderr)
+            return 2
+        from .analysis import (
+            Severity,
+            analyze_happens_before,
+            stage_programs_1f1b,
+            sweep_parallel_collectives,
+        )
+
+        # every probe runs on a simulated world of one rank per device
+        # (the cards, or DLS_CPU_WORLD under DLS_PLATFORM=cpu)
+        rep = sweep_parallel_collectives()
+        # self-check the MPMD model on the canonical clean schedule: any
+        # COL005/006/007 here means the 1F1B generator or the
+        # happens-before pass itself regressed
+        rep.extend(analyze_happens_before(stage_programs_1f1b(4, 8)))
+        rep = rep.dedupe()
+        if args.json:
+            print(json.dumps(rep.to_json()))
+            return rep.exit_code
+        min_sev = Severity.INFO if args.verbose else Severity.WARNING
+        print(rep.render(min_severity=min_sev))
+        return rep.exit_code
 
     cfg = _config_from(args)
     if args.decode and _weights_family(cfg.model) is None:
@@ -2335,11 +2353,12 @@ def build_parser() -> argparse.ArgumentParser:
     _add_common(p)
     p.add_argument("--parallel", action="store_true",
                    help="sweep the hand-written parallel layer instead of "
-                        "a DAG: trace every registered entry point "
-                        "(parallel/*) and check collective ordering "
+                        "a DAG: run every registered entry point "
+                        "(parallel/*) on a simulated world of one rank per "
+                        "device (the cards, or DLS_CPU_WORLD under "
+                        "DLS_PLATFORM=cpu) and check collective ordering "
                         "(COL003/COL004/COL008) plus the MPMD "
-                        "happens-before self-check (COL005-COL007); not "
-                        "ported yet (exits 2, ROADMAP.md A.11)")
+                        "happens-before self-check (COL005-COL007)")
     p.add_argument("--serving", action="store_true",
                    help="run the serving-safety passes instead of a DAG: "
                         "page-lifetime prover (PGL00x) over an "

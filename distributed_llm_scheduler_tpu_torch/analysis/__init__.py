@@ -17,10 +17,12 @@ order, ...).  Entry points:
 
 Ported: graph, schedule, memory, pipeline, decode, typecheck, stream,
 collective (over the port's ``ProgramIR``), donation, happens-before,
-lifecycle, page, sharding, quantization, cost and determinism passes, and
-the ``lint --fix`` fixers.  Not ported yet: the parallel sweep and the
-jaxpr walk ``analyze_collectives_jaxpr`` (with the ``collective_probe``
-hooks of ``parallel/``'s strategies, ROADMAP.md A.11).
+lifecycle, page, sharding, quantization, cost and determinism passes,
+the ``lint --fix`` fixers, and the parallel sweep
+(:func:`sweep_parallel_collectives`, ``lint --parallel``) over the
+``collective_probe`` hooks of ``parallel/``'s strategies, whose walk
+:func:`analyze_collectives_ranks` runs a probe on every rank of a
+simulated world where the reference walks a jaxpr.
 """
 
 from __future__ import annotations
@@ -38,7 +40,11 @@ from .diagnostics import (
     Diagnostic,
     Severity,
 )
-from .collective_pass import analyze_collectives, analyze_schedule_lowerability
+from .collective_pass import (
+    analyze_collectives,
+    analyze_collectives_ranks,
+    analyze_schedule_lowerability,
+)
 from .cost_pass import analyze_cost
 from .decode_pass import analyze_decode
 from .determinism_pass import analyze_determinism
@@ -50,6 +56,7 @@ from .incremental import AnalysisDelta, IncrementalAnalyzer
 from .lifecycle_pass import analyze_lifecycle
 from .memory_pass import analyze_memory, node_memory_slice
 from .page_pass import analyze_pages, analyze_serve_artifact
+from .parallel_sweep import sweep_parallel_collectives
 from .pipeline_pass import analyze_pipeline
 from .quant_pass import analyze_quantization
 from .schedule_pass import analyze_schedule, placement_of
@@ -70,6 +77,7 @@ __all__ = [
     "StageOp",
     "analyze",
     "analyze_collectives",
+    "analyze_collectives_ranks",
     "analyze_cost",
     "analyze_decode",
     "analyze_determinism",
@@ -96,6 +104,7 @@ __all__ = [
     "pre_execution_gate",
     "stage_programs_1f1b",
     "stream_verdict",
+    "sweep_parallel_collectives",
 ]
 
 #: Setting this env var to anything non-empty (and not "0") disables the

@@ -19,11 +19,15 @@ the property statically:
   admit no global linearization at all is COL002 (the lowering cannot
   even start; see :class:`..sched.linearize.OrderingDeadlock`).
 
-The reference's third entry point, ``analyze_collectives_jaxpr`` (COL003,
-divergent collectives inside the branches of one SPMD program), walks a
-jaxpr of a ``parallel/`` program; its counterpart (a walk of a
-``torch.fx`` graph of each strategy's probe) comes with the port's
-``collective_probe`` hooks (ROADMAP.md A.11).
+* :func:`analyze_collectives_ranks`: the reference's third entry point,
+  ``analyze_collectives_jaxpr``, walks the jaxpr of one SPMD program and
+  flags ``cond`` branches that issue different collectives (COL003).  The
+  port's parallel layer runs a process per rank, so its counterpart runs
+  the program on every rank of a simulated world
+  (:func:`..parallel.simworld.run_ranks`) and flags ranks of one group
+  that issue different collectives, or one that waits on a rank that
+  never comes (COL003: the hang itself), and every hop whose sends are
+  not a partial permutation of the group (COL004).
 
 Wired into :func:`..analysis.pre_execution_gate` through its ``program=``
 parameter: the compiled rung passes its IR, and COL001/COL002/COL004 join
@@ -122,6 +126,32 @@ def analyze_collectives(
     for prim, perm, val in ref:
         if prim in POINT_TO_POINT:
             _check_perm(rep, perm, n_devices, f"value {val!r}")
+    return rep
+
+
+def analyze_collectives_ranks(run: Any, where: str = "program") -> AnalysisReport:
+    """COL003/COL004 over a program run on every rank of a simulated world.
+
+    ``run`` is the :class:`..parallel.simworld.RanksRun` of
+    :func:`..parallel.simworld.run_ranks`.  Every divergence the world
+    stopped at is a COL003 error; every distinct hop whose sends are not
+    a valid partial permutation of its group is a COL004 error.  An
+    exception a rank raised of its own is re-raised (a probe that fails
+    is the sweep's COL008)."""
+    if run.error is not None:
+        raise run.error
+    rep = AnalysisReport()
+    for msg in run.divergences:
+        rep.add("COL003", Severity.ERROR,
+                f"{where}: {msg} — per-rank divergence: a real world hangs here")
+    seen = set()
+    for seq in run.sequences.values():
+        for c in seq:
+            if c.perm is None or (c.group, c.index) in seen:
+                continue
+            seen.add((c.group, c.index))
+            _check_perm(rep, c.perm, len(c.group),
+                        f"{where}/{c.op}#{c.index} of group {list(c.group)}")
     return rep
 
 

@@ -52,6 +52,13 @@ PARITY_TOL = 1e-5
 # cache, so bytes over this rate is the floor on a step.
 PEAK_HBM_GBPS = {"NVIDIA H100 80GB HBM3": 3350.0}
 
+# measure_decode's eager leg: EAGER_TOKENS new tokens (or ``new_tokens``
+# where fewer), one warm-up and EAGER_REPS timed repetitions.  An eager
+# Llama-3 8B step takes 48-73 ms on an H100, so the captured leg's 64
+# tokens x 3 reps would cost ~20 s for a comparison that needs one.
+EAGER_REPS = 1
+EAGER_TOKENS = 16
+
 
 def _paged_op_parity_fixtures(page_size: int = 16) -> list:
     """Single-token fixtures: (name, S, Hq, Hkv, hd, pages_per_seq,
@@ -379,8 +386,8 @@ def measure_decode(
     captured CUDA graph; ``eager_leg=True`` also times ``generate(...,
     capture=False)`` the same way and reports it under ``eager`` (its step
     time, tok/s, bound utilization, and whether its tokens equal the
-    captured path's).  Keys: the JAX bench's, plus ``device`` and
-    ``eager``."""
+    captured path's), over EAGER_TOKENS new tokens fence-amortized over
+    EAGER_REPS.  Keys: the JAX bench's, plus ``device`` and ``eager``."""
     from ..models import decode as decode_mod
     from ..models.family import family_of, module_for
 
@@ -424,21 +431,23 @@ def measure_decode(
         got = generate(gen_params, new_tokens)
         ref = mod.generate(params, ids, config, max_new_tokens=new_tokens)
 
-    def timed(n: int, capture: bool = True) -> float:
+    def timed(n: int, capture: bool = True, k: int = reps) -> float:
         generate(gen_params, n, capture)  # warm-up (and capture)
-        return _amortized(lambda: generate(gen_params, n, capture), reps,
-                          device)
+        return _amortized(lambda: generate(gen_params, n, capture), k, device)
 
     wall_1 = timed(1)  # prefill + one step
     wall_s = timed(new_tokens)
     step_s = max((wall_s - wall_1) / (new_tokens - 1), 1e-9)
     eager = None
     if eager_leg:
-        e1, en = timed(1, False), timed(new_tokens, False)
-        e_step = max((en - e1) / (new_tokens - 1), 1e-9)
-        same = torch.equal(generate(gen_params, new_tokens),
-                           generate(gen_params, new_tokens, False))
-        eager = {"wall_s": en, "ms_per_token_step": e_step * 1e3,
+        en_tokens = min(EAGER_TOKENS, new_tokens)
+        e1 = timed(1, False, EAGER_REPS)
+        en = timed(en_tokens, False, EAGER_REPS)
+        e_step = max((en - e1) / (en_tokens - 1), 1e-9)
+        same = torch.equal(generate(gen_params, en_tokens),
+                           generate(gen_params, en_tokens, False))
+        eager = {"wall_s": en, "new_tokens": float(en_tokens),
+                 "ms_per_token_step": e_step * 1e3,
                  "decode_tok_s": batch / e_step, "tokens_equal": bool(same)}
     out: Dict[str, Any] = {
         "batch": float(batch),
@@ -734,6 +743,7 @@ def measure_decode_dag(
     policy: str = "heft",
     device: Any = "cuda",
     params: Optional[Dict[str, torch.Tensor]] = None,
+    loop_steps: int = 64,
 ) -> Dict[str, Any]:
     """Decode THROUGH the scheduler (``frontend/decode_dag``) on one node of
     ``device``: the task-graph inference path's numbers.
@@ -746,7 +756,9 @@ def measure_decode_dag(
       step dispatches the DAG, reads the batch's argmax tokens back, folds
       the cache updates in place and builds the next inputs;
     * ``looped``: :func:`...backends.decode_loop.build_decode_loop`'s
-      K-step windows (one token readback per K; on a card each window one
+      K-step windows (K = ``loop_steps``, the JAX bench's 64, shrunk to
+      the position horizon of a tiny config; one token readback per K; on
+      a card each window one
       replay of the captured loop, with the eager loop's window beside it
       under ``eager``), and the same window on int8 weights
       (``quantize_dag``, channel scales, cache slabs kept).
@@ -868,7 +880,7 @@ def measure_decode_dag(
 
     # the K-step loop, on fresh graphs at a longer horizon (the run above
     # consumed its cache)
-    K = 64
+    K = loop_steps
     limit = _position_limit(config)
     if limit is not None:  # tiny configs: shrink with the horizon
         K = min(K, (limit - prompt_len - 1) // 2)

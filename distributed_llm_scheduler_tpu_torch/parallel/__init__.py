@@ -24,9 +24,28 @@ out (:mod:`.collectives`).  Ported:
 * :mod:`.ring_attention`, :mod:`.ulysses` — the two sequence-parallel
   attentions;
 * :mod:`.decode` — tensor-parallel ``generate_sharded``;
-* :mod:`.runs` — the entry points a world runs (tests, the card checks).
+* :mod:`.runs` — the entry points a world runs (tests, the card checks);
+* :mod:`.simworld` — a world of simulated ranks in one process, a thread
+  a rank, that records every collective (the collective sweep's world).
 
-Still to port (ROADMAP.md A.11 item 3): the ``collective_probe`` hooks
-of every strategy with the collective sweep behind ``lint --parallel``
-(the JAX package's ``COLLECTIVE_ENTRY_POINTS``).
+Every module listed in :data:`COLLECTIVE_ENTRY_POINTS` exports a
+``collective_probe(devices=None) -> (fn, args)`` hook: a function every
+rank of a world runs, with its arguments, sized for a small mesh.
+``analysis.parallel_sweep`` runs each probe on a simulated world of one
+rank per device and runs the COL003/COL004 collective checks over what
+the ranks issued, so ``lint --parallel`` covers the whole hand-written
+parallel layer on every run.  Adding a strategy module means adding its
+probe here: a missing or broken probe fails the sweep with COL008 rather
+than silently shrinking coverage.
 """
+
+#: modules under this package carrying a ``collective_probe`` hook,
+#: swept by ``analysis.parallel_sweep.sweep_parallel_collectives``
+COLLECTIVE_ENTRY_POINTS = (
+    "ring_attention",
+    "ulysses",
+    "expert",
+    "pipeline_pp",
+    "train",
+    "decode",
+)

@@ -38,12 +38,51 @@ gradients right:
 
 Every function takes ``group=None`` for a group of one rank and is then
 the identity, so the single-device path runs the same code.
+
+The collectives of this module, the groups of ``mesh._build`` and the
+world queries of ``launch.device`` and ``train.run_train_loop`` go
+through :data:`dist`: ``torch.distributed`` itself, or, on a thread that
+runs a rank of a simulated world (:func:`rank_of`, :mod:`.simworld`),
+that world, which records each collective for the collective sweep.
+``launch``'s process-group set-up and the chip benches of ``runs``
+(their barriers, object broadcasts and counted hops) act on a real world
+only and call ``torch.distributed`` itself; no probe reaches them.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
-import torch.distributed as dist
+import torch.distributed
+
+
+class _Seam:
+    """``torch.distributed``, or the simulated rank this thread runs
+    (attributes are looked up at each call, so a patched
+    ``torch.distributed`` function is the one called)."""
+
+    __slots__ = ()
+
+    def __getattr__(self, name):
+        return getattr(getattr(_THREAD, "rank", None) or torch.distributed, name)
+
+
+_THREAD = threading.local()
+#: the ``torch.distributed`` of this thread (module doc)
+dist = _Seam()
+
+
+@contextlib.contextmanager
+def rank_of(rank):
+    """In this thread, :data:`dist` answers as ``rank`` (a
+    :class:`.simworld.SimRank`) until the block ends."""
+    _THREAD.rank = rank
+    try:
+        yield rank
+    finally:
+        _THREAD.rank = None
 
 
 def group_size(group) -> int:
@@ -286,7 +325,7 @@ def mean_over(value: torch.Tensor, group) -> torch.Tensor:
 
 
 __all__ = [
-    "all_gather_dim", "all_reduce_", "copy_to_group", "gather_objects",
-    "group_size", "heads_to_seq", "mean_over", "reduce_from_group",
+    "all_gather_dim", "all_reduce_", "copy_to_group", "dist", "gather_objects",
+    "group_size", "heads_to_seq", "mean_over", "rank_of", "reduce_from_group",
     "ring_hop", "seq_to_heads", "share_from_last", "successor_hop",
 ]

@@ -103,4 +103,36 @@ def generate_on_shards(
     return all_gather_dim(out, mesh.group("dp"), 0) if split else out
 
 
-__all__ = ["generate_on_shards", "generate_sharded", "shard_decode_params"]
+def collective_probe(devices=None):
+    """``(fn, args)`` for the collective sweep (``analysis.parallel_sweep``,
+    ``lint --parallel``): tensor-parallel greedy decode of 2 tokens on
+    tiny GPT-2 (weights from numpy seed 0), ``tp`` 2 from two devices, a
+    (1, 4) prompt; ``fn(*args)`` runs on every rank of a world of
+    ``len(devices)`` ranks (None beyond the mesh). Each step's two sums a
+    layer and the gathered logits are its collectives."""
+    import numpy as np
+
+    from ..models import gpt2
+    from .launch import device, world_devices
+    from .mesh import make_mesh
+
+    n = len(devices if devices is not None else world_devices())
+    tp = 2 if n >= 2 else 1  # tiny() has n_head=4: tp=2 divides
+    config = gpt2.GPT2Config.tiny()
+    ids = np.random.default_rng(0).integers(0, config.vocab_size, size=(1, 4),
+                                            dtype=np.int32)
+
+    def fn(ids):
+        mesh = make_mesh(tp=tp)
+        if not mesh.contains:
+            return None
+        params = gpt2.params_from_numpy(gpt2.init_params_numpy(config, 0),
+                                        device(), config.dtype)
+        return generate_sharded(params, torch.from_numpy(ids).to(device()),
+                                config, mesh, 2)
+
+    return fn, (ids,)
+
+
+__all__ = ["collective_probe", "generate_on_shards", "generate_sharded",
+           "shard_decode_params"]

@@ -389,9 +389,49 @@ def make_moe_train_step(config: MixtralConfig, mesh,
     )
 
 
+def collective_probe(devices=None):
+    """``(fn, args)`` for the collective sweep (``analysis.parallel_sweep``,
+    ``lint --parallel``): the routed capacity-buffer MoE
+    (:func:`moe_routed_stacked`) of ``MixtralConfig.tiny()`` on a dp x ep
+    mesh, ``ep`` 2 from two devices, ``dp`` 2 from four (the JAX hook's
+    rule), the stacked block params and a (2, 8, D) input from numpy seed
+    0; ``fn(*args)`` runs on every rank of a world of ``len(devices)``
+    ranks with its experts and its dp rows (None beyond the mesh). The
+    gathered expert counts place the tokens, so the probe runs on real
+    values."""
+    from .launch import device, world_devices
+    from .mesh import make_axes_mesh
+
+    n = len(devices if devices is not None else world_devices())
+    ep = 2 if n >= 2 else 1
+    dp = 2 if n >= 4 else 1
+    config = MixtralConfig.tiny()
+    D, E, Fh = config.d_model, config.n_experts, config.ffn_hidden
+    rng = np.random.default_rng(0)
+    shapes = {"router": (D, E), "moe_gate": (E, D, Fh), "moe_up": (E, D, Fh),
+              "moe_down": (E, Fh, D)}
+    bp = {k: (rng.standard_normal(s) * 0.1).astype(np.float32)
+          for k, s in shapes.items()}
+    x = rng.standard_normal((2, 8, D)).astype(np.float32)
+
+    def fn(bp, x):
+        mesh = make_axes_mesh(dp=dp, ep=ep)
+        if not mesh.contains:
+            return None
+        dev, per = device(), E // ep
+        lo = mesh.axis_index("ep") * per
+        local = {k: torch.from_numpy(v if k == "router" else v[lo:lo + per]).to(
+                     dev, config.dtype) for k, v in bp.items()}
+        rows = torch.from_numpy(x).to(dev, config.dtype).chunk(dp)[mesh.axis_index("dp")]
+        return moe_routed_stacked(local, rows, config, mesh=mesh)
+
+    return fn, (bp, x)
+
+
 __all__ = [
-    "ep_param_shardings", "ep_param_spec", "expert_mesh_axes", "forward_ep",
-    "forward_ep_stats", "loss_fn_ep", "make_moe_train_step",
-    "moe_block_stacked", "moe_routed_stacked", "shard_ep_params",
-    "stack_expert_params", "stacked_shapes", "unstack_expert_params",
+    "collective_probe", "ep_param_shardings", "ep_param_spec",
+    "expert_mesh_axes", "forward_ep", "forward_ep_stats", "loss_fn_ep",
+    "make_moe_train_step", "moe_block_stacked", "moe_routed_stacked",
+    "shard_ep_params", "stack_expert_params", "stacked_shapes",
+    "unstack_expert_params",
 ]

@@ -63,8 +63,9 @@ def device() -> torch.device:
     """This rank's device: its card under NCCL, the CPU under gloo; with
     no process group (one process), the platform seam's: the current card,
     or the CPU under ``DLS_PLATFORM=cpu`` (no card on ``cuda`` raises
-    ``utils.config.ConfigError``: nothing falls back to the CPU)."""
-    import torch.distributed as dist
+    ``utils.config.ConfigError``: nothing falls back to the CPU).  A rank
+    of a simulated world (:mod:`.simworld`) is on the CPU."""
+    from .collectives import dist
 
     if dist.is_available() and dist.is_initialized():
         if dist.get_backend() == "nccl":
@@ -76,6 +77,20 @@ def device() -> torch.device:
         return torch.device("cpu")
     platform_devices()  # raises without a card
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def world_devices() -> List[torch.device]:
+    """One device per rank of a parallel run on the platform seam's
+    platform (``utils.config.platform_world``): every visible card, or
+    ``DLS_CPU_WORLD`` CPU devices (``cpu:r``).  No card on ``cuda``
+    raises ``utils.config.ConfigError``.  What a ``collective_probe``
+    sizes its mesh from by default, as the JAX hooks take
+    ``jax.devices()``."""
+    from ..utils.config import platform, platform_world
+
+    n = platform_world()
+    kind = platform()
+    return [torch.device(kind, r) for r in range(n)]
 
 
 def _worker(rank: int, world: int, platform: str, card: Optional[int],
@@ -288,4 +303,5 @@ def spawn(fn: Callable[..., Any], world: int, args: Sequence[Any] = (),
         w.close()
 
 
-__all__ = ["KERNEL_SOURCES", "World", "WorkerError", "device", "spawn"]
+__all__ = ["KERNEL_SOURCES", "World", "WorkerError", "device", "spawn",
+           "world_devices"]

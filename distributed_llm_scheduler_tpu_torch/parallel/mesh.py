@@ -103,7 +103,7 @@ def _build(shape: Dict[str, int], group_axes: Tuple[Tuple[str, ...], ...],
     """This rank's :class:`Mesh` of ``shape`` over the first ranks of the
     world, with a group per line along each entry of ``group_axes``
     (``label`` names the axes' product in the refusal)."""
-    import torch.distributed as dist
+    from .collectives import dist
 
     initialized = dist.is_available() and dist.is_initialized()
     world = dist.get_world_size() if initialized else 1

@@ -211,5 +211,36 @@ def make_pp_train_step(config: Any, mesh, microbatches: int,
     )
 
 
-__all__ = ["make_pp_train_step", "pipeline_forward", "pp_loss_fn",
+def collective_probe(devices=None):
+    """``(fn, args)`` for the collective sweep (``analysis.parallel_sweep``,
+    ``lint --parallel``): the GPipe forward of tiny GPT-2 (weights from
+    numpy seed 0) over ``S`` = 2 stages from two devices (1 on one), 2
+    microbatches of the (4, 8) batch; ``fn(*args)`` runs on every rank of
+    a world of ``len(devices)`` ranks (None beyond the mesh). The
+    successor hops (``i -> i + 1`` for ``i < S - 1``) and the last stage's
+    broadcast are its collectives."""
+    import numpy as np
+
+    from .launch import device, world_devices
+    from .mesh import make_axes_mesh
+
+    n = len(devices if devices is not None else world_devices())
+    S = 2 if n >= 2 else 1
+    config = gpt2.GPT2Config.tiny()
+    ids = np.random.default_rng(0).integers(0, config.vocab_size, size=(4, 8),
+                                            dtype=np.int32)
+
+    def fn(ids):
+        mesh = make_axes_mesh(pp=S)
+        if not mesh.contains:
+            return None
+        params = gpt2.params_from_numpy(gpt2.init_params_numpy(config, 0),
+                                        device(), config.dtype)
+        return pipeline_forward(params, torch.from_numpy(ids).to(device()),
+                                config, mesh, microbatches=2)
+
+    return fn, (ids,)
+
+
+__all__ = ["collective_probe", "make_pp_train_step", "pipeline_forward", "pp_loss_fn",
            "stage_layers", "stage_param_names"]

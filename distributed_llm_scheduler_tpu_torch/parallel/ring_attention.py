@@ -99,6 +99,34 @@ def ring_attention_sharded(q, k, v, mesh, axis_name: str = "sp"):
     return all_gather_dim(out, mesh.group(axis_name), 2)
 
 
+def collective_probe(devices=None):
+    """``(fn, args)`` for the collective sweep (``analysis.parallel_sweep``,
+    ``lint --parallel``): ring attention over ``sp`` = the first four
+    devices at most (the JAX hook's ``devices[:4]``), the global (1, 2, 4
+    sp, 8) f32 q, k and v drawn from numpy seed 0; ``fn(*args)`` runs on
+    every rank of a world of ``len(devices)`` ranks and returns the rank's
+    output chunk (None beyond the mesh). Its hops are the ring's ``i -> i
+    + 1`` permutation."""
+    import numpy as np
+
+    from .launch import world_devices
+    from .mesh import make_axes_mesh
+
+    sp = min(len(devices if devices is not None else world_devices()), 4)
+    rng = np.random.default_rng(0)
+    qkv = [rng.standard_normal((1, 2, 4 * sp, 8), dtype=np.float32)
+           for _ in range(3)]
+
+    def fn(q, k, v):
+        mesh = make_axes_mesh(sp=sp)
+        if not mesh.contains:
+            return None
+        return ring_attention(*(shard_sequence(torch.from_numpy(t), mesh)
+                                for t in (q, k, v)), mesh)
+
+    return fn, tuple(qkv)
+
+
 def reference_causal_attention(q, k, v):
     """Unsharded oracle for tests: plain causal attention on (B,H,T,hd)."""
     hd = q.shape[-1]
@@ -111,5 +139,5 @@ def reference_causal_attention(q, k, v):
     return torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype), v)
 
 
-__all__ = ["reference_causal_attention", "ring_attention",
+__all__ = ["collective_probe", "reference_causal_attention", "ring_attention",
            "ring_attention_sharded", "shard_sequence"]

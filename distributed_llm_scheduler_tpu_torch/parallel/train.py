@@ -39,7 +39,7 @@ import torch
 from ..models import gpt2
 from ..models.gpt2 import GPT2Config
 from .blocks import gpt2_forward
-from .collectives import all_gather_dim, all_reduce_, group_size, mean_over
+from .collectives import all_gather_dim, all_reduce_, dist, group_size, mean_over
 from .sharding import FlatLayout, Sharding, batch_sharding, param_shardings, shard_params
 
 #: the default optimizer, ``optax.adamw(3e-4, weight_decay=0.01)``'s
@@ -269,6 +269,36 @@ def train_setup(config: Any, world: int, pp: int = 0, microbatches: int = 1,
     return step, init, max(2 * axes["dp"], 2)
 
 
+def collective_probe(devices=None):
+    """``(fn, args)`` for the collective sweep (``analysis.parallel_sweep``,
+    ``lint --parallel``): one dp x tp training step of tiny GPT-2, ``tp``
+    2 from two devices, ``dp`` 2 from four (the JAX hook's mesh rule), on
+    the global (4, 8) batch; ``fn(*args)`` runs on every rank of a world
+    of ``len(devices)`` ranks (default :func:`.launch.world_devices`) and
+    the ranks beyond the mesh sit out. The forward's Megatron pairs, the
+    backward's and the gradient and loss means over ``dp`` are the
+    collectives it issues."""
+    from .launch import device, world_devices
+    from .mesh import make_mesh
+
+    n = len(devices if devices is not None else world_devices())
+    tp = 2 if n >= 2 else 1  # tiny() has n_head=4: tp=2 divides
+    dp = 2 if n >= 4 else 1
+    config = GPT2Config.tiny()
+    ids = np.random.default_rng(0).integers(0, config.vocab_size, size=(4, 8),
+                                            dtype=np.int32)
+
+    def fn(ids):
+        mesh = make_mesh(dp=dp, tp=tp)
+        if not mesh.contains:
+            return None
+        train_step, init_state = make_train_step(config, mesh)
+        batch = torch.from_numpy(ids).to(device())
+        return float(train_step(init_state(0), batch, batch)[1])
+
+    return fn, (ids,)
+
+
 def run_train_loop(config: Any, steps: int, seq: int, seed: int = 0,
                    ckpt: Optional[str] = None,
                    path: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
@@ -283,8 +313,6 @@ def run_train_loop(config: Any, steps: int, seq: int, seed: int = 0,
     loss X`` line per step), and ``resumed`` / ``saved`` (its notes, or
     None)."""
     import os
-
-    import torch.distributed as dist
 
     from ..utils.checkpoint import load_state, save_state
     from .launch import device
@@ -324,7 +352,7 @@ def gather_params(state: TrainState) -> Dict[str, np.ndarray]:
 
 
 __all__ = [
-    "ADAMW", "TrainState", "gather_params", "make_eval_step",
+    "ADAMW", "TrainState", "collective_probe", "gather_params", "make_eval_step",
     "make_step_from_loss", "make_train_step", "run_train_loop", "train_batch",
     "train_setup",
 ]

@@ -57,4 +57,32 @@ def ulysses_attention_sharded(q, k, v, mesh, axis_name: str = "sp",
     return all_gather_dim(out, mesh.group(axis_name), 2)
 
 
-__all__ = ["ulysses_attention", "ulysses_attention_sharded"]
+def collective_probe(devices=None):
+    """``(fn, args)`` for the collective sweep (``analysis.parallel_sweep``,
+    ``lint --parallel``): causal Ulysses attention over ``sp`` = the first
+    four devices at most, heads divisible by it, the global (1, 2 sp, 4
+    sp, 8) f32 q, k and v from numpy seed 0, so both all-to-all
+    redistributions run; ``fn(*args)`` runs on every rank of a world of
+    ``len(devices)`` ranks (None beyond the mesh)."""
+    import numpy as np
+    import torch
+
+    from .launch import world_devices
+    from .mesh import make_axes_mesh
+
+    sp = min(len(devices if devices is not None else world_devices()), 4)
+    rng = np.random.default_rng(0)
+    qkv = [rng.standard_normal((1, 2 * sp, 4 * sp, 8), dtype=np.float32)
+           for _ in range(3)]
+
+    def fn(q, k, v):
+        mesh = make_axes_mesh(sp=sp)
+        if not mesh.contains:
+            return None
+        return ulysses_attention(*(shard_sequence(torch.from_numpy(t), mesh)
+                                   for t in (q, k, v)), mesh, causal=True)
+
+    return fn, tuple(qkv)
+
+
+__all__ = ["collective_probe", "ulysses_attention", "ulysses_attention_sharded"]

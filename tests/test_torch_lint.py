@@ -8,11 +8,12 @@ param, message, data).  Both CLIs' ``main(argv)`` run in this process
 under ``DLS_PLATFORM=cpu`` on the argv of ``test_lint_cli_clean_on_every_
 builder`` and more: equal exit codes, equal ``--json`` stdout and equal
 last stderr lines on refusals.  Two differences are by design and pinned
-on their own: ``lint --parallel`` exits 2 naming ROADMAP.md A.11 (the
-parallel layer is not ported), and ``--preflight`` reads the allocator's
-peak on a card where the JAX package reads XLA's compiled memory, so on
-the CPU it measures nothing; given the same numbers the cost pass is
-equal.
+on their own: ``lint --parallel`` runs each strategy's probe on a world
+of simulated ranks where the JAX package traces a jaxpr (its stdout and
+exit code are equal at 8 ranks against 8 devices), and ``--preflight``
+reads the allocator's peak on a card where the JAX package reads XLA's
+compiled memory, so on the CPU it measures nothing; given the same
+numbers the cost pass is equal.
 """
 
 from __future__ import annotations
@@ -400,15 +401,29 @@ def test_lint_refusals_the_jax_cli_leaves_as_tracebacks():
         assert rc == 2 and len(err.strip().splitlines()) == 1
 
 
-def test_lint_parallel_names_the_roadmap():
-    """The parallel sweep waits for the parallel layer: exit 2 with one
-    stderr line naming ROADMAP.md A.11, and nothing linted in its place."""
-    for argv in (["lint", "--parallel"], ["lint", "--parallel", "--json"],
-                 ["lint", "--parallel", "--decode"]):
-        rc, out, err = run(pmain, argv)
-        assert rc == 2 and out == ""
-        (line,) = err.strip().splitlines()
-        assert "ROADMAP.md A.11" in line
+PARALLEL = [["lint", "--parallel"], ["lint", "--parallel", "--json"],
+            ["lint", "--parallel", "--verbose"]]
+
+
+@pytest.mark.parametrize("argv", PARALLEL, ids=_label)
+def test_lint_parallel_equals_the_jax_cli(argv, monkeypatch):
+    """The collective sweep over every strategy's probe and the
+    happens-before self-check: on a world of 8 simulated ranks
+    (``DLS_CPU_WORLD=8``) the same stdout and exit code as the JAX CLI on
+    its 8-device CPU mesh."""
+    monkeypatch.setenv("DLS_CPU_WORLD", "8")
+    want = run(jmain, argv)
+    got = run(pmain, argv)
+    assert got[0] == want[0] == 0
+    assert got[1] == want[1]
+
+
+def test_lint_parallel_refusal_equals_the_jax_cli(monkeypatch):
+    monkeypatch.setenv("DLS_CPU_WORLD", "8")
+    argv = ["lint", "--parallel", "--decode"]
+    want, got = run(jmain, argv), run(pmain, argv)
+    assert got[0] == want[0] == 2 and got[1] == want[1] == ""
+    assert got[2].strip().splitlines()[-1] == want[2].strip().splitlines()[-1]
 
 
 def test_lint_preflight_on_the_cpu():
